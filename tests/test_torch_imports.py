@@ -1,0 +1,83 @@
+"""Import hygiene of the port: reni_tpu_torch and chip_smoke.py import
+neither JAX nor the JAX package, and the entry points run on the card
+unless the CPU is asked for."""
+
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "reni_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    pkg = ROOT / "reni_tpu_torch"
+    names = []
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        names.append(".".join(parts))
+    return names
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'reni_tpu' or m.startswith('reni_tpu.'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    src = path.read_text()
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|reni_tpu)(\.|\s|$)", re.M)
+    assert not bad.search(src), bad.search(src).group(0)
+
+
+def test_entry_points_need_the_card_by_default(monkeypatch, tmp_path):
+    """With no device argument and no card, every entry point raises
+    instead of running on the CPU."""
+    from reni_tpu_torch import params, serve
+    from reni_tpu_torch.cli import serve as cli_serve
+    from reni_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = str(ROOT / "data" / "Zoo" / "latent_dim_49_net_5_256_vad_cbc_tanh_hdr" / "checkpoint")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.load_decoder(ck)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_serve.make_server(ck, port=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_serve.main(["--decoder", ck, "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params.from_numpy({"w": [1.0]})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a card
+    (this host has none; on the card it would run the smoke test)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
