@@ -7,12 +7,17 @@ dtype. Conventions (reference src/utils/utils.py:30-91):
 - pixel-center grids with the y-up direction
   ``d = (sin(phi) sin(theta), cos(phi), -sin(phi) cos(theta))``;
 - the sin(polar angle) sampling weight;
-- HDR tonemapping (nested 98th-percentile normalisation + sRGB OETF).
+- HDR tonemapping (nested 98th-percentile normalisation + sRGB OETF);
+- in-painting masks read from PNG files with a small decoder of their own
+  (stdlib ``zlib``; the port does not need PIL) and resized with PIL's
+  NEAREST rule.
 """
 
 from __future__ import annotations
 
 import functools
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -72,6 +77,93 @@ def get_solid_angles(width: int, dtype=torch.float32, device=None) -> torch.Tens
     band = dtheta * (np.cos(phi_edges[:-1]) - np.cos(phi_edges[1:]))
     omega = np.repeat(band[:, None], width, axis=1).reshape(-1)
     return _tensor(omega, dtype, device)
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG as uint8 (H, W) (grayscale) or
+    (H, W, C). Other bit depths, palettes and interlacing raise."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced grey/RGB(A) PNGs are read "
+            f"(bit depth {depth}, colour type {colour}, interlace {interlace})"
+        )
+    bpp = _PNG_CHANNELS[colour]
+    stride = width * bpp
+    raw = zlib.decompress(b"".join(idat))
+    out = bytearray(height * stride)
+    prev = bytearray(stride)
+    for y in range(height):
+        filt = raw[y * (stride + 1)]
+        line = bytearray(raw[y * (stride + 1) + 1 : (y + 1) * (stride + 1)])
+        for i in range(stride):
+            left = line[i - bpp] if i >= bpp else 0
+            up_left = prev[i - bpp] if i >= bpp else 0
+            if filt == 1:
+                line[i] = (line[i] + left) & 0xFF
+            elif filt == 2:
+                line[i] = (line[i] + prev[i]) & 0xFF
+            elif filt == 3:
+                line[i] = (line[i] + ((left + prev[i]) >> 1)) & 0xFF
+            elif filt == 4:
+                line[i] = (line[i] + _paeth(left, prev[i], up_left)) & 0xFF
+            elif filt != 0:
+                raise ValueError(f"{path}: bad PNG filter type {filt}")
+        out[y * stride : (y + 1) * stride] = line
+        prev = line
+    arr = np.frombuffer(bytes(out), np.uint8).reshape(height, width, bpp)
+    return arr[..., 0] if bpp == 1 else arr
+
+
+def _nearest(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's NEAREST source index of each output pixel: floor((x + 0.5) *
+    n_in / n_out), the pixel centre."""
+    src = np.floor((np.arange(n_out) + 0.5) * (n_in / n_out)).astype(np.int64)
+    return np.minimum(src, n_in - 1)
+
+
+def get_mask(width: int, path: str, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A mask PNG resized (nearest) to ``(width // 2, width)``, in [0, 1], as
+    ``(1, (width//2)*width, 3)``."""
+    img = read_png(path)
+    height = width // 2
+    img = img[_nearest(img.shape[0], height)][:, _nearest(img.shape[1], width)]
+    arr = img.astype(np.float64)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.max() > 1.0:
+        arr = arr / 255.0
+    if arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    arr = arr[..., :3]
+    return _tensor(arr.reshape(1, height * width, 3), dtype, device)
 
 
 def srgb(imgs: torch.Tensor) -> torch.Tensor:

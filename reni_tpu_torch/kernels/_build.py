@@ -42,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (the hash covers source + flags)."""
+    """Where ``csrc/<name>.cu`` builds to (the hash covers the source, the
+    shared headers ``csrc/*.cuh`` and the flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -31,10 +31,8 @@
 //     on the same bf16-rounded inputs (too narrow for a tensor-core tile);
 //   - with the float32 trunk the same kernel runs an FMA loop instead of
 //     wmma (no TF32: JAX's float32 trunk is full float32);
-//   - the exact sine is sinf with full range reduction: the build must not
-//     use --use_fast_math (pre-activations reach |x| ~ 200); the fast sine
-//     is core/fastmath.py's polynomial with the same float32 constants,
-//     rintf (half to even, as jnp.round) and floorf;
+//   - the exact sine is sinf with full range reduction; the fast sine is
+//     core/fastmath.py's polynomial (siren_common.cuh);
 //   - a ragged tail tile is masked (rows past P read zeros, write nothing).
 // Rows of the activation buffers are padded by 8 elements to spread the
 // wmma row loads over the shared-memory banks.
@@ -45,50 +43,17 @@
 
 #include <type_traits>
 
+#include "siren_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace reni;
 
 constexpr int TM = 64;  // pixel rows per CTA
-constexpr int K_PAD = 8;
-constexpr int C_PAD = 8;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROW_PAD = 8;  // elements of padding per activation row
-
-// core/fastmath.py constants, as exact float32 hex literals
-constexpr float PI_HI = 0x1.92p+1f;
-constexpr float PI_LO = 0x1.fb5444p-11f;
-constexpr float INV_PI = 0x1.45f306p-2f;
-constexpr float S3 = -0x1.555556p-3f;
-constexpr float S5 = 0x1.11110cp-7f;
-constexpr float S7 = -0x1.a017e2p-13f;
-constexpr float S9 = 0x1.71711cp-19f;
-
-__device__ __forceinline__ float fast_sin(float x) {
-  const float k = rintf(x * INV_PI);
-  const float r = (x - k * PI_HI) - k * PI_LO;
-  const float half = k * 0.5f;
-  const float sign = 1.0f - 4.0f * (half - floorf(half));
-  const float r2 = r * r;
-  const float p = ((S9 * r2 + S7) * r2 + S5) * r2 + S3;
-  return (r + r * (r2 * p)) * sign;
-}
-
-template <bool FAST>
-__device__ __forceinline__ float sine(float x) {
-  return FAST ? fast_sin(x) : sinf(x);
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ float get(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float get(float v) { return v; }
 
 struct Args {
   const float* d;        // (B_d, P, K_PAD) direction features

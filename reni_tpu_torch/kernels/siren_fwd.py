@@ -17,6 +17,13 @@ kernels against them.
 
 Each wrapper counts the kernel launches it makes in ``.launches``.
 
+The trunks are differentiable (``SirenTrunk``, ``FilmTrunk``: the
+``custom_vjp`` of the JAX package). Their backward is the port of
+``_bwd_kernel`` / ``_film_bwd_kernel`` in ``kernels/siren_bwd.py``: on the
+card the kernel of ``csrc/siren_bwd.cu``, elsewhere its plain version.
+Gradients reach the float32 parameters and the latents through the packing
+below by ordinary autograd.
+
 Operand layout (float32; K_PAD = C_PAD = 8):
 
     d_pad (B_d, P, 8) with B_d in (1, B), A (B, 8, H), b0 (B, 1, H),
@@ -242,13 +249,6 @@ def _cuda_operands(kind, trunk, d_pad, batch, tensors):
     for t in (d_pad, *tensors):
         if not t.is_cuda:
             raise ValueError(f"{kind} kernel operands must all be CUDA tensors")
-        if t.requires_grad:
-            raise RuntimeError(
-                f"the {kind} CUDA kernel is forward-only: gradients through "
-                "the fused decoder arrive with the FIT_LATENT slice (the "
-                "port of _bwd_kernel); run under torch.no_grad() or "
-                "torch.inference_mode()"
-            )
     if d_pad.shape[0] not in (1, batch):
         raise ValueError(f"d batch {d_pad.shape[0]} is neither 1 nor {batch}")
     reason = unsupported_reason(d_pad.shape[1], tensors[0].shape[-1], batch, trunk)
@@ -326,23 +326,84 @@ def film_trunk_cuda(
 
 
 # ---------------------------------------------------------------------------
+# differentiable trunks
+# ---------------------------------------------------------------------------
+
+
+class SirenTrunk(torch.autograd.Function):
+    """The Cond-by-Concat trunk with its backward (the ``custom_vjp`` of
+    ``make_fused_siren``): the forward saves its inputs, not activations; the
+    backward recomputes them. ``kernel=True`` runs the CUDA kernels of
+    ``csrc/siren_fwd.cu`` / ``csrc/siren_bwd.cu``, ``kernel=False`` their
+    plain versions. The weight gradients are computed only when a weight
+    needs one; ``d_pad`` gets none."""
+
+    @staticmethod
+    def forward(ctx, d_pad, a, b0, ws, bs, wf, bf, kernel, kw):
+        ctx.save_for_backward(d_pad, a, b0, ws, bs, wf, bf)
+        ctx.kernel, ctx.kw = kernel, kw
+        return SirenTrunk.trunks[kernel](d_pad, a, b0, ws, bs, wf, bf, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        from reni_tpu_torch.kernels import siren_bwd
+
+        bwd = siren_bwd.siren_trunk_bwd_cuda if ctx.kernel else siren_bwd.siren_trunk_bwd_reference
+        grads = bwd(
+            *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[3:7]), **ctx.kw
+        )
+        return (None, *grads, None, None)
+
+
+class FilmTrunk(torch.autograd.Function):
+    """The FiLM trunk with its backward (the ``custom_vjp`` of
+    ``make_fused_film``); see ``SirenTrunk``."""
+
+    @staticmethod
+    def forward(ctx, d_pad, a0, ws, bs, wf, bf, fr, ph, kernel, kw):
+        ctx.save_for_backward(d_pad, a0, ws, bs, wf, bf, fr, ph)
+        ctx.kernel, ctx.kw = kernel, kw
+        return FilmTrunk.trunks[kernel](d_pad, a0, ws, bs, wf, bf, fr, ph, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        from reni_tpu_torch.kernels import siren_bwd
+
+        bwd = siren_bwd.film_trunk_bwd_cuda if ctx.kernel else siren_bwd.film_trunk_bwd_reference
+        da0, dws, dbs, dwf, dbf, dfr, dph = bwd(
+            *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[2:6]), **ctx.kw
+        )
+        return None, da0, dws, dbs, dwf, dbf, dfr, dph, None, None
+
+
+SirenTrunk.trunks = (siren_trunk_reference, siren_trunk_cuda)
+FilmTrunk.trunks = (film_trunk_reference, film_trunk_cuda)
+
+
+def _trunk(fn, ops, kernel: bool, kw: dict):
+    """Run a trunk: through its autograd Function when a gradient is needed,
+    else directly (serving under inference_mode records nothing)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return fn.apply(*ops, kernel, kw)
+    return fn.trunks[kernel](*ops, **kw)
+
+
+# ---------------------------------------------------------------------------
 # model-facing entries
 # ---------------------------------------------------------------------------
 
 
 def _siren(params, equivariance, ndims, Z, D, *, hidden_layers, hidden_features,
            out_features, first_omega_0, hidden_omega_0, output_activation,
-           trunk, fast_sine, trunk_fn):
+           trunk, fast_sine, kernel):
     d_feats = _d_features(equivariance, Z, D, hidden_features, trunk, "siren")
     ops = pack_inputs(params, equivariance, ndims, Z, d_feats)
     if ops[3].shape[0] != hidden_layers:
         raise ValueError(
             f"params have {ops[3].shape[0]} hidden layers, config says {hidden_layers}"
         )
-    out = trunk_fn(
-        *ops, omega0=first_omega_0, omega_h=hidden_omega_0, trunk=trunk,
-        fast_sine=fast_sine,
-    )
+    kw = dict(omega0=first_omega_0, omega_h=hidden_omega_0, trunk=trunk, fast_sine=fast_sine)
+    out = _trunk(SirenTrunk, ops, kernel, kw)
     return siren_lib._output_activation(out[..., :out_features], output_activation)
 
 
@@ -357,13 +418,12 @@ def fused_apply(
     D: (1, P, 3) shared grid, (B, P, 3) per-image grids, or a (B, P, 3)
     view with batch stride 0 (read as one shared grid). CUDA tensors launch
     the kernel; CPU tensors take ``siren_trunk_reference``."""
-    trunk_fn = siren_trunk_cuda if Z.is_cuda else siren_trunk_reference
     return _siren(
         params, equivariance, ndims, Z, D, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         first_omega_0=first_omega_0, hidden_omega_0=hidden_omega_0,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine,
-        trunk_fn=trunk_fn,
+        kernel=Z.is_cuda,
     )
 
 
@@ -376,25 +436,26 @@ def fused_apply_reference(
     hidden_omega_0: float, output_activation: str | None,
     trunk: str = "bfloat16", fast_sine: bool = False,
 ):
-    """``fused_apply`` through the plain PyTorch trunk, on any device."""
+    """``fused_apply`` through the plain PyTorch trunk (forward and
+    backward), on any device."""
     return _siren(
         params, equivariance, ndims, Z, D, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         first_omega_0=first_omega_0, hidden_omega_0=hidden_omega_0,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine,
-        trunk_fn=siren_trunk_reference,
+        kernel=False,
     )
 
 
 def _film(params, equivariance, Z, D, *, hidden_layers, hidden_features,
-          out_features, output_activation, trunk, fast_sine, trunk_fn):
+          out_features, output_activation, trunk, fast_sine, kernel):
     d_feats = _d_features(equivariance, Z, D, hidden_features, trunk, "film")
     ops = pack_film_inputs(params, equivariance, Z, d_feats, hidden_features)
     if ops[3].shape[0] != hidden_layers:
         raise ValueError(
             f"params have {ops[3].shape[0]} trunk layers, config says {hidden_layers}"
         )
-    out = trunk_fn(*ops, trunk=trunk, fast_sine=fast_sine)
+    out = _trunk(FilmTrunk, ops, kernel, dict(trunk=trunk, fast_sine=fast_sine))
     return siren_lib._output_activation(out[..., :out_features], output_activation)
 
 
@@ -407,12 +468,11 @@ def fused_film_apply(
     The mapping network (per image) runs in PyTorch; the kernel fuses the
     per-pixel FiLM trunk. CUDA tensors launch the kernel; CPU tensors take
     ``film_trunk_reference``."""
-    trunk_fn = film_trunk_cuda if Z.is_cuda else film_trunk_reference
     return _film(
         params, equivariance, Z, D, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine,
-        trunk_fn=trunk_fn,
+        kernel=Z.is_cuda,
     )
 
 
@@ -424,10 +484,11 @@ def fused_film_apply_reference(
     out_features: int, output_activation: str | None, trunk: str = "bfloat16",
     fast_sine: bool = False,
 ):
-    """``fused_film_apply`` through the plain PyTorch trunk, on any device."""
+    """``fused_film_apply`` through the plain PyTorch trunk (forward and
+    backward), on any device."""
     return _film(
         params, equivariance, Z, D, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine,
-        trunk_fn=film_trunk_reference,
+        kernel=False,
     )

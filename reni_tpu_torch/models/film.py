@@ -64,7 +64,8 @@ def apply_film_decomposed(
     parts = encodings.z_parts(equivariance, Z)
     freqs, phases = apply_mapping_network(params["mapping"], parts["bias_feats"])
     freqs = freqs * 15.0 + 30.0
-    d_feats = encodings.d_features(equivariance, D)
+    # features in D's dtype, then promoted to Z's, as jnp promotes them
+    d_feats = encodings.d_features(equivariance, D).to(Z.dtype)
 
     h = None
     for i, layer in enumerate(params["layers"]):

@@ -1,4 +1,5 @@
-"""RENI model facade (counterpart of ``reni_tpu/models/reni.py``), decode side.
+"""RENI model facade (counterpart of ``reni_tpu/models/reni.py``): decoding,
+latent tables and the trainable-parameter filter.
 
 Parameters are the JAX package's nested dict, holding tensors:
 
@@ -10,7 +11,10 @@ Parameters are the JAX package's nested dict, holding tensors:
 ``RENIConfig`` has the JAX package's field names, so
 ``RENIConfig(**checkpoint_json["model_config"])`` loads any checkpoint.
 ``use_pallas`` keeps its meaning, "take the fused kernel": here the CUDA
-kernels of ``kernels/siren_fwd.py``.
+kernels of ``kernels/siren_fwd.py`` and, for gradients, ``kernels/siren_bwd.py``.
+Latent initialisation matches the JAX package (Z / mu ~ N(0, 1), log_var ~
+N(-5, 1); zeros for Z / mu under ``fixed_decoder``), drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,12 +25,15 @@ from typing import Any
 
 import torch
 
+from reni_tpu_torch.kernels.siren_bwd import bwd_unsupported_reason
 from reni_tpu_torch.kernels.siren_fwd import (
     fused_apply,
     fused_film_apply,
     unsupported_reason,
 )
 from reni_tpu_torch.models import film, siren
+from reni_tpu_torch.params import map_tree, tree_leaves
+from reni_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
@@ -79,6 +86,27 @@ class RENIModel:
     def __init__(self, config: RENIConfig):
         self.config = config
 
+    def init_latents(
+        self, generator: torch.Generator, dataset_size: int, device=None,
+        dtype=torch.float32,
+    ) -> Params:
+        """A fresh latent table of ``dataset_size`` rows, drawn on the CPU from
+        ``generator`` (the same numbers on any device) and moved to ``device``."""
+        cfg = self.config
+        shape = (dataset_size, cfg.latent_dim, 3)
+
+        def normal():
+            return torch.randn(shape, generator=generator, dtype=dtype)
+
+        def to(t):
+            return t.to(resolve_device(device))
+
+        if cfg.is_variational:
+            mu = torch.zeros(shape, dtype=dtype) if cfg.fixed_decoder else normal()
+            return {"mu": to(mu), "log_var": to(-5.0 + normal())}
+        z = torch.zeros(shape, dtype=dtype) if cfg.fixed_decoder else normal()
+        return {"Z": to(z)}
+
     @staticmethod
     def _as_index(idx, device) -> torch.Tensor:
         """A python int selects one row (kept batched); a list, tuple or
@@ -119,6 +147,11 @@ class RENIModel:
                 reason = unsupported_reason(
                     npix, cfg.hidden_features, batch=B, trunk=cfg.pallas_trunk
                 )
+                if reason is None and _needs_grad(params, Z):
+                    n_mm = cfg.hidden_layers - 1 if cfg.is_film else cfg.hidden_layers
+                    reason = bwd_unsupported_reason(
+                        cfg.hidden_features, n_mm, cfg.is_film, cfg.pallas_trunk
+                    )
             if reason is None:
                 _note_trunk_path(
                     f"fused trunk on {Z.device.type} for B={B}, npix={npix}"
@@ -188,6 +221,36 @@ class RENIModel:
 
     def apply_idx(self, params: Params, idx, D) -> torch.Tensor:
         """Decode dataset rows ``idx`` with their deterministic latents (mu
-        for a VAD, Z for an AD). Sampling a VAD's latents for training
-        arrives with the training slices."""
+        for a VAD, Z for an AD). Sampling a VAD's latents for FIT_DECODER
+        arrives with that slice."""
         return self.apply(params, self.latents(params, idx), D)
+
+    def trainable_mask(self, params: Params) -> Params:
+        """Tree of bools: which leaves the current task trains. Under
+        ``fixed_decoder`` (FIT_LATENT) only mu (VAD) or Z (AD); otherwise all."""
+        cfg = self.config
+        mask = map_tree(lambda _: not cfg.fixed_decoder, params)
+        if cfg.fixed_decoder:
+            mask["latents"]["mu" if cfg.is_variational else "Z"] = True
+        return mask
+
+
+def _needs_grad(params: Params, Z: torch.Tensor) -> bool:
+    """Whether autograd will ask this decode for a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    return Z.requires_grad or any(
+        torch.is_tensor(t) and t.requires_grad for t in tree_leaves(params)
+    )
+
+
+def replace_latents(
+    model: RENIModel, params: Params, generator: torch.Generator, dataset_size: int,
+    device=None,
+) -> Params:
+    """Fresh latent table of a new size with the same decoder (the
+    cross-task partial restore)."""
+    return {
+        "decoder": params["decoder"],
+        "latents": model.init_latents(generator, dataset_size, device=device),
+    }

@@ -13,14 +13,23 @@ import torch
 from reni_tpu_torch.utils.device import resolve_device
 
 
-def _map(fn, tree):
+def map_tree(fn, tree):
+    """``fn`` applied to every leaf of a nested dict/list tree; None leaves
+    stay None."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
+        return [map_tree(fn, v) for v in tree]
     if tree is None:
         return None
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree that are not None, in order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
 
 
 def from_numpy(tree, device=None):
@@ -28,12 +37,12 @@ def from_numpy(tree, device=None):
     ``device`` (default: the card)."""
     dev = resolve_device(device)
     # torch.tensor copies: the tree may hold read-only (e.g. JAX) buffers
-    return _map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+    return map_tree(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
 
 
 def to_numpy(tree):
     """Tensor (or array) leaves -> numpy arrays on the host."""
-    return _map(
+    return map_tree(
         lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
         tree,
     )

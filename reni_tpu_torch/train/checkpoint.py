@@ -3,8 +3,10 @@
 A checkpoint is ``path.npz`` (path-flattened tree leaves, keys like
 ``decoder/layers/0/w``) plus ``path.json`` (metadata, with the model config
 under ``model_config``) — the same files the JAX package reads and writes,
-so checkpoints interchange both ways. Optimizer state and RNG keys are
-written by the training slices; this module reads around them.
+so checkpoints interchange both ways. ``load_decoder_only`` attaches a
+fresh latent table to a checkpoint's decoder (FIT_LATENT's start) and
+``save_fit_result`` writes a task's result. Optimizer state and RNG keys
+arrive with resume (ROADMAP Queue A-4); this module reads around them.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ from typing import Any
 
 import numpy as np
 
-from reni_tpu_torch.models.reni import RENIConfig
-from reni_tpu_torch.params import to_numpy
+import torch
+
+from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+from reni_tpu_torch.params import from_numpy, to_numpy
 
 Params = dict[str, Any]
 
@@ -109,3 +113,31 @@ def load_model_config(path: str, **overrides) -> RENIConfig:
         cfg = dict(json.load(f)["model_config"])
     cfg.update(overrides)
     return RENIConfig(**cfg)
+
+
+def save_fit_result(
+    path: str, params: Params, *, model_config: RENIConfig, task: str, metrics: dict
+) -> None:
+    """Write a task's result with the metadata the JAX package records for
+    it (``task``, ``epoch``: epochs run, ``loss``: the last epoch's loss, as
+    in ``data/Zoo/*/latents_test.json``); JAX ``load_checkpoint`` reads it."""
+    key = f"{task.lower()}_loss"
+    save_checkpoint(
+        path, params, model_config=model_config,
+        metadata={"task": task, "epoch": int(len(metrics[key])),
+                  "loss": float(metrics[key][-1])},
+    )
+
+
+def load_decoder_only(
+    path: str, model: RENIModel, dataset_size: int, generator: torch.Generator,
+    device=None,
+) -> Params:
+    """Decoder weights from the checkpoint on ``device`` (default: the card)
+    and a fresh latent table sized for the new dataset: the fixed_decoder
+    partial restore."""
+    saved, _ = load_checkpoint(path)
+    return {
+        "decoder": from_numpy(saved["decoder"], device),
+        "latents": model.init_latents(generator, dataset_size, device=device),
+    }

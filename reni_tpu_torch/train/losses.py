@@ -1,0 +1,119 @@
+"""Loss functions with the reference's reduction semantics (counterpart of
+``reni_tpu/train/losses.py``; reference src/utils/loss_functions.py).
+
+The conventions change the gradient scale, so they are kept exactly:
+
+- ``weighted_mse``: mean over pixels * channels per sample, **sum over the
+  batch**;
+- ``kld``: per-sample sum over latent dims, divided by ``z_dims`` (3N in the
+  trainer), summed over the batch;
+- ``weighted_cosine_similarity``: cosine over the **pixel** axis of a
+  (B, P, 3) tensor (torch ``cosine_similarity(..., dim=1)``: one value per
+  colour channel), scaled by ``sineweight[:, 0]`` (the first pixel's
+  weight); this is how the published models were trained;
+- ``cosine_similarity``: 1 - mean cosine over dim 1, for (B, H, W, 3)
+  renders in the inverse task.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-20
+
+
+def weighted_mse(model_output, ground_truth, sineweight) -> torch.Tensor:
+    se = ((model_output - ground_truth) ** 2) * sineweight
+    return se.reshape(se.shape[0], -1).mean(dim=1).sum()
+
+
+def kld(mu, log_var, z_dims: int = 1) -> torch.Tensor:
+    k = -0.5 * (1 + log_var - mu**2 - torch.exp(log_var)).reshape(mu.shape[0], -1).sum(dim=1)
+    return (k / z_dims).sum()
+
+
+def _cosine_axis1(a, b) -> torch.Tensor:
+    """torch.nn.functional.cosine_similarity(a, b, dim=1, eps=1e-20), with
+    the JAX package's operation order."""
+    dot = (a * b).sum(dim=1)
+    na = torch.sqrt((a * a).sum(dim=1))
+    nb = torch.sqrt((b * b).sum(dim=1))
+    return dot / (torch.clamp(na, min=_EPS) * torch.clamp(nb, min=_EPS))
+
+
+def weighted_cosine_similarity(model_output, ground_truth, sineweight) -> torch.Tensor:
+    cos = _cosine_axis1(model_output, ground_truth)  # (B, 3)
+    return (1.0 - (cos * sineweight[:, 0]).mean(dim=1)).sum()
+
+
+def cosine_similarity(model_output, ground_truth) -> torch.Tensor:
+    return 1.0 - _cosine_axis1(model_output, ground_truth).mean()
+
+
+# -- composite criteria ------------------------------------------------------
+
+
+def reni_train_loss(inputs, targets, sineweight):
+    """AutoDecoder FIT_DECODER loss: weighted MSE only."""
+    return weighted_mse(inputs, targets, sineweight)
+
+
+def reni_vad_train_loss(inputs, targets, sineweight, mu, log_var, *, beta, z_dims):
+    """VAD FIT_DECODER loss. Returns (loss, mse, kld)."""
+    mse_loss = weighted_mse(inputs, targets, sineweight)
+    kld_loss = beta * kld(mu, log_var, z_dims)
+    return mse_loss + kld_loss, mse_loss, kld_loss
+
+
+def reni_test_loss(inputs, targets, sineweight, Z, *, alpha, beta):
+    """FIT_LATENT loss. Returns (loss, mse, prior, cosine)."""
+    mse_loss = weighted_mse(inputs, targets, sineweight)
+    prior_loss = alpha * torch.sum(Z**2)
+    cosine_loss = beta * weighted_cosine_similarity(inputs, targets, sineweight)
+    return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss
+
+
+def reni_test_loss_inverse(inputs, targets, Z, *, alpha, beta):
+    """FIT_INVERSE loss on (B, H, W, 3) renders. Returns (loss, mse, prior, cos)."""
+    mse_loss = torch.mean((inputs - targets) ** 2)
+    prior_loss = alpha * torch.sum(Z**2)
+    cosine_loss = beta * cosine_similarity(inputs, targets)
+    return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss
+
+
+# -- batch-masked variants (the ragged-tail zero-masking of the trainer; with
+#    an all-ones bmask they are the criteria above) ---------------------------
+
+
+def reni_test_loss_masked(inputs, targets, sineweight, Z, bmask, *, alpha, beta):
+    """FIT_LATENT loss over a zero-padded batch. ``sineweight`` must already
+    include the batch mask (and any in-painting mask); ``Z`` rows of padded
+    samples must be zeroed by the caller. The cosine term leaves padded rows
+    out (each would add a constant 1)."""
+    mse_loss = weighted_mse(inputs, targets, sineweight)
+    prior_loss = alpha * torch.sum(Z**2)
+    cos_per = 1.0 - (_cosine_axis1(inputs, targets) * sineweight[:, 0]).mean(dim=1)
+    cosine_loss = beta * (cos_per * bmask).sum()
+    return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss
+
+
+def reni_test_loss_inverse_masked(inputs, targets, Z, bmask, *, alpha, beta):
+    """FIT_INVERSE loss over a zero-padded batch of (B, H, W, 3) renders;
+    ``reni_test_loss_inverse`` when bmask is all ones."""
+    bm = bmask[:, None, None, None]
+    n_valid = torch.clamp(torch.sum(bmask), min=1.0)
+    per_sample = math.prod(inputs.shape[1:])
+    mse_loss = torch.sum(bm * (inputs - targets) ** 2) / (n_valid * per_sample)
+    prior_loss = alpha * torch.sum(Z**2)
+    cos_flat = _cosine_axis1(inputs * bm, targets * bm)
+    cos_per = 1.0 - cos_flat.reshape(cos_flat.shape[0], -1).mean(dim=1)
+    cosine_loss = beta * (cos_per * bmask).sum() / n_valid
+    return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss
+
+
+def psnr(prediction, target, max_value: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB."""
+    mse = torch.mean((prediction - target) ** 2)
+    return 10.0 * torch.log10(max_value**2 / mse)

@@ -1,5 +1,5 @@
-"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd against their plain
-PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd and siren_bwd against
+their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
 skips without one; this file imports no JAX, so it also runs on a machine
 without it:
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from reni_tpu_torch.core import encodings
+from reni_tpu_torch.kernels import siren_bwd as tb
 from reni_tpu_torch.kernels import siren_fwd as tk
 
 # bf16-trunk bars of the JAX package's test_fused_bf16_trunk_close
@@ -116,13 +117,156 @@ def test_stride0_grid_is_shared(cuda):
     assert torch.equal(a, b)
 
 
-def test_kernel_refuses_grad(cuda):
-    rng = np.random.default_rng(2)
-    dec = _decoder(rng, "SO2", 5, 128, 2, False, cuda)
-    Z = torch.zeros(2, 5, 3, device=cuda, requires_grad=True)
+def _pack(dec, equiv, N, Z, D, film, H):
+    d_feats = encodings.d_features(equiv, D)
+    if film:
+        return tk.pack_film_inputs(dec, equiv, Z, d_feats, H)
+    return tk.pack_inputs(dec, equiv, N, Z, d_feats)
+
+
+def _bwd_pair(film):
+    if film:
+        return tb.film_trunk_bwd_cuda, tb.film_trunk_bwd_reference
+    return tb.siren_trunk_bwd_cuda, tb.siren_trunk_bwd_reference
+
+
+def _assert_grads_close(got, ref, trunk, what):
+    """Each gradient within (1e-2 bf16, 1e-4 float32) x max |plain|."""
+    rel = 1e-2 if trunk == "bfloat16" else 1e-4
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if y is None:
+            assert x is None, (what, i)
+            continue
+        assert x.shape == y.shape and torch.isfinite(x).all(), (what, i)
+        if not y.numel():  # dWs of a one-layer FiLM trunk
+            continue
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        assert err <= rel * scale, (what, i, err, scale)
+
+
+@pytest.mark.parametrize("weight_grads", [True, False], ids=["wgrad", "no_wgrad"])
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+@pytest.mark.parametrize("equiv", ["SO3", "SO2", "None"])
+def test_bwd_kernel_matches_plain(cuda, equiv, film, trunk, fast_sine, weight_grads):
+    """Every gradient of the backward kernel against its plain version:
+    shared and per-image grids, a ragged tail tile (P = 264), H = 128 and
+    256, one trunk layer, and at least 4 CTAs per image."""
+    rng = np.random.default_rng(20)
+    N, B = 7, 3
+    kernel, plain = _bwd_pair(film)
+    for H, L, P, per_image in ((128, 2, 256, False), (256, 3, 264, True), (128, 1, 64, False)):
+        dec = _decoder(rng, equiv, N, H, L, film, cuda)
+        Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+        D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+        D = torch.as_tensor(D / np.linalg.norm(D, axis=-1, keepdims=True), device=cuda)
+        ops = _pack(dec, equiv, N, Z, D, film, H)
+        g = torch.as_tensor(rng.normal(size=(B, P, 8)).astype(np.float32), device=cuda)
+        kw = dict(trunk=trunk, fast_sine=fast_sine, weight_grads=weight_grads)
+        if not film:
+            kw.update(omega0=30.0, omega_h=30.0)
+        assert tb.launch_grid(P, B, trunk, cuda)[1] >= 4
+        n0 = kernel.launches
+        got = kernel(*ops, g, **kw)
+        ref = plain(*ops, g, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1
+        _assert_grads_close(got, ref, trunk, (H, L, P))
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
+    """Three tiles per CTA, 17 tiles per image (the last CTA has two): the
+    per-image sums are the same as with one tile per CTA, to float32
+    rounding, and bitwise the same from run to run."""
+    rng = np.random.default_rng(21)
+    N, B, H, L, P = 5, 3, 128, 2, 264
+    dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = torch.nn.functional.normalize(torch.randn(1, P, 3, device=cuda), dim=-1)
+    ops = _pack(dec, "SO2", N, Z, D, film, H)
+    g = torch.randn(B, P, 8, device=cuda)
+    kernel, plain = _bwd_pair(film)
+    kw = dict(trunk="bfloat16", fast_sine=True, weight_grads=False)
+    if not film:
+        kw.update(omega0=30.0, omega_h=30.0)
+    one = kernel(*ops, g, **kw)
+    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
+    three = kernel(*ops, g, **kw)
+    again = kernel(*ops, g, **kw)
+    ref = plain(*ops, g, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(three, ref, "bfloat16", "3 tiles per CTA")
+    for x, y, z in zip(one, three, again):
+        if x is not None:
+            assert torch.equal(y, z)
+            assert (x - y).abs().max().item() <= 1e-5 * x.abs().max().item()
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_fused_apply_backward_launches_both_kernels(cuda, film):
+    """One autograd backward through fused_apply on the card launches the
+    forward and the backward kernel once each, and its gradients (latents
+    and every decoder weight) match the plain Function's."""
+    rng = np.random.default_rng(22)
+    N, B, H, L, P = 5, 3, 128, 2, 200
+    dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+    Z0 = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = torch.nn.functional.normalize(torch.randn(1, P, 3, device=cuda), dim=-1)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
+    kernel = _bwd_pair(film)[0]
+    leaves = [dec["final"]["w"], dec["layers"][-1]["w"], dec["layers"][0]["b"]]
+
+    def grads(fn):
+        Z = Z0.clone().requires_grad_()
+        for t in leaves:
+            t.requires_grad_()
+        out = _run(fn, dec, "SO2", N, Z, D, film, L, H, "bfloat16", True)
+        (out ** 2).sum().backward()
+        got = [Z.grad] + [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        return got
+
+    n_fwd, n_bwd = wrap.launches, kernel.launches
+    got = grads(wrap)
+    torch.cuda.synchronize()
+    assert (wrap.launches, kernel.launches) == (n_fwd + 1, n_bwd + 1)
+    ref = grads(ref_fn)
+    assert (wrap.launches, kernel.launches) == (n_fwd + 1, n_bwd + 1)
+    _assert_grads_close(got, ref, "bfloat16", "fused_apply backward")
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_model_apply_with_grad_outside_bwd_limit_raises(cuda, film):
+    """H = 512 with 5 layers: the forward kernel takes it, the backward
+    kernel's shared memory does not. With a latent that requires grad
+    RENIModel.apply raises on the card instead of training with plain
+    PyTorch; without one it decodes."""
+    from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+
+    rng = np.random.default_rng(23)
+    cfg = RENIConfig(conditioning="FiLM" if film else "Cond-by-Concat", latent_dim=5,
+                     hidden_layers=5, hidden_features=512, mapping_layers=1,
+                     mapping_features=64, use_pallas=True, fast_sine=True)
+    dec = _decoder(rng, "SO2", 5, 512, 5, film, cuda)
     D = torch.nn.functional.normalize(torch.randn(1, 64, 3, device=cuda), dim=-1)
-    with pytest.raises(RuntimeError, match="FIT_LATENT"):
-        _run(tk.fused_apply, dec, "SO2", 5, Z, D, False, 2, 128, "bfloat16", True)
+    Z = torch.zeros(2, 5, 3, device=cuda)
+    model = RENIModel(cfg)
+    assert model.apply({"decoder": dec}, Z, D).shape == (2, 64, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        model.apply({"decoder": dec}, Z.requires_grad_(), D)
+
+
+def test_bwd_smem_formula_matches_kernel(cuda):
+    lib = tb.library()
+    for film in (False, True):
+        for trunk in tk.TRUNKS:
+            for H, n_mm in ((128, 2), (256, 5), (256, 4), (512, 1), (64, 0)):
+                got = lib.reni_bwd_smem_bytes(int(film), int(trunk == "bfloat16"), H, n_mm)
+                assert got == tb.bwd_smem_bytes(film, trunk, H, n_mm)
 
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])

@@ -159,3 +159,117 @@ def test_wrapper_takes_ragged_pixel_count():
     )
     ref = JModel(cfg).apply({"decoder": jp}, jnp.asarray(Z), jnp.asarray(D))
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# backward: the plain version of siren_bwd against the Pallas backward kernels
+# ---------------------------------------------------------------------------
+
+from reni_tpu_torch.kernels import siren_bwd as tb  # noqa: E402
+from reni_tpu_torch.train import checkpoint as tck  # noqa: E402
+
+
+def _bwd_both(equiv="SO2", film=False, trunk="float32", fast_sine=False, L=3, seed=30,
+              tile=128):
+    """(Pallas bwd kernel in interpret mode, port plain bwd) gradients on the
+    same packed operands and cotangent; P = 256 in two 128-row tiles."""
+    cfg, jp, tp, Z, D = _setup(equiv=equiv, film=film, L=L, seed=seed)
+    H, B = cfg.hidden_features, Z.shape[0]
+    d_feats = tk.encodings.d_features(equiv, torch.from_numpy(D))
+    g = np.random.default_rng(seed + 2).normal(size=(B, D.shape[1], 8)).astype(np.float32)
+    dtype = {"bfloat16": jnp.bfloat16, "float32": None}[trunk]
+    with torch.no_grad():
+        if film:
+            ops = tk.pack_film_inputs(tp, equiv, torch.from_numpy(Z), d_feats, H)
+            bwd = jk._film_calls(cfg.hidden_layers, H, tile=tile, trunk_dtype=dtype,
+                                 interpret=True, fast_sine=fast_sine)[1]
+            port = tb.film_trunk_bwd_reference(*ops, torch.from_numpy(g), trunk=trunk,
+                                               fast_sine=fast_sine)
+        else:
+            ops = tk.pack_inputs(tp, equiv, cfg.latent_dim, torch.from_numpy(Z), d_feats)
+            bwd = jk._siren_calls(cfg.hidden_layers, H, cfg.first_omega_0, cfg.hidden_omega_0,
+                                  tile=tile, trunk_dtype=dtype, interpret=True,
+                                  fast_sine=fast_sine)[1]
+            port = tb.siren_trunk_bwd_reference(*ops, torch.from_numpy(g), omega0=30.0,
+                                                omega_h=30.0, trunk=trunk, fast_sine=fast_sine)
+    ref = bwd(*(jnp.asarray(_np(t)) for t in ops), jnp.asarray(g))
+    return [_np(r) for r in ref], [_np(p) for p in port]
+
+
+def _close(ref, port, rtol, atol):
+    for i, (r, p) in enumerate(zip(ref, port)):
+        assert r.shape == p.shape, (i, r.shape, p.shape)
+        np.testing.assert_allclose(p, r, rtol=rtol, atol=atol, err_msg=f"gradient {i}")
+
+
+# test_fused_gradients_match_jnp bars; FiLM's dfreqs sum sin'(30 x) * pre
+BWD_F32 = {False: (5e-5, 2e-5), True: (1e-4, 5e-5)}
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+@pytest.mark.parametrize("equiv", ["SO3", "SO2", "None"])
+def test_plain_bwd_matches_pallas_f32(equiv, film):
+    ref, port = _bwd_both(equiv=equiv, film=film)
+    _close(ref, port, *BWD_F32[film])
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_plain_bwd_matches_pallas_fast_sine(film):
+    ref, port = _bwd_both(film=film, fast_sine=True, seed=32)
+    _close(ref, port, *BWD_F32[film])
+
+
+def test_plain_bwd_matches_pallas_film_single_layer():
+    """hidden_layers = 1: FiLM's Ws and dWs are empty."""
+    ref, port = _bwd_both(film=True, L=1, seed=34)
+    assert ref[1].shape == port[1].shape == (0, 128, 128)
+    _close(ref, port, *BWD_F32[True])
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_plain_bwd_matches_pallas_bf16(film):
+    """bf16 trunk: both sides round the same operands (cotangents included)
+    and sum in float32 in another order; a flipped bf16 rounding of an
+    activation or a dz then moves a gradient by a bf16 ulp of one term.
+    Measured on these inputs, as max |diff| / max |Pallas| of the worst
+    gradient: cbc 3.6e-4, FiLM 4.8e-4; the bar is about 5x that."""
+    ref, port = _bwd_both(film=film, trunk="bfloat16", fast_sine=True, seed=36)
+    worst = 0.0
+    for r, p in zip(ref, port):
+        if r.size:
+            worst = max(worst, float(np.abs(p - r).max() / np.abs(r).max()))
+    print(f"bf16 plain bwd vs Pallas: worst max|diff|/max|ref| {worst:.3g}")
+    assert worst < 2.5e-3, worst
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_model_grads_match_jax_fused(film):
+    """jax.grad of sum(out^2) w.r.t. (decoder, Z) through JAX fused_apply
+    (Pallas, interpret mode) against autograd through the port's
+    fused_apply on the CPU (the plain forward and backward Functions)."""
+    cfg, jp, tp, Z, D = _setup(film=film, seed=38)
+    common = dict(hidden_layers=cfg.hidden_layers, hidden_features=cfg.hidden_features,
+                  out_features=3, output_activation="tanh", trunk="float32")
+    omegas = {} if film else dict(first_omega_0=30.0, hidden_omega_0=30.0)
+
+    def jloss(dec, z):
+        if film:
+            out = jk.fused_film_apply(dec, cfg.equivariance, z, jnp.asarray(D),
+                                      interpret=True, **common)
+        else:
+            out = jk.fused_apply(dec, cfg.equivariance, cfg.latent_dim, z, jnp.asarray(D),
+                                 interpret=True, **common, **omegas)
+        return jnp.sum(out ** 2)
+
+    jd, jz = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(Z))
+    tz = torch.from_numpy(Z).requires_grad_()
+    tparams.map_tree(lambda t: t.requires_grad_(), tp)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    args = (tp, cfg.equivariance, tz) if film else (tp, cfg.equivariance, cfg.latent_dim, tz)
+    (wrap(*args, torch.from_numpy(D), **common, **omegas) ** 2).sum().backward()
+    np.testing.assert_allclose(_np(tz.grad), _np(jz), rtol=5e-5, atol=2e-5)
+    flat_t = tck._flatten(tparams.map_tree(lambda t: _np(t.grad), tp))
+    flat_j = tck._flatten(jax.device_get(jd))
+    assert flat_t.keys() == flat_j.keys()
+    for k in flat_j:
+        np.testing.assert_allclose(flat_t[k], flat_j[k], rtol=5e-5, atol=2e-5, err_msg=k)
