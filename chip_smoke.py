@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build       - compile kernels/csrc/siren_fwd.cu and siren_bwd.cu with nvcc
-                 (sm_90a), both at once
+1. build       - compile kernels/csrc/siren_fwd.cu, siren_bwd.cu and
+                 siren_step.cu with nvcc (sm_90a), all at once
 2. compare     - at full width (N=49, 5x256 SIREN, 21 test latents x 32,768
                  directions, bf16 trunk, fast sine) each forward kernel
                  against its plain PyTorch version on the card: shared (1, P)
@@ -44,13 +44,38 @@ Phases (any failure exits non-zero and prints no result line):
                  must launch once per step; the fitted maps' PSNR must be
                  within 0.1 dB of the same task run through the plain
                  forward and backward on the card
-6. timings     - each kernel and its plain version: the forward at the
+6. compare_step - the train-step kernel against its plain version at full
+                 width on the Cond-by-Concat Zoo decoder and 100 of its
+                 training latents: the loss partials and every gradient at
+                 100 x 8,192 (the flagship FIT_DECODER batch), 100 x 512 and
+                 100 x 2,048 with a shared grid, then at 100 x 2,048 with
+                 per-image grids, with a masked row, with the float32 trunk,
+                 and with exp and no output activation; bars loss 1e-4
+                 (bf16) / 1e-6 (float32) relative, gradients as in phase 3;
+                 two calls on the same inputs must give the same bits
+7. fit_decoder - train.tasks.fit_task FIT_DECODER at the published
+                 hyperparameters (batch 100, Adam b1=0 b2=0.9, LR 1e-5 ->
+                 1e-7, KLD weighting 1e-4, curriculum 16x32 -> 32x64 ->
+                 64x128) with the epochs cut from 2,400 to 30 (curriculum
+                 10, 20) on a fresh model.init student (VAD, Cond-by-Concat,
+                 SO2, N=49, 5x256, tanh, bf16 trunk, fast sine); training
+                 maps: the Zoo decoder's decodes of its 1,000 training
+                 latents. Once through the step kernel and once through its
+                 plain version from the same generators. The step kernel
+                 must launch once per step and the forward and backward
+                 kernels not at all; each stage's last epoch loss must be
+                 below its first; PSNR of the student's 64x128 decodes
+                 within 0.1 dB between the runs; the result round-trips
+                 through save_checkpoint / load_checkpoint
+8. timings     - each kernel and its plain version: the forward at the
                  phase-2 shapes, the backward at 21 x 32,768 and 21 x 8,192
-                 with and without weight gradients; median of CUDA-event
-                 timed runs after warm-up; the bound is the larger of FLOPs
-                 / 989 TFLOP/s (bf16 dense) and bytes / 3.35 TB/s (H100 SXM
-                 data sheet), both counted without the kernels' padding
-7. report      - one JSON line of kernels, the card's name and power limit,
+                 with and without weight gradients, the train step at 100 x
+                 8,192 and 21 x 8,192 beside the forward + backward kernels
+                 at the same shapes; median of CUDA-event timed runs after
+                 warm-up; the bound is the larger of FLOPs / 989 TFLOP/s
+                 (bf16 dense) and bytes / 3.35 TB/s (H100 SXM data sheet),
+                 both counted without the kernels' padding
+9. report      - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 """
 
@@ -88,7 +113,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOURCE = "reni_tpu_torch/kernels/csrc/siren_fwd.cu"
 SOURCE_BWD = "reni_tpu_torch/kernels/csrc/siren_bwd.cu"
-KERNEL_SOURCES = ("siren_fwd", "siren_bwd")
+SOURCE_STEP = "reni_tpu_torch/kernels/csrc/siren_step.cu"
+KERNEL_SOURCES = ("siren_fwd", "siren_bwd", "siren_step")
 # backward bars: max |kernel - plain| <= BAR x max |plain|, per gradient
 BWD_BAR = {"bfloat16": 1e-2, "float32": 1e-4}
 BWD_WIDTHS = (256, 128)  # 21 x 32,768 and 21 x 8,192 directions
@@ -98,6 +124,12 @@ MASK = os.path.join(ROOT, "data", "Masks", "Mask-3.png")
 FIT_EPOCHS, FIT_CURRICULUM = 300, (100, 200)
 FIT_RES = ((16, 32), (64, 128))  # initial and final resolution
 PSNR_BAR_DB = 0.1  # ROADMAP yardstick for trained runs
+# FIT_DECODER: the published task (config.yaml RENI.FIT_DECODER) with the
+# epochs cut from 2,400 to 30
+DEC_EPOCHS, DEC_CURRICULUM = 30, (10, 20)
+DEC_BATCH, DEC_MAPS = 100, 1000
+STEP_LOSS_BAR = {"bfloat16": 1e-4, "float32": 1e-6}  # relative, kernel vs plain
+STEP_TIMED = (100, 21)  # batches timed at 64 x 128
 
 
 class SmokeFailure(Exception):
@@ -329,6 +361,16 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def build_all() -> None:
     """One nvcc per source, all started together."""
     from reni_tpu_torch.kernels import _build
@@ -438,6 +480,26 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, where=None) -> float:
     return psnr_fn(pred, target).item()
 
 
+def timed(step, events: list):
+    """``step`` with CUDA events around each whole call, appended to ``events``."""
+
+    def run(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return run
+
+
+def median_ms(events: dict) -> dict:
+    return {res: statistics.median(s.elapsed_time(e) for s, e in evs)
+            for res, evs in events.items()}
+
+
 def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
     """One FIT_LATENT run from fresh latents, through the kernels or (``plain``)
     their plain versions; returns (fitted maps at the final resolution,
@@ -461,18 +523,7 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
             model, directions, sineweight, alpha=task.prior_loss_weight,
             beta=task.cosine_similarity_weight,
         )
-        evs = events.setdefault(res, [])
-
-        def run(state, batch):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(state, batch)
-            end.record()
-            evs.append((start, end))
-            return out
-
-        return run
+        return timed(step, events.setdefault(res, []))
 
     fwd = tk.fused_film_apply if cfg.is_film else tk.fused_apply
     bwd = tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda
@@ -485,7 +536,7 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
         )
     torch.cuda.synchronize()
     launches = {"fwd": fwd.launches, "bwd": bwd.launches}
-    ms = {res: statistics.median(s.elapsed_time(e) for s, e in evs) for res, evs in events.items()}
+    ms = median_ms(events)
     with torch.no_grad():
         maps = model.apply(fitted, fitted["latents"]["mu"],
                            sphere.get_directions(FIT_RES[1][1], device=device))
@@ -548,6 +599,287 @@ def fit_latent_phase(device) -> dict:
         print(f"{label}: PSNR kernels - plain " + ", ".join(
             f"{k} {result[False][k] - result[True][k]:+.3f} dB" for k in result[False]))
     return launches
+
+
+def training_maps(device) -> tuple[torch.Tensor, dict]:
+    """(the Cond-by-Concat Zoo entry's 1,000 training latents mu, {resolution:
+    its decoder's decodes of them (1000, P, 3)} at FIT_DECODER's stages),
+    decoded by the forward kernel 100 latents at a time."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.serve import load_decoder
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    path = os.path.join(CBC, "checkpoint")
+    mu = torch.as_tensor(ckpt.load_checkpoint(path)[0]["latents"]["mu"], device=device)
+    check(tuple(mu.shape) == (DEC_MAPS, 49, 3), f"training latents {tuple(mu.shape)}")
+    fn = load_decoder(path, device)
+    maps = {}
+    for res, _ in decoder_task_config().resolution_stages():
+        D = sphere.get_directions(res[1], device=device)
+        # (clone: load_decoder decodes under inference_mode)
+        maps[res] = torch.cat([fn(z, D) for z in mu.split(DEC_BATCH)]).clone()
+    return mu, maps
+
+
+def decoder_task_config():
+    from reni_tpu_torch.train.optim import OptimConfig
+    from reni_tpu_torch.train.tasks import TaskConfig
+
+    return TaskConfig(
+        task="FIT_DECODER",
+        optim=OptimConfig(lr_start=1e-5, lr_end=1e-7, optimizer="adam", beta1=0.0, beta2=0.9),
+        batch_size=DEC_BATCH, epochs=DEC_EPOCHS, multi_res_training=True,
+        initial_resolution=FIT_RES[0], final_resolution=FIT_RES[1], curriculum=DEC_CURRICULUM,
+        kld_weighting=1e-4,
+    )
+
+
+def step_operands(cfg, dec, Z, D, targets, sineweight, masked_row: bool = False):
+    """The step kernel's operands: the packed trunk operands, the targets and
+    pixel weights padded to 8 lanes, the (B, 1, 8) batch mask."""
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    bm = torch.ones((Z.shape[0], 1, 8), device=Z.device)
+    if masked_row:
+        bm[-1] = 0.0
+    return (*packed(cfg, dec, Z, D), tk._pad_last(targets, 8), tk._pad_last(sineweight, 8), bm)
+
+
+def step_kwargs(cfg, npix: int, trunk=None, act="tanh") -> dict:
+    return dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
+                trunk=trunk or cfg.pallas_trunk, fast_sine=cfg.fast_sine, out_act=act,
+                gscale=1.0 / (npix * cfg.out_features))
+
+
+def compare_step(ops, kw) -> tuple[float, float]:
+    """Step kernel vs plain version: the loss and every gradient, and two
+    kernel calls bit for bit; returns the largest max |difference| and the
+    largest max |difference| / max |plain| over the gradients."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    got, again = ts.siren_step_cuda(*ops, **kw), ts.siren_step_cuda(*ops, **kw)
+    ref = ts.siren_step_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(got, again)):
+        check(torch.equal(x, y), f"result {i} differs between two calls on the same inputs")
+    loss, loss_ref = got[0].sum().item() * kw["gscale"], ref[0].sum().item() * kw["gscale"]
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    check(loss_rel <= STEP_LOSS_BAR[kw["trunk"]],
+          f"loss {loss:.8g} vs plain {loss_ref:.8g}: relative {loss_rel:.3g}")
+    bar = BWD_BAR[kw["trunk"]]
+    worst, worst_rel, report = 0.0, 0.0, []
+    for i, (x, y) in enumerate(zip(got[1:], ref[1:])):
+        check(tuple(x.shape) == tuple(y.shape), f"gradient {i} shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"gradient {i} has non-finite values")
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        report.append(f"{err / scale:.2g}")
+        check(err <= bar * scale, f"gradient {i}: max |diff| {err:.3g} > {bar} x {scale:.3g}")
+    print(f"  loss {loss:.6g} (relative error {loss_rel:.2g}); max |diff| / max |plain| per "
+          f"gradient: {' '.join(report)} (bar {bar}); two calls bitwise equal")
+    return worst, worst_rel
+
+
+def compare_step_phase(cfg, dec, mu, maps, device) -> tuple[list, list]:
+    """The compare_step cases; returns the absolute and relative errors."""
+    from reni_tpu_torch.core import sphere
+
+    Z = mu[:DEC_BATCH]
+    stages = [res for res, _ in decoder_task_config().resolution_stages()]
+    mid = stages[1]
+    cases = [(res, f"{res[0]}x{res[1]} shared grid", {}) for res in (stages[2], stages[0], mid)]
+    cases += [
+        (mid, "per-image grids", dict(per_image=True)),
+        (mid, "a masked row", dict(masked_row=True)),
+        (mid, "float32 trunk", dict(trunk="float32")),
+        (mid, "exp output", dict(act="exp")),
+        (mid, "no output activation", dict(act=None)),
+    ]
+    errs, rels = [], []
+    with torch.no_grad():
+        for res, label, opt in cases:
+            D = sphere.get_directions(res[1], device=device)
+            if opt.get("per_image"):
+                D = per_image_grids(D, Z.shape[0], seed=4)
+            # targets: the maps of the next 100 latents, so the residual is not zero
+            ops = step_operands(cfg, dec, Z, D, maps[res][DEC_BATCH:2 * DEC_BATCH],
+                                sphere.get_sineweight(res[1], device=device),
+                                masked_row=opt.get("masked_row", False))
+            kw = step_kwargs(cfg, D.shape[1], opt.get("trunk"), opt.get("act", "tanh"))
+            print(f"siren_step B={Z.shape[0]} P={D.shape[1]} {label}:")
+            err, rel = compare_step(ops, kw)
+            errs.append(err)
+            rels.append(rel)
+    return errs, rels
+
+
+@contextlib.contextmanager
+def plain_step():
+    """Route fused_step_mse through the plain step on the card: the
+    yardstick a FIT_DECODER run through the kernel is held against."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    saved = ts.StepMSE.steps
+    ts.StepMSE.steps = (ts.siren_step_reference, ts.siren_step_reference)
+    try:
+        yield
+    finally:
+        ts.StepMSE.steps = saved
+
+
+def fit_decoder(device, *, plain: bool, maps: dict):
+    """One FIT_DECODER run of a fresh student, through the step kernel or
+    (``plain``) its plain version; returns (trained params, model, per-stage
+    step times in ms, metrics, launches {step, fwd, bwd} during the run)."""
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint")))
+    params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+    task = decoder_task_config()
+    events: dict = {}
+
+    def timed_step(model, directions, sineweight, res):
+        step = tasks.make_fit_decoder_step(model, directions, sineweight,
+                                           kld_weighting=task.kld_weighting)
+        return timed(step, events.setdefault(res, []))
+
+    torch.cuda.synchronize()
+    ts.siren_step_cuda.launches = tk.fused_apply.launches = tb.siren_trunk_bwd_cuda.launches = 0
+    with plain_step() if plain else contextlib.nullcontext():
+        trained, metrics = tasks.fit_task(
+            model, params, task, lambda res: maps[res], torch.Generator().manual_seed(1),
+            step_builder=timed_step,
+        )
+    torch.cuda.synchronize()
+    launches = {"step": ts.siren_step_cuda.launches, "fwd": tk.fused_apply.launches,
+                "bwd": tb.siren_trunk_bwd_cuda.launches}
+    return trained, model, median_ms(events), metrics, launches
+
+
+def fit_decoder_phase(device, maps: dict) -> int:
+    """FIT_DECODER through the step kernel and through its plain version;
+    returns the step kernel's launches in the kernel run."""
+    import tempfile
+
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.params import to_numpy
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    task = decoder_task_config()
+    stages = task.resolution_stages()
+    steps = DEC_EPOCHS * (DEC_MAPS // DEC_BATCH)
+    target = maps[FIT_RES[1]]
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    result, launched, final_ms = {}, 0, 0.0
+    for plain in (False, True):
+        run = "plain" if plain else "kernel"
+        t0 = time.perf_counter()
+        trained, model, ms, metrics, n = fit_decoder(device, plain=plain, maps=maps)
+        wall = time.perf_counter() - t0
+        if plain:
+            check(n == {"step": 0, "fwd": 0, "bwd": 0}, f"the plain run launched kernels {n}")
+        else:
+            check(n == {"step": steps, "fwd": 0, "bwd": 0},
+                  f"{n} launches in {steps} steps (the step kernel once per step, no other)")
+            launched, final_ms = n["step"], ms[FIT_RES[1]]
+        loss = metrics["fit_decoder_loss"]
+        check(bool(np.isfinite(loss).all()), f"[{run}] non-finite loss")
+        off = 0
+        for (res, n_ep), (_, t) in zip(stages, sorted(ms.items())):
+            first, last = loss[off], loss[off + n_ep - 1]
+            print(f"FIT_DECODER [{run}] stage {res[0]}x{res[1]}: {t:.3f} ms/step (median), "
+                  f"epoch loss {first:.6g} -> {last:.6g}")
+            check(last < first, f"[{run}] stage {res}: loss {first} -> {last} did not fall")
+            off += n_ep
+        with torch.no_grad():
+            mu = trained["latents"]["mu"]
+            decoded = torch.cat([model.apply(trained, z, D) for z in mu.split(DEC_BATCH)])
+        check(bool(torch.isfinite(decoded).all()), f"[{run}] non-finite decodes")
+        result[plain] = psnr(decoded, target)
+        print(f"FIT_DECODER [{run}] {steps} steps in {wall:.1f} s, launches {n}; PSNR of the "
+              f"student's {FIT_RES[1][0]}x{FIT_RES[1][1]} decodes {result[plain]:.3f} dB")
+        if not plain:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "fit_decoder_final")
+                ckpt.save_fit_result(path, trained, model_config=model.config,
+                                     task="FIT_DECODER", metrics=metrics)
+                back, meta = ckpt.load_checkpoint(path)
+                check(ckpt.load_model_config(path) == model.config and meta["epoch"] == DEC_EPOCHS,
+                      f"checkpoint metadata {meta}")
+                flat, want = ckpt._flatten(back), ckpt._flatten(to_numpy(trained))
+                check(flat.keys() == want.keys()
+                      and all(np.array_equal(flat[k], want[k]) for k in want),
+                      "the trained params do not round-trip through the checkpoint")
+            print(f"FIT_DECODER [{run}] checkpoint round trip: {len(want)} leaves equal")
+    gap = result[False] - result[True]
+    print(f"FIT_DECODER: PSNR kernel - plain {gap:+.3f} dB")
+    check(abs(gap) <= PSNR_BAR_DB, f"PSNR kernel vs plain differ by {gap:.3f} dB")
+    print(f"flagship FIT_DECODER step (batch {DEC_BATCH} at {FIT_RES[1][0]}x{FIT_RES[1][1]} = "
+          f"{DEC_BATCH * D.shape[1]:,} directions, optimizer included): {final_ms:.3f} ms -> "
+          f"{DEC_BATCH * D.shape[1] / (final_ms * 1e-3):.4g} directions/s")
+    return launched
+
+
+def step_bytes(ops, k: int, n_out: int, trunk: str) -> int:
+    """The step's inputs (the trunk's, the targets' and pixel weights' real
+    channels, the mask) and outputs (loss partials, per-image and weight
+    gradients in float32)."""
+    d, a, b0, ws, bs, wf, bf, tgt, sw, bm = ops
+    B, P, H = a.shape[0], d.shape[1], a.shape[-1]
+    n = min_bytes(ops[:7], k, n_out, False, trunk)
+    n += 4 * (B * P * n_out + P * n_out + B)
+    n += 4 * (n_out + B * k * H + b0.numel() + ws.numel() + bs.numel() + H * n_out + n_out)
+    return n
+
+
+def time_step(cfg, dec, mu, maps, device, replaces, launches, errors, rel_errors) -> dict:
+    """The step kernel, its plain version and the forward + backward kernels
+    with weight gradients at 64 x 128, batches 100 and 21; returns the
+    kernels-line row (batch 100, the flagship shape)."""
+    from reni_tpu_torch.core import encodings, sphere
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    res = FIT_RES[1]
+    D = sphere.get_directions(res[1], device=device)
+    sw = sphere.get_sineweight(res[1], device=device)
+    k, n_out, P = encodings.d_features(cfg.equivariance, D).shape[-1], cfg.out_features, D.shape[1]
+    row = None
+    for B in STEP_TIMED:
+        ops = step_operands(cfg, dec, mu[:B], D, maps[res][DEC_BATCH:DEC_BATCH + B], sw)
+        kw = step_kwargs(cfg, P)
+        trunk_kw = {x: kw[x] for x in ("omega0", "omega_h", "trunk", "fast_sine")}
+        g = cotangent(mu[:B], P, seed=5)
+        # forward + the backward without the forward again + the final layer
+        flops = B * P * (bwd_flops(cfg, k, n_out, True) + 2.0 * n_out * cfg.hidden_features)
+        bound_ms, bound_by = bound(flops, step_bytes(ops, k, n_out, kw["trunk"]))
+
+        def two_kernels():
+            tk.siren_trunk_cuda(*ops[:7], **trunk_kw)
+            tb.siren_trunk_bwd_cuda(*ops[:7], g, weight_grads=True, **trunk_kw)
+
+        ms = time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
+        two_ms = time_ms(two_kernels, runs=10)
+        plain_ms = time_ms(lambda: ts.siren_step_reference(*ops, **kw), runs=5, warmup=1)
+        print(f"siren_step B={B} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, forward + "
+              f"backward kernels with weight gradients {two_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops:.4g} FLOP) -> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        if row is None:
+            row = {
+                "name": "siren_step", "route": "cuda", "source": SOURCE_STEP,
+                "replaces": replaces["siren_step"], "launches": launches["siren_step"],
+                "max_abs_err": max(errors["siren_step"]),
+                "max_rel_err": max(rel_errors["siren_step"]),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "two_kernel_ms": two_ms,
+            }
+    return row
 
 
 def bwd_flops(cfg, k: int, n_out: int, weight_grads: bool) -> float:
@@ -675,9 +1007,20 @@ def main() -> int:
     print(f"backward launches during FIT_LATENT (kernel runs): "
           f"{ {k: launches[k] for k in ('siren_bwd', 'film_bwd')} }")
 
+    phase("compare_step at full width and at FIT_DECODER's shapes")
+    cfg_cbc, dec_cbc, _ = entries["siren_fwd"]
+    mu, maps = training_maps(dev)
+    errors["siren_step"], rel_errors["siren_step"] = compare_step_phase(
+        cfg_cbc, dec_cbc, mu, maps, dev)
+
+    phase("fit_decoder")
+    launches["siren_step"] = fit_decoder_phase(dev, maps)
+    print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
+
     phase("timings")
     rows = []
     replaces = {
+        "siren_step": "reni_tpu/kernels/siren_pallas.py:980",
         "siren_fwd": "reni_tpu/kernels/siren_pallas.py:140",
         "film_fwd": "reni_tpu/kernels/siren_pallas.py:201",
         "siren_bwd": "reni_tpu/kernels/siren_pallas.py:151",
@@ -746,15 +1089,13 @@ def main() -> int:
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         }
             rows.append(row)
+        rows.append(time_step(cfg_cbc, dec_cbc, mu, maps, dev, replaces, launches, errors,
+                              rel_errors))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = card_line()
     print(json.dumps({"kernels": rows}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -33,15 +33,19 @@
 //     writes them to its own slot of a (B, n_chunks, n_img) buffer. A second
 //     kernel sums the slots in chunk order: the per-image gradients that
 //     FIT_LATENT uses are deterministic;
-//   - weight gradients are optional (WGRAD): the small ones (dbs, dWf, dbf)
-//     are summed per CTA in shared memory and flushed with one atomicAdd per
-//     element; dWs_i (H x H) is flushed with atomicAdd per tile, as no CTA
-//     can hold 5 x 256 KB of accumulators. Their order of summation varies
-//     from run to run;
+//   - weight gradients are optional (WGRAD) and use no float atomics: the
+//     small ones (dbs, dWf, dbf) are summed per CTA in shared memory and
+//     written to the CTA's slot of a (B * n_chunks, n_w) buffer, summed in
+//     slot order by reduce_slots; for dWs_i (H x H; no CTA can hold 5 x 256
+//     KB of accumulators) the kernel writes each tile's h_i and dz_i to a
+//     device scratch and the split-K GEMM of siren_chain.cuh forms h_i^T dz_i
+//     with its partials summed in chunk order. Two calls on the same inputs
+//     give the same bits;
 //   - a tile is 16 pixel rows (8 with the float32 trunk): every layer's
 //     activation (bf16) and cos factor (float32; FiLM keeps the
 //     pre-modulation value and recomputes the cos) stay in shared memory,
-//     205,696 B at 5 x 256 with bf16, so no (B, P, H) tensor reaches HBM;
+//     205,696 B at 5 x 256 with bf16; without weight gradients no (B, P, H)
+//     tensor reaches HBM;
 //   - the H x H products are wmma 16x16x16 bf16 with float32 accumulators
 //     (B fragments from global/L2); the float32 trunk runs FMA loops (no
 //     TF32); the K = 8 and N = 8 products and every column reduction run as
@@ -55,16 +59,12 @@
 
 #include <type_traits>
 
-#include "siren_common.cuh"
+#include "siren_chain.cuh"
 
 namespace {
 
 using namespace nvcuda;
 using namespace reni;
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROW_PAD = 8;  // elements of padding per activation row
 
 struct Args {
   const float* d;       // (B_d, P, K_PAD) direction features
@@ -78,22 +78,23 @@ struct Args {
   const float* ph;      // FiLM (B, (n_mm + 1) * H) phase shifts
   const float* g;       // (B, P, C_PAD) output cotangent
   float* part;          // (B, n_chunks, n_img) per-image partial sums
-  float* dws;           // (n_mm, H, H), zeroed; WGRAD only
-  float* dbs;           // like bs, zeroed; WGRAD only
-  float* dwf;           // (H, C_PAD), zeroed; WGRAD only
-  float* dbf;           // (C_PAD,), zeroed; WGRAD only
+  float* part_w;        // (B * n_chunks, n_w) dbs | dWf | dbf sums; WGRAD only
+  void* sc_h;           // (n_mm, B * P, H) activations, trunk dtype; WGRAD only
+  void* sc_dz;          // (n_mm, B * P, H) cotangents dz; WGRAD only
   int P, H, n_mm, tiles_per_cta, n_chunks;
   float omega0, omega_h;
 };
-
-__host__ __device__ constexpr int tile_rows(bool bf16) { return bf16 ? 16 : 8; }
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 // Per-image gradient values per image: Cond-by-Concat dA (8H) | db0 (H);
 // FiLM dA0 (8H) | dfreqs (T H) | dphases (T H).
 __host__ __device__ inline int image_values(bool film, int H, int n_mm) {
   return film ? (K_PAD + 2 * (n_mm + 1)) * H : (K_PAD + 1) * H;
+}
+
+// Weight sums of one CTA: dbs (Cond-by-Concat n_mm H, FiLM (n_mm + 1) H) |
+// dWf (8 H) | dbf (8).
+__host__ __device__ inline int weight_values(bool film, int H, int n_mm) {
+  return (film ? n_mm + 1 : n_mm) * H + H * C_PAD + C_PAD;
 }
 
 // Shared-memory layout of one CTA (byte offsets). kernels/siren_bwd.py
@@ -152,110 +153,6 @@ __device__ __forceinline__ void store_act(const Args& g, int b, int layer, int r
   put(hs + ((size_t)layer * TM + r) * lda + c, s);
 }
 
-// hs[layer] = act(hs[layer - 1] @ W + bias): one 16-column strip per warp.
-template <bool FILM, bool FAST>
-__device__ void fwd_layer_bf16(const Args& g, int b, int layer, const __nv_bfloat16* w,
-                               __nv_bfloat16* hs, float* keep, float* stage, int lda) {
-  constexpr int TM = tile_rows(true);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, H = g.H;
-  const __nv_bfloat16* hin = hs + (size_t)(layer - 1) * TM * lda;
-  float* st = stage + warp * 256;
-  for (int ct = warp; ct < H / 16; ct += WARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < H; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::load_matrix_sync(af, hin + k, lda);
-      wmma::load_matrix_sync(bf, w + (size_t)k * H + ct * 16, H);
-      wmma::mma_sync(acc, af, bf, acc);
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      store_act<FILM, FAST, TM>(g, b, layer, e / 16, ct * 16 + e % 16, st[e], hs, keep, lda);
-    __syncwarp();
-  }
-}
-
-template <bool FILM, bool FAST>
-__device__ void fwd_layer_f32(const Args& g, int b, int layer, const float* w, float* hs,
-                              float* keep, int lda) {
-  constexpr int TM = tile_rows(false);
-  const int H = g.H;
-  const float* hin = hs + (size_t)(layer - 1) * TM * lda;
-  for (int i = threadIdx.x; i < TM * H; i += THREADS) {
-    const int r = i / H, c = i - r * H;
-    const float* x = hin + (size_t)r * lda;
-    float acc = 0.0f;
-    for (int k = 0; k < H; ++k) acc = fmaf(x[k], w[(size_t)k * H + c], acc);
-    store_act<FILM, FAST, TM>(g, b, layer, r, c, acc, hs, keep, lda);
-  }
-}
-
-// dW (H x H) += h^T (H x TM) @ dz (TM x H), added into global memory.
-template <bool BF16, typename act_t>
-__device__ void weight_grad(const act_t* h, const act_t* dz, float* dw, float* stage, int H,
-                            int lda) {
-  if constexpr (BF16) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nt = H / 16;
-    float* st = stage + warp * 256;
-    for (int tile = warp; tile < nt * nt; tile += WARPS) {
-      const int m0 = (tile / nt) * 16, n0 = (tile % nt) * 16;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      wmma::load_matrix_sync(af, h + m0, lda);  // A(m, k) = h[k][m0 + m]
-      wmma::load_matrix_sync(bf, dz + n0, lda);
-      wmma::mma_sync(acc, af, bf, acc);
-      wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        atomicAdd(dw + (size_t)(m0 + e / 16) * H + n0 + e % 16, st[e]);
-      __syncwarp();
-    }
-  } else {
-    constexpr int TM = tile_rows(false);
-    for (int i = threadIdx.x; i < H * H; i += THREADS) {
-      const int m = i / H, n = i - m * H;
-      float s = 0.0f;
-      for (int r = 0; r < TM; ++r) s = fmaf(h[(size_t)r * lda + m], dz[(size_t)r * lda + n], s);
-      atomicAdd(dw + i, s);
-    }
-  }
-}
-
-// dh (TM x H, float32) = dz @ W^T.
-template <bool BF16, typename act_t>
-__device__ void input_grad(const act_t* dz, const act_t* w, float* dh, int H, int lda) {
-  if constexpr (BF16) {
-    const int warp = threadIdx.x / 32;
-    for (int ct = warp; ct < H / 16; ct += WARPS) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int k = 0; k < H; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-        wmma::load_matrix_sync(af, dz + k, lda);
-        wmma::load_matrix_sync(bf, w + (size_t)ct * 16 * H + k, H);  // B(k, n) = W[n][k]
-        wmma::mma_sync(acc, af, bf, acc);
-      }
-      wmma::store_matrix_sync(dh + ct * 16, acc, H, wmma::mem_row_major);
-    }
-  } else {
-    constexpr int TM = tile_rows(false);
-    for (int i = threadIdx.x; i < TM * H; i += THREADS) {
-      const int r = i / H, n = i - r * H;
-      const float* x = dz + (size_t)r * lda;
-      const float* wn = w + (size_t)n * H;
-      float s = 0.0f;
-      for (int k = 0; k < H; ++k) s = fmaf(x[k], wn[k], s);
-      dh[i] = s;
-    }
-  }
-}
-
 template <bool FILM, bool BF16, bool FAST, bool WGRAD>
 __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
   using act_t = typename std::conditional<BF16, __nv_bfloat16, float>::type;
@@ -292,6 +189,13 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
   for (int t = 0; t < g.tiles_per_cta; ++t) {
     const int p0 = (chunk * g.tiles_per_cta + t) * TM;
     if (p0 >= g.P) break;  // the same for every thread of the CTA
+    // this tile's h and dz of product `layer`, for the weight-gradient GEMM
+    auto scratch_rows = [&](const act_t* h, const act_t* dz_tile, int layer) {
+      const size_t at = (((size_t)layer * gridDim.y + b) * g.P + p0) * H;
+      const int valid = min(TM, g.P - p0);
+      store_rows(h, static_cast<act_t*>(g.sc_h) + at, valid, H, lda);
+      store_rows(dz_tile, static_cast<act_t*>(g.sc_dz) + at, valid, H, lda);
+    };
     for (int i = threadIdx.x; i < TM * K_PAD; i += THREADS) {
       const int r = i / K_PAD, k = i % K_PAD, p = p0 + r;
       const bool in = p < g.P;
@@ -312,10 +216,14 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
     __syncthreads();
     for (int l = 1; l <= n_mm; ++l) {
       const act_t* w = ws + (size_t)(l - 1) * H * H;
+      const act_t* hin = hs + (size_t)(l - 1) * TM * lda;
+      auto epi = [&](int r, int c, float acc) {
+        store_act<FILM, FAST, TM>(g, b, l, r, c, acc, hs, keep, lda);
+      };
       if constexpr (BF16) {
-        fwd_layer_bf16<FILM, FAST>(g, b, l, w, hs, keep, stage, lda);
+        hidden_layer_bf16(hin, w, stage, H, lda, epi);
       } else {
-        fwd_layer_f32<FILM, FAST>(g, b, l, w, hs, keep, lda);
+        hidden_layer_f32<TM>(hin, w, H, lda, epi);
       }
       __syncthreads();
     }
@@ -360,8 +268,7 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
           if constexpr (WGRAD) wacc[(size_t)i * H + n] += sb;
         }
         __syncthreads();
-        if constexpr (WGRAD)
-          weight_grad<BF16>(hs + (size_t)i * TM * lda, dz, g.dws + (size_t)i * H * H, stage, H, lda);
+        if constexpr (WGRAD) scratch_rows(hs + (size_t)i * TM * lda, dz, i);
         input_grad<BF16>(dz, ws + (size_t)i * H * H, dh, H, lda);
         __syncthreads();
       }
@@ -417,9 +324,7 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
         }
         __syncthreads();
         if (i > 0) {
-          if constexpr (WGRAD)
-            weight_grad<BF16>(hs + (size_t)(i - 1) * TM * lda, dz,
-                              g.dws + (size_t)(i - 1) * H * H, stage, H, lda);
+          if constexpr (WGRAD) scratch_rows(hs + (size_t)(i - 1) * TM * lda, dz, i - 1);
           input_grad<BF16>(dz, ws + (size_t)(i - 1) * H * H, dh, H, lda);
           __syncthreads();
         }
@@ -430,20 +335,10 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
   float* part = g.part + ((size_t)b * g.n_chunks + chunk) * n_img;
   for (int i = threadIdx.x; i < n_img; i += THREADS) part[i] = img[i];
   if constexpr (WGRAD) {
-    for (int i = threadIdx.x; i < n_bs * H; i += THREADS) atomicAdd(g.dbs + i, wacc[i]);
-    for (int i = threadIdx.x; i < H * C_PAD; i += THREADS) atomicAdd(g.dwf + i, dwf_acc[i]);
-    if (threadIdx.x < C_PAD) atomicAdd(g.dbf + threadIdx.x, dbf_acc[threadIdx.x]);
+    const int n_w = weight_values(FILM, H, n_mm);
+    float* part_w = g.part_w + ((size_t)b * g.n_chunks + chunk) * n_w;
+    for (int i = threadIdx.x; i < n_w; i += THREADS) part_w[i] = wacc[i];
   }
-}
-
-// out[b][j] = sum over chunks, in chunk order, of part[b][chunk][j].
-__global__ void sum_chunks(const float* part, float* out, int n_chunks, int n_img) {
-  const int b = blockIdx.y, j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_img) return;
-  const float* p = part + (size_t)b * n_chunks * n_img + j;
-  float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s += p[(size_t)c * n_img];
-  out[(size_t)b * n_img + j] = s;
 }
 
 using KernelFn = void (*)(Args);
@@ -454,8 +349,19 @@ KernelFn pick(int fast, int wgrad) {
   return wgrad ? trunk_bwd<FILM, BF16, false, true> : trunk_bwd<FILM, BF16, false, false>;
 }
 
+// Work space and results of the weight gradients (all null without them):
+// out_w receives dbs | dWf | dbf, dws the H x H gradients.
+struct WeightGrads {
+  float* out_w;
+  float* part_dws;  // (n_wchunks, n_mm, H, H) split-K partials
+  float* dws;       // (n_mm, H, H)
+  int rows_per_chunk, n_wchunks;
+};
+
 template <bool FILM>
-int launch(const Args& g, int batch, int bf16, int fast, int wgrad, float* out, void* stream) {
+int launch(const Args& g, int batch, int bf16, int fast, const WeightGrads* wg, float* out,
+           void* stream) {
+  const int wgrad = wg != nullptr;
   const KernelFn kern = bf16 ? pick<FILM, true>(fast, wgrad) : pick<FILM, false>(fast, wgrad);
   const size_t smem = layout(FILM, bf16 != 0, g.H, g.n_mm).total;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,9 +371,14 @@ int launch(const Args& g, int batch, int bf16, int fast, int wgrad, float* out, 
   kern<<<dim3(g.n_chunks, batch), THREADS, smem, s>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_img = image_values(FILM, g.H, g.n_mm);
-  sum_chunks<<<dim3((n_img + 255) / 256, batch), 256, 0, s>>>(g.part, out, g.n_chunks, n_img);
-  return (int)cudaGetLastError();
+  err = launch_reduce(g.part, out, batch, g.n_chunks, image_values(FILM, g.H, g.n_mm), s);
+  if (err != cudaSuccess || !wgrad) return (int)err;
+  err = launch_reduce(g.part_w, wg->out_w, 1, batch * g.n_chunks,
+                      weight_values(FILM, g.H, g.n_mm), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_weight_grads(bf16 != 0, g.sc_h, g.sc_dz, wg->part_dws, wg->dws,
+                                  (long long)batch * g.P, wg->rows_per_chunk, wg->n_wchunks,
+                                  g.H, g.n_mm, s);
 }
 
 }  // namespace
@@ -475,28 +386,37 @@ int launch(const Args& g, int batch, int bf16, int fast, int wgrad, float* out, 
 extern "C" {
 
 // Cond-by-Concat backward (replaces _bwd_kernel). `out` (B, 9H) receives
-// dA (B, 8, H) | db0 (B, H); with wgrad, dws/dbs/dwf/dbf (zeroed by the
-// caller) receive the weight gradients. Returns a cudaError_t.
+// dA (B, 8, H) | db0 (B, H). With wgrad, out_w receives dbs (L, H) |
+// dWf (H, 8) | dbf (8) and dws (L, H, H) the hidden weight gradients;
+// part_w, sc_h, sc_dz and part_dws are their work space (null without
+// wgrad). Returns a cudaError_t.
 int reni_siren_bwd(const float* d, long long d_bstride, const float* a, const float* b0,
                    const void* ws, const float* bs, const void* wf, const float* g,
-                   float* part, float* out, float* dws, float* dbs, float* dwf, float* dbf,
-                   int batch, int P, int H, int n_hidden, int tiles_per_cta, int n_chunks,
-                   float omega0, float omega_h, int bf16, int fast, int wgrad, void* stream) {
-  const Args args{d, d_bstride, a, b0, ws, bs, wf, nullptr, nullptr, g, part, dws, dbs, dwf,
-                  dbf, P, H, n_hidden, tiles_per_cta, n_chunks, omega0, omega_h};
-  return launch<false>(args, batch, bf16, fast, wgrad, out, stream);
+                   float* part, float* out, float* part_w, float* out_w, void* sc_h,
+                   void* sc_dz, float* part_dws, float* dws, int batch, int P, int H,
+                   int n_hidden, int tiles_per_cta, int n_chunks, int rows_per_chunk,
+                   int n_wchunks, float omega0, float omega_h, int bf16, int fast, int wgrad,
+                   void* stream) {
+  const Args args{d, d_bstride, a, b0, ws, bs, wf, nullptr, nullptr, g, part, part_w, sc_h,
+                  sc_dz, P, H, n_hidden, tiles_per_cta, n_chunks, omega0, omega_h};
+  const WeightGrads wg{out_w, part_dws, dws, rows_per_chunk, n_wchunks};
+  return launch<false>(args, batch, bf16, fast, wgrad ? &wg : nullptr, out, stream);
 }
 
 // FiLM backward (replaces _film_bwd_kernel); n_trunk = T >= 1. `out`
-// (B, (8 + 2T) H) receives dA0 | dfreqs | dphases. Returns a cudaError_t.
+// (B, (8 + 2T) H) receives dA0 | dfreqs | dphases; with wgrad, out_w
+// receives dbs (T, H) | dWf | dbf and dws (T - 1, H, H), as above. Returns a
+// cudaError_t.
 int reni_film_bwd(const float* d, long long d_bstride, const float* a0, const void* ws,
                   const float* bs, const void* wf, const float* fr, const float* ph,
-                  const float* g, float* part, float* out, float* dws, float* dbs, float* dwf,
-                  float* dbf, int batch, int P, int H, int n_trunk, int tiles_per_cta,
-                  int n_chunks, int bf16, int fast, int wgrad, void* stream) {
-  const Args args{d, d_bstride, a0, nullptr, ws, bs, wf, fr, ph, g, part, dws, dbs, dwf,
-                  dbf, P, H, n_trunk - 1, tiles_per_cta, n_chunks, 0.0f, 0.0f};
-  return launch<true>(args, batch, bf16, fast, wgrad, out, stream);
+                  const float* g, float* part, float* out, float* part_w, float* out_w,
+                  void* sc_h, void* sc_dz, float* part_dws, float* dws, int batch, int P, int H,
+                  int n_trunk, int tiles_per_cta, int n_chunks, int rows_per_chunk,
+                  int n_wchunks, int bf16, int fast, int wgrad, void* stream) {
+  const Args args{d, d_bstride, a0, nullptr, ws, bs, wf, fr, ph, g, part, part_w, sc_h,
+                  sc_dz, P, H, n_trunk - 1, tiles_per_cta, n_chunks, 0.0f, 0.0f};
+  const WeightGrads wg{out_w, part_dws, dws, rows_per_chunk, n_wchunks};
+  return launch<true>(args, batch, bf16, fast, wgrad ? &wg : nullptr, out, stream);
 }
 
 // Bytes of shared memory one CTA takes (kernels/siren_bwd.py mirrors this).

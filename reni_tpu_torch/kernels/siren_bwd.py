@@ -16,7 +16,9 @@ decoder and needs only the per-image gradients.
 
 ``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda`` launch the hand-written
 kernel of ``csrc/siren_bwd.cu`` (CUDA tensors only) and count their calls in
-``.launches``. ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference``
+``.launches``. Every sum has a fixed order (per-CTA slots added in slot
+order; dWs through a device scratch and a split-K product,
+``csrc/siren_chain.cuh``), so two calls on the same inputs give the same bits. ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference``
 are their plain PyTorch versions, written step by step like the TPU kernel:
 with the bf16 trunk both operands of every product are rounded to bf16 (the
 cotangents ``g`` and ``dz`` too) and summed in float32, which autograd of the
@@ -26,6 +28,7 @@ plain forward would not do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -42,8 +45,10 @@ from reni_tpu_torch.kernels.siren_fwd import (
     _weights,
 )
 
-WARPS = 8  # csrc/siren_bwd.cu THREADS / 32
+WARPS = 8  # csrc/siren_chain.cuh THREADS / 32
 CTAS_PER_SM = 4  # CTAs the launch aims for per SM (one is resident at a time)
+WGRAD_CTAS_PER_SM = 6  # the same for the split-K weight-gradient product
+WGRAD_TILE = {"bfloat16": 128, "float32": 64}  # its output tile (WG_BM, WF_BM)
 
 
 def tile_rows(trunk: str) -> int:
@@ -119,11 +124,9 @@ def _image_dot(d: torch.Tensor, y: torch.Tensor, trunk: str) -> torch.Tensor:
     return torch.einsum("bpk,bph->bkh", _rounded(d, trunk), _rounded(y, trunk))
 
 
-def siren_trunk_bwd_reference(
-    d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
-    fast_sine=False, weight_grads=True,
-):
-    """Plain version of the Cond-by-Concat backward kernel (``_bwd_kernel``)."""
+def siren_forward_keep(d_pad, a, b0, ws, bs, *, omega0, omega_h, trunk, fast_sine):
+    """The Cond-by-Concat forward with the joint sincos -> (activations
+    [h_0..h_L], cos factors [c_0..c_L]), each (B, P, H)."""
     sincos = sincos_fns(fast_sine)
     h, c = sincos(omega0 * (_matmul(d_pad, a, trunk) + b0))
     hs, cs = [h], [c]
@@ -131,6 +134,12 @@ def siren_trunk_bwd_reference(
         h, c = sincos(omega_h * (_matmul(hs[-1], ws[i], trunk) + bs[i]))
         hs.append(h)
         cs.append(c)
+    return hs, cs
+
+
+def siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, *, omega0, omega_h, trunk, weight_grads):
+    """The backward chain from the output cotangent ``g`` (B, P, 8) and the
+    kept activations -> (dA, db0, dWs, dbs, dWf, dbf)."""
     dws = dbs = dwf = dbf = None
     if weight_grads:
         dws, dbs = torch.zeros_like(ws), torch.zeros_like(bs)
@@ -147,6 +156,20 @@ def siren_trunk_bwd_reference(
     da = _image_dot(d_pad, dz0, trunk)
     db0 = dz0.sum(1, keepdim=True)
     return da, db0, dws, dbs, dwf, dbf
+
+
+def siren_trunk_bwd_reference(
+    d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
+    fast_sine=False, weight_grads=True,
+):
+    """Plain version of the Cond-by-Concat backward kernel (``_bwd_kernel``)."""
+    hs, cs = siren_forward_keep(
+        d_pad, a, b0, ws, bs, omega0=omega0, omega_h=omega_h, trunk=trunk, fast_sine=fast_sine
+    )
+    return siren_chain_bwd(
+        d_pad, ws, bs, wf, hs, cs, g, omega0=omega0, omega_h=omega_h, trunk=trunk,
+        weight_grads=weight_grads,
+    )
 
 
 def film_trunk_bwd_reference(
@@ -200,13 +223,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "reni_siren_bwd": [
-        _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _I, _I, _P,
+        _P, ctypes.c_longlong, *[_P] * 14, *[_I] * 8, ctypes.c_float, ctypes.c_float,
+        _I, _I, _I, _P,
     ],
-    "reni_film_bwd": [
-        _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-    ],
+    "reni_film_bwd": [_P, ctypes.c_longlong, *[_P] * 15, *[_I] * 11, _P],
     "reni_bwd_smem_bytes": [_I, _I, _I, _I],
 }
 
@@ -235,14 +255,69 @@ def launch_grid(npix: int, batch: int, trunk: str, device) -> tuple[int, int]:
     return per, math.ceil(n_tiles / per)
 
 
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
+def wgrad_chunks(rows: int, hidden: int, n_mm: int, trunk: str, device) -> tuple[int, int]:
+    """(rows per chunk, chunks) of the split-K weight-gradient product: about
+    WGRAD_CTAS_PER_SM CTAs per SM over its (output tiles, chunks, layers)
+    grid; a chunk is a multiple of 64 rows."""
+    tiles = math.ceil(hidden / WGRAD_TILE[trunk]) ** 2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, WGRAD_CTAS_PER_SM * sms // max(1, tiles * n_mm))
+    per = math.ceil(math.ceil(rows / want) / 64) * 64
+    return per, math.ceil(rows / per)
+
+
+@dataclasses.dataclass
+class WeightGradWork:
+    """Work space and results of the weight gradients of one call: per-CTA
+    slots and their sum ``out_w`` (small sums, ``n_w`` values), the (n_mm,
+    rows, H) scratches of activations and cotangents in the trunk's dtype,
+    the split-K partials and their sum ``dws`` (n_mm, H, H)."""
+
+    part_w: torch.Tensor
+    out_w: torch.Tensor
+    sc_h: torch.Tensor
+    sc_dz: torch.Tensor
+    part_dws: torch.Tensor
+    dws: torch.Tensor
+    rows_per_chunk: int
+    n_wchunks: int
+
+    @classmethod
+    def allocate(cls, trunk, n_mm, rows, hidden, n_ctas, n_w, device):
+        f32 = dict(dtype=torch.float32, device=device)
+        act = torch.bfloat16 if trunk == "bfloat16" else torch.float32
+        per, chunks = wgrad_chunks(rows, hidden, n_mm, trunk, device)
+        return cls(
+            part_w=torch.empty((n_ctas, n_w), **f32),
+            out_w=torch.empty((n_w,), **f32),
+            sc_h=torch.empty((n_mm, rows, hidden), dtype=act, device=device),
+            sc_dz=torch.empty((n_mm, rows, hidden), dtype=act, device=device),
+            part_dws=torch.empty((chunks, n_mm, hidden, hidden), **f32),
+            dws=torch.empty((n_mm, hidden, hidden), **f32),
+            rows_per_chunk=per,
+            n_wchunks=chunks,
+        )
+
+    def pointers(self) -> tuple:
+        """The six buffers as the C interface takes them."""
+        return tuple(
+            t.data_ptr()
+            for t in (self.part_w, self.out_w, self.sc_h, self.sc_dz, self.part_dws, self.dws)
+        )
+
+    def small_sums(self, n_bs: int, hidden: int, skip: int = 0):
+        """(dbs (n_bs, H), dWf (H, 8), dbf (1, 8)) views of ``out_w`` past
+        its first ``skip`` values."""
+        o = self.out_w[skip:]
+        dbs = o[: n_bs * hidden].view(n_bs, hidden)
+        dwf = o[n_bs * hidden : n_bs * hidden + hidden * C_PAD].view(hidden, C_PAD)
+        return dbs, dwf, o[-C_PAD:].view(1, C_PAD)
 
 
 def _prepare(kind, film, trunk, d_pad, batch, hidden, n_mm, g, weights, weight_grads):
     """Validate the operands and allocate the outputs: (d, d batch stride,
     float32 cotangent, tiles per CTA, CTAs per image, partial-sum buffer,
-    per-image output (B, n_img), weight gradients or Nones)."""
+    per-image output (B, n_img), weight-gradient work space or None)."""
     d, d_bstride = _cuda_operands(kind, trunk, d_pad, batch, (*weights, g))
     npix = d.shape[1]
     if tuple(g.shape) != (batch, npix, C_PAD):
@@ -255,13 +330,21 @@ def _prepare(kind, film, trunk, d_pad, batch, hidden, n_mm, g, weights, weight_g
     n_img = image_values(film, hidden, n_mm)
     part = torch.empty((batch, chunks, n_img), dtype=torch.float32, device=dev)
     out = torch.empty((batch, n_img), dtype=torch.float32, device=dev)
-    ws, bs, wf, bf = weights[-4:]
-    wgrads = (None,) * 4
+    work = None
     if weight_grads:
-        wgrads = tuple(
-            torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in (ws, bs, wf, bf)
+        n_bs = n_mm + 1 if film else n_mm
+        n_w = n_bs * hidden + hidden * C_PAD + C_PAD
+        work = WeightGradWork.allocate(
+            trunk, n_mm, batch * npix, hidden, batch * chunks, n_w, dev
         )
-    return d, d_bstride, _f32(g), tiles, chunks, part, out, wgrads
+    return d, d_bstride, _f32(g), tiles, chunks, part, out, work
+
+
+def _work_args(work: WeightGradWork | None) -> tuple[tuple, tuple]:
+    """(the six pointers, (rows per chunk, chunks)) for the C interface."""
+    if work is None:
+        return (None,) * 6, (0, 0)
+    return work.pointers(), (work.rows_per_chunk, work.n_wchunks)
 
 
 def _check(err: int, lib, kind: str) -> None:
@@ -277,10 +360,11 @@ def siren_trunk_bwd_cuda(
     """Cond-by-Concat backward on the card (``csrc/siren_bwd.cu``); returns
     what ``siren_trunk_bwd_reference`` returns."""
     batch, hidden, n_mm = a.shape[0], a.shape[-1], ws.shape[0]
-    d, d_bstride, g, tiles, chunks, part, out, wgrads = _prepare(
+    d, d_bstride, g, tiles, chunks, part, out, work = _prepare(
         "siren_bwd", False, trunk, d_pad, batch, hidden, n_mm, g,
         (a, b0, ws, bs, wf, bf), weight_grads,
     )
+    pointers, wchunks = _work_args(work)
     a, b0, bs = _f32(a), _f32(b0), _f32(bs)
     ws, wf = _weights(ws, trunk), _weights(wf, trunk)
     lib = library()
@@ -289,15 +373,17 @@ def siren_trunk_bwd_cuda(
         err = lib.reni_siren_bwd(
             d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr(), ws.data_ptr(),
             bs.data_ptr(), wf.data_ptr(), g.data_ptr(), part.data_ptr(),
-            out.data_ptr(), *map(_ptr, wgrads), batch, d.shape[1], hidden, n_mm,
-            tiles, chunks, float(omega0), float(omega_h), int(trunk == "bfloat16"),
+            out.data_ptr(), *pointers, batch, d.shape[1], hidden, n_mm,
+            tiles, chunks, *wchunks, float(omega0), float(omega_h), int(trunk == "bfloat16"),
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
     _check(err, lib, "siren_bwd")
     siren_trunk_bwd_cuda.launches += 1
     da = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
     db0 = out[:, K_PAD * hidden :].view(batch, 1, hidden)
-    return (da, db0, *wgrads)
+    if work is None:
+        return da, db0, None, None, None, None
+    return (da, db0, work.dws, *work.small_sums(n_mm, hidden))
 
 
 siren_trunk_bwd_cuda.launches = 0
@@ -310,10 +396,11 @@ def film_trunk_bwd_cuda(
     """FiLM backward on the card (``csrc/siren_bwd.cu``); returns what
     ``film_trunk_bwd_reference`` returns."""
     batch, hidden, n_trunk = a0.shape[0], a0.shape[-1], bs.shape[0]
-    d, d_bstride, g, tiles, chunks, part, out, wgrads = _prepare(
+    d, d_bstride, g, tiles, chunks, part, out, work = _prepare(
         "film_bwd", True, trunk, d_pad, batch, hidden, n_trunk - 1, g,
         (a0, fr, ph, ws, bs, wf, bf), weight_grads,
     )
+    pointers, wchunks = _work_args(work)
     a0, bs, fr, ph = _f32(a0), _f32(bs), _f32(fr), _f32(ph)
     ws, wf = _weights(ws, trunk), _weights(wf, trunk)
     lib = library()
@@ -322,8 +409,8 @@ def film_trunk_bwd_cuda(
         err = lib.reni_film_bwd(
             d.data_ptr(), d_bstride, a0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
             wf.data_ptr(), fr.data_ptr(), ph.data_ptr(), g.data_ptr(),
-            part.data_ptr(), out.data_ptr(), *map(_ptr, wgrads), batch, d.shape[1],
-            hidden, n_trunk, tiles, chunks, int(trunk == "bfloat16"),
+            part.data_ptr(), out.data_ptr(), *pointers, batch, d.shape[1],
+            hidden, n_trunk, tiles, chunks, *wchunks, int(trunk == "bfloat16"),
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
     _check(err, lib, "film_bwd")
@@ -332,8 +419,10 @@ def film_trunk_bwd_cuda(
     da0 = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
     dfr = out[:, K_PAD * hidden : K_PAD * hidden + th].view(batch, 1, th)
     dph = out[:, K_PAD * hidden + th :].view(batch, 1, th)
-    dws, dbs, dwf, dbf = wgrads
-    return da0, dws, dbs, dwf, dbf, dfr, dph
+    if work is None:
+        return da0, None, None, None, None, dfr, dph
+    dbs, dwf, dbf = work.small_sums(n_trunk, hidden)
+    return da0, work.dws, dbs, dwf, dbf, dfr, dph
 
 
 film_trunk_bwd_cuda.launches = 0

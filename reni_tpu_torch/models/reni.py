@@ -1,5 +1,6 @@
-"""RENI model facade (counterpart of ``reni_tpu/models/reni.py``): decoding,
-latent tables and the trainable-parameter filter.
+"""RENI model facade (counterpart of ``reni_tpu/models/reni.py``): init,
+decoding, latent tables and sampling, the train-step dispatch and the
+trainable-parameter filter.
 
 Parameters are the JAX package's nested dict, holding tensors:
 
@@ -11,10 +12,12 @@ Parameters are the JAX package's nested dict, holding tensors:
 ``RENIConfig`` has the JAX package's field names, so
 ``RENIConfig(**checkpoint_json["model_config"])`` loads any checkpoint.
 ``use_pallas`` keeps its meaning, "take the fused kernel": here the CUDA
-kernels of ``kernels/siren_fwd.py`` and, for gradients, ``kernels/siren_bwd.py``.
-Latent initialisation matches the JAX package (Z / mu ~ N(0, 1), log_var ~
-N(-5, 1); zeros for Z / mu under ``fixed_decoder``), drawn from an explicit
-``torch.Generator``.
+kernels of ``kernels/siren_fwd.py``, for gradients ``kernels/siren_bwd.py``,
+and for the FIT_DECODER objective ``kernels/siren_step.py``.
+Initialisation matches the JAX package in distribution (decoder bounds as
+``siren.init_siren``; Z / mu ~ N(0, 1), log_var ~ N(-5, 1); zeros for Z / mu
+under ``fixed_decoder``), drawn on the CPU from an explicit
+``torch.Generator``; the numbers are torch's, not JAX's.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ from typing import Any
 import torch
 
 from reni_tpu_torch.kernels.siren_bwd import bwd_unsupported_reason
+from reni_tpu_torch.core import encodings
 from reni_tpu_torch.kernels.siren_fwd import (
     fused_apply,
     fused_film_apply,
     unsupported_reason,
 )
+from reni_tpu_torch.kernels.siren_step import fused_step_mse, step_unsupported_reason
 from reni_tpu_torch.models import film, siren
 from reni_tpu_torch.params import map_tree, tree_leaves
 from reni_tpu_torch.utils.device import resolve_device
@@ -86,6 +91,37 @@ class RENIModel:
     def __init__(self, config: RENIConfig):
         self.config = config
 
+    def init_decoder(self, generator: torch.Generator, device=None) -> Params:
+        """A fresh Cond-by-Concat decoder, drawn on the CPU from ``generator``
+        and moved to ``device``. FiLM's init arrives with FiLM training
+        (ROADMAP.md Queue A-3)."""
+        cfg = self.config
+        if cfg.is_film:
+            raise NotImplementedError(
+                "FiLM decoder init is not ported yet: ROADMAP.md Queue A-3 "
+                "(init_film_siren, init_mapping_network)"
+            )
+        dev = resolve_device(device)
+        tree = siren.init_siren(
+            generator,
+            encodings.concat_in_features(cfg.equivariance, cfg.latent_dim),
+            cfg.hidden_features,
+            cfg.hidden_layers,
+            cfg.out_features,
+            cfg.last_layer_linear,
+            cfg.first_omega_0,
+            cfg.hidden_omega_0,
+            first_layer_init_scale=cfg.first_layer_init_scale,
+        )
+        return map_tree(lambda t: t.to(dev), tree)
+
+    def init(self, generator: torch.Generator, dataset_size: int, device=None) -> Params:
+        """Fresh decoder and latent table (the decoder is drawn first)."""
+        return {
+            "decoder": self.init_decoder(generator, device=device),
+            "latents": self.init_latents(generator, dataset_size, device=device),
+        }
+
     def init_latents(
         self, generator: torch.Generator, dataset_size: int, device=None,
         dtype=torch.float32,
@@ -123,6 +159,26 @@ class RENIModel:
             else params["latents"]["Z"]
         )
         return table if idx is None else table[self._as_index(idx, table.device)]
+
+    def sample_latent(
+        self, params: Params, idx, generator: torch.Generator | None = None, *, noise=None
+    ):
+        """Reparameterised sample (VAD): (Z = mu + eps * exp(log_var / 2), mu,
+        log_var) for the rows ``idx``. ``eps`` ~ N(0, 1) is drawn on the CPU
+        from ``generator`` (the same numbers on any device), or is ``noise``
+        when given (the tests feed the noise JAX drew). An AD returns
+        (Z, Z, zeros)."""
+        if not self.config.is_variational:
+            table = params["latents"]["Z"]
+            z = table[self._as_index(idx, table.device)]
+            return z, z, torch.zeros_like(z)
+        table = params["latents"]["mu"]
+        idx = self._as_index(idx, table.device)
+        mu, log_var = table[idx], params["latents"]["log_var"][idx]
+        std = torch.exp(0.5 * log_var)
+        if noise is None:
+            noise = torch.randn(std.shape, generator=generator, dtype=std.dtype)
+        return mu + noise.to(std.device, std.dtype) * std, mu, log_var
 
     def apply(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
         """Decode radiance at directions D given latent codes Z.
@@ -219,11 +275,59 @@ class RENIModel:
             fast_sine=cfg.fast_sine,
         )
 
-    def apply_idx(self, params: Params, idx, D) -> torch.Tensor:
-        """Decode dataset rows ``idx`` with their deterministic latents (mu
-        for a VAD, Z for an AD). Sampling a VAD's latents for FIT_DECODER
-        arrives with that slice."""
-        return self.apply(params, self.latents(params, idx), D)
+    def fused_step_reason(self, batch: int, npix: int, d_batch: int = 1) -> str | None:
+        """Why the train-step kernel (``kernels.siren_step.fused_step_mse``)
+        cannot serve a FIT_DECODER step of ``batch`` images x ``npix``
+        directions, with a direction grid of batch ``d_batch``: None means
+        it can. Every guard of ``apply`` holds here too, then the step
+        kernel's own limits."""
+        cfg = self.config
+        if not cfg.use_pallas:
+            return "use_pallas off"
+        if cfg.is_film:
+            return "FiLM's train-step kernel is not ported yet (ROADMAP.md Queue B-4)"
+        if not cfg.last_layer_linear:
+            return "last_layer_linear=False (the kernel's final layer is linear)"
+        if d_batch not in (1, batch):
+            return f"direction grid batch {d_batch} matches neither 1 nor Z batch {batch}"
+        return unsupported_reason(
+            npix, cfg.hidden_features, batch=batch, trunk=cfg.pallas_trunk
+        ) or step_unsupported_reason(cfg.hidden_features, cfg.hidden_layers, cfg.pallas_trunk)
+
+    def fused_train_mse(self, params: Params, Z, D, targets, sineweight, bmask):
+        """``losses.weighted_mse(self.apply(params, Z, D), targets, sineweight
+        * bmask)`` through the train-step kernel (value and every gradient
+        in one call). Callers must have checked ``fused_step_reason`` is
+        None."""
+        cfg = self.config
+        return fused_step_mse(
+            params["decoder"],
+            cfg.equivariance,
+            cfg.latent_dim,
+            Z,
+            D,
+            targets,
+            sineweight,
+            bmask,
+            hidden_layers=cfg.hidden_layers,
+            hidden_features=cfg.hidden_features,
+            out_features=cfg.out_features,
+            first_omega_0=cfg.first_omega_0,
+            hidden_omega_0=cfg.hidden_omega_0,
+            output_activation=cfg.output_activation,
+            trunk=cfg.pallas_trunk,
+            fast_sine=cfg.fast_sine,
+        )
+
+    def apply_idx(self, params: Params, idx, D, generator=None) -> torch.Tensor:
+        """Decode dataset rows ``idx``. For a VAD with a trainable decoder a
+        ``generator`` samples the latents; otherwise mu / Z are used."""
+        cfg = self.config
+        if cfg.is_variational and not cfg.fixed_decoder and generator is not None:
+            Z, _, _ = self.sample_latent(params, idx, generator)
+        else:
+            Z = self.latents(params, idx)
+        return self.apply(params, Z, D)
 
     def trainable_mask(self, params: Params) -> Params:
         """Tree of bools: which leaves the current task trains. Under

@@ -1,4 +1,5 @@
-"""SIREN trunk apply functions (counterpart of ``reni_tpu/models/siren.py``).
+"""SIREN trunk init and apply functions (counterpart of
+``reni_tpu/models/siren.py``).
 
 Weights follow the JAX package: ``y = x @ w + b`` with ``w`` of shape
 (in, out). Parameters are the same nested dict
@@ -16,6 +17,7 @@ weights stay in the canonical concat layout (``core.encodings``).
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -24,6 +26,57 @@ from reni_tpu_torch.core import encodings
 from reni_tpu_torch.core.fastmath import sine_fns
 
 Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _uniform(generator: torch.Generator, shape, bound: float, dtype=torch.float32):
+    """U(-bound, bound), drawn on the CPU from ``generator``."""
+    return (torch.rand(shape, generator=generator, dtype=dtype) * 2.0 - 1.0) * bound
+
+
+def init_linear(
+    generator: torch.Generator, in_features: int, out_features: int, w_bound: float
+) -> Params:
+    return {
+        "w": _uniform(generator, (in_features, out_features), w_bound),
+        "b": _uniform(generator, (out_features,), 1.0 / math.sqrt(in_features)),
+    }
+
+
+def init_siren(
+    generator: torch.Generator,
+    in_features: int,
+    hidden_features: int,
+    hidden_layers: int,
+    out_features: int,
+    last_layer_linear: bool,
+    first_omega_0: float,
+    hidden_omega_0: float,
+    first_layer_init_scale: float = 1.0,
+) -> Params:
+    """Initialise the SIREN stack on the CPU: 1 first sine layer,
+    ``hidden_layers`` hidden sine layers and a final layer. The first-layer
+    bound is ``first_layer_init_scale / in``, the others
+    ``sqrt(6 / hidden) / hidden_omega_0``; biases ``1 / sqrt(in)``."""
+    layers = [
+        init_linear(
+            generator, in_features, hidden_features, first_layer_init_scale / in_features
+        )
+    ]
+    hidden_bound = math.sqrt(6.0 / hidden_features) / hidden_omega_0
+    for _ in range(hidden_layers):
+        layers.append(init_linear(generator, hidden_features, hidden_features, hidden_bound))
+    final = init_linear(generator, hidden_features, out_features, hidden_bound)
+    return {"layers": layers, "final": final}
+
+
+# ---------------------------------------------------------------------------
+# first-layer weight split
+# ---------------------------------------------------------------------------
 
 
 def split_first_layer(

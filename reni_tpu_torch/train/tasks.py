@@ -1,4 +1,5 @@
-"""Training tasks (counterpart of ``reni_tpu/train/tasks.py``): FIT_LATENT.
+"""Training tasks (counterpart of ``reni_tpu/train/tasks.py``): FIT_DECODER
+and FIT_LATENT.
 
 The JAX package runs each resolution stage as one compiled ``lax.scan`` over
 epochs of a ``lax.scan`` over batches; here a plain Python loop runs the
@@ -12,8 +13,13 @@ Padded rows contribute exactly zero to every loss term (their sineweight
 rows, Z rows and per-sample cosine term are multiplied by the batch mask),
 which reproduces the reference's drop_last=False sum-over-batch semantics.
 
-FIT_DECODER and FIT_INVERSE, the mesh, streaming, callbacks and resume arrive
-with later slices (ROADMAP.md Queue A); their arguments raise here.
+FIT_DECODER's MSE term runs through the train-step kernel
+(``kernels/siren_step.py``: value and every gradient in one call) where
+``RENIModel.fused_step_reason`` allows it, else through ``RENIModel.apply``
+and autograd; a note says which route a shape took.
+
+FIT_INVERSE, the mesh, streaming, callbacks and resume arrive with later
+slices (ROADMAP.md Queue A); their arguments raise here.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 
 from reni_tpu_torch.core import sphere
 from reni_tpu_torch.params import map_tree, tree_leaves
-from reni_tpu_torch.models.reni import RENIModel
+from reni_tpu_torch.models.reni import RENIModel, _note_trunk_path
 from reni_tpu_torch.train import losses
 from reni_tpu_torch.train.optim import (
     OptimConfig,
@@ -154,6 +160,67 @@ def make_batches(dataset_size: int, batch_size: int) -> tuple[np.ndarray, np.nda
 # ---------------------------------------------------------------------------
 
 
+def make_fit_decoder_step(
+    model: RENIModel,
+    directions: torch.Tensor,
+    sineweight: torch.Tensor,
+    *,
+    kld_weighting: float,
+    latent_noise: Callable | None = None,
+) -> Callable:
+    """One FIT_DECODER update (decoder and latents train). Batch = (imgs
+    (B, P, 3), idx (B,), bmask (B,)); returns (state, metrics of 0-d tensors).
+
+    A VAD samples its latents with noise from the state's generator, or from
+    ``latent_noise(shape)`` when given (the tests feed the noise JAX drew);
+    mu and log_var of padded rows are masked out of the KLD term, which stays
+    outside the kernel. Where ``model.fused_step_reason`` is None the MSE
+    term and all its gradients come from the train-step kernel; otherwise
+    from ``model.apply`` and autograd (on the card, with ``use_pallas``, the
+    forward and backward kernels). Both routes compute the same loss."""
+    cfg = model.config
+    z_dims = 3 * cfg.latent_dim
+
+    def step(state: TrainState, batch):
+        imgs, idx, bmask = batch
+        B, npix = imgs.shape[0], directions.shape[1]
+        reason = model.fused_step_reason(B, npix, directions.shape[0])
+        where = f"on {imgs.device.type} for B={B}, npix={npix}"
+        if reason is None:
+            _note_trunk_path(f"fused train step {where}")
+        elif cfg.use_pallas:
+            _note_trunk_path(
+                f"FIT_DECODER through RENIModel.apply and autograd (train-step kernel "
+                f"declined: {reason}) {where}"
+            )
+        params = state.params
+        metrics = {}
+        if cfg.is_variational:
+            noise = None if latent_noise is None else latent_noise((B, cfg.latent_dim, 3))
+            Z, mu, log_var = model.sample_latent(params, idx, state.generator, noise=noise)
+            mu = mu * bmask[:, None, None]
+            log_var = log_var * bmask[:, None, None]
+        else:
+            Z = model.latents(params, idx)
+        if reason is None:
+            mse = model.fused_train_mse(params, Z, directions, imgs, sineweight, bmask)
+        else:
+            out = model.apply(params, Z, directions)
+            mse = losses.weighted_mse(out, imgs, sineweight * bmask[:, None, None])
+        loss = mse
+        if cfg.is_variational:
+            kl = kld_weighting * losses.kld(mu, log_var, z_dims)
+            loss = mse + kl
+            metrics = {"mse_loss": mse, "kld_loss": kl}
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        metrics = {"loss": loss, **metrics}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 def make_fit_latent_step(
     model: RENIModel,
     directions: torch.Tensor,
@@ -240,6 +307,7 @@ def fit_task(
     *,
     mask_path: str | None = None,
     step_builder: Callable | None = None,
+    latent_noise: Callable | None = None,
     mesh=None,
     callback_every: int | None = None,
     callback: Callable | None = None,
@@ -259,9 +327,10 @@ def fit_task(
     the training device and in the training dtype (that of the latents).
     Directions, sineweights and the mask are built in float32, as the JAX
     package builds them; the sineweight is then cast to that dtype. ``step_builder(model,
-    directions, sineweight, res)`` replaces the task's step function. The
-    remaining arguments are those of later slices and raise
-    NotImplementedError unless left at their defaults.
+    directions, sineweight, res)`` replaces the task's step function.
+    ``latent_noise(shape)`` replaces the generator's noise in FIT_DECODER's
+    latent sampling. The remaining arguments are those of later slices and
+    raise NotImplementedError unless left at their defaults.
 
     Returns (params, metrics dict of (epochs,) arrays under the reference's
     keys ``{task}_{name}``)."""
@@ -276,10 +345,9 @@ def fit_task(
         if value != off:
             raise NotImplementedError(f"fit_task({name}=...) is not ported yet: {where}")
     task_cfg.validate()
-    if step_builder is None and task_cfg.task != "FIT_LATENT":
+    if step_builder is None and task_cfg.task not in ("FIT_DECODER", "FIT_LATENT"):
         raise NotImplementedError(
-            f"task {task_cfg.task} is not ported yet (FIT_DECODER: Queue A-2; "
-            "FIT_INVERSE: Queue A-8)"
+            f"task {task_cfg.task} is not ported yet (FIT_INVERSE: Queue A-8)"
         )
     batch_size = task_cfg.batch_size
     stages = task_cfg.resolution_stages()
@@ -303,6 +371,11 @@ def fit_task(
         sineweight = sineweight.to(dtype)
         if step_builder is not None:
             step_fn = step_builder(model, directions, sineweight, res)
+        elif task_cfg.task == "FIT_DECODER":
+            step_fn = make_fit_decoder_step(
+                model, directions, sineweight, kld_weighting=task_cfg.kld_weighting,
+                latent_noise=latent_noise,
+            )
         else:
             step_fn = make_fit_latent_step(
                 model, directions, sineweight,

@@ -1,5 +1,5 @@
-"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd and siren_bwd against
-their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd, siren_bwd and siren_step
+against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
 skips without one; this file imports no JAX, so it also runs on a machine
 without it:
 
@@ -15,6 +15,7 @@ import torch
 from reni_tpu_torch.core import encodings
 from reni_tpu_torch.kernels import siren_bwd as tb
 from reni_tpu_torch.kernels import siren_fwd as tk
+from reni_tpu_torch.kernels import siren_step as ts
 
 # bf16-trunk bars of the JAX package's test_fused_bf16_trunk_close
 BF16_MAX, BF16_MEAN = 0.05, 0.01
@@ -296,3 +297,183 @@ def test_model_apply_on_card_takes_kernel_or_raises(cuda, film):
         with torch.inference_mode():
             out = model.apply({"decoder": dec}, Z, D)
         assert wrap.launches == n0 + 1 and out.shape == (2, 18, 3)
+
+
+def test_bwd_weight_grads_bitwise_equal_across_calls(cuda):
+    """The weight gradients take no float atomics: two calls on the same
+    inputs give the same bits, with several CTAs per image and several
+    chunks of the split-K product per weight."""
+    rng = np.random.default_rng(24)
+    N, B, H, L, P = 5, 3, 128, 2, 264
+    for film in (False, True):
+        dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+        Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+        D = torch.nn.functional.normalize(torch.randn(1, P, 3, device=cuda), dim=-1)
+        ops = _pack(dec, "SO2", N, Z, D, film, H)
+        g = torch.randn(B, P, 8, device=cuda)
+        kw = dict(trunk="bfloat16", fast_sine=True, weight_grads=True)
+        if not film:
+            kw.update(omega0=30.0, omega_h=30.0)
+        assert tb.wgrad_chunks(B * P, H, L, "bfloat16", cuda)[1] >= 4
+        kernel = _bwd_pair(film)[0]
+        one, two = kernel(*ops, g, **kw), kernel(*ops, g, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(one, two):
+            assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the train-step kernel
+# ---------------------------------------------------------------------------
+
+STEP_BAR = {"bfloat16": (1e-4, 1e-2), "float32": (1e-6, 1e-4)}  # loss rel, gradient rel
+
+
+def _step_operands(rng, cuda, equiv, N, H, L, B, P, per_image, expand=False):
+    dec = _decoder(rng, equiv, N, H, L, False, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+    D = torch.as_tensor(D / np.linalg.norm(D, axis=-1, keepdims=True), device=cuda)
+    ops = _pack(dec, equiv, N, Z, D, False, H)
+    if expand:  # a (B, P, 8) view with batch stride 0: one shared grid
+        ops = (ops[0].expand(B, P, 8), *ops[1:])
+    tgt = torch.zeros(B, P, 8, device=cuda)
+    tgt[..., :3] = torch.as_tensor(rng.normal(size=(B, P, 3)).astype(np.float32))
+    sw = torch.zeros(1, P, 8, device=cuda)
+    sw[..., :3] = torch.as_tensor(np.abs(rng.normal(size=(1, P, 3))).astype(np.float32))
+    bm = torch.ones(B, 1, 8, device=cuda)
+    bm[-1] = 0.0  # a masked row
+    return dec, Z, D, (*ops, tgt, sw, bm)
+
+
+def _assert_step_close(got, ref, trunk, what):
+    loss_rel, grad_rel = STEP_BAR[trunk]
+    mse, mse_ref = got[0].sum().item(), ref[0].sum().item()
+    assert abs(mse - mse_ref) <= loss_rel * abs(mse_ref), (what, mse, mse_ref)
+    assert got[0][0, 3:].abs().max().item() == 0.0
+    for i, (x, y) in enumerate(zip(got[1:], ref[1:])):
+        assert x.shape == y.shape and torch.isfinite(x).all(), (what, i)
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        assert err <= grad_rel * scale, (what, i, err, scale)
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("act", ["tanh", "exp", None])
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
+    """The loss partials and every gradient of the step kernel against its
+    plain version: hidden_layers 1, 2 and 5, H = 128 and 256, a ragged tail
+    tile (P = 264), shared, per-image and stride-0 grids, a masked row,
+    several CTAs per image and several split-K chunks per weight; two calls
+    give the same bits. Bars: loss 1e-4 (bf16) / 1e-6 (float32) relative,
+    each gradient 1e-2 / 1e-4 x max |plain|."""
+    rng = np.random.default_rng(30)
+    N, B = 7, 3
+    kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=fast_sine, out_act=act)
+    for equiv, H, L, P, per_image, expand in (
+        ("SO2", 128, 2, 256, False, False), ("SO3", 256, 5, 264, True, False),
+        ("SO2", 128, 1, 264, False, True), ("None", 32, 2, 100, False, False),
+    ):
+        _, _, _, ops = _step_operands(rng, cuda, equiv, N, H, L, B, P, per_image, expand)
+        if H >= 128:
+            assert tb.launch_grid(P, B, trunk, cuda)[1] >= 4
+            assert tb.wgrad_chunks(B * P, H, L, trunk, cuda)[1] >= 4
+        n0 = ts.siren_step_cuda.launches
+        got = ts.siren_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
+        again = ts.siren_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
+        ref = ts.siren_step_reference(*ops, gscale=1.0 / (3 * P), **kw)
+        torch.cuda.synchronize()
+        assert ts.siren_step_cuda.launches == n0 + 2
+        _assert_step_close(got, ref, trunk, (equiv, H, L, P))
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        assert got[1][-1].abs().max().item() == 0.0  # the masked row: dA = 0
+
+
+def test_step_kernel_walks_several_tiles_per_cta(cuda, monkeypatch):
+    """Three tiles per CTA, 17 tiles per image (the last CTA has two)."""
+    rng = np.random.default_rng(31)
+    _, _, _, ops = _step_operands(rng, cuda, "SO2", 5, 128, 2, 3, 264, False)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk="bfloat16", fast_sine=True, out_act="tanh",
+              gscale=1.0 / (3 * 264))
+    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
+    got = ts.siren_step_cuda(*ops, **kw)
+    ref = ts.siren_step_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    _assert_step_close(got, ref, "bfloat16", "3 tiles per CTA")
+
+
+def test_fused_step_mse_launches_the_step_kernel_only(cuda):
+    """fused_step_mse and its backward on the card launch the step kernel
+    once and neither the forward nor the backward kernel; the gradients
+    (latents and every decoder leaf) match the plain Function's."""
+    rng = np.random.default_rng(32)
+    N, B, H, L, P = 5, 4, 128, 2, 200
+    dec, Z0, D, ops = _step_operands(rng, cuda, "SO2", N, H, L, B, P, False)
+    tgt, sw, bm = ops[-3][..., :3], ops[-2][..., :3], ops[-1][:, 0, 0]
+    leaves = [t for layer in dec["layers"] for t in layer.values()] + list(dec["final"].values())
+    kw = dict(hidden_layers=L, hidden_features=H, out_features=3, first_omega_0=30.0,
+              hidden_omega_0=30.0, output_activation="tanh", trunk="bfloat16", fast_sine=True)
+
+    def grads(fn):
+        Z = Z0.clone().requires_grad_()
+        for t in leaves:
+            t.requires_grad_()
+        loss = fn(dec, "SO2", N, Z, D, tgt, sw, bm, **kw)
+        (3.0 * loss).backward()
+        got = [Z.grad] + [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        return loss.item(), got
+
+    counts = lambda: (ts.siren_step_cuda.launches, tk.fused_apply.launches,
+                      tb.siren_trunk_bwd_cuda.launches)
+    n0 = counts()
+    loss, got = grads(ts.fused_step_mse)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0] + 1, n0[1], n0[2])
+    loss_ref, ref = grads(ts.fused_step_mse_reference)
+    assert counts() == (n0[0] + 1, n0[1], n0[2])
+    assert abs(loss - loss_ref) <= 1e-4 * abs(loss_ref)
+    _assert_grads_close(got, ref, "bfloat16", "fused_step_mse backward")
+
+
+def test_step_smem_formula_matches_kernel(cuda):
+    lib = ts.library()
+    for trunk in tk.TRUNKS:
+        for H, n_mm in ((128, 2), (256, 5), (256, 1), (512, 1), (32, 3)):
+            got = lib.reni_step_smem_bytes(int(trunk == "bfloat16"), H, n_mm)
+            assert got == ts.step_smem_bytes(trunk, H, n_mm)
+
+
+def test_fit_decoder_step_on_card_takes_the_step_kernel(cuda):
+    """One FIT_DECODER step of a fresh VAD on the card: the step kernel
+    launches once, the forward and backward kernels do not, and every
+    trainable leaf moves."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+    from reni_tpu_torch.params import tree_leaves
+    from reni_tpu_torch.train import tasks
+    from reni_tpu_torch.train.optim import OptimConfig
+
+    model = RENIModel(RENIConfig(latent_dim=5, hidden_layers=2, hidden_features=64,
+                                 use_pallas=True, fast_sine=True))
+    params = model.init(torch.Generator().manual_seed(0), 6, device=cuda)
+    state = tasks.init_train_state(model, params, OptimConfig(lr_start=1e-3, lr_end=1e-4),
+                                   torch.Generator().manual_seed(1))
+    step = tasks.make_fit_decoder_step(model, sphere.get_directions(16, device=cuda),
+                                       sphere.get_sineweight(16, device=cuda),
+                                       kld_weighting=1e-4)
+    imgs = torch.rand(4, 128, 3, device=cuda)
+    batch = (imgs, torch.tensor([0, 1, 2, 0], device=cuda),
+             torch.tensor([1.0, 1.0, 1.0, 0.0], device=cuda))
+    before = [t.detach().clone() for t in tree_leaves(state.trainable)]
+    n0 = (ts.siren_step_cuda.launches, tk.fused_apply.launches, tb.siren_trunk_bwd_cuda.launches)
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert (ts.siren_step_cuda.launches, tk.fused_apply.launches,
+            tb.siren_trunk_bwd_cuda.launches) == (n0[0] + 1, n0[1], n0[2])
+    assert set(metrics) == {"loss", "mse_loss", "kld_loss"}
+    assert all(torch.isfinite(v) for v in metrics.values())
+    for old, new in zip(before, tree_leaves(state.trainable)):
+        assert not torch.equal(old, new)

@@ -1,5 +1,5 @@
-"""Import hygiene of the port: reni_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package, and the entry points run on the card
+"""Import hygiene of the port: reni_tpu_torch, chip_smoke.py and
+time_kernels.py import neither JAX nor the JAX package, and the entry points run on the card
 unless the CPU is asked for."""
 
 import json
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "reni_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ["chip_smoke", "time_kernels"]
+PORT_FILES = sorted((ROOT / "reni_tpu_torch").rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
 def _modules():
@@ -29,7 +30,7 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, json, sys\n"
-        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        f"for m in {_modules() + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'reni_tpu' or m.startswith('reni_tpu.'))\n"
@@ -81,3 +82,14 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=240)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_time_kernels_refuses_without_a_card():
+    """time_kernels.py times nothing on the CPU: it exits non-zero and prints
+    no time without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: time_kernels.py would run for real")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, str(ROOT / "time_kernels.py")], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode != 0 and " ms" not in res.stdout

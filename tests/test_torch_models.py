@@ -209,3 +209,107 @@ def test_port_checkpoint_read_by_jax(tmp_path):
     for k in fj:
         np.testing.assert_array_equal(fj[k], ft[k])
     assert tck.load_model_config(path) == cfg
+
+
+# ---------------------------------------------------------------------------
+# init and latent sampling (the FIT_DECODER slice)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model_type", ["VariationalAutoDecoder", "AutoDecoder"])
+def test_sample_latent_matches_jax_with_the_same_noise(model_type):
+    """Z = mu + eps * exp(log_var / 2) with the noise JAX drew fed in: Z, mu
+    and log_var to rtol 1e-6; an AD returns (Z, Z, zeros)."""
+    jm, jp, tp = _model(seed=3, model_type=model_type)
+    model = RENIModel(RENIConfig(**jm.config.__dict__))
+    idx = [2, 0]
+    key = jax.random.PRNGKey(5)
+    ref = jm.sample_latent(jp, idx, key)
+    noise = _np(jax.random.normal(key, (2, 5, 3), jnp.float32))
+    got = model.sample_latent(tp, idx, noise=torch.from_numpy(noise.copy()))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(_np(g), _np(r), rtol=1e-6, atol=1e-7)
+    if model_type == "AutoDecoder":
+        assert got[2].abs().max() == 0.0 and torch.equal(got[0], got[1])
+    else:
+        # from the generator: reproducible, N(0, 1) noise scaled by the std
+        a = model.sample_latent(tp, idx, torch.Generator().manual_seed(1))[0]
+        b = model.sample_latent(tp, idx, torch.Generator().manual_seed(1))[0]
+        c = model.sample_latent(tp, idx, torch.Generator().manual_seed(2))[0]
+        assert torch.equal(a, b) and not torch.equal(a, c)
+        eps = (a - got[1]) / torch.exp(0.5 * got[2])
+        assert eps.abs().max() < 6.0 and 0.5 < eps.std() < 1.5
+
+
+def test_apply_idx_samples_with_a_generator():
+    """A VAD with a trainable decoder decodes a sample when given a
+    generator, and mu without one (RENIModel.apply_idx of the JAX package)."""
+    jm, jp, tp = _model(seed=4, model_type="VariationalAutoDecoder")
+    model = RENIModel(RENIConfig(**jm.config.__dict__))
+    D = torch.from_numpy(_zd()[1])
+    det = model.apply_idx(tp, [0, 1], D)
+    assert torch.equal(det, model.apply(tp, tp["latents"]["mu"][[0, 1]], D))
+    gen = torch.Generator().manual_seed(3)
+    Z = model.sample_latent(tp, [0, 1], torch.Generator().manual_seed(3))[0]
+    assert torch.equal(model.apply_idx(tp, [0, 1], D, gen), model.apply(tp, Z, D))
+
+
+@pytest.mark.parametrize("equiv", EQUIVS)
+def test_init_matches_jax_tree_and_bounds(equiv):
+    """model.init: the JAX tree (keys, shapes, dtypes), every leaf inside its
+    uniform bound and, where it has 32 values or more, filling most of it (first layer scale / in, hidden and
+    final sqrt(6 / H) / omega, biases 1 / sqrt(in)), latents N(0, 1) and
+    N(-5, 1); reproducible from the generator's seed."""
+    cfg = dict(model_type="VariationalAutoDecoder", equivariance=equiv, latent_dim=6,
+               hidden_layers=3, hidden_features=64, first_layer_init_scale=2.0)
+    jp = jax.device_get(JModel(JConfig(**cfg)).init(jax.random.PRNGKey(0), dataset_size=50))
+    model = RENIModel(RENIConfig(**cfg))
+    tp = model.init(torch.Generator().manual_seed(0), 50, device="cpu")
+    flat_j, flat_t = tck._flatten(jp), tck._flatten(tparams.to_numpy(tp))
+    assert flat_j.keys() == flat_t.keys()
+    n_in = tenc.concat_in_features(equiv, 6)
+    hidden = np.sqrt(6.0 / 64) / 30.0
+    for k, v in flat_t.items():
+        assert v.shape == flat_j[k].shape and v.dtype == flat_j[k].dtype, k
+        if not k.startswith("decoder"):
+            continue
+        first = k.startswith("decoder/layers/0/")
+        if k.endswith("/w"):
+            bound = 2.0 / n_in if first else hidden
+        else:
+            bound = 1.0 / np.sqrt(n_in if first else 64)
+        assert np.abs(v).max() <= bound, (k, bound)
+        assert v.size < 32 or np.abs(v).max() > 0.9 * bound, (k, bound)
+        assert np.abs(flat_j[k]).max() <= bound, k
+    assert abs(flat_t["latents/mu"].std() - 1.0) < 0.1
+    assert abs(flat_t["latents/log_var"].mean() + 5.0) < 0.1
+    again = tck._flatten(tparams.to_numpy(
+        model.init(torch.Generator().manual_seed(0), 50, device="cpu")))
+    other = tck._flatten(tparams.to_numpy(
+        model.init(torch.Generator().manual_seed(1), 50, device="cpu")))
+    for k in flat_t:
+        np.testing.assert_array_equal(again[k], flat_t[k])
+        assert not np.array_equal(other[k], flat_t[k]), k
+
+
+def test_port_initialised_tree_loads_into_jax(tmp_path):
+    """A tree from the port's init, saved by the port, loads into the JAX
+    model, which decodes it as the port does (atol 1e-5, the serving bar)."""
+    cfg = dict(model_type="VariationalAutoDecoder", latent_dim=5, hidden_layers=2,
+               hidden_features=32, output_activation="tanh")
+    model = RENIModel(RENIConfig(**cfg))
+    tp = model.init(torch.Generator().manual_seed(2), 4, device="cpu")
+    path = str(tmp_path / "fresh")
+    tck.save_checkpoint(path, tp, model_config=model.config)
+    jparams, meta = jck.load_checkpoint(path)
+    jm = JModel(JConfig(**meta["model_config"]))
+    Z, D = _zd(B=4)
+    ref = jm.apply(jparams, jparams["latents"]["mu"], jnp.asarray(D))
+    out = model.apply(tp, tp["latents"]["mu"], torch.from_numpy(D))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+def test_film_init_waits_for_its_slice():
+    model = RENIModel(RENIConfig(conditioning="FiLM"))
+    with pytest.raises(NotImplementedError, match="Queue A-3"):
+        model.init_decoder(torch.Generator(), device="cpu")

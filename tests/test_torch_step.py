@@ -1,0 +1,258 @@
+"""The fused train step (reni_tpu_torch.kernels.siren_step) held against the
+JAX package's Pallas _step_kernel, run in interpret mode on the CPU as
+tests/test_pallas.py runs it. On the CPU the wrapper takes its plain PyTorch
+version; the CUDA kernel itself is checked on the card
+(tests/test_torch_cuda.py and chip_smoke.py)."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from reni_tpu.kernels import siren_pallas as jk
+from reni_tpu.models.reni import RENIConfig as JConfig
+from reni_tpu.models.reni import RENIModel as JModel
+from reni_tpu_torch import params as tparams
+from reni_tpu_torch.core import encodings as tenc
+from reni_tpu_torch.kernels import siren_bwd as tb
+from reni_tpu_torch.kernels import siren_fwd as tk
+from reni_tpu_torch.kernels import siren_step as ts
+from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+from reni_tpu_torch.train import checkpoint as tck
+from reni_tpu_torch.train import losses as tlosses
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _setup(equiv="SO2", act="tanh", per_image=False, N=5, L=2, H=128, B=3, P=128, seed=0):
+    """A JAX-initialised decoder carried into the port, and numpy inputs: Z,
+    D (shared or per-image), targets, pixel weights and a batch mask whose
+    last row is zero (the ragged tail)."""
+    cfg = JConfig(model_type="AutoDecoder", equivariance=equiv, latent_dim=N, hidden_layers=L,
+                  hidden_features=H, output_activation=act)
+    jp = JModel(cfg).init(jax.random.PRNGKey(seed), dataset_size=B)["decoder"]
+    rng = np.random.default_rng(seed + 1)
+    # exp is kept well-conditioned, as tests/test_pallas.py does
+    Z = rng.normal(size=(B, N, 3)).astype(np.float32) * (0.02 if act == "exp" else 1.0)
+    D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    tgt = rng.normal(size=(B, P, 3)).astype(np.float32)
+    sw = np.abs(rng.normal(size=(1, P, 3))).astype(np.float32)
+    bm = np.ones((B,), np.float32)
+    bm[-1] = 0.0
+    return cfg, jp, tparams.from_numpy(jax.device_get(jp), "cpu"), (Z, D, tgt, sw, bm)
+
+
+def _kw(cfg, trunk, fast_sine=False):
+    return dict(hidden_layers=cfg.hidden_layers, hidden_features=cfg.hidden_features,
+                out_features=cfg.out_features, first_omega_0=cfg.first_omega_0,
+                hidden_omega_0=cfg.hidden_omega_0, output_activation=cfg.output_activation,
+                trunk=trunk, fast_sine=fast_sine)
+
+
+def _both(cfg, jp, tp, inputs, trunk, fast_sine=False, port=ts.fused_step_mse, scale=1.0):
+    """(value, d/dZ, flat d/d decoder) of scale * fused_step_mse, from JAX
+    (Pallas, interpret mode) and from the port."""
+    Z, D, tgt, sw, bm = inputs
+    kw = _kw(cfg, trunk, fast_sine)
+
+    def jloss(dec, z):
+        return scale * jk.fused_step_mse(
+            dec, cfg.equivariance, cfg.latent_dim, z, jnp.asarray(D), jnp.asarray(tgt),
+            jnp.asarray(sw), jnp.asarray(bm), interpret=True, **kw)
+
+    jl, (jd, jz) = jax.value_and_grad(jloss, argnums=(0, 1))(jp, jnp.asarray(Z))
+    tz = torch.from_numpy(Z).requires_grad_()
+    tp = tparams.map_tree(lambda t: t.detach().clone().requires_grad_(), tp)
+    tl = scale * port(tp, cfg.equivariance, cfg.latent_dim, tz, torch.from_numpy(D),
+                      torch.from_numpy(tgt), torch.from_numpy(sw), torch.from_numpy(bm), **kw)
+    tl.backward()
+    flat_t = tck._flatten(tparams.map_tree(lambda t: _np(t.grad), tp))
+    flat_j = tck._flatten(jax.device_get(jd))
+    assert flat_t.keys() == flat_j.keys()
+    return (float(jl), _np(jz), flat_j), (tl.item(), _np(tz.grad), flat_t)
+
+
+@pytest.mark.parametrize("per_image", [False, True], ids=["shared", "per_image"])
+@pytest.mark.parametrize("act", ["tanh", "exp", None])
+@pytest.mark.parametrize("equiv", ["SO2", "SO3"])
+def test_step_matches_pallas_f32(equiv, act, per_image):
+    """Float32 trunk, a zero-masked row: value rtol 2e-6; gradients w.r.t. Z
+    and every decoder leaf rtol 1e-4, atol 2e-6 (the bars of
+    test_fused_step_loss_and_grads_match_reference)."""
+    cfg, jp, tp, inputs = _setup(equiv=equiv, act=act, per_image=per_image)
+    (jl, jz, jd), (tl, tz, td) = _both(cfg, jp, tp, inputs, "float32")
+    np.testing.assert_allclose(tl, jl, rtol=2e-6)
+    np.testing.assert_allclose(tz, jz, rtol=1e-4, atol=2e-6)
+    assert np.abs(tz[-1]).max() == 0.0  # the masked row gets no gradient
+    for k in jd:
+        np.testing.assert_allclose(td[k], jd[k], rtol=1e-4, atol=2e-6, err_msg=k)
+
+
+def test_step_matches_pallas_fast_sine():
+    """The polynomial sincos on both sides, same bars."""
+    cfg, jp, tp, inputs = _setup(seed=4)
+    (jl, jz, jd), (tl, tz, td) = _both(cfg, jp, tp, inputs, "float32", fast_sine=True)
+    np.testing.assert_allclose(tl, jl, rtol=2e-6)
+    np.testing.assert_allclose(tz, jz, rtol=1e-4, atol=2e-6)
+    for k in jd:
+        np.testing.assert_allclose(td[k], jd[k], rtol=1e-4, atol=2e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("act", ["tanh", None])
+def test_step_matches_pallas_bf16(act):
+    """bf16 trunk: both sides round the same operands (g, dz and d too) and
+    sum in float32 in another order; a flipped bf16 rounding of an activation
+    then propagates. The output behind the loss holds the bars of
+    test_fused_bf16_trunk_close (max 0.05, mean 0.01), so the loss agrees
+    well inside 1e-3 relative; each gradient is held to 2.5e-3 of its
+    largest entry, the bar of test_plain_bwd_matches_pallas_bf16. Measured on
+    these inputs: loss 1.7e-7, worst gradient 5.4e-4."""
+    cfg, jp, tp, inputs = _setup(act=act, seed=6)
+    (jl, jz, jd), (tl, tz, td) = _both(cfg, jp, tp, inputs, "bfloat16", fast_sine=True)
+    worst = float(np.abs(tz - jz).max() / np.abs(jz).max())
+    for k in jd:
+        worst = max(worst, float(np.abs(td[k] - jd[k]).max() / np.abs(jd[k]).max()))
+    print(f"bf16 plain step vs Pallas: loss rel {abs(tl - jl) / abs(jl):.3g}, "
+          f"worst max|diff|/max|ref| {worst:.3g}")
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert worst < 2.5e-3, worst
+
+
+def test_step_cotangent_scaling():
+    """The backward scales the saved gradients by the incoming cotangent
+    (test_fused_step_cotangent_scaling: rtol 1e-5 on d/dZ; the decoder leaves
+    also get atol 1e-8, as the first-layer weight sums scaled terms that
+    cancel), and 3 * loss matches JAX."""
+    cfg, jp, tp, inputs = _setup(seed=8)
+    _, (t1, z1, d1) = _both(cfg, jp, tp, inputs, "float32")
+    (j3, jz3, _), (t3, z3, d3) = _both(cfg, jp, tp, inputs, "float32", scale=3.0)
+    np.testing.assert_allclose(z3, 3.0 * z1, rtol=1e-5)
+    for k in d1:
+        np.testing.assert_allclose(d3[k], 3.0 * d1[k], rtol=1e-5, atol=1e-8, err_msg=k)
+    np.testing.assert_allclose(t3, j3, rtol=2e-6)
+    np.testing.assert_allclose(z3, jz3, rtol=1e-4, atol=6e-6)
+
+
+@pytest.mark.parametrize("act", ["tanh", "exp", None])
+def test_step_is_weighted_mse_of_apply(act):
+    """fused_step_mse == losses.weighted_mse(apply(...), tgt, sw * bmask), value
+    (rtol 2e-6) and gradients (rtol 1e-4, atol 2e-6), at a width the Pallas
+    kernel declines (H = 32, P = 100)."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup(act=act, H=32, P=100, seed=10)
+    model = RENIModel(RENIConfig(**dataclasses.asdict(cfg)))
+
+    def run(fused):
+        z = torch.from_numpy(Z).requires_grad_()
+        p = tparams.map_tree(lambda t: t.detach().clone().requires_grad_(), tp)
+        args = [torch.from_numpy(x) for x in (D, tgt, sw, bm)]
+        if fused:
+            loss = ts.fused_step_mse(p, cfg.equivariance, cfg.latent_dim, z, *args,
+                                     **_kw(cfg, "float32"))
+        else:
+            out = model.apply({"decoder": p}, z, args[0])
+            loss = tlosses.weighted_mse(out, args[1], args[2] * args[3][:, None, None])
+        loss.backward()
+        return loss.item(), _np(z.grad), tck._flatten(tparams.map_tree(lambda t: _np(t.grad), p))
+
+    (lf, zf, df), (lr, zr, dr) = run(True), run(False)
+    np.testing.assert_allclose(lf, lr, rtol=2e-6)
+    np.testing.assert_allclose(zf, zr, rtol=1e-4, atol=2e-6)
+    for k in dr:
+        np.testing.assert_allclose(df[k], dr[k], rtol=1e-4, atol=2e-6, err_msg=k)
+
+
+def test_step_wrapper_on_cpu_takes_plain_version():
+    """On CPU tensors fused_step_mse is fused_step_mse_reference and launches
+    nothing; a stride-0 (B, P) grid reads as one shared grid; the operands
+    that are not trained get no gradient."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup(seed=12, H=32, P=40)
+    args = [torch.from_numpy(x) for x in (Z, D, tgt, sw, bm)]
+    kw = _kw(cfg, "bfloat16")
+    before = (ts.siren_step_cuda.launches, tk.fused_apply.launches,
+              tb.siren_trunk_bwd_cuda.launches)
+    a = ts.fused_step_mse(tp, cfg.equivariance, cfg.latent_dim, *args, **kw)
+    b = ts.fused_step_mse_reference(tp, cfg.equivariance, cfg.latent_dim, *args, **kw)
+    args[1] = args[1].expand(3, *D.shape[1:])
+    c = ts.fused_step_mse(tp, cfg.equivariance, cfg.latent_dim, *args, **kw)
+    assert a.item() == b.item() == c.item()
+    assert before == (ts.siren_step_cuda.launches, tk.fused_apply.launches,
+                      tb.siren_trunk_bwd_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d_feats = tenc.d_features(cfg.equivariance, torch.from_numpy(D))
+        ops = tk.pack_inputs(tp, cfg.equivariance, cfg.latent_dim, args[0], d_feats)
+        ts.siren_step_cuda(*ops, torch.zeros(3, 40, 8), torch.zeros(1, 40, 8),
+                           torch.ones(3, 1, 8), omega0=30.0, omega_h=30.0, out_act="tanh",
+                           gscale=1.0)
+
+
+def test_step_reference_operands_and_results():
+    """siren_step_reference on packed operands: the result shapes of
+    _step_call_builder, zero loss partials in the padded lanes, and the
+    backward chain of siren_trunk_bwd_reference for its own cotangent."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup(seed=14, H=32, P=40, L=3)
+    d_feats = tenc.d_features(cfg.equivariance, torch.from_numpy(D))
+    with torch.no_grad():
+        ops = tk.pack_inputs(tp, cfg.equivariance, cfg.latent_dim, torch.from_numpy(Z), d_feats)
+        t8 = tk._pad_last(torch.from_numpy(tgt), 8)
+        s8 = tk._pad_last(torch.from_numpy(sw), 8)
+        b8 = torch.from_numpy(bm)[:, None, None].expand(3, 1, 8)
+        kw = dict(omega0=30.0, omega_h=30.0, trunk="bfloat16", fast_sine=True)
+        gscale = 1.0 / (40 * 3)
+        mse, *grads = ts.siren_step_reference(*ops, t8, s8, b8, out_act="tanh", gscale=gscale,
+                                              **kw)
+        out = torch.tanh(tk.siren_trunk_reference(*ops, **kw))
+        r = out - t8
+        g = (2.0 * gscale) * (r * (s8 * b8)) * (1.0 - out * out)
+        ref = tb.siren_trunk_bwd_reference(*ops, g, **kw)
+    assert mse.shape == (1, 8) and mse[0, 3:].abs().max() == 0.0
+    assert [tuple(x.shape) for x in grads] == [(3, 8, 32), (3, 1, 32), (3, 32, 32), (3, 32),
+                                               (32, 8), (1, 8)]
+    for x, y in zip(grads, ref):
+        assert torch.equal(x, y)
+    want = tlosses.weighted_mse(out[..., :3], torch.from_numpy(tgt),
+                                torch.from_numpy(sw) * torch.from_numpy(bm)[:, None, None])
+    np.testing.assert_allclose((mse.sum() * gscale).item(), want.item(), rtol=2e-6)
+
+
+@pytest.mark.parametrize(
+    "cfg,shape,match",
+    [
+        (dict(use_pallas=False), (4, 128, 1), "use_pallas off"),
+        (dict(conditioning="FiLM"), (4, 128, 1), "Queue B-4"),
+        (dict(last_layer_linear=False), (4, 128, 1), "last_layer_linear"),
+        (dict(), (4, 128, 3), "direction grid batch 3"),
+        (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
+        (dict(), (70000, 128, 1), "grid limit"),
+        (dict(), (4, 0, 1), "no pixels"),
+        (dict(hidden_features=512), (4, 128, 1), "shared memory"),
+        (dict(hidden_layers=0), (4, 128, 1), "needs a hidden layer"),
+        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), "shared memory"),
+    ],
+    ids=["off", "film", "sine_final", "grid_batch", "width", "batch", "npix", "smem_wide",
+         "no_hidden", "smem_deep"],
+)
+def test_fused_step_reason_guards(cfg, shape, match):
+    """Every guard of RENIModel.apply plus the step kernel's own limits."""
+    model = RENIModel(RENIConfig(**{**dict(use_pallas=True), **cfg}))
+    assert match in model.fused_step_reason(*shape)
+
+
+def test_fused_step_reason_accepts_the_published_shapes():
+    """The flagship trunk (5 x 256, bf16) at the three curriculum stages, with
+    a shared or a per-image grid; and every shape JAX's fused_step_reason
+    accepts for it."""
+    model = RENIModel(RENIConfig(use_pallas=True))
+    jm = JModel(JConfig(use_pallas=True))
+    for npix in (512, 2048, 8192):
+        assert jm.fused_step_reason(100, npix) is None
+        assert model.fused_step_reason(100, npix) is None
+        assert model.fused_step_reason(100, npix, 100) is None
+    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 16
+    assert ts.step_smem_bytes("bfloat16", 256, 5) == 207232
+    assert ts.step_smem_bytes("bfloat16", 256, 5) > tb.bwd_smem_bytes(False, "bfloat16", 256, 5)

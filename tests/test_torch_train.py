@@ -1,7 +1,7 @@
-"""The port's FIT_LATENT slice held against the JAX package on the CPU:
-losses, the optimizers and their schedule, in-painting masks, latent tables,
-the task loop (fit_task) at float64 and at float32 through the fused path, and
-checkpoints that the JAX package reads back."""
+"""The port's FIT_LATENT and FIT_DECODER slices held against the JAX package
+on the CPU: losses, the optimizers and their schedule, in-painting masks,
+latent tables, the steps and the task loop (fit_task) at float64 and at float32
+through the fused paths, and checkpoints that the JAX package reads back."""
 
 import dataclasses
 import os
@@ -378,8 +378,8 @@ def test_fit_task_rejects_later_slices():
     for kw in (dict(stream=True), dict(start_epoch=3), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="Queue A-"):
             ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), **kw)
-    with pytest.raises(NotImplementedError, match="FIT_DECODER"):
-        ttasks.fit_task(model, tp, dataclasses.replace(task, task="FIT_DECODER"),
+    with pytest.raises(NotImplementedError, match="FIT_INVERSE"):
+        ttasks.fit_task(model, tp, dataclasses.replace(task, task="FIT_INVERSE"),
                         lambda res: None, torch.Generator())
 
 
@@ -434,3 +434,207 @@ def test_load_decoder_only_zoo_entry():
         np.testing.assert_array_equal(tck._flatten(tparams.to_numpy(params["decoder"]))[k], v)
     assert params["latents"]["mu"].shape == (21, 49, 3)
     assert params["latents"]["mu"].abs().max() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# FIT_DECODER
+# ---------------------------------------------------------------------------
+
+MODEL_TYPES = ["VariationalAutoDecoder", "AutoDecoder"]
+
+
+def _tiny_trainable(seed, model_type, **kw):
+    """A JAX-initialised model whose decoder trains (fixed_decoder False)."""
+    cfg = dict(model_type=model_type, equivariance="SO2", latent_dim=4, hidden_layers=2,
+               hidden_features=16, output_activation="tanh")
+    cfg.update(kw)
+    jm = JModel(JConfig(**cfg))
+    return cfg, jm, jax.device_get(jm.init(jax.random.PRNGKey(seed), dataset_size=5))
+
+
+def _jax_noise(key, shape, dtype):
+    """(next key, the noise) of one JAX FIT_DECODER step from ``key``: the
+    step splits its key and samples from the second half."""
+    key, sample_key = jax.random.split(key)
+    return key, np.asarray(jax.random.normal(sample_key, shape, dtype))
+
+
+def _flat(tree):
+    return tck._flatten(tparams.to_numpy(tree) if isinstance(tree, dict) else tree)
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_decoder_step_matches_jax_f64(model_type):
+    """One FIT_DECODER step and then eight at float64 against JAX
+    make_fit_decoder_step, a batch of 4 whose last row is a masked pad, the
+    latent noise JAX drew fed in: step 0's metrics to 1e-12 relative; every
+    step's metrics and the trained leaves after eight steps to 1e-6
+    (sin(30x) under Adam(b1 = 0) amplifies rounding differences from step
+    to step)."""
+    cfg, jm, jp = _tiny_trainable(21, model_type)
+    width = 8
+    imgs = _targets(width, 5, 22)[[0, 1, 2, 0]]
+    idx, bmask = np.array([0, 1, 2, 0], np.int32), np.array([1.0, 1.0, 1.0, 0.0])
+    optim = dict(lr_start=1e-4, lr_end=1e-5, beta1=0.0, beta2=0.9, epochs=8, steps_per_epoch=1)
+    noises, jmets = [], []
+    with jax.enable_x64():
+        jp64 = jax.tree.map(lambda x: jnp.asarray(np.asarray(x, np.float64)), jp)
+        jopt = joptim.build_optimizer(joptim.OptimConfig(**optim))
+        jstep = jax.jit(jtasks.make_fit_decoder_step(
+            jm, jopt, jsph.get_directions(width), jsph.get_sineweight(width), kld_weighting=1e-4))
+        state = jtasks.init_train_state(jm, jp64, jopt, jax.random.PRNGKey(1))
+        batch = (jnp.asarray(imgs), jnp.asarray(idx), jnp.asarray(bmask))
+        for _ in range(8):
+            noises.append(_jax_noise(state.key, (4, 4, 3), jnp.float64)[1])
+            state, m = jstep(state, batch)
+            jmets.append({k: float(v) for k, v in m.items()})
+        jfinal = _flat(jax.device_get(state.trainable))
+    model = RENIModel(RENIConfig(**cfg))
+    tp = tparams.from_numpy(jax.tree.map(lambda x: np.asarray(x, np.float64), jp), "cpu")
+    feed = iter(noises)
+    tstep = ttasks.make_fit_decoder_step(
+        model, tsph.get_directions(width, device="cpu"),
+        tsph.get_sineweight(width, device="cpu").double(), kld_weighting=1e-4,
+        latent_noise=lambda shape: torch.tensor(next(feed)))
+    tstate = ttasks.init_train_state(model, tp, toptim.OptimConfig(**optim),
+                                     torch.Generator().manual_seed(1))
+    tbatch = (torch.from_numpy(imgs), torch.from_numpy(idx).long(), torch.from_numpy(bmask))
+    keys = {"loss", "mse_loss", "kld_loss"} if model_type == MODEL_TYPES[0] else {"loss"}
+    for i in range(8):
+        tstate, m = tstep(tstate, tbatch)
+        assert m.keys() == jmets[i].keys() == keys
+        for k in m:
+            np.testing.assert_allclose(m[k].item(), jmets[i][k], rtol=1e-12 if i == 0 else 1e-6,
+                                       err_msg=f"step {i} {k}")
+    tfinal = _flat(tstate.trainable)
+    assert tfinal.keys() == jfinal.keys()
+    for k in jfinal:
+        np.testing.assert_allclose(tfinal[k], jfinal[k], rtol=1e-6, atol=1e-9, err_msg=k)
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_decoder_step_fused_matches_apply_path(model_type):
+    """make_fit_decoder_step gives the same losses and updated leaves whether
+    the train-step route serves the MSE (use_pallas; on the CPU its plain
+    version) or RENIModel.apply and autograd do, with a masked pad row: metrics
+    rtol 5e-5, leaves rtol 2e-4, atol 1e-6 (the bars of
+    test_fit_decoder_step_fused_matches_xla_path)."""
+    cfg, jm, jp = _tiny_trainable(23, model_type, latent_dim=5, hidden_features=32,
+                                  use_pallas=True, pallas_trunk="float32")
+    width = 32
+    rng = np.random.default_rng(0)
+    batch = (torch.from_numpy(rng.normal(size=(4, width * width // 2, 3)).astype(np.float32)),
+             torch.tensor([0, 1, 2, 0]), torch.tensor([1.0, 1.0, 1.0, 0.0]))
+    optim = toptim.OptimConfig(lr_start=1e-4, lr_end=1e-5, epochs=4, steps_per_epoch=1)
+    out = []
+    for use_pallas in (True, False):
+        model = RENIModel(RENIConfig(**dict(cfg, use_pallas=use_pallas)))
+        assert (model.fused_step_reason(4, width * width // 2) is None) == use_pallas
+        step = ttasks.make_fit_decoder_step(
+            model, tsph.get_directions(width, device="cpu"),
+            tsph.get_sineweight(width, device="cpu"), kld_weighting=1e-4)
+        state = ttasks.init_train_state(model, tparams.from_numpy(jp, "cpu"), optim,
+                                        torch.Generator().manual_seed(1))
+        state, m = step(state, batch)
+        out.append((m, _flat(state.trainable)))
+    (mf, pf), (mx, px) = out
+    for k in mx:
+        np.testing.assert_allclose(mf[k].item(), mx[k].item(), rtol=5e-5, err_msg=k)
+    for k in px:
+        np.testing.assert_allclose(pf[k], px[k], rtol=2e-4, atol=1e-6, err_msg=k)
+        assert not np.array_equal(px[k], _flat(jp)[k]), k  # every leaf trains
+
+
+def _decoder_task(**kw):
+    cfg = dict(task="FIT_DECODER",
+               optim=joptim.OptimConfig(lr_start=1e-4, lr_end=1e-6, beta1=0.0, beta2=0.9),
+               batch_size=2, epochs=4, multi_res_training=True, initial_resolution=(4, 8),
+               final_resolution=(8, 16), curriculum=(2,), kld_weighting=1e-4)
+    cfg.update(kw)
+    return cfg
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_task_fit_decoder_matches_jax_f64(model_type, tmp_path):
+    """fit_task FIT_DECODER, 5 maps in batches of 2 (a ragged last batch), a
+    2-stage curriculum, float64 on both sides with the plain decoder and the
+    latent noise JAX drew fed in: epoch 0's metrics to 1e-12 relative, every
+    epoch and the trained leaves to 1e-6. The result, saved by the port,
+    loads into the JAX package and decodes to the same map (atol 1e-5, the
+    serving bar)."""
+    cfg, jm, jp = _tiny_trainable(25, model_type)
+    task = _decoder_task()
+    imgs = {(4, 8): _targets(8, 5, 26), (8, 16): _targets(16, 5, 27)}
+    noises = []
+    with jax.enable_x64():
+        jp64 = jax.tree.map(lambda x: jnp.asarray(np.asarray(x, np.float64)), jp)
+        key = jax.random.PRNGKey(0)
+        for _ in range(4 * 3):
+            key, eps = _jax_noise(key, (2, 4, 3), jnp.float64)
+            noises.append(eps)
+        jparams, jmet = jtasks.fit_task(
+            jm, jp64, jtasks.TaskConfig(**task), lambda res: jnp.asarray(imgs[res]),
+            jax.random.PRNGKey(0))
+        jfinal = _flat(jax.device_get(jparams))
+    model = RENIModel(RENIConfig(**cfg))
+    tp = tparams.from_numpy(jax.tree.map(lambda x: np.asarray(x, np.float64), jp), "cpu")
+    feed = iter(noises)
+    ttask = ttasks.TaskConfig(**dict(task, optim=toptim.OptimConfig(
+        **dataclasses.asdict(task["optim"]))))
+    new, tmet = ttasks.fit_task(
+        model, tp, ttask, lambda res: torch.from_numpy(imgs[res]),
+        torch.Generator().manual_seed(0),
+        latent_noise=lambda shape: torch.tensor(next(feed)))
+    names = ("loss", "mse_loss", "kld_loss") if model_type == MODEL_TYPES[0] else ("loss",)
+    assert tmet.keys() == jmet.keys() == {f"fit_decoder_{n}" for n in names}
+    for k in jmet:
+        assert tmet[k].shape == (4,)
+        np.testing.assert_allclose(tmet[k][0], jmet[k][0], rtol=1e-12, err_msg=k)
+        np.testing.assert_allclose(tmet[k], jmet[k], rtol=1e-6, err_msg=k)
+    tfinal = _flat(new)
+    assert tfinal.keys() == jfinal.keys()
+    for k in jfinal:
+        np.testing.assert_allclose(tfinal[k], jfinal[k], rtol=1e-6, atol=1e-9, err_msg=k)
+    # the caller's tree is not trained in place
+    np.testing.assert_array_equal(_flat(tp)["decoder/final/w"],
+                                  np.asarray(jp["decoder"]["final"]["w"], np.float64))
+
+    path = str(tmp_path / "fit_decoder_final")
+    tck.save_fit_result(path, new, model_config=model.config, task="FIT_DECODER", metrics=tmet)
+    jloaded, meta = jck.load_checkpoint(path)
+    assert meta["task"] == "FIT_DECODER" and meta["epoch"] == 4
+    assert JConfig(**meta["model_config"]) == JConfig(**cfg)
+    table = "mu" if model_type == MODEL_TYPES[0] else "Z"
+    D = tsph.get_directions(16, device="cpu")
+    with jax.enable_x64():
+        ref = np.asarray(jm.apply(jloaded, jnp.asarray(jloaded["latents"][table]),
+                                  jnp.asarray(_np(D))))
+    out = model.apply(new, new["latents"][table], D)
+    np.testing.assert_allclose(_np(out), ref, atol=1e-5)
+    back, _ = tck.load_checkpoint(path)
+    for k, v in _flat(back).items():
+        np.testing.assert_array_equal(v, tfinal[k])
+
+
+def test_fit_task_fit_decoder_trains_through_the_step_route():
+    """float32, use_pallas (on the CPU the step's plain version), the noise
+    from the task's generator: the loss falls, every leaf of the decoder and
+    the latent rows move, and two runs from the same seeds agree bit for bit."""
+    cfg, jm, jp = _tiny_trainable(28, "VariationalAutoDecoder", hidden_features=32,
+                                  use_pallas=True, pallas_trunk="float32")
+    model = RENIModel(RENIConfig(**cfg))
+    images = {(4, 8): torch.from_numpy(_targets(8, 5, 29, np.float32)),
+              (8, 16): torch.from_numpy(_targets(16, 5, 30, np.float32))}
+    task = ttasks.TaskConfig(**dict(_decoder_task(epochs=12, curriculum=(6,)),
+                                    optim=toptim.OptimConfig(lr_start=1e-3, lr_end=1e-4)))
+
+    def run():
+        return ttasks.fit_task(model, tparams.from_numpy(jp, "cpu"), task,
+                               lambda res: images[res], torch.Generator().manual_seed(2))
+
+    (new, met), (again, _) = run(), run()
+    loss = met["fit_decoder_loss"]
+    assert loss.shape == (12,) and loss[5] < loss[0] and loss[-1] < loss[6]
+    for k, v in _flat(new).items():
+        np.testing.assert_array_equal(v, _flat(again)[k])
+        assert not np.array_equal(v, _flat(jp)[k]), k

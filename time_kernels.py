@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time the port's training kernels on the card, for comparing two variants
+of a kernel source in one process chain on one card.
+
+    python3 time_kernels.py      # from the repository root, one NVIDIA GPU
+
+Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
+decoders, bf16 trunk, fast sine) prints the median time of the train-step
+kernel at 100 x 8,192 and 21 x 8,192, of both backward kernels at 21 x
+32,768 with and without weight gradients, and of the forward kernel, each
+after one check against its plain version (max |difference| / max |plain|
+per result). Two cards, or one card at two moments, differ by up to 12% on
+the same code: to compare two versions of a source, run this script once
+per version inside one command, in turns (old, new, new, old); the build
+directory is keyed by a hash of the sources, so each version builds anew.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+import chip_smoke as cs
+
+
+def relative_errors(got, ref) -> str:
+    return " ".join(
+        f"{((x - y).abs().max() / y.abs().max()).item():.2g}"
+        for x, y in zip(got, ref) if y is not None and y.numel()
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    cs.build_all()
+    cfg, dec, z21 = cs.load_entry(cs.CBC, dev)
+    table = ckpt.load_checkpoint(os.path.join(cs.CBC, "checkpoint"))[0]["latents"]["mu"]
+    mu = torch.as_tensor(table, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step_case(batch: int, width: int):
+        D = sphere.get_directions(width, device=dev)
+        targets = torch.tanh(torch.randn((batch, D.shape[1], 3), generator=gen, device=dev))
+        ops = cs.step_operands(cfg, dec, mu[:batch], D, targets,
+                               sphere.get_sineweight(width, device=dev))
+        return ops, cs.step_kwargs(cfg, D.shape[1])
+
+    with torch.no_grad():
+        ops, kw = step_case(100, 64)
+        got, ref = ts.siren_step_cuda(*ops, **kw), ts.siren_step_reference(*ops, **kw)
+        torch.cuda.synchronize()
+        print(f"siren_step 100 x 2,048 vs plain: {relative_errors(got, ref)}")
+        for batch in (100, 21):
+            ops, kw = step_case(batch, 128)
+            ms = cs.time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
+            print(f"siren_step {batch} x 8,192: {ms:.3f} ms")
+        D = sphere.get_directions(256, device=dev)
+        g = cs.cotangent(z21, D.shape[1], seed=3)
+        for name, entry in (("siren_bwd", cs.CBC), ("film_bwd", cs.FILM)):
+            cfg_e, dec_e, z = cs.load_entry(entry, dev)
+            trunk_ops = cs.packed(cfg_e, dec_e, z, D)
+            for wgrad in (False, True):
+                kernel, plain, bkw = cs.bwd_fns(cfg_e, weight_grads=wgrad)
+                errs = relative_errors(kernel(*trunk_ops, g, **bkw), plain(*trunk_ops, g, **bkw))
+                ms = cs.time_ms(lambda: kernel(*trunk_ops, g, **bkw), runs=10)
+                print(f"{name} 21 x 32,768 {'with' if wgrad else 'without'} weight gradients: "
+                      f"{ms:.3f} ms; vs plain {errs}")
+        trunk_ops = cs.packed(cfg, dec, z21, D)
+        fkw = dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
+                   trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
+        print(f"siren_fwd 21 x 32,768: {cs.time_ms(lambda: tk.siren_trunk_cuda(*trunk_ops, **fkw)):.3f} ms")
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
