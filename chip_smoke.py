@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build       - compile kernels/csrc/siren_fwd.cu, siren_bwd.cu and
-                 siren_step.cu with nvcc (sm_90a), all at once
+1. build       - compile kernels/csrc/siren_fwd.cu, siren_bwd.cu,
+                 siren_step.cu, film_step.cu and siren_anatomy.cu with nvcc
+                 (sm_90a), all at once
 2. compare     - at full width (N=49, 5x256 SIREN, 21 test latents x 32,768
                  directions, bf16 trunk, fast sine) each forward kernel
                  against its plain PyTorch version on the card: shared (1, P)
@@ -67,15 +68,35 @@ Phases (any failure exits non-zero and prints no result line):
                  below its first; PSNR of the student's 64x128 decodes
                  within 0.1 dB between the runs; the result round-trips
                  through save_checkpoint / load_checkpoint
-8. timings     - each kernel and its plain version: the forward at the
+8. compare_film_step, fit_decoder_film - phases 6 and 7 for FiLM: the FiLM
+                 step kernel against its plain version on the FiLM Zoo
+                 decoder and 100 of its training latents (the same eight
+                 cases and bars, dfreqs and dphases among the gradients),
+                 then FIT_DECODER of a fresh model.init FiLM student (VAD,
+                 FiLM, SO2, N=49, 5x256 trunk, mapping network 3x256, tanh,
+                 bf16 trunk, fast sine) on the FiLM Zoo decoder's decodes of
+                 its 1,000 training latents, with the same cut and the same
+                 checks: the FiLM step kernel once per step, no forward or
+                 backward kernel during training
+9. anatomy     - the probes of kernels/anatomy.py at 21 x 8,192 on the
+                 Cond-by-Concat decoder: each forward and backward variant
+                 and the weight-gradient product alone against its plain
+                 version (the interleaved forwards equal to the shipped
+                 forward bit for bit and on its phase-2 bars, as is the
+                 scratch of activations that the backward without its
+                 reduction returns; the others 1e-2 x max |plain| per
+                 result), then the probe tool's path
+                 (time_anatomy, what time_kernels.py --anatomy runs) with the
+                 probes' launch counts zeroed before and read after
+10. timings    - each kernel and its plain version: the forward at the
                  phase-2 shapes, the backward at 21 x 32,768 and 21 x 8,192
-                 with and without weight gradients, the train step at 100 x
+                 with and without weight gradients, each train step at 100 x
                  8,192 and 21 x 8,192 beside the forward + backward kernels
                  at the same shapes; median of CUDA-event timed runs after
                  warm-up; the bound is the larger of FLOPs / 989 TFLOP/s
                  (bf16 dense) and bytes / 3.35 TB/s (H100 SXM data sheet),
                  both counted without the kernels' padding
-9. report      - one JSON line of kernels, the card's name and power limit,
+11. report     - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 """
 
@@ -114,7 +135,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOURCE = "reni_tpu_torch/kernels/csrc/siren_fwd.cu"
 SOURCE_BWD = "reni_tpu_torch/kernels/csrc/siren_bwd.cu"
 SOURCE_STEP = "reni_tpu_torch/kernels/csrc/siren_step.cu"
-KERNEL_SOURCES = ("siren_fwd", "siren_bwd", "siren_step")
+SOURCE_FILM_STEP = "reni_tpu_torch/kernels/csrc/film_step.cu"
+SOURCE_ANATOMY = "reni_tpu_torch/kernels/csrc/siren_anatomy.cu"
+KERNEL_SOURCES = ("siren_fwd", "siren_bwd", "siren_step", "film_step", "siren_anatomy")
 # backward bars: max |kernel - plain| <= BAR x max |plain|, per gradient
 BWD_BAR = {"bfloat16": 1e-2, "float32": 1e-4}
 BWD_WIDTHS = (256, 128)  # 21 x 32,768 and 21 x 8,192 directions
@@ -130,6 +153,8 @@ DEC_EPOCHS, DEC_CURRICULUM = 30, (10, 20)
 DEC_BATCH, DEC_MAPS = 100, 1000
 STEP_LOSS_BAR = {"bfloat16": 1e-4, "float32": 1e-6}  # relative, kernel vs plain
 STEP_TIMED = (100, 21)  # batches timed at 64 x 128
+ANATOMY_WIDTH = 128  # the probes are held against their plain versions at 21 x 8,192
+ANATOMY_RUNS = 5  # timed runs per probe here; time_kernels.py --anatomy takes more
 
 
 class SmokeFailure(Exception):
@@ -601,15 +626,15 @@ def fit_latent_phase(device) -> dict:
     return launches
 
 
-def training_maps(device) -> tuple[torch.Tensor, dict]:
-    """(the Cond-by-Concat Zoo entry's 1,000 training latents mu, {resolution:
-    its decoder's decodes of them (1000, P, 3)} at FIT_DECODER's stages),
-    decoded by the forward kernel 100 latents at a time."""
+def training_maps(device, entry: str = CBC) -> tuple[torch.Tensor, dict]:
+    """(a Zoo entry's 1,000 training latents mu, {resolution: its decoder's
+    decodes of them (1000, P, 3)} at FIT_DECODER's stages), decoded by the
+    forward kernel 100 latents at a time."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.serve import load_decoder
     from reni_tpu_torch.train import checkpoint as ckpt
 
-    path = os.path.join(CBC, "checkpoint")
+    path = os.path.join(entry, "checkpoint")
     mu = torch.as_tensor(ckpt.load_checkpoint(path)[0]["latents"]["mu"], device=device)
     check(tuple(mu.shape) == (DEC_MAPS, 49, 3), f"training latents {tuple(mu.shape)}")
     fn = load_decoder(path, device)
@@ -646,19 +671,29 @@ def step_operands(cfg, dec, Z, D, targets, sineweight, masked_row: bool = False)
 
 
 def step_kwargs(cfg, npix: int, trunk=None, act="tanh") -> dict:
-    return dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
-                trunk=trunk or cfg.pallas_trunk, fast_sine=cfg.fast_sine, out_act=act,
-                gscale=1.0 / (npix * cfg.out_features))
+    kw = dict(trunk=trunk or cfg.pallas_trunk, fast_sine=cfg.fast_sine, out_act=act,
+              gscale=1.0 / (npix * cfg.out_features))
+    if not cfg.is_film:
+        kw.update(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0)
+    return kw
 
 
-def compare_step(ops, kw) -> tuple[float, float]:
+def step_fns(cfg):
+    """(kernel wrapper, plain version) of the train step of a conditioning."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    if cfg.is_film:
+        return ts.film_step_cuda, ts.film_step_reference
+    return ts.siren_step_cuda, ts.siren_step_reference
+
+
+def compare_step(cfg, ops, kw) -> tuple[float, float]:
     """Step kernel vs plain version: the loss and every gradient, and two
     kernel calls bit for bit; returns the largest max |difference| and the
     largest max |difference| / max |plain| over the gradients."""
-    from reni_tpu_torch.kernels import siren_step as ts
-
-    got, again = ts.siren_step_cuda(*ops, **kw), ts.siren_step_cuda(*ops, **kw)
-    ref = ts.siren_step_reference(*ops, **kw)
+    kernel, plain = step_fns(cfg)
+    got, again = kernel(*ops, **kw), kernel(*ops, **kw)
+    ref = plain(*ops, **kw)
     torch.cuda.synchronize()
     for i, (x, y) in enumerate(zip(got, again)):
         check(torch.equal(x, y), f"result {i} differs between two calls on the same inputs")
@@ -680,8 +715,9 @@ def compare_step(ops, kw) -> tuple[float, float]:
     return worst, worst_rel
 
 
-def compare_step_phase(cfg, dec, mu, maps, device) -> tuple[list, list]:
-    """The compare_step cases; returns the absolute and relative errors."""
+def compare_step_phase(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
+    """The compare_step cases of the step kernel ``name`` (siren_step or
+    film_step); returns the absolute and relative errors."""
     from reni_tpu_torch.core import sphere
 
     Z = mu[:DEC_BATCH]
@@ -706,8 +742,8 @@ def compare_step_phase(cfg, dec, mu, maps, device) -> tuple[list, list]:
                                 sphere.get_sineweight(res[1], device=device),
                                 masked_row=opt.get("masked_row", False))
             kw = step_kwargs(cfg, D.shape[1], opt.get("trunk"), opt.get("act", "tanh"))
-            print(f"siren_step B={Z.shape[0]} P={D.shape[1]} {label}:")
-            err, rel = compare_step(ops, kw)
+            print(f"{name} B={Z.shape[0]} P={D.shape[1]} {label}:")
+            err, rel = compare_step(cfg, ops, kw)
             errs.append(err)
             rels.append(rel)
     return errs, rels
@@ -715,30 +751,40 @@ def compare_step_phase(cfg, dec, mu, maps, device) -> tuple[list, list]:
 
 @contextlib.contextmanager
 def plain_step():
-    """Route fused_step_mse through the plain step on the card: the
-    yardstick a FIT_DECODER run through the kernel is held against."""
+    """Route fused_step_mse and fused_film_step_mse through the plain steps on
+    the card: the yardstick a FIT_DECODER run through a kernel is held against."""
     from reni_tpu_torch.kernels import siren_step as ts
 
     saved = ts.StepMSE.steps
-    ts.StepMSE.steps = (ts.siren_step_reference, ts.siren_step_reference)
+    ts.StepMSE.steps = {film: (plain, plain) for film, (plain, _) in saved.items()}
     try:
         yield
     finally:
         ts.StepMSE.steps = saved
 
 
-def fit_decoder(device, *, plain: bool, maps: dict):
-    """One FIT_DECODER run of a fresh student, through the step kernel or
-    (``plain``) its plain version; returns (trained params, model, per-stage
-    step times in ms, metrics, launches {step, fwd, bwd} during the run)."""
+def kernel_counters(cfg) -> dict:
+    """The wrappers whose ``.launches`` a FIT_DECODER run of this conditioning
+    is read from: its step, forward and backward kernels."""
     from reni_tpu_torch.kernels import siren_bwd as tb
     from reni_tpu_torch.kernels import siren_fwd as tk
-    from reni_tpu_torch.kernels import siren_step as ts
+
+    if cfg.is_film:
+        return {"step": step_fns(cfg)[0], "fwd": tk.fused_film_apply,
+                "bwd": tb.film_trunk_bwd_cuda}
+    return {"step": step_fns(cfg)[0], "fwd": tk.fused_apply, "bwd": tb.siren_trunk_bwd_cuda}
+
+
+def fit_decoder(device, entry: str, *, plain: bool, maps: dict):
+    """One FIT_DECODER run of a fresh student of ``entry``'s configuration,
+    through the step kernel or (``plain``) its plain version; returns (trained
+    params, model, per-stage step times in ms, metrics, launches {step, fwd,
+    bwd} during the run)."""
     from reni_tpu_torch.models.reni import RENIModel
     from reni_tpu_torch.train import checkpoint as ckpt
     from reni_tpu_torch.train import tasks
 
-    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint")))
+    model = RENIModel(ckpt.load_model_config(os.path.join(entry, "checkpoint")))
     params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
     task = decoder_task_config()
     events: dict = {}
@@ -748,22 +794,24 @@ def fit_decoder(device, *, plain: bool, maps: dict):
                                            kld_weighting=task.kld_weighting)
         return timed(step, events.setdefault(res, []))
 
+    counters = kernel_counters(model.config)
     torch.cuda.synchronize()
-    ts.siren_step_cuda.launches = tk.fused_apply.launches = tb.siren_trunk_bwd_cuda.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     with plain_step() if plain else contextlib.nullcontext():
         trained, metrics = tasks.fit_task(
             model, params, task, lambda res: maps[res], torch.Generator().manual_seed(1),
             step_builder=timed_step,
         )
     torch.cuda.synchronize()
-    launches = {"step": ts.siren_step_cuda.launches, "fwd": tk.fused_apply.launches,
-                "bwd": tb.siren_trunk_bwd_cuda.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     return trained, model, median_ms(events), metrics, launches
 
 
-def fit_decoder_phase(device, maps: dict) -> int:
-    """FIT_DECODER through the step kernel and through its plain version;
-    returns the step kernel's launches in the kernel run."""
+def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
+    """FIT_DECODER of a student of ``entry``'s configuration through its step
+    kernel and through the plain version; returns the step kernel's launches
+    in the kernel run."""
     import tempfile
 
     from reni_tpu_torch.core import sphere
@@ -779,8 +827,9 @@ def fit_decoder_phase(device, maps: dict) -> int:
     for plain in (False, True):
         run = "plain" if plain else "kernel"
         t0 = time.perf_counter()
-        trained, model, ms, metrics, n = fit_decoder(device, plain=plain, maps=maps)
+        trained, model, ms, metrics, n = fit_decoder(device, entry, plain=plain, maps=maps)
         wall = time.perf_counter() - t0
+        tag = f"FIT_DECODER {model.config.conditioning} [{run}]"
         if plain:
             check(n == {"step": 0, "fwd": 0, "bwd": 0}, f"the plain run launched kernels {n}")
         else:
@@ -788,20 +837,20 @@ def fit_decoder_phase(device, maps: dict) -> int:
                   f"{n} launches in {steps} steps (the step kernel once per step, no other)")
             launched, final_ms = n["step"], ms[FIT_RES[1]]
         loss = metrics["fit_decoder_loss"]
-        check(bool(np.isfinite(loss).all()), f"[{run}] non-finite loss")
+        check(bool(np.isfinite(loss).all()), f"{tag} non-finite loss")
         off = 0
         for (res, n_ep), (_, t) in zip(stages, sorted(ms.items())):
             first, last = loss[off], loss[off + n_ep - 1]
-            print(f"FIT_DECODER [{run}] stage {res[0]}x{res[1]}: {t:.3f} ms/step (median), "
+            print(f"{tag} stage {res[0]}x{res[1]}: {t:.3f} ms/step (median), "
                   f"epoch loss {first:.6g} -> {last:.6g}")
-            check(last < first, f"[{run}] stage {res}: loss {first} -> {last} did not fall")
+            check(last < first, f"{tag} stage {res}: loss {first} -> {last} did not fall")
             off += n_ep
         with torch.no_grad():
             mu = trained["latents"]["mu"]
             decoded = torch.cat([model.apply(trained, z, D) for z in mu.split(DEC_BATCH)])
-        check(bool(torch.isfinite(decoded).all()), f"[{run}] non-finite decodes")
+        check(bool(torch.isfinite(decoded).all()), f"{tag} non-finite decodes")
         result[plain] = psnr(decoded, target)
-        print(f"FIT_DECODER [{run}] {steps} steps in {wall:.1f} s, launches {n}; PSNR of the "
+        print(f"{tag} {steps} steps in {wall:.1f} s, launches {n}; PSNR of the "
               f"student's {FIT_RES[1][0]}x{FIT_RES[1][1]} decodes {result[plain]:.3f} dB")
         if not plain:
             with tempfile.TemporaryDirectory() as tmp:
@@ -815,71 +864,248 @@ def fit_decoder_phase(device, maps: dict) -> int:
                 check(flat.keys() == want.keys()
                       and all(np.array_equal(flat[k], want[k]) for k in want),
                       "the trained params do not round-trip through the checkpoint")
-            print(f"FIT_DECODER [{run}] checkpoint round trip: {len(want)} leaves equal")
+            print(f"{tag} checkpoint round trip: {len(want)} leaves equal")
     gap = result[False] - result[True]
-    print(f"FIT_DECODER: PSNR kernel - plain {gap:+.3f} dB")
+    print(f"FIT_DECODER {model.config.conditioning}: PSNR kernel - plain {gap:+.3f} dB")
     check(abs(gap) <= PSNR_BAR_DB, f"PSNR kernel vs plain differ by {gap:.3f} dB")
-    print(f"flagship FIT_DECODER step (batch {DEC_BATCH} at {FIT_RES[1][0]}x{FIT_RES[1][1]} = "
-          f"{DEC_BATCH * D.shape[1]:,} directions, optimizer included): {final_ms:.3f} ms -> "
+    print(f"flagship FIT_DECODER {model.config.conditioning} step (batch {DEC_BATCH} at "
+          f"{FIT_RES[1][0]}x{FIT_RES[1][1]} = {DEC_BATCH * D.shape[1]:,} directions, optimizer "
+          f"included): {final_ms:.3f} ms -> "
           f"{DEC_BATCH * D.shape[1] / (final_ms * 1e-3):.4g} directions/s")
     return launched
 
 
-def step_bytes(ops, k: int, n_out: int, trunk: str) -> int:
+def step_bytes(ops, k: int, n_out: int, film: bool, trunk: str) -> int:
     """The step's inputs (the trunk's, the targets' and pixel weights' real
     channels, the mask) and outputs (loss partials, per-image and weight
     gradients in float32)."""
-    d, a, b0, ws, bs, wf, bf, tgt, sw, bm = ops
-    B, P, H = a.shape[0], d.shape[1], a.shape[-1]
-    n = min_bytes(ops[:7], k, n_out, False, trunk)
+    n_trunk = 8 if film else 7  # trunk operands before tgt, sw, bm
+    trunk_ops = ops[:n_trunk]
+    a = trunk_ops[1]
+    B, P, H = a.shape[0], ops[0].shape[1], a.shape[-1]
+    n = min_bytes(trunk_ops, k, n_out, film, trunk)
     n += 4 * (B * P * n_out + P * n_out + B)
-    n += 4 * (n_out + B * k * H + b0.numel() + ws.numel() + bs.numel() + H * n_out + n_out)
+    if film:
+        _, _, ws, bs, _, _, fr, ph = trunk_ops
+        per_image = fr.numel() + ph.numel()
+    else:
+        _, _, b0, ws, bs, _, _ = trunk_ops
+        per_image = b0.numel()
+    n += 4 * (n_out + B * k * H + per_image + ws.numel() + bs.numel() + H * n_out + n_out)
     return n
 
 
-def time_step(cfg, dec, mu, maps, device, replaces, launches, errors, rel_errors) -> dict:
-    """The step kernel, its plain version and the forward + backward kernels
-    with weight gradients at 64 x 128, batches 100 and 21; returns the
-    kernels-line row (batch 100, the flagship shape)."""
+def time_step(name, cfg, dec, mu, maps, device, replaces, launches, errors, rel_errors) -> dict:
+    """The step kernel ``name`` (siren_step or film_step), its plain version
+    and the forward + backward kernels with weight gradients at 64 x 128,
+    batches 100 and 21; returns the kernels-line row (batch 100, the flagship
+    shape)."""
     from reni_tpu_torch.core import encodings, sphere
-    from reni_tpu_torch.kernels import siren_bwd as tb
     from reni_tpu_torch.kernels import siren_fwd as tk
-    from reni_tpu_torch.kernels import siren_step as ts
 
     res = FIT_RES[1]
     D = sphere.get_directions(res[1], device=device)
     sw = sphere.get_sineweight(res[1], device=device)
     k, n_out, P = encodings.d_features(cfg.equivariance, D).shape[-1], cfg.out_features, D.shape[1]
+    kernel, plain = step_fns(cfg)
+    fwd = tk.film_trunk_cuda if cfg.is_film else tk.siren_trunk_cuda
+    bwd, _, bwd_kw = bwd_fns(cfg, weight_grads=True)
+    fwd_kw = {x: v for x, v in bwd_kw.items() if x != "weight_grads"}
+    n_trunk = 8 if cfg.is_film else 7
     row = None
     for B in STEP_TIMED:
         ops = step_operands(cfg, dec, mu[:B], D, maps[res][DEC_BATCH:DEC_BATCH + B], sw)
         kw = step_kwargs(cfg, P)
-        trunk_kw = {x: kw[x] for x in ("omega0", "omega_h", "trunk", "fast_sine")}
         g = cotangent(mu[:B], P, seed=5)
         # forward + the backward without the forward again + the final layer
         flops = B * P * (bwd_flops(cfg, k, n_out, True) + 2.0 * n_out * cfg.hidden_features)
-        bound_ms, bound_by = bound(flops, step_bytes(ops, k, n_out, kw["trunk"]))
+        bound_ms, bound_by = bound(flops, step_bytes(ops, k, n_out, cfg.is_film, kw["trunk"]))
 
         def two_kernels():
-            tk.siren_trunk_cuda(*ops[:7], **trunk_kw)
-            tb.siren_trunk_bwd_cuda(*ops[:7], g, weight_grads=True, **trunk_kw)
+            fwd(*ops[:n_trunk], **fwd_kw)
+            bwd(*ops[:n_trunk], g, **bwd_kw)
 
-        ms = time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
+        ms = time_ms(lambda: kernel(*ops, **kw), runs=15)
         two_ms = time_ms(two_kernels, runs=10)
-        plain_ms = time_ms(lambda: ts.siren_step_reference(*ops, **kw), runs=5, warmup=1)
-        print(f"siren_step B={B} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, forward + "
+        plain_ms = time_ms(lambda: plain(*ops, **kw), runs=5, warmup=1)
+        print(f"{name} B={B} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, forward + "
               f"backward kernels with weight gradients {two_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops:.4g} FLOP) -> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+              f"({bound_by}; {flops:.4g} FLOP, {flops / (B * P):.0f} per pixel) -> "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
         if row is None:
             row = {
-                "name": "siren_step", "route": "cuda", "source": SOURCE_STEP,
-                "replaces": replaces["siren_step"], "launches": launches["siren_step"],
-                "max_abs_err": max(errors["siren_step"]),
-                "max_rel_err": max(rel_errors["siren_step"]),
+                "name": name, "route": "cuda",
+                "source": SOURCE_FILM_STEP if cfg.is_film else SOURCE_STEP,
+                "replaces": replaces[name], "launches": launches[name],
+                "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name]),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "two_kernel_ms": two_ms,
             }
     return row
+
+
+# the probes that time_anatomy times, in the order of benchmarks/bwd_anatomy.py:
+# (name, forward or backward, the variant's keyword arguments)
+ANATOMY_VARIANTS = (
+    ("fwd", "fwd", {}),
+    ("fwd_no_sine", "fwd", dict(transcendental=False)),
+    ("fwd_interleave2", "fwd", dict(interleave=2)),
+    ("fwd_interleave4", "fwd", dict(interleave=4)),
+    ("bwd", "bwd", {}),
+    ("bwd_no_accum", "bwd", dict(accum=False)),
+    ("bwd_no_sincos", "bwd", dict(transcendental=False)),
+    ("bwd_no_dw", "bwd", dict(weight_grads=False)),
+    ("bwd_mxu_only", "bwd", dict(transcendental=False, weight_grads=False)),
+)
+ANATOMY_VARIANTS_BY_NAME = {name: variant for name, _, variant in ANATOMY_VARIANTS}
+
+
+def anatomy_operands(cfg, dec, Z, D):
+    """(trunk operands, cotangent, keyword arguments) of the probes for a
+    Cond-by-Concat decode."""
+    kw = dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0, trunk=cfg.pallas_trunk,
+              fast_sine=cfg.fast_sine)
+    return packed(cfg, dec, Z, D), cotangent(Z, D.shape[1], seed=6), kw
+
+
+def time_anatomy(cfg, dec, Z, D, runs: int) -> dict:
+    """Median ms of every probe of ANATOMY_VARIANTS and of the weight-gradient
+    product alone (on the scratch the backward without its reduction wrote;
+    with and without the sum of its split-K partials) at one shape: the path
+    of ``time_kernels.py --anatomy``."""
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    ops, g, kw = anatomy_operands(cfg, dec, Z, D)
+    times = {}
+    for name, side, variant in ANATOMY_VARIANTS:
+        if side == "fwd":
+            times[name] = time_ms(lambda: ta.fwd_variant_cuda(*ops, **variant, **kw), runs=runs)
+        else:
+            times[name] = time_ms(lambda: ta.bwd_variant_cuda(*ops, g, **variant, **kw), runs=runs)
+    _, _, sc_h, sc_dz = ta.bwd_variant_cuda(*ops, g, accum=False, **kw)
+    times["wgrad_bf16"] = time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz, reduce=False),
+                                  runs=runs)
+    times["wgrad_bf16_and_sum"] = time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz), runs=runs)
+    return times
+
+
+def compare_probe(label: str, got, ref, bar: float) -> tuple[float, float]:
+    """Each result of a probe within bar x max |plain|; returns the largest
+    max |difference| and the largest max |difference| / max |plain|."""
+    worst, worst_rel, report = 0.0, 0.0, []
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if y is None:
+            check(x is None, f"{label}: result {i} computed without weight gradients")
+            continue
+        x, y = x.float(), y.float()
+        check(tuple(x.shape) == tuple(y.shape), f"{label}: result {i} shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{label}: result {i} has non-finite values")
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        report.append(f"{err / scale:.2g}")
+        check(err <= bar * scale, f"{label}: result {i} max |diff| {err:.3g} > {bar} x {scale:.3g}")
+    print(f"{label}: max |diff| / max |plain| per result: {' '.join(report)} (bar {bar})")
+    return worst, worst_rel
+
+
+def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
+    """Hold every probe against its plain version at 21 x 8,192, then drive the
+    probe tool's path with the launch counts zeroed before and read after;
+    returns {probe name: ms} and fills errors / launches for fwd_variant and
+    bwd_variant."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import anatomy as ta
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    D = sphere.get_directions(ANATOMY_WIDTH, device=device)
+    ops, g, kw = anatomy_operands(cfg, dec, Z, D)
+    bar = BWD_BAR[kw["trunk"]]
+    grid = tb.launch_grid(D.shape[1], Z.shape[0], kw["trunk"], device)
+    for name in ("fwd_variant", "bwd_variant"):
+        errors[name], rel_errors[name] = [], []
+    with torch.no_grad():
+        shipped = tk.siren_trunk_cuda(*ops, **kw)
+        for name, side, variant in ANATOMY_VARIANTS:
+            label = f"{name} B={Z.shape[0]} P={D.shape[1]}"
+            if side == "fwd":
+                got = ta.fwd_variant_cuda(*ops, **variant, **kw)
+                ref = ta.fwd_variant_reference(*ops, **variant, **kw)
+                if variant.get("transcendental", True):
+                    # numerically the shipped forward: its bits and its phase-2 bars
+                    check(torch.equal(got, shipped), f"{name} differs from the shipped forward")
+                    err = (got - ref).abs()
+                    check(err.max().item() < MAX_ERR and err.mean().item() < MEAN_ERR,
+                          f"{name} off the bf16 bar")
+                err, rel = compare_probe(label, [got], [ref], bar)
+            else:
+                got = list(ta.bwd_variant_cuda(*ops, g, **variant, **kw))
+                ref = list(ta.bwd_variant_reference(*ops, g, grid=grid, **variant, **kw))
+                if not variant.get("accum", True):
+                    # the scratch of activations is a forward result: the forward's bars
+                    h_err = (got.pop(2).float() - ref.pop(2).float()).abs()
+                    print(f"{label}: scratch h max abs err {h_err.max().item():.3g}, "
+                          f"mean {h_err.mean().item():.3g}")
+                    check(h_err.max().item() < MAX_ERR and h_err.mean().item() < MEAN_ERR,
+                          f"{name}: the scratch of activations is off the bf16 bar")
+                err, rel = compare_probe(label, got, ref, bar)
+            errors[f"{side}_variant"].append(err)
+            rel_errors[f"{side}_variant"].append(rel)
+        _, _, sc_h, sc_dz = ta.bwd_variant_cuda(*ops, g, accum=False, **kw)
+        dws, again = ta.weight_grads_cuda(sc_h, sc_dz), ta.weight_grads_cuda(sc_h, sc_dz)
+        check(torch.equal(dws, again), "the weight-gradient product differs between two calls")
+        compare_probe("wgrad_bf16 alone", [dws], [ta.weight_grads_reference(sc_h, sc_dz)], 1e-4)
+        del sc_h, sc_dz, dws, again, got, ref
+        torch.cuda.synchronize()
+        ta.fwd_variant_cuda.launches = ta.bwd_variant_cuda.launches = 0
+        ta.weight_grads_cuda.launches = 0
+        times = time_anatomy(cfg, dec, Z, D, runs=ANATOMY_RUNS)
+        torch.cuda.synchronize()
+    launches["fwd_variant"] = ta.fwd_variant_cuda.launches
+    launches["bwd_variant"] = ta.bwd_variant_cuda.launches
+    print(f"probe launches on the probe tool's path: fwd_variant {launches['fwd_variant']}, "
+          f"bwd_variant {launches['bwd_variant']}, weight_grads {ta.weight_grads_cuda.launches}")
+    for name in ("fwd_variant", "bwd_variant"):
+        check(launches[name] > 0, f"{name} was never launched on the probe tool's path")
+    check(ta.weight_grads_cuda.launches > 0, "the weight-gradient product was never launched")
+    print("anatomy ms at 21 x 8,192: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return times
+
+
+def probe_row(name, side, variant, cfg, dec, Z, device, times, replaces, launches, errors,
+              rel_errors) -> dict:
+    """The kernels-line row of a probe kernel: the time of its variant
+    ``variant`` (the one without sines: a function of its own) at 21 x 8,192
+    beside its plain version and the bound of the products it still does;
+    ``variants_ms`` holds every variant's time."""
+    from reni_tpu_torch.core import encodings, sphere
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    D = sphere.get_directions(ANATOMY_WIDTH, device=device)
+    ops, g, kw = anatomy_operands(cfg, dec, Z, D)
+    k, n_out, H = encodings.d_features(cfg.equivariance, D).shape[-1], cfg.out_features, cfg.hidden_features
+    B, P = Z.shape[0], D.shape[1]
+    opts = dict(ANATOMY_VARIANTS_BY_NAME[variant])
+    with torch.no_grad():
+        if side == "fwd":
+            flops = 2.0 * B * P * (k * H + cfg.hidden_layers * H * H + H * n_out)
+            nbytes = min_bytes(ops, k, n_out, False, kw["trunk"]) + B * P * n_out * 4
+            plain_ms = time_ms(lambda: ta.fwd_variant_reference(*ops, **opts, **kw), runs=5)
+        else:
+            flops = B * P * bwd_flops(cfg, k, n_out, True)
+            nbytes = bwd_bytes(ops, k, n_out, False, kw["trunk"], True)
+            plain_ms = time_ms(lambda: ta.bwd_variant_reference(*ops, g, **opts, **kw), runs=5)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"{name} ({variant}) B={B} P={P}: kernel {times[variant]:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP)")
+    return {
+        "name": name, "route": "cuda", "source": SOURCE_ANATOMY, "replaces": replaces[name],
+        "launches": launches[name], "max_abs_err": max(errors[name]),
+        "max_rel_err": max(rel_errors[name]), "ms": times[variant], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "timed_variant": variant,
+        "variants_ms": {k: v for k, v in times.items() if k.startswith(side) or
+                        (side == "bwd" and k.startswith("wgrad"))},
+    }
 
 
 def bwd_flops(cfg, k: int, n_out: int, weight_grads: bool) -> float:
@@ -1011,16 +1237,34 @@ def main() -> int:
     cfg_cbc, dec_cbc, _ = entries["siren_fwd"]
     mu, maps = training_maps(dev)
     errors["siren_step"], rel_errors["siren_step"] = compare_step_phase(
-        cfg_cbc, dec_cbc, mu, maps, dev)
+        "siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
 
     phase("fit_decoder")
     launches["siren_step"] = fit_decoder_phase(dev, maps)
     print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
 
+    phase("compare_film_step at full width and at FIT_DECODER's shapes")
+    cfg_film, dec_film, _ = entries["film_fwd"]
+    mu_film, maps_film = training_maps(dev, FILM)
+    errors["film_step"], rel_errors["film_step"] = compare_step_phase(
+        "film_step", cfg_film, dec_film, mu_film, maps_film, dev)
+
+    phase("fit_decoder_film")
+    launches["film_step"] = fit_decoder_phase(dev, maps_film, FILM)
+    print(f"FiLM step-kernel launches during FIT_DECODER (kernel run): {launches['film_step']}")
+
+    phase("anatomy")
+    torch.cuda.empty_cache()
+    anatomy_ms = anatomy_phase(cfg_cbc, dec_cbc, entries["siren_fwd"][2], dev, errors,
+                               rel_errors, launches)
+
     phase("timings")
     rows = []
     replaces = {
         "siren_step": "reni_tpu/kernels/siren_pallas.py:980",
+        "film_step": "reni_tpu/kernels/siren_pallas.py:1296",
+        "fwd_variant": "benchmarks/bwd_anatomy.py:115",
+        "bwd_variant": "benchmarks/bwd_anatomy.py:52",
         "siren_fwd": "reni_tpu/kernels/siren_pallas.py:140",
         "film_fwd": "reni_tpu/kernels/siren_pallas.py:201",
         "siren_bwd": "reni_tpu/kernels/siren_pallas.py:151",
@@ -1089,8 +1333,16 @@ def main() -> int:
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         }
             rows.append(row)
-        rows.append(time_step(cfg_cbc, dec_cbc, mu, maps, dev, replaces, launches, errors,
-                              rel_errors))
+        rows.append(time_step("siren_step", cfg_cbc, dec_cbc, mu, maps, dev, replaces, launches,
+                              errors, rel_errors))
+        torch.cuda.empty_cache()
+        rows.append(time_step("film_step", cfg_film, dec_film, mu_film, maps_film, dev, replaces,
+                              launches, errors, rel_errors))
+    z21 = entries["siren_fwd"][2]
+    rows.append(probe_row("fwd_variant", "fwd", "fwd_no_sine", cfg_cbc, dec_cbc, z21, dev,
+                          anatomy_ms, replaces, launches, errors, rel_errors))
+    rows.append(probe_row("bwd_variant", "bwd", "bwd_no_sincos", cfg_cbc, dec_cbc, z21, dev,
+                          anatomy_ms, replaces, launches, errors, rel_errors))
     print(f"total_s {time.perf_counter() - t_start:.1f}")
 
     card = card_line()

@@ -1,0 +1,297 @@
+"""Anatomy probes of the Cond-by-Concat forward and backward kernels: the
+ports of ``_fwd_kernel_variant`` and ``_bwd_kernel_variant`` of
+``benchmarks/bwd_anatomy.py``.
+
+A probe is a shipped kernel with one part taken out or rearranged, timed
+beside the shipped kernel to see what that part costs
+(``time_kernels.py --anatomy``). Nothing on a serving or training path calls
+this module. Every variant but the interleaved forward is numerically wrong
+on purpose; each is still a definite function, so each has a plain PyTorch
+version here (``fwd_variant_reference``, ``bwd_variant_reference``) that the
+kernel (``fwd_variant_cuda``, ``bwd_variant_cuda``; ``csrc/siren_anatomy.cu``,
+its own library, so the shipped kernels' machine code is the same with or
+without it) is held against on the card. Each wrapper counts its launches in
+``.launches``; a combination that a shipped library already holds (the
+kernel unchanged, the backward without weight gradients) is launched from
+that library, not compiled twice.
+
+Forward variants (operands and result of ``siren_trunk_reference``):
+
+- ``transcendental=False``: every sine becomes ``0.8 * z``;
+- ``interleave`` 2 or 4: the TPU probe works its tile as independent
+  sub-tiles layer by layer. Here each hidden layer works the CTA's 64-row
+  tile as 2 or 4 sub-tiles one after the other, so a weight fragment read
+  from L2 serves 2 or 1 row tiles of 16 instead of 4. The results are those
+  of the shipped forward, bit for bit, which is the check.
+
+Backward variants (operands of ``siren_trunk_bwd_reference``):
+
+- ``transcendental=False``: (sin, cos) becomes ``(0.8 * z, 0.6 * z)``;
+- ``weight_grads=False``: the shipped backward without weight gradients;
+  both together are the pure product skeleton ("mxu_only");
+- ``accum=False``: the TPU probe writes its weight gradients in place of
+  accumulating them across its sequential grid, which removes a
+  read-modify-write between grid steps. The port has no such accumulation
+  (its CTAs run concurrently): what it has in that place is the reduction
+  after the chain kernel. So here ``accum=False`` runs the chain kernel with
+  weight gradients alone and skips the slot sums and the split-K
+  weight-gradient product; the result is the raw per-CTA slots and the
+  scratch, ``(part_img (B, chunks, 9H), part_w (B * chunks, n_w), sc_h
+  (L, B * P, H), sc_dz (L, B * P, H))``: per CTA dA | db0, then dbs | dWf |
+  dbf, and per pixel row the operands h_i and dz_i of the product that
+  would form dWs_i. They depend on the launch grid ``(tiles per CTA, CTAs
+  per image)``, which the plain version takes as ``grid``.
+
+``weight_grads_cuda`` runs that product alone on a given scratch (the
+``wgrad_bf16`` / ``wgrad_f32`` kernel of ``csrc/siren_chain.cuh`` and, with
+``reduce``, the sum of its split-K partials), so that it can be timed apart
+from the chain kernel; ``weight_grads_reference`` is its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from reni_tpu_torch.core.fastmath import sincos_fns
+from reni_tpu_torch.kernels import siren_bwd, siren_fwd
+from reni_tpu_torch.kernels.siren_bwd import _rounded, tile_rows
+from reni_tpu_torch.kernels.siren_fwd import C_PAD, K_PAD, _cuda_operands, _f32, _matmul, _weights
+
+SINE_LINEAR = 2  # csrc/siren_common.cuh; 0 is the exact sine, 1 the fast one
+INTERLEAVES = (1, 2, 4)
+
+
+def _sincos(transcendental: bool, fast_sine: bool):
+    if transcendental:
+        return sincos_fns(fast_sine)
+    return lambda z: (z * 0.8, z * 0.6)
+
+
+def _sine_mode(transcendental: bool, fast_sine: bool) -> int:
+    return int(bool(fast_sine)) if transcendental else SINE_LINEAR
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def fwd_variant_reference(
+    d_pad, a, b0, ws, bs, wf, bf, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
+    transcendental=True, interleave=1,
+):
+    """Plain version of a forward variant -> (B, P, 8). The pixels are worked
+    in ``interleave`` independent parts, as the TPU probe works its tile."""
+    sincos = _sincos(transcendental, fast_sine)
+    outs = []
+    for part in d_pad.chunk(interleave, dim=1):
+        h = sincos(omega0 * (_matmul(part, a, trunk) + b0))[0]
+        for i in range(ws.shape[0]):
+            h = sincos(omega_h * (_matmul(h, ws[i], trunk) + bs[i]))[0]
+        outs.append(_matmul(h, wf, trunk) + bf)
+    return torch.cat(outs, 1)
+
+
+def _slots(x: torch.Tensor, rows: int, chunks: int) -> torch.Tensor:
+    """(B, P, n) -> (B, chunks, rows, n): each CTA's pixel rows, zero rows
+    past P."""
+    x = torch.nn.functional.pad(x, (0, 0, 0, chunks * rows - x.shape[1]))
+    return x.view(x.shape[0], chunks, rows, x.shape[-1])
+
+
+def bwd_variant_reference(
+    d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
+    transcendental=True, weight_grads=True, accum=True, grid=None,
+):
+    """Plain version of a backward variant. With ``accum`` (or without weight
+    gradients) -> what ``siren_trunk_bwd_reference`` returns; with
+    ``accum=False`` -> the per-CTA slots and the scratch for the launch grid
+    ``grid = (tiles per CTA, CTAs per image)`` (module docstring)."""
+    kw = dict(omega0=omega0, omega_h=omega_h, trunk=trunk)
+    hs, cs = siren_bwd.siren_forward_keep(
+        d_pad, a, b0, ws, bs, fast_sine=fast_sine, sincos=_sincos(transcendental, fast_sine),
+        **kw,
+    )
+    if accum or not weight_grads:
+        return siren_bwd.siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, weight_grads=weight_grads,
+                                         **kw)
+    dzs: list = []
+    siren_bwd.siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, weight_grads=False, dzs=dzs, **kw)
+    dz0, dzs = dzs[0], dzs[1:]
+    batch, npix, hidden = hs[0].shape
+    rows, chunks = grid[0] * tile_rows(trunk), grid[1]
+    if chunks * rows < npix:
+        raise ValueError(f"grid {grid} covers {chunks * rows} of {npix} pixel rows")
+
+    def slots(x):
+        return _slots(x, rows, chunks)
+
+    d = slots(d_pad.expand(batch, *d_pad.shape[1:]))
+    da = torch.einsum("bcrk,bcrh->bckh", _rounded(d, trunk), _rounded(slots(dz0), trunk))
+    part_img = torch.cat((da.flatten(2), slots(dz0).sum(2)), 2)
+    dbs = torch.stack([slots(dz).sum(2) for dz in dzs], 2)  # (B, chunks, L, H)
+    dwf = torch.einsum("bcrm,bcrn->bcmn", _rounded(slots(hs[-1]), trunk),
+                       _rounded(slots(g), trunk))
+    part_w = torch.cat((dbs.flatten(2), dwf.flatten(2), slots(g).sum(2)), 2)
+    act = torch.bfloat16 if trunk == "bfloat16" else torch.float32
+    sc_h = torch.stack([x.reshape(batch * npix, hidden) for x in hs[:-1]]).to(act)
+    sc_dz = torch.stack([x.reshape(batch * npix, hidden) for x in dzs]).to(act)
+    return part_img, part_w.flatten(0, 1), sc_h, sc_dz
+
+
+def weight_grads_reference(sc_h: torch.Tensor, sc_dz: torch.Tensor) -> torch.Tensor:
+    """dWs (L, H, H) = h_i^T dz_i over all rows of the scratches (L, rows, H),
+    summed in float32."""
+    return torch.einsum("lrm,lrn->lmn", sc_h.float(), sc_dz.float())
+
+
+# ---------------------------------------------------------------------------
+# CUDA versions
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "reni_anatomy_fwd": [_P, ctypes.c_longlong, *[_P] * 7, *[_I] * 4, _F, _F, _I, _I, _I, _P],
+    "reni_anatomy_bwd": [
+        _P, ctypes.c_longlong, *[_P] * 14, *[_I] * 8, _F, _F, _I, _I, _I, _I, _P,
+    ],
+    "reni_anatomy_wgrad": [_P, _P, _P, _P, ctypes.c_longlong, *[_I] * 6, _P],
+}
+
+
+def library():
+    """The built ``csrc/siren_anatomy.cu`` (compiled at first call)."""
+    from reni_tpu_torch.kernels import _build
+
+    lib = _build.load("siren_anatomy")
+    if lib.reni_anatomy_error_string.restype is not ctypes.c_char_p:
+        for symbol, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.reni_anatomy_error_string.argtypes = [ctypes.c_int]
+        lib.reni_anatomy_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(err: int, lib, kind: str) -> None:
+    if err != 0:
+        msg = lib.reni_anatomy_error_string(err).decode()
+        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def fwd_variant_cuda(
+    d_pad, a, b0, ws, bs, wf, bf, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
+    transcendental=True, interleave=1,
+):
+    """A forward variant on the card; returns what ``fwd_variant_reference``
+    returns. The linear stand-in is built with ``interleave=1`` only."""
+    if interleave not in INTERLEAVES or (interleave != 1 and not transcendental):
+        raise ValueError(
+            f"no forward variant with interleave={interleave}, transcendental={transcendental}"
+        )
+    kw = dict(omega0=omega0, omega_h=omega_h, trunk=trunk, fast_sine=fast_sine)
+    if transcendental and interleave == 1:
+        out = siren_fwd.siren_trunk_cuda(d_pad, a, b0, ws, bs, wf, bf, **kw)
+        fwd_variant_cuda.launches += 1
+        return out
+    batch, hidden = a.shape[0], a.shape[-1]
+    d, d_bstride = _cuda_operands("fwd_variant", trunk, d_pad, batch, (a, b0, ws, bs, wf, bf))
+    a, b0, bs, bf = _f32(a), _f32(b0), _f32(bs), _f32(bf)
+    ws, wf = _weights(ws, trunk), _weights(wf, trunk)
+    out = torch.empty((batch, d.shape[1], C_PAD), dtype=torch.float32, device=d.device)
+    lib = library()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.reni_anatomy_fwd(
+            d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+            wf.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, d.shape[1], hidden,
+            ws.shape[0], float(omega0), float(omega_h), int(trunk == "bfloat16"),
+            _sine_mode(transcendental, fast_sine), interleave, stream,
+        )
+    _check(err, lib, "fwd_variant")
+    fwd_variant_cuda.launches += 1
+    return out
+
+
+fwd_variant_cuda.launches = 0
+
+
+def bwd_variant_cuda(
+    d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
+    transcendental=True, weight_grads=True, accum=True,
+):
+    """A backward variant on the card; returns what ``bwd_variant_reference``
+    returns for the grid ``siren_bwd.launch_grid`` gives these shapes."""
+    accum = accum or not weight_grads
+    if transcendental and accum:
+        out = siren_bwd.siren_trunk_bwd_cuda(
+            d_pad, a, b0, ws, bs, wf, bf, g, omega0=omega0, omega_h=omega_h, trunk=trunk,
+            fast_sine=fast_sine, weight_grads=weight_grads,
+        )
+        bwd_variant_cuda.launches += 1
+        return out
+    batch, hidden, n_mm = a.shape[0], a.shape[-1], ws.shape[0]
+    d, d_bstride, g, tiles, chunks, part, out, work = siren_bwd._prepare(
+        "bwd_variant", False, trunk, d_pad, batch, hidden, n_mm, g, (a, b0, ws, bs, wf, bf),
+        weight_grads,
+    )
+    pointers, wchunks = siren_bwd._work_args(work)
+    a, b0, bs = _f32(a), _f32(b0), _f32(bs)
+    ws, wf = _weights(ws, trunk), _weights(wf, trunk)
+    lib = library()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.reni_anatomy_bwd(
+            d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+            wf.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), *pointers, batch,
+            d.shape[1], hidden, n_mm, tiles, chunks, *wchunks, float(omega0), float(omega_h),
+            int(trunk == "bfloat16"), _sine_mode(transcendental, fast_sine),
+            int(bool(weight_grads)), int(bool(accum)), stream,
+        )
+    _check(err, lib, "bwd_variant")
+    bwd_variant_cuda.launches += 1
+    if not accum:
+        return part, work.part_w, work.sc_h, work.sc_dz
+    da = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
+    db0 = out[:, K_PAD * hidden :].view(batch, 1, hidden)
+    if work is None:
+        return da, db0, None, None, None, None
+    return (da, db0, work.dws, *work.small_sums(n_mm, hidden))
+
+
+bwd_variant_cuda.launches = 0
+
+
+def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool = True):
+    """The training kernels' weight-gradient product alone, on the scratches
+    (L, rows, H) a chain kernel wrote (bf16 or float32) -> dWs (L, H, H); with
+    ``reduce=False`` the split-K partials (chunks, L, H, H), not summed."""
+    trunk = "bfloat16" if sc_h.dtype == torch.bfloat16 else "float32"
+    if not (sc_h.is_cuda and sc_dz.is_cuda):
+        raise ValueError("weight_grads kernel operands must all be CUDA tensors")
+    if sc_h.shape != sc_dz.shape or sc_h.dtype != sc_dz.dtype or sc_h.dim() != 3:
+        raise ValueError(f"scratch shapes {tuple(sc_h.shape)} and {tuple(sc_dz.shape)}")
+    n_mm, rows, hidden = sc_h.shape
+    per, chunks = siren_bwd.wgrad_chunks(rows, hidden, n_mm, trunk, sc_h.device)
+    f32 = dict(dtype=torch.float32, device=sc_h.device)
+    part_dws = torch.empty((chunks, n_mm, hidden, hidden), **f32)
+    dws = torch.empty((n_mm, hidden, hidden), **f32)
+    sc_h, sc_dz = sc_h.contiguous(), sc_dz.contiguous()
+    lib = library()
+    with torch.cuda.device(sc_h.device):
+        stream = torch.cuda.current_stream(sc_h.device).cuda_stream
+        err = lib.reni_anatomy_wgrad(
+            sc_h.data_ptr(), sc_dz.data_ptr(), part_dws.data_ptr(), dws.data_ptr(), rows, per,
+            chunks, hidden, n_mm, int(trunk == "bfloat16"), int(bool(reduce)), stream,
+        )
+    _check(err, lib, "weight_grads")
+    weight_grads_cuda.launches += 1
+    return dws if reduce else part_dws
+
+
+weight_grads_cuda.launches = 0

@@ -1,0 +1,131 @@
+// Anatomy probes of the Cond-by-Concat forward and backward kernels: the
+// kernel templates of siren_fwd.cuh and siren_bwd.cuh instantiated with one
+// part taken out or rearranged, to see which part bounds the shipped kernels.
+//
+// Replaces the Pallas probe kernels _fwd_kernel_variant and
+// _bwd_kernel_variant of benchmarks/bwd_anatomy.py. They are timed by
+// time_kernels.py --anatomy and called by nothing on a serving or training
+// path. This is a translation unit of its own, so the shipped libraries
+// (siren_fwd.cu, siren_bwd.cu) hold the same machine code with or without it.
+//
+// Forward variants:
+//   - sine mode SINE_LINEAR: every sine becomes 0.8 x (no transcendental);
+//   - interleave 2 or 4: each hidden layer works the CTA's 64-row tile as 2 or
+//     4 independent sub-tiles, so a weight fragment read from L2 serves 2 or 1
+//     row tiles of 16 instead of 4; the results are the shipped kernel's.
+// Backward variants:
+//   - sine mode SINE_LINEAR: (sin, cos) becomes (0.8 x, 0.6 x), with or
+//     without the weight gradients;
+//   - reduce = 0 ("no_accum"): the TPU probe writes its weight gradients in
+//     place of accumulating them across its sequential grid. This port has no
+//     such accumulation: its counterpart is the reduction after the chain
+//     kernel, so this variant runs the chain kernel with weight gradients
+//     alone; the per-CTA slots and the scratch of h and dz are the result and
+//     the slot sums and the split-K product are skipped.
+// Beside them, reni_anatomy_wgrad runs the training kernels' weight-gradient
+// product (wgrad_bf16 / wgrad_f32 of siren_chain.cuh) alone on a given
+// scratch, with or without the sum of its split-K partials, so that it can
+// be timed apart from the chain kernel.
+// Every variant but the interleaved forward is numerically wrong on purpose,
+// and each is a definite function with a plain version in kernels/anatomy.py.
+// The variants the shipped libraries already hold (the backward without
+// weight gradients, and each kernel unchanged) are launched from there.
+//
+// What bounds them on the H100: as the shipped kernels (tensor-core
+// operations); the point of a probe is the time that its missing part took.
+
+#include "siren_bwd.cuh"
+#include "siren_fwd.cuh"
+
+namespace {
+
+using namespace reni;
+
+template <bool BF16>
+reni_fwd::KernelFn pick_fwd(int sine, int interleave) {
+  using namespace reni_fwd;
+  if (sine == SINE_LINEAR) {
+    if (interleave != 1) return nullptr;
+    return trunk_fwd<false, BF16, SINE_LINEAR>;
+  }
+  if (interleave == 2) {
+    return sine == SINE_FAST ? trunk_fwd<false, BF16, SINE_FAST, 2>
+                             : trunk_fwd<false, BF16, SINE_EXACT, 2>;
+  }
+  if (interleave == 4) {
+    return sine == SINE_FAST ? trunk_fwd<false, BF16, SINE_FAST, 4>
+                             : trunk_fwd<false, BF16, SINE_EXACT, 4>;
+  }
+  return nullptr;
+}
+
+template <bool BF16>
+reni_bwd::KernelFn pick_bwd(int sine, int wgrad, int reduce) {
+  using namespace reni_bwd;
+  if (sine == SINE_LINEAR) {
+    return wgrad ? trunk_bwd<false, BF16, SINE_LINEAR, true>
+                 : trunk_bwd<false, BF16, SINE_LINEAR, false>;
+  }
+  if (!wgrad || reduce) return nullptr;  // a shipped kernel: launch it from siren_bwd.cu
+  return sine == SINE_FAST ? trunk_bwd<false, BF16, SINE_FAST, true>
+                           : trunk_bwd<false, BF16, SINE_EXACT, true>;
+}
+
+}  // namespace
+
+extern "C" {
+
+// A forward variant; the arguments of reni_siren_fwd with the sine mode
+// (0 exact, 1 fast, 2 linear stand-in) and the interleave (1, 2 or 4). A
+// combination this file does not hold returns cudaErrorInvalidValue.
+int reni_anatomy_fwd(const float* d, long long d_bstride, const float* a, const float* b0,
+                     const void* ws, const float* bs, const void* wf, const float* bf,
+                     float* out, int batch, int P, int H, int n_hidden, float omega0,
+                     float omega_h, int bf16, int sine, int interleave, void* stream) {
+  const reni_fwd::Args g{d, d_bstride, a, b0, ws, bs, wf, bf, nullptr, nullptr, out,
+                         P, H, n_hidden, omega0, omega_h};
+  const reni_fwd::KernelFn kern =
+      bf16 ? pick_fwd<true>(sine, interleave) : pick_fwd<false>(sine, interleave);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return reni_fwd::launch(kern, g, batch, bf16, stream);
+}
+
+// A backward variant; the arguments of reni_siren_bwd with the sine mode and
+// `reduce`. With reduce = 0, part (B, n_chunks, 9H), part_w (B * n_chunks,
+// n_w), sc_h and sc_dz are the result and out, out_w, part_dws and dws are
+// not touched. A combination this file does not hold returns
+// cudaErrorInvalidValue.
+int reni_anatomy_bwd(const float* d, long long d_bstride, const float* a, const float* b0,
+                     const void* ws, const float* bs, const void* wf, const float* g,
+                     float* part, float* out, float* part_w, float* out_w, void* sc_h,
+                     void* sc_dz, float* part_dws, float* dws, int batch, int P, int H,
+                     int n_hidden, int tiles_per_cta, int n_chunks, int rows_per_chunk,
+                     int n_wchunks, float omega0, float omega_h, int bf16, int sine, int wgrad,
+                     int reduce, void* stream) {
+  const reni_bwd::Args args{d, d_bstride, a, b0, ws, bs, wf, nullptr, nullptr, g, part, part_w,
+                            sc_h, sc_dz, P, H, n_hidden, tiles_per_cta, n_chunks, omega0,
+                            omega_h};
+  const reni_bwd::WeightGrads wg{out_w, part_dws, dws, rows_per_chunk, n_wchunks};
+  const reni_bwd::KernelFn kern = bf16 ? pick_bwd<true>(sine, wgrad, reduce)
+                                       : pick_bwd<false>(sine, wgrad, reduce);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return reni_bwd::launch(kern, false, args, batch, bf16 != 0, wgrad ? &wg : nullptr, out,
+                          stream, reduce != 0);
+}
+
+// dws (n_layers, H, H) = h^T dz from the scratches h and dz (n_layers, rows,
+// H; bf16 or float32): the split-K product into part (n_wchunks, n_layers, H,
+// H) and, with reduce, the sum of the partials into dws. Returns a
+// cudaError_t.
+int reni_anatomy_wgrad(const void* h, const void* dz, float* part, float* dws, long long rows,
+                       int rows_per_chunk, int n_wchunks, int H, int n_layers, int bf16,
+                       int reduce, void* stream) {
+  return (int)launch_weight_grads(bf16 != 0, h, dz, part, dws, rows, rows_per_chunk, n_wchunks,
+                                  H, n_layers, static_cast<cudaStream_t>(stream), reduce != 0);
+}
+
+const char* reni_anatomy_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-// Device code shared by the training kernels (siren_bwd.cu, siren_step.cu):
+// Device code shared by the training kernels (siren_bwd.cuh, siren_step.cuh):
 // the tile geometry, one hidden layer of the forward, dh = dz @ W^T, and the
 // weight-gradient reduction that needs no float atomics.
 //
@@ -251,11 +251,13 @@ wgrad_f32(const float* h, const float* dz, float* part, long long rows, int rows
 
 // dws (n_layers, H, H) = h^T dz over all rows, from the scratch the chain
 // kernel filled: split-K partials into `part` (n_chunks, n_layers, H, H),
-// then their sum in chunk order.
+// then their sum in chunk order (left out with reduce = false, which only the
+// anatomy probes ask for).
 static inline cudaError_t launch_weight_grads(bool bf16, const void* h, const void* dz,
                                               float* part, float* dws, long long rows,
                                               int rows_per_chunk, int n_chunks, int H,
-                                              int n_layers, cudaStream_t s) {
+                                              int n_layers, cudaStream_t s,
+                                              bool reduce = true) {
   if (n_layers == 0) return cudaSuccess;
   if (bf16) {
     const int t = (H + WG_BM - 1) / WG_BM;
@@ -269,7 +271,7 @@ static inline cudaError_t launch_weight_grads(bool bf16, const void* h, const vo
         H);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !reduce) return err;
   return launch_reduce(part, dws, 1, n_chunks, (long long)n_layers * H * H, s);
 }
 

@@ -1,10 +1,13 @@
-// Device helpers shared by siren_fwd.cu and siren_bwd.cu.
+// Device helpers shared by every kernel source of this directory.
 //
 // fast_sin / fast_cos / fast_sincos are core/fastmath.py's polynomials: the
 // same float32 constants (as exact hex literals), the same operation order,
 // rintf (half to even, as jnp.round / torch.round) and floorf. The exact
 // path is sinf / cosf / sincosf with full range reduction: the build must
 // not use --use_fast_math (SIREN pre-activations reach |x| ~ 200).
+// SINE_LINEAR is the stand-in of the anatomy probes (siren_anatomy.cu):
+// sin -> 0.8 x, cos -> 0.6 x, numerically wrong on purpose; no shipped kernel
+// is instantiated with it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,19 +73,26 @@ __device__ __forceinline__ void fast_sincos(float x, float* s, float* c) {
   *c = poly_cos(r2) * sign;
 }
 
-template <bool FAST>
+enum { SINE_EXACT = 0, SINE_FAST = 1, SINE_LINEAR = 2 };
+
+template <int SINE>
 __device__ __forceinline__ float sine(float x) {
-  return FAST ? fast_sin(x) : sinf(x);
+  if constexpr (SINE == SINE_LINEAR) return __fmul_rn(x, 0.8f);
+  return SINE == SINE_FAST ? fast_sin(x) : sinf(x);
 }
 
-template <bool FAST>
+template <int SINE>
 __device__ __forceinline__ float cosine(float x) {
-  return FAST ? fast_cos(x) : cosf(x);
+  if constexpr (SINE == SINE_LINEAR) return __fmul_rn(x, 0.6f);
+  return SINE == SINE_FAST ? fast_cos(x) : cosf(x);
 }
 
-template <bool FAST>
+template <int SINE>
 __device__ __forceinline__ void sine_cosine(float x, float* s, float* c) {
-  if (FAST) {
+  if constexpr (SINE == SINE_LINEAR) {
+    *s = __fmul_rn(x, 0.8f);
+    *c = __fmul_rn(x, 0.6f);
+  } else if constexpr (SINE == SINE_FAST) {
     fast_sincos(x, s, c);
   } else {
     sincosf(x, s, c);

@@ -15,12 +15,13 @@ None and not computed: FIT_LATENT trains the latents through a frozen
 decoder and needs only the per-image gradients.
 
 ``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda`` launch the hand-written
-kernel of ``csrc/siren_bwd.cu`` (CUDA tensors only) and count their calls in
-``.launches``. Every sum has a fixed order (per-CTA slots added in slot
-order; dWs through a device scratch and a split-K product,
-``csrc/siren_chain.cuh``), so two calls on the same inputs give the same bits. ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference``
-are their plain PyTorch versions, written step by step like the TPU kernel:
-with the bf16 trunk both operands of every product are rounded to bf16 (the
+kernel of ``csrc/siren_bwd.cu`` (template in ``csrc/siren_bwd.cuh``; CUDA
+tensors only) and count their calls in ``.launches``. Every sum has a fixed
+order (per-CTA slots added in slot order; dWs through a device scratch and a
+split-K product, ``csrc/siren_chain.cuh``), so two calls on the same inputs
+give the same bits. ``siren_trunk_bwd_reference`` /
+``film_trunk_bwd_reference`` are their plain PyTorch versions, written step
+by step like the TPU kernel: with the bf16 trunk both operands of every product are rounded to bf16 (the
 cotangents ``g`` and ``dz`` too) and summed in float32, which autograd of the
 plain forward would not do.
 """
@@ -124,10 +125,12 @@ def _image_dot(d: torch.Tensor, y: torch.Tensor, trunk: str) -> torch.Tensor:
     return torch.einsum("bpk,bph->bkh", _rounded(d, trunk), _rounded(y, trunk))
 
 
-def siren_forward_keep(d_pad, a, b0, ws, bs, *, omega0, omega_h, trunk, fast_sine):
+def siren_forward_keep(d_pad, a, b0, ws, bs, *, omega0, omega_h, trunk, fast_sine,
+                       sincos=None):
     """The Cond-by-Concat forward with the joint sincos -> (activations
-    [h_0..h_L], cos factors [c_0..c_L]), each (B, P, H)."""
-    sincos = sincos_fns(fast_sine)
+    [h_0..h_L], cos factors [c_0..c_L]), each (B, P, H). ``sincos`` replaces
+    the joint sincos (the anatomy probes' linear stand-in)."""
+    sincos = sincos or sincos_fns(fast_sine)
     h, c = sincos(omega0 * (_matmul(d_pad, a, trunk) + b0))
     hs, cs = [h], [c]
     for i in range(ws.shape[0]):
@@ -137,9 +140,12 @@ def siren_forward_keep(d_pad, a, b0, ws, bs, *, omega0, omega_h, trunk, fast_sin
     return hs, cs
 
 
-def siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, *, omega0, omega_h, trunk, weight_grads):
+def siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, *, omega0, omega_h, trunk, weight_grads,
+                    dzs=None):
     """The backward chain from the output cotangent ``g`` (B, P, 8) and the
-    kept activations -> (dA, db0, dWs, dbs, dWf, dbf)."""
+    kept activations -> (dA, db0, dWs, dbs, dWf, dbf). A list ``dzs``
+    receives the cotangents [dz0, dz_0..dz_{L-1}] of the pre-activations
+    (``kernels/anatomy.py`` forms the kernel's per-CTA sums from them)."""
     dws = dbs = dwf = dbf = None
     if weight_grads:
         dws, dbs = torch.zeros_like(ws), torch.zeros_like(bs)
@@ -148,11 +154,15 @@ def siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, *, omega0, omega_h, trunk, wei
     dh = _matmul(g, wf.transpose(0, 1), trunk)
     for i in reversed(range(ws.shape[0])):
         dz = dh * (omega_h * cs[i + 1])
+        if dzs is not None:
+            dzs.insert(0, dz)
         if weight_grads:
             dws[i] = _pixel_dot(hs[i], dz, trunk)
             dbs[i] = dz.sum((0, 1))
         dh = _matmul(dz, ws[i].transpose(0, 1), trunk)
     dz0 = dh * (omega0 * cs[0])
+    if dzs is not None:
+        dzs.insert(0, dz0)
     da = _image_dot(d_pad, dz0, trunk)
     db0 = dz0.sum(1, keepdim=True)
     return da, db0, dws, dbs, dwf, dbf
@@ -172,15 +182,13 @@ def siren_trunk_bwd_reference(
     )
 
 
-def film_trunk_bwd_reference(
-    d_pad, a0, ws, bs, wf, bf, fr, ph, g, *, trunk="bfloat16", fast_sine=False,
-    weight_grads=True,
-):
-    """Plain version of the FiLM backward kernel (``_film_bwd_kernel``)."""
+def film_forward_keep(d_pad, a0, ws, bs, fr, ph, *, trunk, fast_sine):
+    """The FiLM forward with the joint sincos -> (pre-modulation values
+    [pre_0..pre_{T-1}], activations [h_i], cos factors [c_i]), each (B, P, H)."""
     sincos = sincos_fns(fast_sine)
-    hidden, n_trunk = a0.shape[-1], bs.shape[0]
+    hidden = a0.shape[-1]
     pres, hs, coss = [], [], []
-    for i in range(n_trunk):
+    for i in range(bs.shape[0]):
         lo = i * hidden
         pre = (
             _matmul(d_pad, a0, trunk) if i == 0 else _matmul(hs[-1], ws[i - 1], trunk)
@@ -189,15 +197,22 @@ def film_trunk_bwd_reference(
         pres.append(pre)
         hs.append(h)
         coss.append(c)
+    return pres, hs, coss
+
+
+def film_chain_bwd(d_pad, ws, bs, wf, fr, pres, hs, coss, g, *, trunk, weight_grads):
+    """The FiLM backward chain from the output cotangent ``g`` (B, P, 8) and
+    the kept values -> (dA0, dWs, dbs, dWf, dbf, dfreqs, dphases)."""
+    hidden = wf.shape[0]
     dws = dbs = dwf = dbf = None
     if weight_grads:
         dws, dbs = torch.zeros_like(ws), torch.zeros_like(bs)
         dwf = _pixel_dot(hs[-1], g, trunk)
         dbf = g.sum((0, 1))[None]
-    dfr, dph = torch.zeros_like(fr), torch.zeros_like(ph)
+    dfr, dph = torch.zeros_like(fr), torch.zeros_like(fr)
     dh = _matmul(g, wf.transpose(0, 1), trunk)
     da0 = None
-    for i in reversed(range(n_trunk)):
+    for i in reversed(range(bs.shape[0])):
         lo = i * hidden
         fi = fr[..., lo : lo + hidden]
         dmod = dh * coss[i]  # d / d(f * pre + p)
@@ -213,6 +228,19 @@ def film_trunk_bwd_reference(
                 dws[i - 1] = _pixel_dot(hs[i - 1], dz, trunk)
             dh = _matmul(dz, ws[i - 1].transpose(0, 1), trunk)
     return da0, dws, dbs, dwf, dbf, dfr, dph
+
+
+def film_trunk_bwd_reference(
+    d_pad, a0, ws, bs, wf, bf, fr, ph, g, *, trunk="bfloat16", fast_sine=False,
+    weight_grads=True,
+):
+    """Plain version of the FiLM backward kernel (``_film_bwd_kernel``)."""
+    pres, hs, coss = film_forward_keep(
+        d_pad, a0, ws, bs, fr, ph, trunk=trunk, fast_sine=fast_sine
+    )
+    return film_chain_bwd(
+        d_pad, ws, bs, wf, fr, pres, hs, coss, g, trunk=trunk, weight_grads=weight_grads
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,12 @@ Parameters are the JAX package's nested dict, holding tensors:
 ``RENIConfig(**checkpoint_json["model_config"])`` loads any checkpoint.
 ``use_pallas`` keeps its meaning, "take the fused kernel": here the CUDA
 kernels of ``kernels/siren_fwd.py``, for gradients ``kernels/siren_bwd.py``,
-and for the FIT_DECODER objective ``kernels/siren_step.py``.
+and for the FIT_DECODER objective ``kernels/siren_step.py`` (both
+conditionings).
 Initialisation matches the JAX package in distribution (decoder bounds as
-``siren.init_siren``; Z / mu ~ N(0, 1), log_var ~ N(-5, 1); zeros for Z / mu
-under ``fixed_decoder``), drawn on the CPU from an explicit
-``torch.Generator``; the numbers are torch's, not JAX's.
+``siren.init_siren`` / ``film.init_film_siren``; Z / mu ~ N(0, 1), log_var ~
+N(-5, 1); zeros for Z / mu under ``fixed_decoder``), drawn on the CPU from
+an explicit ``torch.Generator``; the numbers are torch's, not JAX's.
 """
 
 from __future__ import annotations
@@ -35,7 +36,11 @@ from reni_tpu_torch.kernels.siren_fwd import (
     fused_film_apply,
     unsupported_reason,
 )
-from reni_tpu_torch.kernels.siren_step import fused_step_mse, step_unsupported_reason
+from reni_tpu_torch.kernels.siren_step import (
+    fused_film_step_mse,
+    fused_step_mse,
+    step_unsupported_reason,
+)
 from reni_tpu_torch.models import film, siren
 from reni_tpu_torch.params import map_tree, tree_leaves
 from reni_tpu_torch.utils.device import resolve_device
@@ -92,27 +97,35 @@ class RENIModel:
         self.config = config
 
     def init_decoder(self, generator: torch.Generator, device=None) -> Params:
-        """A fresh Cond-by-Concat decoder, drawn on the CPU from ``generator``
-        and moved to ``device``. FiLM's init arrives with FiLM training
-        (ROADMAP.md Queue A-3)."""
+        """A fresh decoder of the config's conditioning, drawn on the CPU from
+        ``generator`` and moved to ``device``."""
         cfg = self.config
-        if cfg.is_film:
-            raise NotImplementedError(
-                "FiLM decoder init is not ported yet: ROADMAP.md Queue A-3 "
-                "(init_film_siren, init_mapping_network)"
-            )
         dev = resolve_device(device)
-        tree = siren.init_siren(
-            generator,
-            encodings.concat_in_features(cfg.equivariance, cfg.latent_dim),
-            cfg.hidden_features,
-            cfg.hidden_layers,
-            cfg.out_features,
-            cfg.last_layer_linear,
-            cfg.first_omega_0,
-            cfg.hidden_omega_0,
-            first_layer_init_scale=cfg.first_layer_init_scale,
-        )
+        if cfg.is_film:
+            siren_in, mapping_in = encodings.film_in_features(cfg.equivariance, cfg.latent_dim)
+            tree = film.init_film_siren(
+                generator,
+                siren_in,
+                mapping_in,
+                cfg.hidden_features,
+                cfg.hidden_layers,
+                cfg.mapping_layers,
+                cfg.mapping_features,
+                cfg.out_features,
+                first_layer_init_scale=cfg.first_layer_init_scale,
+            )
+        else:
+            tree = siren.init_siren(
+                generator,
+                encodings.concat_in_features(cfg.equivariance, cfg.latent_dim),
+                cfg.hidden_features,
+                cfg.hidden_layers,
+                cfg.out_features,
+                cfg.last_layer_linear,
+                cfg.first_omega_0,
+                cfg.hidden_omega_0,
+                first_layer_init_scale=cfg.first_layer_init_scale,
+            )
         return map_tree(lambda t: t.to(dev), tree)
 
     def init(self, generator: torch.Generator, dataset_size: int, device=None) -> Params:
@@ -276,23 +289,25 @@ class RENIModel:
         )
 
     def fused_step_reason(self, batch: int, npix: int, d_batch: int = 1) -> str | None:
-        """Why the train-step kernel (``kernels.siren_step.fused_step_mse``)
-        cannot serve a FIT_DECODER step of ``batch`` images x ``npix``
-        directions, with a direction grid of batch ``d_batch``: None means
-        it can. Every guard of ``apply`` holds here too, then the step
-        kernel's own limits."""
+        """Why the train-step kernel (``kernels.siren_step.fused_step_mse``,
+        for FiLM ``fused_film_step_mse``) cannot serve a FIT_DECODER step of
+        ``batch`` images x ``npix`` directions, with a direction grid of
+        batch ``d_batch``: None means it can. Every guard of ``apply`` holds
+        here too (``last_layer_linear`` matters only for Cond-by-Concat:
+        FiLM's final layer is always linear), then the step kernel's own
+        limits."""
         cfg = self.config
         if not cfg.use_pallas:
             return "use_pallas off"
-        if cfg.is_film:
-            return "FiLM's train-step kernel is not ported yet (ROADMAP.md Queue B-4)"
-        if not cfg.last_layer_linear:
+        if not cfg.is_film and not cfg.last_layer_linear:
             return "last_layer_linear=False (the kernel's final layer is linear)"
         if d_batch not in (1, batch):
             return f"direction grid batch {d_batch} matches neither 1 nor Z batch {batch}"
         return unsupported_reason(
             npix, cfg.hidden_features, batch=batch, trunk=cfg.pallas_trunk
-        ) or step_unsupported_reason(cfg.hidden_features, cfg.hidden_layers, cfg.pallas_trunk)
+        ) or step_unsupported_reason(
+            cfg.hidden_features, cfg.hidden_layers, cfg.pallas_trunk, film=cfg.is_film
+        )
 
     def fused_train_mse(self, params: Params, Z, D, targets, sineweight, bmask):
         """``losses.weighted_mse(self.apply(params, Z, D), targets, sineweight
@@ -300,6 +315,22 @@ class RENIModel:
         in one call). Callers must have checked ``fused_step_reason`` is
         None."""
         cfg = self.config
+        if cfg.is_film:
+            return fused_film_step_mse(
+                params["decoder"],
+                cfg.equivariance,
+                Z,
+                D,
+                targets,
+                sineweight,
+                bmask,
+                hidden_layers=cfg.hidden_layers,
+                hidden_features=cfg.hidden_features,
+                out_features=cfg.out_features,
+                output_activation=cfg.output_activation,
+                trunk=cfg.pallas_trunk,
+                fast_sine=cfg.fast_sine,
+            )
         return fused_step_mse(
             params["decoder"],
             cfg.equivariance,
@@ -317,6 +348,31 @@ class RENIModel:
             output_activation=cfg.output_activation,
             trunk=cfg.pallas_trunk,
             fast_sine=cfg.fast_sine,
+        )
+
+    def apply_concat(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+        """Reference-parity forward that builds the concat encoding (the
+        tests hold the decomposed path against it); O(npix * N^2) memory."""
+        cfg = self.config
+        if D.shape[0] == 1 and Z.shape[0] != 1:
+            D = D.expand(Z.shape[0], *D.shape[1:])
+        if cfg.is_film:
+            siren_in, mapping_in = encodings.film_inputs(cfg.equivariance, Z, D)
+            return film.apply_film_concat(
+                params["decoder"],
+                siren_in,
+                mapping_in,
+                hidden_features=cfg.hidden_features,
+                output_activation=cfg.output_activation,
+            )
+        x = encodings.invariant_representation(cfg.equivariance, Z, D)
+        return siren.apply_siren_concat(
+            params["decoder"],
+            x,
+            last_layer_linear=cfg.last_layer_linear,
+            output_activation=cfg.output_activation,
+            first_omega_0=cfg.first_omega_0,
+            hidden_omega_0=cfg.hidden_omega_0,
         )
 
     def apply_idx(self, params: Params, idx, D, generator=None) -> torch.Tensor:
@@ -337,6 +393,10 @@ class RENIModel:
         if cfg.fixed_decoder:
             mask["latents"]["mu" if cfg.is_variational else "Z"] = True
         return mask
+
+
+def build_model(config: RENIConfig) -> RENIModel:
+    return RENIModel(config)
 
 
 def _needs_grad(params: Params, Z: torch.Tensor) -> bool:

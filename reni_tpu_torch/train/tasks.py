@@ -13,10 +13,11 @@ Padded rows contribute exactly zero to every loss term (their sineweight
 rows, Z rows and per-sample cosine term are multiplied by the batch mask),
 which reproduces the reference's drop_last=False sum-over-batch semantics.
 
-FIT_DECODER's MSE term runs through the train-step kernel
-(``kernels/siren_step.py``: value and every gradient in one call) where
-``RENIModel.fused_step_reason`` allows it, else through ``RENIModel.apply``
-and autograd; a note says which route a shape took.
+FIT_DECODER's MSE term runs through the train-step kernel of the model's
+conditioning (``kernels/siren_step.py``: ``fused_step_mse`` for
+Cond-by-Concat, ``fused_film_step_mse`` for FiLM; value and every gradient
+in one call) where ``RENIModel.fused_step_reason`` allows it, else through
+``RENIModel.apply`` and autograd; a note says which route a shape took.
 
 FIT_INVERSE, the mesh, streaming, callbacks and resume arrive with later
 slices (ROADMAP.md Queue A); their arguments raise here.
@@ -175,7 +176,8 @@ def make_fit_decoder_step(
     ``latent_noise(shape)`` when given (the tests feed the noise JAX drew);
     mu and log_var of padded rows are masked out of the KLD term, which stays
     outside the kernel. Where ``model.fused_step_reason`` is None the MSE
-    term and all its gradients come from the train-step kernel; otherwise
+    term and all its gradients come from the train-step kernel
+    (Cond-by-Concat or FiLM, ``RENIModel.fused_train_mse``); otherwise
     from ``model.apply`` and autograd (on the card, with ``use_pallas``, the
     forward and backward kernels). Both routes compute the same loss."""
     cfg = model.config

@@ -1,5 +1,5 @@
-"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd, siren_bwd and siren_step
-against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+"""The CUDA kernels of reni_tpu_torch.kernels.siren_fwd, siren_bwd, siren_step
+and anatomy against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
 skips without one; this file imports no JAX, so it also runs on a machine
 without it:
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from reni_tpu_torch.core import encodings
+from reni_tpu_torch.kernels import anatomy as ta
 from reni_tpu_torch.kernels import siren_bwd as tb
 from reni_tpu_torch.kernels import siren_fwd as tk
 from reni_tpu_torch.kernels import siren_step as ts
@@ -442,7 +443,7 @@ def test_step_smem_formula_matches_kernel(cuda):
     lib = ts.library()
     for trunk in tk.TRUNKS:
         for H, n_mm in ((128, 2), (256, 5), (256, 1), (512, 1), (32, 3)):
-            got = lib.reni_step_smem_bytes(int(trunk == "bfloat16"), H, n_mm)
+            got = lib.smem_bytes(int(trunk == "bfloat16"), H, n_mm)
             assert got == ts.step_smem_bytes(trunk, H, n_mm)
 
 
@@ -477,3 +478,254 @@ def test_fit_decoder_step_on_card_takes_the_step_kernel(cuda):
     assert all(torch.isfinite(v) for v in metrics.values())
     for old, new in zip(before, tree_leaves(state.trainable)):
         assert not torch.equal(old, new)
+
+
+# ---------------------------------------------------------------------------
+# the FiLM train-step kernel
+# ---------------------------------------------------------------------------
+
+
+def _film_step_operands(rng, cuda, equiv, N, H, T, B, P, per_image, expand=False):
+    dec = _decoder(rng, equiv, N, H, T, True, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+    D = torch.as_tensor(D / np.linalg.norm(D, axis=-1, keepdims=True), device=cuda)
+    ops = _pack(dec, equiv, N, Z, D, True, H)
+    if expand:  # a (B, P, 8) view with batch stride 0: one shared grid
+        ops = (ops[0].expand(B, P, 8), *ops[1:])
+    tgt = torch.zeros(B, P, 8, device=cuda)
+    tgt[..., :3] = torch.as_tensor(rng.normal(size=(B, P, 3)).astype(np.float32))
+    sw = torch.zeros(1, P, 8, device=cuda)
+    sw[..., :3] = torch.as_tensor(np.abs(rng.normal(size=(1, P, 3))).astype(np.float32))
+    bm = torch.ones(B, 1, 8, device=cuda)
+    bm[-1] = 0.0  # a masked row
+    return dec, Z, D, (*ops, tgt, sw, bm)
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("act", ["tanh", "exp", None])
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_film_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
+    """The loss partials and every gradient (dfreqs and dphases included) of
+    the FiLM step kernel against its plain version: 1, 2, 3 and 5 trunk
+    layers (one layer has no H x H product), H = 32, 128 and 256, SO2, SO3
+    and None, a ragged tail tile (P = 264), shared, per-image and stride-0
+    grids, a masked row, several CTAs per image and several split-K chunks
+    per weight; two calls give the same bits. Bars: loss 1e-4 (bf16) / 1e-6
+    (float32) relative, each gradient 1e-2 / 1e-4 x max |plain|."""
+    rng = np.random.default_rng(40)
+    N, B = 7, 3
+    kw = dict(trunk=trunk, fast_sine=fast_sine, out_act=act)
+    for equiv, H, T, P, per_image, expand in (
+        ("SO2", 128, 3, 256, False, False), ("SO3", 256, 5, 264, True, False),
+        ("SO2", 128, 1, 264, False, True), ("None", 32, 2, 100, False, False),
+    ):
+        _, _, _, ops = _film_step_operands(rng, cuda, equiv, N, H, T, B, P, per_image, expand)
+        if H >= 128:
+            assert tb.launch_grid(P, B, trunk, cuda)[1] >= 4
+            assert T == 1 or tb.wgrad_chunks(B * P, H, T - 1, trunk, cuda)[1] >= 4
+        n0 = ts.film_step_cuda.launches
+        got = ts.film_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
+        again = ts.film_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
+        ref = ts.film_step_reference(*ops, gscale=1.0 / (3 * P), **kw)
+        torch.cuda.synchronize()
+        assert ts.film_step_cuda.launches == n0 + 2
+        assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in ref]
+        assert tuple(got[2].shape) == (T - 1, H, H) and tuple(got[3].shape) == (T, H)
+        loss_rel, grad_rel = STEP_BAR[trunk]
+        mse, mse_ref = got[0].sum().item(), ref[0].sum().item()
+        assert abs(mse - mse_ref) <= loss_rel * abs(mse_ref), ((equiv, H, T, P), mse, mse_ref)
+        assert got[0][0, 3:].abs().max().item() == 0.0
+        _assert_grads_close(got[1:], ref[1:], trunk, (equiv, H, T, P))
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        # the masked row: dA0, dfreqs and dphases are exact zeros
+        for i in (1, 6, 7):
+            assert got[i][-1].abs().max().item() == 0.0
+
+
+def test_film_step_kernel_walks_several_tiles_per_cta(cuda, monkeypatch):
+    """Three tiles per CTA, 17 tiles per image (the last CTA has two)."""
+    rng = np.random.default_rng(41)
+    _, _, _, ops = _film_step_operands(rng, cuda, "SO2", 5, 128, 3, 3, 264, False)
+    kw = dict(trunk="bfloat16", fast_sine=True, out_act="tanh", gscale=1.0 / (3 * 264))
+    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
+    got = ts.film_step_cuda(*ops, **kw)
+    ref = ts.film_step_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    assert abs(got[0].sum().item() - ref[0].sum().item()) <= 1e-4 * abs(ref[0].sum().item())
+    _assert_grads_close(got[1:], ref[1:], "bfloat16", "3 tiles per CTA")
+
+
+def test_fused_film_step_mse_launches_the_step_kernel_only(cuda):
+    """fused_film_step_mse and its backward on the card launch the FiLM step
+    kernel once and no forward or backward kernel; the gradients (latents,
+    trunk, final layer and mapping network) match the plain Function's."""
+    rng = np.random.default_rng(42)
+    N, B, H, T, P = 5, 4, 128, 3, 200
+    dec, Z0, D, ops = _film_step_operands(rng, cuda, "SO2", N, H, T, B, P, False)
+    tgt, sw, bm = ops[-3][..., :3], ops[-2][..., :3], ops[-1][:, 0, 0]
+    leaves = [t for layer in dec["layers"] for t in layer.values()]
+    leaves += list(dec["final"].values()) + list(dec["mapping"]["last"].values())
+    leaves += [t for layer in dec["mapping"]["layers"] for t in layer.values()]
+    kw = dict(hidden_layers=T, hidden_features=H, out_features=3, output_activation="tanh",
+              trunk="bfloat16", fast_sine=True)
+
+    def grads(fn):
+        Z = Z0.clone().requires_grad_()
+        for t in leaves:
+            t.requires_grad_()
+        loss = fn(dec, "SO2", Z, D, tgt, sw, bm, **kw)
+        (3.0 * loss).backward()
+        got = [Z.grad] + [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        return loss.item(), got
+
+    counts = lambda: (ts.film_step_cuda.launches, ts.siren_step_cuda.launches,
+                      tk.fused_film_apply.launches, tb.film_trunk_bwd_cuda.launches)
+    n0 = counts()
+    loss, got = grads(ts.fused_film_step_mse)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0] + 1, *n0[1:])
+    loss_ref, ref = grads(ts.fused_film_step_mse_reference)
+    assert counts() == (n0[0] + 1, *n0[1:])
+    assert abs(loss - loss_ref) <= 1e-4 * abs(loss_ref)
+    _assert_grads_close(got, ref, "bfloat16", "fused_film_step_mse backward")
+
+
+def test_film_step_smem_formula_matches_kernel(cuda):
+    lib = ts.library(film=True)
+    for trunk in tk.TRUNKS:
+        for H, n_mm in ((128, 2), (256, 4), (256, 0), (512, 1), (32, 3)):
+            got = lib.smem_bytes(int(trunk == "bfloat16"), H, n_mm)
+            assert got == ts.film_step_smem_bytes(trunk, H, n_mm)
+
+
+def test_fit_decoder_step_on_card_takes_the_film_step_kernel(cuda):
+    """One FIT_DECODER step of a fresh FiLM VAD on the card: the FiLM step
+    kernel launches once, no forward or backward kernel does, and every
+    trainable leaf (the mapping network included) moves."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+    from reni_tpu_torch.params import tree_leaves
+    from reni_tpu_torch.train import tasks
+    from reni_tpu_torch.train.optim import OptimConfig
+
+    model = RENIModel(RENIConfig(conditioning="FiLM", latent_dim=5, hidden_layers=2,
+                                 hidden_features=64, mapping_layers=2, mapping_features=32,
+                                 use_pallas=True, fast_sine=True))
+    params = model.init(torch.Generator().manual_seed(0), 6, device=cuda)
+    state = tasks.init_train_state(model, params, OptimConfig(lr_start=1e-3, lr_end=1e-4),
+                                   torch.Generator().manual_seed(1))
+    step = tasks.make_fit_decoder_step(model, sphere.get_directions(16, device=cuda),
+                                       sphere.get_sineweight(16, device=cuda),
+                                       kld_weighting=1e-4)
+    imgs = torch.rand(4, 128, 3, device=cuda)
+    batch = (imgs, torch.tensor([0, 1, 2, 0], device=cuda),
+             torch.tensor([1.0, 1.0, 1.0, 0.0], device=cuda))
+    before = [t.detach().clone() for t in tree_leaves(state.trainable)]
+    counts = lambda: (ts.film_step_cuda.launches, tk.fused_film_apply.launches,
+                      tb.film_trunk_bwd_cuda.launches)
+    n0 = counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0] + 1, n0[1], n0[2])
+    assert set(metrics) == {"loss", "mse_loss", "kld_loss"}
+    assert all(torch.isfinite(v) for v in metrics.values())
+    for old, new in zip(before, tree_leaves(state.trainable)):
+        assert not torch.equal(old, new)
+
+
+# ---------------------------------------------------------------------------
+# the anatomy probes
+# ---------------------------------------------------------------------------
+
+
+def _probe_operands(rng, cuda, H, L, B, P):
+    dec = _decoder(rng, "SO2", 7, H, L, False, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, 7, 3)).astype(np.float32), device=cuda)
+    D = rng.normal(size=(1, P, 3)).astype(np.float32)
+    D = torch.as_tensor(D / np.linalg.norm(D, axis=-1, keepdims=True), device=cuda)
+    return _pack(dec, "SO2", 7, Z, D, False, H)
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_fwd_variants_match_plain(cuda, trunk, fast_sine):
+    """The interleaved forwards give the shipped forward's bits and hold its
+    bars against the plain version; the forward without sines is held to
+    1e-2 (bf16) / 1e-4 (float32) x max |plain| (its values are not bounded by
+    1). A ragged tail tile (P = 264)."""
+    rng = np.random.default_rng(50)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=fast_sine)
+    for H, L, P in ((128, 2, 256), (256, 3, 264)):
+        ops = _probe_operands(rng, cuda, H, L, 3, P)
+        shipped = tk.siren_trunk_cuda(*ops, **kw)
+        n0 = ta.fwd_variant_cuda.launches
+        for il in (1, 2, 4):
+            out = ta.fwd_variant_cuda(*ops, interleave=il, **kw)
+            ref = ta.fwd_variant_reference(*ops, interleave=il, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, shipped), il
+            _assert_close(out, ref, trunk, fast_sine, (H, L, P, il))
+        out = ta.fwd_variant_cuda(*ops, transcendental=False, **kw)
+        ref = ta.fwd_variant_reference(*ops, transcendental=False, **kw)
+        torch.cuda.synchronize()
+        assert ta.fwd_variant_cuda.launches == n0 + 4
+        _assert_grads_close([out], [ref], trunk, (H, L, P, "no sine"))
+    with pytest.raises(ValueError, match="no forward variant"):
+        ta.fwd_variant_cuda(*ops, transcendental=False, interleave=2, **kw)
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_bwd_variants_match_plain(cuda, trunk, fast_sine):
+    """Every backward variant against its plain version, each result within
+    1e-2 (bf16) / 1e-4 (float32) x max |plain|: without sincos, without
+    weight gradients, both, and without the reduction (the raw per-CTA slots
+    and the scratch, several CTAs per image; the scratch of activations is a
+    forward result and holds the forward's bars)."""
+    rng = np.random.default_rng(51)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=fast_sine)
+    for H, L, P in ((128, 2, 256), (256, 3, 264)):
+        ops = _probe_operands(rng, cuda, H, L, 3, P)
+        g = torch.as_tensor(rng.normal(size=(3, P, 8)).astype(np.float32), device=cuda)
+        grid = tb.launch_grid(P, 3, trunk, cuda)
+        assert grid[1] >= 4
+        n0 = ta.bwd_variant_cuda.launches
+        for variant in (dict(), dict(transcendental=False), dict(weight_grads=False),
+                        dict(transcendental=False, weight_grads=False), dict(accum=False),
+                        dict(transcendental=False, accum=False)):
+            got = ta.bwd_variant_cuda(*ops, g, **variant, **kw)
+            ref = ta.bwd_variant_reference(*ops, g, grid=grid, **variant, **kw)
+            torch.cuda.synchronize()
+            assert len(got) == len(ref) == (6 if variant.get("accum", True) else 4)
+            got = [None if x is None else x.float() for x in got]
+            ref = [None if x is None else x.float() for x in ref]
+            if not variant.get("accum", True):
+                h, h_ref = got.pop(2), ref.pop(2)
+                if variant.get("transcendental", True):
+                    _assert_close(h, h_ref, trunk, fast_sine, (H, L, P, variant))
+                else:  # the linear stand-in's activations are not bounded by 1
+                    _assert_grads_close([h], [h_ref], trunk, (H, L, P, variant))
+            _assert_grads_close(got, ref, trunk, (H, L, P, variant))
+        assert ta.bwd_variant_cuda.launches == n0 + 6
+
+
+def test_weight_grads_product_alone_matches_plain(cuda):
+    """The split-K weight-gradient product on a given scratch: bf16 and
+    float32, several chunks; its partials sum to its result; bitwise
+    repeatable."""
+    for dtype, rel in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
+        h = torch.randn(2, 3000, 128, device=cuda).to(dtype)
+        dz = torch.randn(2, 3000, 128, device=cuda).to(dtype)
+        n0 = ta.weight_grads_cuda.launches
+        got, again = ta.weight_grads_cuda(h, dz), ta.weight_grads_cuda(h, dz)
+        parts = ta.weight_grads_cuda(h, dz, reduce=False)
+        ref = ta.weight_grads_reference(h, dz)
+        torch.cuda.synchronize()
+        assert ta.weight_grads_cuda.launches == n0 + 3 and parts.shape[0] >= 4
+        assert torch.equal(got, again)
+        assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
+        assert (parts.sum(0) - got).abs().max().item() <= rel * ref.abs().max().item()

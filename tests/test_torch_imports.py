@@ -1,6 +1,7 @@
-"""Import hygiene of the port: reni_tpu_torch, chip_smoke.py and
-time_kernels.py import neither JAX nor the JAX package, and the entry points run on the card
-unless the CPU is asked for."""
+"""Import hygiene of the port: reni_tpu_torch (every module, the kernels'
+anatomy probes included), chip_smoke.py and time_kernels.py import neither
+JAX nor the JAX package nor its benchmarks, and the entry points run on the
+card unless the CPU is asked for."""
 
 import json
 import os
@@ -33,7 +34,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {_modules() + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-        "             or m == 'reni_tpu' or m.startswith('reni_tpu.'))\n"
+        "             or m == 'reni_tpu' or m.startswith(('reni_tpu.', 'benchmarks')))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -47,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_no_jax(path):
     src = path.read_text()
-    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|reni_tpu)(\.|\s|$)", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|reni_tpu|benchmarks)(\.|\s|$)", re.M)
     assert not bad.search(src), bad.search(src).group(0)
 
 
@@ -84,12 +85,33 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert '"ok"' not in res.stdout
 
 
+def _time_kernels(*args):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(ROOT / "time_kernels.py"), *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=240)
+
+
 def test_time_kernels_refuses_without_a_card():
     """time_kernels.py times nothing on the CPU: it exits non-zero and prints
     no time without a card."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: time_kernels.py would run for real")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, str(ROOT / "time_kernels.py")], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=240)
+    res = _time_kernels()
     assert res.returncode != 0 and " ms" not in res.stdout
+
+
+def test_time_kernels_anatomy_refuses_without_a_card():
+    """The same for its --anatomy mode."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: time_kernels.py would run for real")
+    res = _time_kernels("--anatomy")
+    assert res.returncode != 0 and " ms" not in res.stdout
+
+
+def test_every_kernel_source_is_built_by_chip_smoke():
+    """chip_smoke.build_all compiles every csrc/*.cu, all at once."""
+    import chip_smoke
+
+    sources = sorted(p.stem for p in (ROOT / "reni_tpu_torch" / "kernels" / "csrc").glob("*.cu"))
+    assert sorted(chip_smoke.KERNEL_SOURCES) == sources
+    assert len(sources) == 5

@@ -310,6 +310,107 @@ def test_port_initialised_tree_loads_into_jax(tmp_path):
 
 
 def test_film_init_waits_for_its_slice():
-    model = RENIModel(RENIConfig(conditioning="FiLM"))
-    with pytest.raises(NotImplementedError, match="Queue A-3"):
-        model.init_decoder(torch.Generator(), device="cpu")
+    """A FiLM model initialises (it raised NotImplementedError until FiLM
+    training was ported), in the JAX layout, and build_model is RENIModel."""
+    from reni_tpu_torch.models.reni import build_model
+
+    model = build_model(RENIConfig(conditioning="FiLM", latent_dim=5, hidden_layers=2,
+                                   hidden_features=32, mapping_layers=1, mapping_features=16))
+    assert isinstance(model, RENIModel)
+    dec = model.init_decoder(torch.Generator().manual_seed(0), device="cpu")
+    assert set(dec) == {"layers", "final", "mapping"} and len(dec["layers"]) == 2
+    assert tuple(dec["mapping"]["last"]["w"].shape) == (16, 2 * 2 * 32)
+
+
+@pytest.mark.parametrize("equiv", EQUIVS)
+def test_film_init_matches_jax_tree_and_bounds(equiv):
+    """FiLM model.init: the JAX tree (keys, shapes, dtypes; for None the
+    consistent widths (N, 3N)); every uniform leaf inside its bound and, with
+    32 values or more, filling most of it (first layer scale / in, trunk and
+    final sqrt(6 / H) / 25, biases 1 / sqrt(in)); the kaiming leaves' std
+    within 10% of gain / sqrt(in), the last mapping weight's a quarter of
+    that; reproducible from the generator's seed."""
+    cfg = dict(model_type="VariationalAutoDecoder", conditioning="FiLM", equivariance=equiv,
+               latent_dim=6, hidden_layers=3, hidden_features=64, mapping_layers=2,
+               mapping_features=48, first_layer_init_scale=2.0)
+    jp = jax.device_get(JModel(JConfig(**cfg)).init(jax.random.PRNGKey(0), dataset_size=50))
+    model = RENIModel(RENIConfig(**cfg))
+    tp = model.init(torch.Generator().manual_seed(0), 50, device="cpu")
+    flat_j, flat_t = tck._flatten(jp), tck._flatten(tparams.to_numpy(tp))
+    assert flat_j.keys() == flat_t.keys()
+    s_in, m_in = tenc.film_in_features(equiv, 6)
+    assert (s_in, m_in) == jenc.film_in_features(equiv, 6)
+    assert flat_t["decoder/layers/0/w"].shape == (s_in, 64)
+    assert flat_t["decoder/mapping/layers/0/w"].shape == (m_in, 48)
+    assert flat_t["decoder/mapping/last/w"].shape == (48, 2 * 3 * 64)
+    trunk = np.sqrt(6.0 / 64) / 25.0
+    gain = np.sqrt(2.0 / (1.0 + 0.2 ** 2))
+    for k, v in flat_t.items():
+        assert v.shape == flat_j[k].shape and v.dtype == flat_j[k].dtype, k
+        if not k.startswith("decoder"):
+            continue
+        fan_in = flat_t[k[:-1] + "w"].shape[0]
+        if k.startswith("decoder/mapping") and k.endswith("/w"):
+            std = gain / np.sqrt(fan_in) * (0.25 if "/last/" in k else 1.0)
+            assert abs(v.std() / std - 1.0) < 0.1, (k, v.std(), std)
+            assert abs(flat_j[k].std() / std - 1.0) < 0.1, k
+            assert abs(v.mean()) < 0.1 * std, k
+            continue
+        if k.endswith("/w"):
+            bound = 2.0 / s_in if k == "decoder/layers/0/w" else trunk
+        else:
+            bound = 1.0 / np.sqrt(fan_in)
+        assert np.abs(v).max() <= bound, (k, bound)
+        assert v.size < 32 or np.abs(v).max() > 0.9 * bound, (k, bound)
+        assert np.abs(flat_j[k]).max() <= bound, k
+    last, first = flat_t["decoder/mapping/last/w"], flat_t["decoder/mapping/layers/1/w"]
+    assert abs(last.std() / first.std() - 0.25) < 0.03  # both have fan-in 48
+    assert abs(flat_t["latents/mu"].std() - 1.0) < 0.1
+    again = tck._flatten(tparams.to_numpy(
+        model.init(torch.Generator().manual_seed(0), 50, device="cpu")))
+    other = tck._flatten(tparams.to_numpy(
+        model.init(torch.Generator().manual_seed(1), 50, device="cpu")))
+    for k in flat_t:
+        np.testing.assert_array_equal(again[k], flat_t[k])
+        assert not np.array_equal(other[k], flat_t[k]), k
+
+
+@pytest.mark.parametrize("equiv", EQUIVS)
+@pytest.mark.parametrize("conditioning", ["Cond-by-Concat", "FiLM"])
+def test_apply_concat_matches_apply_and_jax(conditioning, equiv):
+    """RENIModel.apply_concat (the concat encoding built in full) equals apply
+    on a fresh tree of the port's init (atol 1e-5), with a shared (1, P) grid
+    broadcast over the batch, and equals JAX apply_concat on the same tree."""
+    cfg = dict(model_type="AutoDecoder", conditioning=conditioning, equivariance=equiv,
+               latent_dim=5, hidden_layers=2, hidden_features=32, mapping_layers=2,
+               mapping_features=16, output_activation="tanh")
+    model = RENIModel(RENIConfig(**cfg))
+    tp = model.init(torch.Generator().manual_seed(3), 3, device="cpu")
+    Z, D = _zd(seed=8)
+    out = model.apply_concat(tp, torch.from_numpy(Z), torch.from_numpy(D))
+    assert out.shape == (3, 64, 3)
+    np.testing.assert_allclose(_np(out), _np(model.apply(tp, torch.from_numpy(Z),
+                                                         torch.from_numpy(D))), atol=1e-5)
+    jp = jax.tree.map(jnp.asarray, tparams.to_numpy(tp))
+    ref = JModel(JConfig(**cfg)).apply_concat(jp, jnp.asarray(Z), jnp.asarray(D))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("equiv", EQUIVS)
+def test_port_initialised_film_tree_loads_into_jax(equiv, tmp_path):
+    """A FiLM tree from the port's init, saved by the port, loads into the JAX
+    model, which decodes it as the port does (atol 1e-5, the serving bar)."""
+    cfg = dict(model_type="VariationalAutoDecoder", conditioning="FiLM", equivariance=equiv,
+               latent_dim=5, hidden_layers=2, hidden_features=32, mapping_layers=2,
+               mapping_features=16, output_activation="tanh")
+    model = RENIModel(RENIConfig(**cfg))
+    tp = model.init(torch.Generator().manual_seed(2), 4, device="cpu")
+    path = str(tmp_path / "fresh_film")
+    tck.save_checkpoint(path, tp, model_config=model.config)
+    jparams, meta = jck.load_checkpoint(path)
+    jm = JModel(JConfig(**meta["model_config"]))
+    assert jm.config.is_film and set(jparams["decoder"]) == {"layers", "final", "mapping"}
+    Z, D = _zd(B=4)
+    ref = jm.apply(jparams, jparams["latents"]["mu"], jnp.asarray(D))
+    out = model.apply(tp, tp["latents"]["mu"], torch.from_numpy(D))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)

@@ -1,8 +1,8 @@
-"""The fused train step (reni_tpu_torch.kernels.siren_step) held against the
-JAX package's Pallas _step_kernel, run in interpret mode on the CPU as
-tests/test_pallas.py runs it. On the CPU the wrapper takes its plain PyTorch
-version; the CUDA kernel itself is checked on the card
-(tests/test_torch_cuda.py and chip_smoke.py)."""
+"""The fused train steps (reni_tpu_torch.kernels.siren_step) held against the
+JAX package's Pallas _step_kernel and _film_step_kernel, run in interpret
+mode on the CPU as tests/test_pallas.py runs them. On the CPU a wrapper takes
+its plain PyTorch version; the CUDA kernels themselves are checked on the
+card (tests/test_torch_cuda.py and chip_smoke.py)."""
 
 import dataclasses
 
@@ -224,7 +224,7 @@ def test_step_reference_operands_and_results():
     "cfg,shape,match",
     [
         (dict(use_pallas=False), (4, 128, 1), "use_pallas off"),
-        (dict(conditioning="FiLM"), (4, 128, 1), "Queue B-4"),
+        (dict(conditioning="FiLM", hidden_layers=0), (4, 128, 1), "needs a trunk layer"),
         (dict(last_layer_linear=False), (4, 128, 1), "last_layer_linear"),
         (dict(), (4, 128, 3), "direction grid batch 3"),
         (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
@@ -256,3 +256,264 @@ def test_fused_step_reason_accepts_the_published_shapes():
     assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 16
     assert ts.step_smem_bytes("bfloat16", 256, 5) == 207232
     assert ts.step_smem_bytes("bfloat16", 256, 5) > tb.bwd_smem_bytes(False, "bfloat16", 256, 5)
+
+
+# ---------------------------------------------------------------------------
+# the FiLM train step
+# ---------------------------------------------------------------------------
+
+
+def _setup_film(equiv="SO2", act="tanh", per_image=False, N=5, T=3, H=128, B=3, P=128, seed=0):
+    """A JAX-initialised FiLM decoder carried into the port, and numpy inputs
+    as in _setup (the batch mask's last row is zero)."""
+    cfg = JConfig(model_type="AutoDecoder", conditioning="FiLM", equivariance=equiv,
+                  latent_dim=N, hidden_layers=T, hidden_features=H, mapping_layers=2,
+                  mapping_features=64, output_activation=act)
+    jp = JModel(cfg).init(jax.random.PRNGKey(seed), dataset_size=B)["decoder"]
+    rng = np.random.default_rng(seed + 1)
+    Z = rng.normal(size=(B, N, 3)).astype(np.float32) * (0.02 if act == "exp" else 1.0)
+    D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    tgt = rng.normal(size=(B, P, 3)).astype(np.float32)
+    sw = np.abs(rng.normal(size=(1, P, 3))).astype(np.float32)
+    bm = np.ones((B,), np.float32)
+    bm[-1] = 0.0
+    return cfg, jp, tparams.from_numpy(jax.device_get(jp), "cpu"), (Z, D, tgt, sw, bm)
+
+
+def _film_kw(cfg, trunk, fast_sine=False):
+    return dict(hidden_layers=cfg.hidden_layers, hidden_features=cfg.hidden_features,
+                out_features=cfg.out_features, output_activation=cfg.output_activation,
+                trunk=trunk, fast_sine=fast_sine)
+
+
+def _film_both(cfg, jp, tp, inputs, trunk, fast_sine=False, scale=1.0):
+    """(value, d/dZ, flat d/d decoder) of scale * fused_film_step_mse, from JAX
+    (Pallas, interpret mode) and from the port."""
+    Z, D, tgt, sw, bm = inputs
+    kw = _film_kw(cfg, trunk, fast_sine)
+
+    def jloss(dec, z):
+        return scale * jk.fused_film_step_mse(
+            dec, cfg.equivariance, z, jnp.asarray(D), jnp.asarray(tgt), jnp.asarray(sw),
+            jnp.asarray(bm), interpret=True, **kw)
+
+    jl, (jd, jz) = jax.value_and_grad(jloss, argnums=(0, 1))(jp, jnp.asarray(Z))
+    tz = torch.from_numpy(Z).requires_grad_()
+    tp = tparams.map_tree(lambda t: t.detach().clone().requires_grad_(), tp)
+    tl = scale * ts.fused_film_step_mse(
+        tp, cfg.equivariance, tz, torch.from_numpy(D), torch.from_numpy(tgt),
+        torch.from_numpy(sw), torch.from_numpy(bm), **kw)
+    tl.backward()
+    flat_t = tck._flatten(tparams.map_tree(lambda t: _np(t.grad), tp))
+    flat_j = tck._flatten(jax.device_get(jd))
+    assert flat_t.keys() == flat_j.keys()
+    return (float(jl), _np(jz), flat_j), (tl.item(), _np(tz.grad), flat_t)
+
+
+def _assert_film_f32(jax_side, port_side):
+    """The bars of test_fused_film_step_loss_and_grads_match_reference."""
+    (jl, jz, jd), (tl, tz, td) = jax_side, port_side
+    np.testing.assert_allclose(tl, jl, rtol=2e-6)
+    np.testing.assert_allclose(tz, jz, rtol=1e-4, atol=3e-6)
+    assert np.abs(tz[-1]).max() == 0.0  # the masked row gets no gradient
+    for k in jd:
+        np.testing.assert_allclose(td[k], jd[k], rtol=1e-4, atol=3e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("equiv", ["SO2", "SO3", "None"])
+def test_film_step_matches_pallas_f32(equiv, layers):
+    """Float32 trunk, a zero-masked row, 1 trunk layer (no H x H product) and
+    3: value rtol 2e-6; gradients w.r.t. Z and every decoder leaf (the
+    mapping network's through dfreqs and dphases) rtol 1e-4, atol 3e-6."""
+    cfg, jp, tp, inputs = _setup_film(equiv=equiv, T=layers)
+    _assert_film_f32(*_film_both(cfg, jp, tp, inputs, "float32"))
+
+
+@pytest.mark.parametrize("per_image", [False, True], ids=["shared", "per_image"])
+@pytest.mark.parametrize("act", ["exp", None])
+def test_film_step_matches_pallas_f32_activations_and_grids(act, per_image):
+    """exp and no output activation, shared and per-image direction grids."""
+    cfg, jp, tp, inputs = _setup_film(act=act, per_image=per_image, seed=2)
+    _assert_film_f32(*_film_both(cfg, jp, tp, inputs, "float32"))
+
+
+def test_film_step_matches_pallas_fast_sine():
+    """The polynomial sincos on both sides, per-image grids, same bars."""
+    cfg, jp, tp, inputs = _setup_film(per_image=True, seed=4)
+    _assert_film_f32(*_film_both(cfg, jp, tp, inputs, "float32", fast_sine=True))
+
+
+@pytest.mark.parametrize("act", ["tanh", None])
+def test_film_step_matches_pallas_bf16(act):
+    """bf16 trunk, the bars of test_step_matches_pallas_bf16: loss 1e-3
+    relative, each gradient 2.5e-3 of its largest entry (a flipped bf16
+    rounding of an activation propagates; the frequencies near 30 amplify it
+    as omega does). Measured on these inputs: loss 1.7e-7, worst gradient
+    7.7e-4."""
+    cfg, jp, tp, inputs = _setup_film(act=act, seed=6)
+    (jl, jz, jd), (tl, tz, td) = _film_both(cfg, jp, tp, inputs, "bfloat16", fast_sine=True)
+    worst = float(np.abs(tz - jz).max() / np.abs(jz).max())
+    for k in jd:
+        worst = max(worst, float(np.abs(td[k] - jd[k]).max() / np.abs(jd[k]).max()))
+    print(f"bf16 plain FiLM step vs Pallas: loss rel {abs(tl - jl) / abs(jl):.3g}, "
+          f"worst max|diff|/max|ref| {worst:.3g}")
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert worst < 2.5e-3, worst
+
+
+def test_film_step_cotangent_scaling():
+    """The backward scales the saved gradients by the incoming cotangent, and
+    3 * loss matches JAX (the bars of test_step_cotangent_scaling; d/dZ also
+    gets atol 1e-7: it sums the paths through A0 and through the mapping
+    network, scaled terms that cancel)."""
+    cfg, jp, tp, inputs = _setup_film(seed=8)
+    _, (t1, z1, d1) = _film_both(cfg, jp, tp, inputs, "float32")
+    (j3, jz3, _), (t3, z3, d3) = _film_both(cfg, jp, tp, inputs, "float32", scale=3.0)
+    np.testing.assert_allclose(z3, 3.0 * z1, rtol=1e-5, atol=1e-7)
+    for k in d1:
+        np.testing.assert_allclose(d3[k], 3.0 * d1[k], rtol=1e-5, atol=1e-8, err_msg=k)
+    np.testing.assert_allclose(t3, j3, rtol=2e-6)
+    np.testing.assert_allclose(z3, jz3, rtol=1e-4, atol=9e-6)
+
+
+@pytest.mark.parametrize("equiv", ["SO2", "SO3", "None"])
+def test_film_step_is_weighted_mse_of_apply(equiv):
+    """fused_film_step_mse == losses.weighted_mse(apply(...), tgt, sw * bmask):
+    value (rtol 2e-6) and gradients to the mapping network, w0 and Z (rtol
+    1e-4, atol 3e-6), at a width the Pallas kernel declines (H = 32, P = 100)."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup_film(equiv=equiv, H=32, P=100, seed=10)
+    model = RENIModel(RENIConfig(**dataclasses.asdict(cfg)))
+
+    def run(fused):
+        z = torch.from_numpy(Z).requires_grad_()
+        p = tparams.map_tree(lambda t: t.detach().clone().requires_grad_(), tp)
+        args = [torch.from_numpy(x) for x in (D, tgt, sw, bm)]
+        if fused:
+            loss = ts.fused_film_step_mse(p, cfg.equivariance, z, *args,
+                                          **_film_kw(cfg, "float32"))
+        else:
+            out = model.apply({"decoder": p}, z, args[0])
+            loss = tlosses.weighted_mse(out, args[1], args[2] * args[3][:, None, None])
+        loss.backward()
+        return loss.item(), _np(z.grad), tck._flatten(tparams.map_tree(lambda t: _np(t.grad), p))
+
+    (lf, zf, df), (lr, zr, dr) = run(True), run(False)
+    np.testing.assert_allclose(lf, lr, rtol=2e-6)
+    np.testing.assert_allclose(zf, zr, rtol=1e-4, atol=3e-6)
+    assert any(k.startswith("mapping/") for k in dr) and "layers/0/w" in dr
+    for k in dr:
+        np.testing.assert_allclose(df[k], dr[k], rtol=1e-4, atol=3e-6, err_msg=k)
+        assert np.abs(dr[k]).max() > 0.0, k
+
+
+def test_film_step_wrapper_on_cpu_takes_plain_version():
+    """On CPU tensors fused_film_step_mse is fused_film_step_mse_reference and
+    launches nothing; a stride-0 (B, P) grid reads as one shared grid; the
+    kernel wrapper refuses CPU tensors."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup_film(seed=12, H=32, P=40)
+    args = [torch.from_numpy(x) for x in (Z, D, tgt, sw, bm)]
+    kw = _film_kw(cfg, "bfloat16")
+    counts = lambda: (ts.film_step_cuda.launches, ts.siren_step_cuda.launches,
+                      tk.fused_film_apply.launches, tb.film_trunk_bwd_cuda.launches)
+    before = counts()
+    a = ts.fused_film_step_mse(tp, cfg.equivariance, *args, **kw)
+    b = ts.fused_film_step_mse_reference(tp, cfg.equivariance, *args, **kw)
+    args[1] = args[1].expand(3, *D.shape[1:])
+    c = ts.fused_film_step_mse(tp, cfg.equivariance, *args, **kw)
+    assert a.item() == b.item() == c.item()
+    assert before == counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        d_feats = tenc.d_features(cfg.equivariance, torch.from_numpy(D))
+        ops = tk.pack_film_inputs(tp, cfg.equivariance, args[0], d_feats, 32)
+        ts.film_step_cuda(*ops, torch.zeros(3, 40, 8), torch.zeros(1, 40, 8),
+                          torch.ones(3, 1, 8), out_act="tanh", gscale=1.0)
+
+
+def test_film_step_reference_operands_and_results():
+    """film_step_reference on packed operands: the result shapes of the Pallas
+    FiLM step call (dbs has T rows, dWs T - 1), zero loss partials in
+    the padded lanes, and the backward chain of film_trunk_bwd_reference for
+    its own cotangent, bit for bit; one trunk layer gives an empty dWs."""
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup_film(seed=14, H=32, P=40, T=3)
+    d_feats = tenc.d_features(cfg.equivariance, torch.from_numpy(D))
+    with torch.no_grad():
+        ops = tk.pack_film_inputs(tp, cfg.equivariance, torch.from_numpy(Z), d_feats, 32)
+        t8 = tk._pad_last(torch.from_numpy(tgt), 8)
+        s8 = tk._pad_last(torch.from_numpy(sw), 8)
+        b8 = torch.from_numpy(bm)[:, None, None].expand(3, 1, 8)
+        kw = dict(trunk="bfloat16", fast_sine=True)
+        gscale = 1.0 / (40 * 3)
+        mse, *grads = ts.film_step_reference(*ops, t8, s8, b8, out_act="tanh", gscale=gscale,
+                                             **kw)
+        out = torch.tanh(tk.film_trunk_reference(*ops, **kw))
+        r = out - t8
+        g = (2.0 * gscale) * (r * (s8 * b8)) * (1.0 - out * out)
+        ref = tb.film_trunk_bwd_reference(*ops, g, **kw)
+    assert mse.shape == (1, 8) and mse[0, 3:].abs().max() == 0.0
+    assert [tuple(x.shape) for x in grads] == [(3, 8, 32), (2, 32, 32), (3, 32), (32, 8),
+                                               (1, 8), (3, 1, 96), (3, 1, 96)]
+    for x, y in zip(grads, ref):
+        assert torch.equal(x, y)
+    want = tlosses.weighted_mse(out[..., :3], torch.from_numpy(tgt),
+                                torch.from_numpy(sw) * torch.from_numpy(bm)[:, None, None])
+    np.testing.assert_allclose((mse.sum() * gscale).item(), want.item(), rtol=2e-6)
+    cfg, jp, tp, (Z, D, tgt, sw, bm) = _setup_film(seed=15, H=32, P=40, T=1)
+    with torch.no_grad():
+        ops = tk.pack_film_inputs(tp, cfg.equivariance, torch.from_numpy(Z), d_feats, 32)
+        grads = ts.film_step_reference(*ops, t8, s8, b8, out_act=None, gscale=gscale, **kw)
+    assert tuple(grads[2].shape) == (0, 32, 32) and tuple(grads[3].shape) == (1, 32)
+
+
+@pytest.mark.parametrize(
+    "cfg,shape,match",
+    [
+        (dict(use_pallas=False), (4, 128, 1), "use_pallas off"),
+        (dict(), (4, 128, 3), "direction grid batch 3"),
+        (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
+        (dict(), (70000, 128, 1), "grid limit"),
+        (dict(), (4, 0, 1), "no pixels"),
+        (dict(hidden_features=512), (4, 128, 1), "shared memory"),
+        (dict(hidden_layers=0), (4, 128, 1), "needs a trunk layer"),
+        (dict(hidden_layers=7), (4, 128, 1), "FiLM train step of a 7 x 256"),
+        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), "shared memory"),
+    ],
+    ids=["off", "grid_batch", "width", "batch", "npix", "smem_wide", "no_layer", "smem_deep",
+         "smem_deep_f32"],
+)
+def test_fused_step_reason_film_guards(cfg, shape, match):
+    """Every guard of fused_step_reason for a FiLM model: those of
+    RENIModel.apply, then the FiLM step kernel's own limits."""
+    model = RENIModel(RENIConfig(**{**dict(use_pallas=True, conditioning="FiLM"), **cfg}))
+    assert match in model.fused_step_reason(*shape)
+
+
+def test_fused_step_reason_accepts_the_published_film_shapes():
+    """The FiLM Zoo trunk (5 x 256, bf16) at the three curriculum stages with a
+    shared or a per-image grid, and every shape JAX's fused_step_reason
+    accepts for it; last_layer_linear matters only for Cond-by-Concat (JAX's
+    rule); one trunk layer is taken; the shared-memory mirror of
+    csrc/siren_step.cuh."""
+    model = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM"))
+    jm = JModel(JConfig(use_pallas=True, conditioning="FiLM"))
+    for npix in (512, 2048, 8192):
+        assert jm.fused_step_reason(100, npix) is None
+        assert model.fused_step_reason(100, npix) is None
+        assert model.fused_step_reason(100, npix, 100) is None
+    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 16
+    sine_final = dict(use_pallas=True, conditioning="FiLM", last_layer_linear=False)
+    assert JModel(JConfig(**sine_final)).fused_step_reason(100, 8192) is None
+    assert RENIModel(RENIConfig(**sine_final)).fused_step_reason(100, 8192) is None
+    one = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=1))
+    assert one.fused_step_reason(100, 8192) is None
+    assert ts.film_step_smem_bytes("bfloat16", 256, 4) == 191616
+    assert ts.film_step_smem_bytes("bfloat16", 256, 4) == ts.step_smem_bytes(
+        "bfloat16", 256, 4, film=True)
+    # what the FiLM step keeps beyond the FiLM backward kernel: a target, a
+    # pixel-weight and a loss tile (the 8 loss partials fit the sums' padding)
+    assert ts.film_step_smem_bytes("bfloat16", 256, 4) - tb.bwd_smem_bytes(
+        True, "bfloat16", 256, 4) == 3 * 512
+    deep = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=6))
+    assert deep.fused_step_reason(100, 8192) is None  # 219,520 B: FiLM's ceiling at H = 256
+    assert ts.film_step_smem_bytes("float32", 256, 4) < 227 * 1024

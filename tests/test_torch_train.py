@@ -463,15 +463,29 @@ def _flat(tree):
     return tck._flatten(tparams.to_numpy(tree) if isinstance(tree, dict) else tree)
 
 
+FILM = dict(conditioning="FiLM", mapping_layers=2, mapping_features=16)
+
+
 @pytest.mark.parametrize("model_type", MODEL_TYPES)
 def test_fit_decoder_step_matches_jax_f64(model_type):
+    _check_fit_decoder_step_f64(model_type)
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_decoder_step_film_matches_jax_f64(model_type):
+    """The same for a FiLM decoder: the mapping network, the trunk and the
+    latents train as in JAX."""
+    _check_fit_decoder_step_f64(model_type, **FILM)
+
+
+def _check_fit_decoder_step_f64(model_type, **model_kw):
     """One FIT_DECODER step and then eight at float64 against JAX
     make_fit_decoder_step, a batch of 4 whose last row is a masked pad, the
     latent noise JAX drew fed in: step 0's metrics to 1e-12 relative; every
     step's metrics and the trained leaves after eight steps to 1e-6
     (sin(30x) under Adam(b1 = 0) amplifies rounding differences from step
     to step)."""
-    cfg, jm, jp = _tiny_trainable(21, model_type)
+    cfg, jm, jp = _tiny_trainable(21, model_type, **model_kw)
     width = 8
     imgs = _targets(width, 5, 22)[[0, 1, 2, 0]]
     idx, bmask = np.array([0, 1, 2, 0], np.int32), np.array([1.0, 1.0, 1.0, 0.0])
@@ -514,13 +528,24 @@ def test_fit_decoder_step_matches_jax_f64(model_type):
 
 @pytest.mark.parametrize("model_type", MODEL_TYPES)
 def test_fit_decoder_step_fused_matches_apply_path(model_type):
+    _check_fused_matches_apply_path(model_type)
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_decoder_step_fused_film_matches_apply_path(model_type):
+    """The same on a FiLM model, which dispatches to the FiLM train step (the
+    port's twin of test_fit_decoder_step_fused_film_matches_xla_path)."""
+    _check_fused_matches_apply_path(model_type, **FILM)
+
+
+def _check_fused_matches_apply_path(model_type, **model_kw):
     """make_fit_decoder_step gives the same losses and updated leaves whether
     the train-step route serves the MSE (use_pallas; on the CPU its plain
     version) or RENIModel.apply and autograd do, with a masked pad row: metrics
     rtol 5e-5, leaves rtol 2e-4, atol 1e-6 (the bars of
     test_fit_decoder_step_fused_matches_xla_path)."""
     cfg, jm, jp = _tiny_trainable(23, model_type, latent_dim=5, hidden_features=32,
-                                  use_pallas=True, pallas_trunk="float32")
+                                  use_pallas=True, pallas_trunk="float32", **model_kw)
     width = 32
     rng = np.random.default_rng(0)
     batch = (torch.from_numpy(rng.normal(size=(4, width * width // 2, 3)).astype(np.float32)),
@@ -556,13 +581,23 @@ def _decoder_task(**kw):
 
 @pytest.mark.parametrize("model_type", MODEL_TYPES)
 def test_fit_task_fit_decoder_matches_jax_f64(model_type, tmp_path):
+    _check_fit_task_fit_decoder_f64(model_type, tmp_path)
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_fit_task_fit_decoder_film_matches_jax_f64(model_type, tmp_path):
+    """The same for a FiLM decoder."""
+    _check_fit_task_fit_decoder_f64(model_type, tmp_path, **FILM)
+
+
+def _check_fit_task_fit_decoder_f64(model_type, tmp_path, **model_kw):
     """fit_task FIT_DECODER, 5 maps in batches of 2 (a ragged last batch), a
     2-stage curriculum, float64 on both sides with the plain decoder and the
     latent noise JAX drew fed in: epoch 0's metrics to 1e-12 relative, every
     epoch and the trained leaves to 1e-6. The result, saved by the port,
     loads into the JAX package and decodes to the same map (atol 1e-5, the
     serving bar)."""
-    cfg, jm, jp = _tiny_trainable(25, model_type)
+    cfg, jm, jp = _tiny_trainable(25, model_type, **model_kw)
     task = _decoder_task()
     imgs = {(4, 8): _targets(8, 5, 26), (8, 16): _targets(16, 5, 27)}
     noises = []
@@ -617,11 +652,30 @@ def test_fit_task_fit_decoder_matches_jax_f64(model_type, tmp_path):
 
 
 def test_fit_task_fit_decoder_trains_through_the_step_route():
+    _check_trains_through_the_step_route()
+
+
+def test_fit_task_fit_decoder_film_trains_through_the_step_route():
+    """The same for a FiLM model (the FiLM train step's plain version on the
+    CPU): the mapping network trains too."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    calls = []
+    plain = ts.StepMSE.steps[True]
+    ts.StepMSE.steps[True] = (lambda *a, **k: calls.append(1) or plain[0](*a, **k), plain[1])
+    try:
+        _check_trains_through_the_step_route(**FILM)
+    finally:
+        ts.StepMSE.steps[True] = plain
+    assert len(calls) == 2 * 12 * 3  # two runs x 12 epochs x 3 batches, one call per step
+
+
+def _check_trains_through_the_step_route(**model_kw):
     """float32, use_pallas (on the CPU the step's plain version), the noise
     from the task's generator: the loss falls, every leaf of the decoder and
     the latent rows move, and two runs from the same seeds agree bit for bit."""
     cfg, jm, jp = _tiny_trainable(28, "VariationalAutoDecoder", hidden_features=32,
-                                  use_pallas=True, pallas_trunk="float32")
+                                  use_pallas=True, pallas_trunk="float32", **model_kw)
     model = RENIModel(RENIConfig(**cfg))
     images = {(4, 8): torch.from_numpy(_targets(8, 5, 29, np.float32)),
               (8, 16): torch.from_numpy(_targets(16, 5, 30, np.float32))}

@@ -2,21 +2,32 @@
 """Time the port's training kernels on the card, for comparing two variants
 of a kernel source in one process chain on one card.
 
-    python3 time_kernels.py      # from the repository root, one NVIDIA GPU
+    python3 time_kernels.py             # from the repository root, one NVIDIA GPU
+    python3 time_kernels.py --anatomy   # the anatomy probes in place of the kernels
 
 Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
-decoders, bf16 trunk, fast sine) prints the median time of the train-step
-kernel at 100 x 8,192 and 21 x 8,192, of both backward kernels at 21 x
+decoders, bf16 trunk, fast sine) prints the median time of both train-step
+kernels at 100 x 8,192 and 21 x 8,192, of both backward kernels at 21 x
 32,768 with and without weight gradients, and of the forward kernel, each
 after one check against its plain version (max |difference| / max |plain|
 per result). Two cards, or one card at two moments, differ by up to 12% on
 the same code: to compare two versions of a source, run this script once
 per version inside one command, in turns (old, new, new, old); the build
 directory is keyed by a hash of the sources, so each version builds anew.
+
+With ``--anatomy`` (the counterpart of ``benchmarks/bwd_anatomy.py``) it
+prints instead, at 21 x 32,768 and at 100 x 8,192 on the Cond-by-Concat Zoo
+decoder, the median time of the shipped forward and backward kernels and of
+each probe of ``reni_tpu_torch/kernels/anatomy.py`` (``fwd``, ``fwd_no_sine``,
+``fwd_interleave2``, ``fwd_interleave4``, ``bwd``, ``bwd_no_accum``,
+``bwd_no_sincos``, ``bwd_no_dw``, ``bwd_mxu_only``), and of the
+weight-gradient product ``wgrad_bf16`` alone, without and with the sum of
+its split-K partials: what each part of a chain kernel costs.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
@@ -32,18 +43,47 @@ def relative_errors(got, ref) -> str:
     )
 
 
-def main() -> int:
+ANATOMY_SHAPES = ((21, 256), (100, 128))  # (latents, width): 21 x 32,768 and 100 x 8,192
+
+
+def anatomy(dev) -> None:
+    """Print the probes' times at ANATOMY_SHAPES, then the card line."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    cfg, dec, _ = cs.load_entry(cs.CBC, dev)
+    table = ckpt.load_checkpoint(os.path.join(cs.CBC, "checkpoint"))[0]["latents"]["mu"]
+    mu = torch.as_tensor(table, device=dev)
+    with torch.no_grad():
+        for batch, width in ANATOMY_SHAPES:
+            D = sphere.get_directions(width, device=dev)
+            times = cs.time_anatomy(cfg, dec, mu[:batch], D, runs=15)
+            for name, ms in times.items():
+                print(f"{name} {batch} x {D.shape[1]:,}: {ms:.3f} ms")
+            torch.cuda.empty_cache()
+    print(cs.card_line())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--anatomy", action="store_true",
+                    help="time the anatomy probes in place of the training kernels")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.anatomy:
+        cs.build_all()
+        anatomy(torch.device(cs.DEVICE))
+        return 0
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_bwd as tb
     from reni_tpu_torch.kernels import siren_fwd as tk
     from reni_tpu_torch.kernels import siren_step as ts
     from reni_tpu_torch.train import checkpoint as ckpt
 
-    dev = torch.device("cuda")
+    dev = torch.device(cs.DEVICE)
     cs.build_all()
     cfg, dec, z21 = cs.load_entry(cs.CBC, dev)
     table = ckpt.load_checkpoint(os.path.join(cs.CBC, "checkpoint"))[0]["latents"]["mu"]
@@ -66,6 +106,22 @@ def main() -> int:
             ops, kw = step_case(batch, 128)
             ms = cs.time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
             print(f"siren_step {batch} x 8,192: {ms:.3f} ms")
+        del ops
+        cfg_f, dec_f, _ = cs.load_entry(cs.FILM, dev)
+        for batch, width in ((100, 64), (100, 128), (21, 128)):
+            D = sphere.get_directions(width, device=dev)
+            targets = torch.tanh(torch.randn((batch, D.shape[1], 3), generator=gen, device=dev))
+            fops = cs.step_operands(cfg_f, dec_f, mu[:batch], D, targets,
+                                    sphere.get_sineweight(width, device=dev))
+            fkw = cs.step_kwargs(cfg_f, D.shape[1])
+            if width == 64:
+                got, ref = ts.film_step_cuda(*fops, **fkw), ts.film_step_reference(*fops, **fkw)
+                torch.cuda.synchronize()
+                print(f"film_step 100 x 2,048 vs plain: {relative_errors(got, ref)}")
+            else:
+                ms = cs.time_ms(lambda: ts.film_step_cuda(*fops, **fkw), runs=15)
+                print(f"film_step {batch} x 8,192: {ms:.3f} ms")
+        del fops
         D = sphere.get_directions(256, device=dev)
         g = cs.cotangent(z21, D.shape[1], seed=3)
         for name, entry in (("siren_bwd", cs.CBC), ("film_bwd", cs.FILM)):
