@@ -53,7 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
                  per-image grids, with a masked row, with the float32 trunk,
                  and with exp and no output activation; bars loss 1e-4
                  (bf16) / 1e-6 (float32) relative, gradients as in phase 3;
-                 two calls on the same inputs must give the same bits
+                 two calls on the same inputs must give the same bits. The
+                 bf16 step runs as layer-major passes (csrc/step_passes.cuh)
+                 and the float32 case through the chain kernel; then each
+                 pass kernel against its plain pass at 100 x 8,192, fed the
+                 plain chain's scratch, every output it writes within 1e-2 x
+                 max |plain|
 7. fit_decoder - train.tasks.fit_task FIT_DECODER at the published
                  hyperparameters (batch 100, Adam b1=0 b2=0.9, LR 1e-5 ->
                  1e-7, KLD weighting 1e-4, curriculum 16x32 -> 32x64 ->
@@ -95,7 +100,14 @@ Phases (any failure exits non-zero and prints no result line):
                  at the same shapes; median of CUDA-event timed runs after
                  warm-up; the bound is the larger of FLOPs / 989 TFLOP/s
                  (bf16 dense) and bytes / 3.35 TB/s (H100 SXM data sheet),
-                 both counted without the kernels' padding
+                 both counted without the kernels' padding. At 100 x 8,192
+                 each pass of a step is also timed alone (ms, bytes, FLOPs,
+                 TB/s), with the weight-gradient product, the design's byte
+                 floor, the peak device memory of one step, and torch.matmul
+                 of the same rows x 256 x 256 bf16 product as a yardstick the
+                 port never calls. Launch counts are also kept per
+                 FIT_LATENT and FIT_DECODER stage, so that a count can be
+                 paired with a time at the same shape
 11. report     - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 """
@@ -520,6 +532,19 @@ def timed(step, events: list):
     return run
 
 
+def counted(step, counters: dict, tally: dict):
+    """``step`` adding, per call, each wrapper's new launches to ``tally``."""
+
+    def run(state, batch):
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = step(state, batch)
+        for k, fn in counters.items():
+            tally[k] = tally.get(k, 0) + fn.launches - before[k]
+        return out
+
+    return run
+
+
 def median_ms(events: dict) -> dict:
     return {res: statistics.median(s.elapsed_time(e) for s, e in evs)
             for res, evs in events.items()}
@@ -543,15 +568,18 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
     task = fit_task_config(masked)
     events: dict = {}
 
+    fwd = tk.fused_film_apply if cfg.is_film else tk.fused_apply
+    bwd = tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda
+    per_stage: dict = {}
+
     def timed_step(model, directions, sineweight, res):
         step = tasks.make_fit_latent_step(
             model, directions, sineweight, alpha=task.prior_loss_weight,
             beta=task.cosine_similarity_weight,
         )
-        return timed(step, events.setdefault(res, []))
+        return counted(timed(step, events.setdefault(res, [])),
+                       {"fwd": fwd, "bwd": bwd}, per_stage.setdefault(res, {}))
 
-    fwd = tk.fused_film_apply if cfg.is_film else tk.fused_apply
-    bwd = tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda
     torch.cuda.synchronize()
     fwd.launches = bwd.launches = 0
     with plain_trunks() if plain else contextlib.nullcontext():
@@ -565,16 +593,18 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
     with torch.no_grad():
         maps = model.apply(fitted, fitted["latents"]["mu"],
                            sphere.get_directions(FIT_RES[1][1], device=device))
-    return maps, ms, metrics, launches
+    return maps, ms, metrics, launches, per_stage
 
 
 def fit_latent_phase(device) -> dict:
     """FIT_LATENT through the kernels and through their plain versions;
-    returns the backward launches of the kernel runs per kernel name."""
+    returns the forward and backward launches of the kernel runs per kernel
+    name, in all and (``<name>@<h>x<w>``) per resolution stage."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.serve import load_decoder
 
     launches = {"siren_bwd": 0, "film_bwd": 0}
+    fwd_name = {"siren_bwd": "siren_fwd", "film_bwd": "film_fwd"}
     mask = sphere.get_mask(FIT_RES[1][1], MASK, device=device)[0, :, 0] > 0.5
     stages = fit_task_config(False).resolution_stages()
     for name, entry, masked in (("siren_bwd", CBC, False), ("film_bwd", FILM, False),
@@ -589,8 +619,8 @@ def fit_latent_phase(device) -> dict:
         result = {}
         for plain in (False, True):
             t0 = time.perf_counter()
-            maps, ms, metrics, n = fit_latent(entry, device, masked=masked, plain=plain,
-                                              targets=targets)
+            maps, ms, metrics, n, by_stage = fit_latent(entry, device, masked=masked,
+                                                        plain=plain, targets=targets)
             wall = time.perf_counter() - t0
             check(bool(torch.isfinite(maps).all()), f"{label}: non-finite fitted maps")
             steps = FIT_EPOCHS  # one batch of 21 per epoch
@@ -600,6 +630,10 @@ def fit_latent_phase(device) -> dict:
                 check(n == {"fwd": steps, "bwd": steps},
                       f"{label}: {n} launches in {steps} steps (one each per step)")
                 launches[name] += n["bwd"]
+                for res, c in by_stage.items():
+                    for key, kname in (("bwd", name), ("fwd", fwd_name[name])):
+                        tag = f"{kname}@{res[0]}x{res[1]}"
+                        launches[tag] = launches.get(tag, 0) + c[key]
             loss = metrics["fit_latent_loss"]
             last = loss[-stages[-1][1]:]  # the final stage's epochs
             check(bool(np.isfinite(loss).all()) and last[-1] < last[0],
@@ -614,7 +648,8 @@ def fit_latent_phase(device) -> dict:
             off = 0
             for (res, n_ep), (_, t) in zip(stages, sorted(ms.items())):
                 print(f"{label} [{run}] stage {res[0]}x{res[1]}: {t:.3f} ms/step (median), "
-                      f"epoch loss {loss[off]:.6g} -> {loss[off + n_ep - 1]:.6g}")
+                      f"epoch loss {loss[off]:.6g} -> {loss[off + n_ep - 1]:.6g}, launches "
+                      f"{by_stage.get(res, {})}")
                 off += n_ep
             print(f"{label} [{run}] {steps} steps in {wall:.1f} s, launches {n}; PSNR at "
                   f"{FIT_RES[1][0]}x{FIT_RES[1][1]} " + ", ".join(f"{k} {v:.3f} dB" for k, v in db.items()))
@@ -749,6 +784,108 @@ def compare_step_phase(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
     return errs, rels
 
 
+def compare_passes(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
+    """Each pass kernel of the step ``name`` against its plain pass at the
+    flagship shape (100 training latents x 8,192 directions, the next 100
+    maps as targets): the plain chain up to a pass feeds both, and every
+    output the pass writes (scratch rows, slot columns) is held to 1e-2 x
+    max |plain|. Returns the absolute and relative errors."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    res = FIT_RES[1]
+    D = sphere.get_directions(res[1], device=device)
+    ops = step_operands(cfg, dec, mu[:DEC_BATCH], D, maps[res][DEC_BATCH:2 * DEC_BATCH],
+                        sphere.get_sineweight(res[1], device=device))
+    kw = step_kwargs(cfg, D.shape[1])
+    plan = ts.step_plan_cuda(cfg.is_film, ops, device)
+    check(ts.pass_route(kw["trunk"], plan.hidden, plan.n_mm),
+          f"{name}: the flagship step does not take the passes")
+    ref = ts.PassWork.for_plan(plan, kw["trunk"], device)
+    prep = ts.pass_operands(plan, ops, kw)
+    errs, rels = [], []
+    with torch.no_grad():
+        for k, (kind, j) in enumerate(plan.passes):
+            got = ref.clone()
+            ts.step_pass_cuda(plan, k, ops, kw, got, prep)
+            ts.step_pass_reference(plan, k, ops, kw, ref)
+            torch.cuda.synchronize()
+            outs, report = ts.pass_outputs(plan, k, got), []
+            for key, y in ts.pass_outputs(plan, k, ref).items():
+                x, y = outs[key].float(), y.float()
+                check(bool(torch.isfinite(x).all()), f"{name} pass {kind} {j}: non-finite {key}")
+                err, scale = (x - y).abs().max().item(), y.abs().max().item()
+                check(err <= BWD_BAR["bfloat16"] * scale,
+                      f"{name} pass {kind} {j} {key}: max |diff| {err:.3g} > 1e-2 x {scale:.3g}")
+                errs.append(err)
+                rels.append(err / scale)
+                report.append(f"{key} {err / scale:.2g}")
+            print(f"  {name} pass {k} ({kind} {j}) vs its plain pass, max |diff| / max |plain|: "
+                  f"{', '.join(report)}")
+            del got
+    del ref, prep
+    torch.cuda.empty_cache()
+    return errs, rels
+
+
+def pass_timings(name, cfg, ops, kw, device) -> dict:
+    """The passes of one step timed alone at the step's shape, each with its
+    bytes, FLOPs and achieved rates; the weight-gradient product alone; and,
+    as a yardstick only (the port never calls it), torch.matmul of the same
+    rows x H x H bf16 product. Returns the numbers for the kernels line."""
+    from reni_tpu_torch.kernels import anatomy as ta
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    plan = ts.step_plan_cuda(cfg.is_film, ops, device)
+    work = ts.PassWork.for_plan(plan, kw["trunk"], device)
+    prep = ts.pass_operands(plan, ops, kw)  # cast and transposed once, as the step does
+    for k in range(len(plan.passes)):  # the scratch each pass reads
+        ts.step_pass_cuda(plan, k, ops, kw, work, prep)
+    passes, total = {}, 0
+    for k, (kind, j) in enumerate(plan.passes):
+        ms = time_ms(lambda: ts.step_pass_cuda(plan, k, ops, kw, work, prep), runs=10, warmup=1)
+        flops, nbytes = plan.pass_cost(k)
+        total += nbytes
+        passes[f"{kind}{j}"] = ms
+        print(f"  {name} pass {kind} {j}: {ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} FLOP -> "
+              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    wgrad_ms = time_ms(lambda: ta.weight_grads_cuda(work.sc_h, work.sc_dz), runs=5, warmup=1)
+    flops, nbytes = plan.wgrad_cost()
+    total += nbytes
+    print(f"  {name} dWs (wgrad_bf16 + its sum): {wgrad_ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} "
+          f"FLOP -> {nbytes / (wgrad_ms * 1e-3) / 1e12:.3f} TB/s, "
+          f"{flops / (wgrad_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    del work, prep
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn((plan.rows, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((plan.hidden, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(x, w), runs=10)
+    mm_bytes = 2 * (2 * x.numel() + w.numel())
+    print(f"  yardstick (not called by the port): torch.matmul {plan.rows} x {plan.hidden} x "
+          f"{plan.hidden} bf16 {mm_ms:.4f} ms -> {mm_bytes / (mm_ms * 1e-3) / 1e12:.3f} TB/s")
+    del x, w
+    floor_ms = total / PEAK_BYTES * 1e3
+    print(f"  {name}: the design's byte floor {total:.4g} B ({total / plan.rows:.0f} per row) -> "
+          f"{floor_ms:.4f} ms at {PEAK_BYTES / 1e12:.2f} TB/s; sum of the passes and dWs "
+          f"{sum(passes.values()) + wgrad_ms:.4f} ms")
+    return {"passes_ms": passes, "wgrad_ms": wgrad_ms, "matmul_yardstick_ms": mm_ms}
+
+
+def step_peak_memory(kernel, ops, kw) -> float:
+    """Peak device memory (GB) while one step runs, its operands included."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel(*ops, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory of one step: {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB "
+          f"above its operands)")
+    return peak / 1e9
+
+
 @contextlib.contextmanager
 def plain_step():
     """Route fused_step_mse and fused_film_step_mse through the plain steps on
@@ -789,12 +926,15 @@ def fit_decoder(device, entry: str, *, plain: bool, maps: dict):
     task = decoder_task_config()
     events: dict = {}
 
+    counters = kernel_counters(model.config)
+    per_stage: dict = {}
+
     def timed_step(model, directions, sineweight, res):
         step = tasks.make_fit_decoder_step(model, directions, sineweight,
                                            kld_weighting=task.kld_weighting)
-        return timed(step, events.setdefault(res, []))
+        return counted(timed(step, events.setdefault(res, [])), counters,
+                       per_stage.setdefault(res, {}))
 
-    counters = kernel_counters(model.config)
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -805,7 +945,7 @@ def fit_decoder(device, entry: str, *, plain: bool, maps: dict):
         )
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    return trained, model, median_ms(events), metrics, launches
+    return trained, model, median_ms(events), metrics, launches, per_stage
 
 
 def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
@@ -827,7 +967,8 @@ def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
     for plain in (False, True):
         run = "plain" if plain else "kernel"
         t0 = time.perf_counter()
-        trained, model, ms, metrics, n = fit_decoder(device, entry, plain=plain, maps=maps)
+        trained, model, ms, metrics, n, by_stage = fit_decoder(device, entry, plain=plain,
+                                                              maps=maps)
         wall = time.perf_counter() - t0
         tag = f"FIT_DECODER {model.config.conditioning} [{run}]"
         if plain:
@@ -842,7 +983,7 @@ def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
         for (res, n_ep), (_, t) in zip(stages, sorted(ms.items())):
             first, last = loss[off], loss[off + n_ep - 1]
             print(f"{tag} stage {res[0]}x{res[1]}: {t:.3f} ms/step (median), "
-                  f"epoch loss {first:.6g} -> {last:.6g}")
+                  f"epoch loss {first:.6g} -> {last:.6g}, launches {by_stage.get(res, {})}")
             check(last < first, f"{tag} stage {res}: loss {first} -> {last} did not fall")
             off += n_ep
         with torch.no_grad():
@@ -926,6 +1067,10 @@ def time_step(name, cfg, dec, mu, maps, device, replaces, launches, errors, rel_
             bwd(*ops[:n_trunk], g, **bwd_kw)
 
         ms = time_ms(lambda: kernel(*ops, **kw), runs=15)
+        extra = {}
+        if B == DEC_BATCH:
+            extra = pass_timings(name, cfg, ops, kw, device)
+            extra["peak_mem_gb"] = step_peak_memory(kernel, ops, kw)
         two_ms = time_ms(two_kernels, runs=10)
         plain_ms = time_ms(lambda: plain(*ops, **kw), runs=5, warmup=1)
         print(f"{name} B={B} P={P}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, forward + "
@@ -939,7 +1084,7 @@ def time_step(name, cfg, dec, mu, maps, device, replaces, launches, errors, rel_
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name]),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "two_kernel_ms": two_ms,
+                "library_ms": None, "two_kernel_ms": two_ms, **extra,
             }
     return row
 
@@ -1231,13 +1376,17 @@ def main() -> int:
     phase("fit_latent")
     launches.update(fit_latent_phase(dev))
     print(f"backward launches during FIT_LATENT (kernel runs): "
-          f"{ {k: launches[k] for k in ('siren_bwd', 'film_bwd')} }")
+          f"{ {k: launches[k] for k in ('siren_bwd', 'film_bwd')} }; per stage "
+          f"{ {k: v for k, v in launches.items() if '@' in k} }")
 
     phase("compare_step at full width and at FIT_DECODER's shapes")
     cfg_cbc, dec_cbc, _ = entries["siren_fwd"]
     mu, maps = training_maps(dev)
     errors["siren_step"], rel_errors["siren_step"] = compare_step_phase(
         "siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
+    err, rel = compare_passes("siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
+    errors["siren_step"] += err
+    rel_errors["siren_step"] += rel
 
     phase("fit_decoder")
     launches["siren_step"] = fit_decoder_phase(dev, maps)
@@ -1248,6 +1397,9 @@ def main() -> int:
     mu_film, maps_film = training_maps(dev, FILM)
     errors["film_step"], rel_errors["film_step"] = compare_step_phase(
         "film_step", cfg_film, dec_film, mu_film, maps_film, dev)
+    err, rel = compare_passes("film_step", cfg_film, dec_film, mu_film, maps_film, dev)
+    errors["film_step"] += err
+    rel_errors["film_step"] += rel
 
     phase("fit_decoder_film")
     launches["film_step"] = fit_decoder_phase(dev, maps_film, FILM)
@@ -1294,12 +1446,19 @@ def main() -> int:
             print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}; {flops:.4g} FLOP, {nbytes:.4g} B) -> "
                   f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            # FIT_LATENT's largest stage (64x128 = 21 x 8,192), where most of
+            # its forward launches run
+            small = packed(cfg, dec, Z, sphere.get_directions(FIT_RES[1][1], device=dev))
+            ms_fit = time_ms(lambda: kernel(*small, **kw))
+            print(f"{name} B={B} P={small[0].shape[1]} (FIT_LATENT's last stage): kernel "
+                  f"{ms_fit:.4f} ms")
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name]),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "ms_fit_latent_last_stage": ms_fit,
             })
         for fwd_name, name in (("siren_fwd", "siren_bwd"), ("film_fwd", "film_bwd")):
             cfg, dec, Z = entries[fwd_name]
@@ -1343,6 +1502,10 @@ def main() -> int:
                           anatomy_ms, replaces, launches, errors, rel_errors))
     rows.append(probe_row("bwd_variant", "bwd", "bwd_no_sincos", cfg_cbc, dec_cbc, z21, dev,
                           anatomy_ms, replaces, launches, errors, rel_errors))
+    for row in rows:  # launches per resolution stage, where a path counts them
+        by = {k.split("@")[1]: v for k, v in launches.items() if k.startswith(row["name"] + "@")}
+        if by:
+            row["launches_by_stage"] = by
     print(f"total_s {time.perf_counter() - t_start:.1f}")
 
     card = card_line()

@@ -57,7 +57,15 @@ import torch
 from reni_tpu_torch.core.fastmath import sincos_fns
 from reni_tpu_torch.kernels import siren_bwd, siren_fwd
 from reni_tpu_torch.kernels.siren_bwd import _rounded, tile_rows
-from reni_tpu_torch.kernels.siren_fwd import C_PAD, K_PAD, _cuda_operands, _f32, _matmul, _weights
+from reni_tpu_torch.kernels.siren_fwd import (
+    C_PAD,
+    K_PAD,
+    _check,
+    _cuda_operands,
+    _f32,
+    _matmul,
+    _weights,
+)
 
 SINE_LINEAR = 2  # csrc/siren_common.cuh; 0 is the exact sine, 1 the fast one
 INTERLEAVES = (1, 2, 4)
@@ -178,12 +186,6 @@ def library():
     return lib
 
 
-def _check(err: int, lib, kind: str) -> None:
-    if err != 0:
-        msg = lib.reni_anatomy_error_string(err).decode()
-        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err} ({msg})")
-
-
 def fwd_variant_cuda(
     d_pad, a, b0, ws, bs, wf, bf, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
     transcendental=True, interleave=1,
@@ -213,7 +215,7 @@ def fwd_variant_cuda(
             ws.shape[0], float(omega0), float(omega_h), int(trunk == "bfloat16"),
             _sine_mode(transcendental, fast_sine), interleave, stream,
         )
-    _check(err, lib, "fwd_variant")
+    _check(err, lib.reni_anatomy_error_string, "fwd_variant")
     fwd_variant_cuda.launches += 1
     return out
 
@@ -253,7 +255,7 @@ def bwd_variant_cuda(
             int(trunk == "bfloat16"), _sine_mode(transcendental, fast_sine),
             int(bool(weight_grads)), int(bool(accum)), stream,
         )
-    _check(err, lib, "bwd_variant")
+    _check(err, lib.reni_anatomy_error_string, "bwd_variant")
     bwd_variant_cuda.launches += 1
     if not accum:
         return part, work.part_w, work.sc_h, work.sc_dz
@@ -289,7 +291,7 @@ def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool =
             sc_h.data_ptr(), sc_dz.data_ptr(), part_dws.data_ptr(), dws.data_ptr(), rows, per,
             chunks, hidden, n_mm, int(trunk == "bfloat16"), int(bool(reduce)), stream,
         )
-    _check(err, lib, "weight_grads")
+    _check(err, lib.reni_anatomy_error_string, "weight_grads")
     weight_grads_cuda.launches += 1
     return dws if reduce else part_dws
 

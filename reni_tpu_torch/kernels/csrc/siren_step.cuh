@@ -1,8 +1,11 @@
 // Fused train step for Hopper (sm_90a): forward, weighted-MSE loss and the
-// whole backward of the Cond-by-Concat or the FiLM trunk. The kernel template
-// and its launch; siren_step.cu instantiates the Cond-by-Concat kernels from
-// it and film_step.cu the FiLM ones (two sources, so that they build side by
-// side).
+// whole backward of the Cond-by-Concat or the FiLM trunk. The chain kernel
+// template and its launch; siren_step.cu instantiates the Cond-by-Concat
+// kernels from it and film_step.cu the FiLM ones (two sources, so that they
+// build side by side). Since the layer-major passes of step_passes.cuh took
+// the bf16 trunk at widths that are a multiple of 64, this kernel serves the
+// float32 trunk, bf16 widths that are a multiple of 16 but not of 64, and a
+// FiLM trunk of one layer (kernels/siren_step.py::pass_route).
 //
 // Replaces the Pallas kernels _step_kernel (entry fused_step_mse) and
 // _film_step_kernel (entry fused_film_step_mse) of

@@ -40,6 +40,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     K_PAD,
     ROW_PAD,
     SMEM_LIMIT,
+    _check,
     _cuda_operands,
     _f32,
     _matmul,
@@ -274,21 +275,33 @@ def library():
     return lib
 
 
-def launch_grid(npix: int, batch: int, trunk: str, device) -> tuple[int, int]:
-    """(tiles per CTA, CTAs per image): about CTAS_PER_SM CTAs per SM, each
-    walking a run of consecutive tiles of one image."""
-    n_tiles = math.ceil(npix / tile_rows(trunk))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _sms(device, sms: int | None) -> int:
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def tile_grid(npix: int, batch: int, rows: int, sms: int) -> tuple[int, int]:
+    """(tiles per CTA, CTAs per image) for tiles of ``rows`` pixels on a card
+    of ``sms`` SMs: about CTAS_PER_SM CTAs per SM, each walking a run of
+    consecutive tiles of one image."""
+    n_tiles = math.ceil(npix / rows)
     per = min(n_tiles, max(1, n_tiles * batch // (CTAS_PER_SM * sms)))
     return per, math.ceil(n_tiles / per)
 
 
-def wgrad_chunks(rows: int, hidden: int, n_mm: int, trunk: str, device) -> tuple[int, int]:
+def launch_grid(npix: int, batch: int, trunk: str, device) -> tuple[int, int]:
+    """``tile_grid`` of the chain kernels' tiles on ``device``."""
+    return tile_grid(npix, batch, tile_rows(trunk), _sms(device, None))
+
+
+def wgrad_chunks(rows: int, hidden: int, n_mm: int, trunk: str, device,
+                 sms: int | None = None) -> tuple[int, int]:
     """(rows per chunk, chunks) of the split-K weight-gradient product: about
     WGRAD_CTAS_PER_SM CTAs per SM over its (output tiles, chunks, layers)
     grid; a chunk is a multiple of 64 rows."""
     tiles = math.ceil(hidden / WGRAD_TILE[trunk]) ** 2
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sms(device, sms)
     want = max(1, WGRAD_CTAS_PER_SM * sms // max(1, tiles * n_mm))
     per = math.ceil(math.ceil(rows / want) / 64) * 64
     return per, math.ceil(rows / per)
@@ -311,10 +324,10 @@ class WeightGradWork:
     n_wchunks: int
 
     @classmethod
-    def allocate(cls, trunk, n_mm, rows, hidden, n_ctas, n_w, device):
+    def allocate(cls, trunk, n_mm, rows, hidden, n_ctas, n_w, device, sms=None):
         f32 = dict(dtype=torch.float32, device=device)
         act = torch.bfloat16 if trunk == "bfloat16" else torch.float32
-        per, chunks = wgrad_chunks(rows, hidden, n_mm, trunk, device)
+        per, chunks = wgrad_chunks(rows, hidden, n_mm, trunk, device, sms)
         return cls(
             part_w=torch.empty((n_ctas, n_w), **f32),
             out_w=torch.empty((n_w,), **f32),
@@ -375,12 +388,6 @@ def _work_args(work: WeightGradWork | None) -> tuple[tuple, tuple]:
     return work.pointers(), (work.rows_per_chunk, work.n_wchunks)
 
 
-def _check(err: int, lib, kind: str) -> None:
-    if err != 0:
-        msg = lib.reni_bwd_error_string(err).decode()
-        raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err} ({msg})")
-
-
 def siren_trunk_bwd_cuda(
     d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
     fast_sine=False, weight_grads=True,
@@ -405,7 +412,7 @@ def siren_trunk_bwd_cuda(
             tiles, chunks, *wchunks, float(omega0), float(omega_h), int(trunk == "bfloat16"),
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
-    _check(err, lib, "siren_bwd")
+    _check(err, lib.reni_bwd_error_string, "siren_bwd")
     siren_trunk_bwd_cuda.launches += 1
     da = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
     db0 = out[:, K_PAD * hidden :].view(batch, 1, hidden)
@@ -441,7 +448,7 @@ def film_trunk_bwd_cuda(
             hidden, n_trunk, tiles, chunks, *wchunks, int(trunk == "bfloat16"),
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
-    _check(err, lib, "film_bwd")
+    _check(err, lib.reni_bwd_error_string, "film_bwd")
     film_trunk_bwd_cuda.launches += 1
     th = n_trunk * hidden
     da0 = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)

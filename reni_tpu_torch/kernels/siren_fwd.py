@@ -264,9 +264,11 @@ def _weights(w: torch.Tensor, trunk: str) -> torch.Tensor:
     return w.to(dtype).contiguous()
 
 
-def _check(err: int, lib, kind: str) -> None:
+def _check(err: int, error_string, kind: str) -> None:
+    """Raise on a nonzero cudaError_t ``err``; ``error_string`` is the
+    library's bound ``*_error_string``."""
     if err != 0:
-        msg = lib.reni_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{kind} kernel launch failed: CUDA error {err} ({msg})")
 
 
@@ -294,7 +296,7 @@ def siren_trunk_cuda(
             batch, npix, hidden, ws.shape[0], float(omega0), float(omega_h),
             int(trunk == "bfloat16"), int(bool(fast_sine)), stream,
         )
-    _check(err, lib, "siren_fwd")
+    _check(err, lib.reni_error_string, "siren_fwd")
     fused_apply.launches += 1
     return out
 
@@ -320,7 +322,7 @@ def film_trunk_cuda(
             out.data_ptr(), batch, npix, hidden, bs.shape[0],
             int(trunk == "bfloat16"), int(bool(fast_sine)), stream,
         )
-    _check(err, lib, "film_fwd")
+    _check(err, lib.reni_error_string, "film_fwd")
     fused_film_apply.launches += 1
     return out
 

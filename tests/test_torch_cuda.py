@@ -347,6 +347,14 @@ def _step_operands(rng, cuda, equiv, N, H, L, B, P, per_image, expand=False):
     return dec, Z, D, (*ops, tgt, sw, bm)
 
 
+def _step_ctas_per_image(P, B, trunk, H, n_mm, cuda):
+    """CTAs per image of the step's route: the passes' 128-row grid or the
+    chain kernel's."""
+    if ts.pass_route(trunk, H, n_mm):
+        return ts.pass_grid(P, B, torch.cuda.get_device_properties(cuda).multi_processor_count)[1]
+    return tb.launch_grid(P, B, trunk, cuda)[1]
+
+
 def _assert_step_close(got, ref, trunk, what):
     loss_rel, grad_rel = STEP_BAR[trunk]
     mse, mse_ref = got[0].sum().item(), ref[0].sum().item()
@@ -377,7 +385,7 @@ def test_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
     ):
         _, _, _, ops = _step_operands(rng, cuda, equiv, N, H, L, B, P, per_image, expand)
         if H >= 128:
-            assert tb.launch_grid(P, B, trunk, cuda)[1] >= 4
+            assert _step_ctas_per_image(P, B, trunk, H, L, cuda) >= 2
             assert tb.wgrad_chunks(B * P, H, L, trunk, cuda)[1] >= 4
         n0 = ts.siren_step_cuda.launches
         got = ts.siren_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
@@ -392,12 +400,14 @@ def test_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
 
 
 def test_step_kernel_walks_several_tiles_per_cta(cuda, monkeypatch):
-    """Three tiles per CTA, 17 tiles per image (the last CTA has two)."""
+    """The passes with three 128-row tiles per CTA: 8 tiles per image (P =
+    900, the last ragged), so the last CTA of an image walks two."""
     rng = np.random.default_rng(31)
-    _, _, _, ops = _step_operands(rng, cuda, "SO2", 5, 128, 2, 3, 264, False)
+    _, _, _, ops = _step_operands(rng, cuda, "SO2", 5, 128, 2, 3, 900, False)
     kw = dict(omega0=30.0, omega_h=30.0, trunk="bfloat16", fast_sine=True, out_act="tanh",
-              gscale=1.0 / (3 * 264))
-    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
+              gscale=1.0 / (3 * 900))
+    monkeypatch.setattr(ts, "pass_grid", lambda npix, b, sms: (3, math.ceil(npix / 128 / 3)))
+    assert ts.step_plan_cuda(False, ops, cuda).chunks == 3
     got = ts.siren_step_cuda(*ops, **kw)
     ref = ts.siren_step_reference(*ops, **kw)
     torch.cuda.synchronize()
@@ -440,11 +450,17 @@ def test_fused_step_mse_launches_the_step_kernel_only(cuda):
 
 
 def test_step_smem_formula_matches_kernel(cuda):
+    """The shared memory of each route's layout, as the library reports it,
+    equals its mirror: chain_smem_bytes for the chain kernel,
+    pass_smem_bytes for the passes (pass_route alone picks between them)."""
     lib = ts.library()
     for trunk in tk.TRUNKS:
-        for H, n_mm in ((128, 2), (256, 5), (256, 1), (512, 1), (32, 3)):
+        for H, n_mm in ((128, 2), (256, 5), (256, 1), (512, 1), (32, 3), (96, 2), (256, 12),
+                        (64, 1)):
             got = lib.smem_bytes(int(trunk == "bfloat16"), H, n_mm)
-            assert got == ts.step_smem_bytes(trunk, H, n_mm)
+            assert got == ts.chain_smem_bytes(trunk, H, n_mm)
+    for H in (64, 128, 192, 256, 320):
+        assert lib.pass_smem_bytes(H) == ts.pass_smem_bytes(H)
 
 
 def test_fit_decoder_step_on_card_takes_the_step_kernel(cuda):
@@ -522,7 +538,7 @@ def test_film_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
     ):
         _, _, _, ops = _film_step_operands(rng, cuda, equiv, N, H, T, B, P, per_image, expand)
         if H >= 128:
-            assert tb.launch_grid(P, B, trunk, cuda)[1] >= 4
+            assert _step_ctas_per_image(P, B, trunk, H, T - 1, cuda) >= 2
             assert T == 1 or tb.wgrad_chunks(B * P, H, T - 1, trunk, cuda)[1] >= 4
         n0 = ts.film_step_cuda.launches
         got = ts.film_step_cuda(*ops, gscale=1.0 / (3 * P), **kw)
@@ -545,11 +561,13 @@ def test_film_step_kernel_matches_plain(cuda, trunk, act, fast_sine):
 
 
 def test_film_step_kernel_walks_several_tiles_per_cta(cuda, monkeypatch):
-    """Three tiles per CTA, 17 tiles per image (the last CTA has two)."""
+    """The FiLM passes with three 128-row tiles per CTA: 8 tiles per image (P
+    = 900, the last ragged), so the last CTA of an image walks two."""
     rng = np.random.default_rng(41)
-    _, _, _, ops = _film_step_operands(rng, cuda, "SO2", 5, 128, 3, 3, 264, False)
-    kw = dict(trunk="bfloat16", fast_sine=True, out_act="tanh", gscale=1.0 / (3 * 264))
-    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
+    _, _, _, ops = _film_step_operands(rng, cuda, "SO2", 5, 128, 3, 3, 900, False)
+    kw = dict(trunk="bfloat16", fast_sine=True, out_act="tanh", gscale=1.0 / (3 * 900))
+    monkeypatch.setattr(ts, "pass_grid", lambda npix, b, sms: (3, math.ceil(npix / 128 / 3)))
+    assert ts.step_plan_cuda(True, ops, cuda).chunks == 3
     got = ts.film_step_cuda(*ops, **kw)
     ref = ts.film_step_reference(*ops, **kw)
     torch.cuda.synchronize()
@@ -595,11 +613,16 @@ def test_fused_film_step_mse_launches_the_step_kernel_only(cuda):
 
 
 def test_film_step_smem_formula_matches_kernel(cuda):
+    """The FiLM counterpart of test_step_smem_formula_matches_kernel (one
+    trunk layer, n_mm = 0, takes the chain kernel)."""
     lib = ts.library(film=True)
     for trunk in tk.TRUNKS:
-        for H, n_mm in ((128, 2), (256, 4), (256, 0), (512, 1), (32, 3)):
+        for H, n_mm in ((128, 2), (256, 4), (256, 0), (512, 1), (32, 3), (96, 2), (256, 12),
+                        (64, 1)):
             got = lib.smem_bytes(int(trunk == "bfloat16"), H, n_mm)
-            assert got == ts.film_step_smem_bytes(trunk, H, n_mm)
+            assert got == ts.chain_smem_bytes(trunk, H, n_mm, film=True)
+    for H in (64, 128, 192, 256, 320):
+        assert lib.pass_smem_bytes(H) == ts.pass_smem_bytes(H)
 
 
 def test_fit_decoder_step_on_card_takes_the_film_step_kernel(cuda):
@@ -635,6 +658,106 @@ def test_fit_decoder_step_on_card_takes_the_film_step_kernel(cuda):
     assert all(torch.isfinite(v) for v in metrics.values())
     for old, new in zip(before, tree_leaves(state.trainable)):
         assert not torch.equal(old, new)
+
+
+# ---------------------------------------------------------------------------
+# the layer-major passes of both steps
+# ---------------------------------------------------------------------------
+
+
+def _pass_case(rng, cuda, film, H, n_mm, B, P, per_image=False):
+    if film:
+        return _film_step_operands(rng, cuda, "SO2", 7, H, n_mm + 1, B, P, per_image)[3]
+    return _step_operands(rng, cuda, "SO2", 7, H, n_mm, B, P, per_image)[3]
+
+
+def _pass_kw(film, P, act="tanh", fast_sine=True):
+    kw = dict(trunk="bfloat16", fast_sine=fast_sine, out_act=act, gscale=1.0 / (3 * P))
+    if not film:
+        kw.update(omega0=30.0, omega_h=30.0)
+    return kw
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("H,n_mm", [(256, 5), (64, 2), (192, 1)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_each_pass_matches_its_plain_pass(cuda, film, H, n_mm, fast_sine):
+    """Each pass kernel against its plain pass on the same scratch (the
+    plain chain up to it): every output it writes, max |diff| <= 1e-2 x max
+    |plain| (h and dz are bf16 and sin(30 x) flips a rounding now and then),
+    a ragged P and a masked row. Not counted as steps."""
+    rng = np.random.default_rng(50)
+    B, P = 3, 1000
+    ops, kw = _pass_case(rng, cuda, film, H, n_mm, B, P), _pass_kw(film, P, fast_sine=fast_sine)
+    plan = ts.step_plan_cuda(film, ops, cuda)
+    ref = ts.PassWork.for_plan(plan, "bfloat16", cuda)
+    steps = (ts.siren_step_cuda.launches, ts.film_step_cuda.launches)
+    with torch.no_grad():
+        for k in range(len(plan.passes)):
+            got = ref.clone()
+            ts.step_pass_cuda(plan, k, ops, kw, got)
+            ts.step_pass_reference(plan, k, ops, kw, ref)
+            torch.cuda.synchronize()
+            outs = ts.pass_outputs(plan, k, got)
+            for name, y in ts.pass_outputs(plan, k, ref).items():
+                x, y = outs[name].float(), y.float()
+                assert torch.isfinite(x).all(), (plan.passes[k], name)
+                err, scale = (x - y).abs().max().item(), y.abs().max().item()
+                assert err <= 1e-2 * scale, (plan.passes[k], name, err, scale)
+    assert (ts.siren_step_cuda.launches, ts.film_step_cuda.launches) == steps
+
+
+@pytest.mark.parametrize("npix", [512, 2048, 8192])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_steps_match_plain_at_fit_decoder_shapes(cuda, film, npix):
+    """Both steps through the passes at FIT_DECODER's batch and stage
+    shapes (100 x 512, 2,048, 8,192; 5 x 256, FiLM 5 trunk layers) and, at
+    100 x 2,048, a trunk deeper than 5 hidden layers (8): against the plain
+    step at the step bars, two calls bitwise equal."""
+    rng = np.random.default_rng(51)
+    B = 100
+    n_mm = 4 if film else 5
+    shapes = [(n_mm, npix)] + ([(7 if film else 8, npix)] if npix == 2048 else [])
+    kernel = ts.film_step_cuda if film else ts.siren_step_cuda
+    plain = ts.film_step_reference if film else ts.siren_step_reference
+    for depth, P in shapes:
+        ops, kw = _pass_case(rng, cuda, film, 256, depth, B, P), _pass_kw(film, P)
+        assert ts.pass_route("bfloat16", 256, depth)
+        with torch.no_grad():
+            got, again = kernel(*ops, **kw), kernel(*ops, **kw)
+            ref = plain(*ops, **kw)
+            torch.cuda.synchronize()
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        _assert_step_close(got, ref, "bfloat16", (film, depth, P))
+        del got, again, ref
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize(
+    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, False), ("bfloat16", 96, False),
+                       ("bfloat16", 32, False)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_step_route_on_card(cuda, film, trunk, H, passes, monkeypatch):
+    """The routing rule on the card: the float32 trunk and bf16 widths that
+    are not a multiple of 64 take the chain kernel (no pass launches), bf16
+    at a multiple of 64 the passes; each route matches the plain step."""
+    calls = []
+    real = ts._pass_call
+    monkeypatch.setattr(ts, "_pass_call", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    rng = np.random.default_rng(52)
+    ops = _pass_case(rng, cuda, film, H, 2, 3, 300)
+    kw = {**_pass_kw(film, 300), "trunk": trunk}
+    got = (ts.film_step_cuda if film else ts.siren_step_cuda)(*ops, **kw)
+    ref = (ts.film_step_reference if film else ts.siren_step_reference)(*ops, **kw)
+    torch.cuda.synchronize()
+    assert bool(calls) is passes
+    if film:
+        assert abs(got[0].sum().item() - ref[0].sum().item()) <= STEP_BAR[trunk][0] * abs(
+            ref[0].sum().item())
+        _assert_grads_close(got[1:], ref[1:], trunk, (trunk, H))
+    else:
+        _assert_step_close(got, ref, trunk, (trunk, H))
 
 
 # ---------------------------------------------------------------------------

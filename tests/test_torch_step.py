@@ -253,9 +253,16 @@ def test_fused_step_reason_accepts_the_published_shapes():
         assert jm.fused_step_reason(100, npix) is None
         assert model.fused_step_reason(100, npix) is None
         assert model.fused_step_reason(100, npix, 100) is None
-    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 16
-    assert ts.step_smem_bytes("bfloat16", 256, 5) == 207232
-    assert ts.step_smem_bytes("bfloat16", 256, 5) > tb.bwd_smem_bytes(False, "bfloat16", 256, 5)
+    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 128
+    # the passes keep one layer's weights and one 128-row tile: no depth in it
+    assert ts.step_smem_bytes("bfloat16", 256, 5) == ts.pass_smem_bytes(256) == 226432
+    assert ts.step_smem_bytes("bfloat16", 256, 12) == 226432 <= 227 * 1024
+    deep = RENIModel(RENIConfig(use_pallas=True, hidden_layers=12))
+    assert deep.fused_step_reason(100, 8192) is None
+    # the chain kernel (float32, and bf16 widths not a multiple of 64) keeps
+    # every layer of a tile: more than the backward kernel
+    assert ts.step_smem_bytes("float32", 256, 5) > tb.bwd_smem_bytes(False, "float32", 256, 5)
+    assert ts.step_smem_bytes("bfloat16", 96, 5) > tb.bwd_smem_bytes(False, "bfloat16", 96, 5)
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +483,7 @@ def test_film_step_reference_operands_and_results():
         (dict(), (4, 0, 1), "no pixels"),
         (dict(hidden_features=512), (4, 128, 1), "shared memory"),
         (dict(hidden_layers=0), (4, 128, 1), "needs a trunk layer"),
-        (dict(hidden_layers=7), (4, 128, 1), "FiLM train step of a 7 x 256"),
+        (dict(hidden_layers=7, hidden_features=320), (4, 128, 1), "FiLM train step of a 7 x 320"),
         (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), "shared memory"),
     ],
     ids=["off", "grid_batch", "width", "batch", "npix", "smem_wide", "no_layer", "smem_deep",
@@ -501,19 +508,207 @@ def test_fused_step_reason_accepts_the_published_film_shapes():
         assert jm.fused_step_reason(100, npix) is None
         assert model.fused_step_reason(100, npix) is None
         assert model.fused_step_reason(100, npix, 100) is None
-    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 16
+    assert model.fused_step_reason(100, 8450) is None  # ragged: not a multiple of 128
     sine_final = dict(use_pallas=True, conditioning="FiLM", last_layer_linear=False)
     assert JModel(JConfig(**sine_final)).fused_step_reason(100, 8192) is None
     assert RENIModel(RENIConfig(**sine_final)).fused_step_reason(100, 8192) is None
     one = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=1))
     assert one.fused_step_reason(100, 8192) is None
-    assert ts.film_step_smem_bytes("bfloat16", 256, 4) == 191616
+    # the passes: the Cond-by-Concat layout, no depth in it
     assert ts.film_step_smem_bytes("bfloat16", 256, 4) == ts.step_smem_bytes(
-        "bfloat16", 256, 4, film=True)
-    # what the FiLM step keeps beyond the FiLM backward kernel: a target, a
+        "bfloat16", 256, 4, film=True) == ts.pass_smem_bytes(256)
+    # the chain kernel (one trunk layer; bf16 widths not a multiple of 64):
+    # what it keeps beyond the FiLM backward kernel is a target, a
     # pixel-weight and a loss tile (the 8 loss partials fit the sums' padding)
-    assert ts.film_step_smem_bytes("bfloat16", 256, 4) - tb.bwd_smem_bytes(
-        True, "bfloat16", 256, 4) == 3 * 512
-    deep = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=6))
-    assert deep.fused_step_reason(100, 8192) is None  # 219,520 B: FiLM's ceiling at H = 256
+    assert not ts.pass_route("bfloat16", 256, 0)
+    assert ts.film_step_smem_bytes("bfloat16", 96, 4) - tb.bwd_smem_bytes(
+        True, "bfloat16", 96, 4) == 3 * 512
+    deep = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=12))
+    assert deep.fused_step_reason(100, 8192) is None  # past the chain kernel's 6 layers
     assert ts.film_step_smem_bytes("float32", 256, 4) < 227 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the layer-major passes (csrc/step_passes.cuh): plan, routing and the plain
+# passes chained
+# ---------------------------------------------------------------------------
+
+
+def _pass_operands(film, B, P, H, n_mm, per_image, act, seed):
+    """Packed step operands from a seeded numpy generator: SIREN-scaled
+    weights, frequencies near 30 (FiLM), a masked last row."""
+    rng = np.random.default_rng(seed)
+    u = lambda *s, b=1.0: torch.from_numpy(rng.uniform(-b, b, size=s).astype(np.float32))
+    d = torch.zeros(B if per_image else 1, P, 8)
+    d[..., :4] = u(d.shape[0], P, 4)
+    a = torch.zeros(B, 8, H)
+    a[:, :4] = u(B, 4, H, b=0.5 if act != "exp" else 0.02)
+    ws = u(n_mm, H, H, b=np.sqrt(6 / H) / 30)
+    wf = torch.zeros(H, 8)
+    wf[:, :3] = u(H, 3, b=np.sqrt(6 / H) / 30)
+    bf = torch.zeros(1, 8)
+    bf[0, :3] = u(3, b=0.1)
+    tgt, sw = torch.zeros(B, P, 8), torch.zeros(1, P, 8)
+    tgt[..., :3], sw[..., :3] = u(B, P, 3), u(1, P, 3).abs()
+    bm = torch.ones(B, 1, 8)
+    bm[-1] = 0.0
+    kw = dict(out_act=act, gscale=1.0 / (3 * P), fast_sine=True)
+    if film:
+        T = n_mm + 1
+        ops = (d, a, ws, u(T, H, b=0.05), wf, bf, 30 + 5 * u(B, 1, T * H), u(B, 1, T * H))
+        return (*ops, tgt, sw, bm), kw
+    kw.update(omega0=30.0, omega_h=30.0)
+    return (d, a, u(B, 1, H, b=0.1), ws, u(n_mm, H, b=0.05), wf, bf, tgt, sw, bm), kw
+
+
+PASS_CASES = [  # (film, B, P, H, n_mm, per-image grids, output activation)
+    (False, 3, 300, 64, 2, False, "tanh"),  # P = 2 x 128 + 44: a ragged tail tile
+    (False, 3, 200, 64, 3, True, "exp"),
+    (False, 2, 130, 64, 9, False, None),  # deeper than any chain-kernel ceiling at H = 64
+    (False, 2, 130, 256, 7, False, "tanh"),  # the chain kernel's ceiling at H = 256 is 5
+    (True, 3, 300, 64, 2, False, "tanh"),
+    (True, 3, 200, 64, 3, True, "exp"),
+    (True, 2, 130, 64, 9, False, None),
+    (True, 2, 130, 256, 7, False, "tanh"),  # 8 trunk layers; the chain kernel's ceiling is 6
+]
+
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PASS_CASES,
+                         ids=[f"{'film' if c[0] else 'cbc'}-H{c[3]}-mm{c[4]}-P{c[2]}"
+                              for c in PASS_CASES])
+def test_plain_passes_match_step_reference(case, trunk):
+    """The plain passes chained (scratch, per-CTA slots of a 2-SM card, slot
+    sums, dWs over the scratch) equal the whole-step plain version. Bars:
+    float32 rtol 1e-6 with atol 1e-6 x max |reference| (the slots sum in
+    another order); bf16 the step bars of tests/test_torch_cuda.py (loss 1e-4
+    relative, each gradient 1e-2 x max |reference|)."""
+    film, B, P, H, n_mm, per_image, act = case
+    ops, kw = _pass_operands(film, B, P, H, n_mm, per_image, act, seed=20)
+    kw["trunk"] = trunk
+    ref = (ts.film_step_reference if film else ts.siren_step_reference)(*ops, **kw)
+    got = ts.step_passes_reference(film, ops, kw, sms=2)
+    assert ts.step_plan(film, B, P, H, n_mm, 2).chunks > 1  # several CTAs per image
+    assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in ref]
+    for i, (x, y) in enumerate(zip(got, ref)):
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        if trunk == "float32":
+            np.testing.assert_allclose(_np(x), _np(y), rtol=1e-6, atol=1e-6 * scale,
+                                       err_msg=str(i))
+        elif i == 0:
+            np.testing.assert_allclose(float(x.sum()), float(y.sum()), rtol=1e-4)
+        else:
+            assert float((x - y).abs().max()) <= 1e-2 * scale, i
+    assert float(got[1][-1].abs().max()) == 0.0  # the masked row: dA = 0
+
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_plain_passes_match_pallas(film, trunk, monkeypatch):
+    """The plain passes chained, behind fused_step_mse / fused_film_step_mse,
+    against the Pallas _step_kernel / _film_step_kernel in interpret mode
+    (a ragged P = 200, a masked row), at the bars of
+    test_step_matches_pallas_f32 / _bf16 and their FiLM counterparts."""
+    steps = {f: (lambda *ops, _f=f, **kw: ts.step_passes_reference(_f, ops, kw, sms=2),) * 2
+             for f in (False, True)}
+    monkeypatch.setattr(ts.StepMSE, "steps", steps)
+    if film:
+        cfg, jp, tp, inputs = _setup_film(P=200, seed=22)
+        fast = trunk == "bfloat16"
+        jside, tside = _film_both(cfg, jp, tp, inputs, trunk, fast_sine=fast)
+    else:
+        cfg, jp, tp, inputs = _setup(P=200, seed=22)
+        fast = trunk == "bfloat16"
+        jside, tside = _both(cfg, jp, tp, inputs, trunk, fast_sine=fast)
+    if trunk == "float32":
+        if film:
+            _assert_film_f32(jside, tside)
+        else:
+            (jl, jz, jd), (tl, tz, td) = jside, tside
+            np.testing.assert_allclose(tl, jl, rtol=2e-6)
+            np.testing.assert_allclose(tz, jz, rtol=1e-4, atol=2e-6)
+            for k in jd:
+                np.testing.assert_allclose(td[k], jd[k], rtol=1e-4, atol=2e-6, err_msg=k)
+        return
+    (jl, jz, jd), (tl, tz, td) = jside, tside
+    worst = float(np.abs(tz - jz).max() / np.abs(jz).max())
+    for k in jd:
+        worst = max(worst, float(np.abs(td[k] - jd[k]).max() / np.abs(jd[k]).max()))
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert worst < 2.5e-3, worst
+
+
+def test_step_plan_grid_slots_and_scratch():
+    """The pass plan at the flagship shape (100 x 8,192, 5 x 256) on a
+    132-SM card: 64 tiles per image in 6 CTAs of 12 tiles, 10 passes, the
+    slot and scratch shapes the kernels index, and about 23 KB of scratch
+    traffic per row."""
+    plan = ts.step_plan(False, 100, 8192, 256, 5, 132)
+    assert (plan.tiles_per_cta, plan.chunks) == (12, 6)
+    assert plan.passes == (("fwd", 0), ("fwd", 1), ("fwd", 2), ("fwd", 3), ("last", 4),
+                           ("bwd", 4), ("bwd", 3), ("bwd", 2), ("bwd", 1), ("bwd", 0))
+    assert plan.scratch_shapes() == {
+        "sc_h": (5, 819200, 256), "sc_keep": (4, 819200, 256), "sc_dz": (5, 819200, 256),
+        "part_img": (100, 6, 9 * 256), "part_w": (600, 8 + 5 * 256 + 8 * 256 + 8)}
+    per_row = (sum(plan.pass_cost(k)[1] for k in range(10)) + plan.wgrad_cost()[1]) / plan.rows
+    assert 22_000 < per_row < 24_000, per_row
+    flops = sum(plan.pass_cost(k)[0] for k in range(10)) + plan.wgrad_cost()[0]
+    assert 15 * 2 * 256 * 256 * plan.rows <= flops < 1.02 * 15 * 2 * 256 * 256 * plan.rows
+    film = ts.step_plan(True, 100, 8192, 256, 4, 132)
+    assert len(film.passes) == 8 and film.n_keep == 3
+    assert film.n_img == (8 + 2 * 5) * 256 and film.n_w == 8 + 5 * 256 + 8 * 256 + 8
+    # a ragged image: the last CTA walks fewer tiles; every tile lies in one image
+    small = ts.step_plan(False, 3, 300, 64, 2, 2)
+    assert small.tiles_per_cta * small.chunks * ts.PASS_ROWS >= 300
+    assert (small.chunks - 1) * small.tiles_per_cta * ts.PASS_ROWS < 300
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_plain_passes_write_every_slot_once(film):
+    """Each pass writes only its own outputs (pass_outputs), and together
+    they fill the whole scratch and every slot: a work space filled with NaN
+    has none left after the chain."""
+    ops, kw = _pass_operands(film, 3, 300, 64, 3, False, "tanh", seed=24)
+    kw["trunk"] = "bfloat16"
+    plan = ts.step_plan(film, 3, 300, 64, 3, 2)
+    work = ts.PassWork.for_plan(plan, "bfloat16", "cpu", sms=2)
+    for t in (work.sc_h, work.sc_keep, work.sc_dz, work.part_img, work.part_w):
+        t.fill_(float("nan"))
+    for k in range(len(plan.passes)):
+        before = work.clone()
+        ts.step_pass_reference(plan, k, ops, kw, work)
+        outs = ts.pass_outputs(plan, k, work)
+        assert all(not torch.isnan(v).any() for v in outs.values()), plan.passes[k]
+        for name in ("sc_h", "sc_keep", "sc_dz", "part_img", "part_w"):
+            changed = ~torch.eq(getattr(before, name), getattr(work, name)) & ~(
+                torch.isnan(getattr(before, name)) & torch.isnan(getattr(work, name)))
+            covered = torch.zeros_like(changed)
+            for v in outs.values():
+                base = getattr(work, name)
+                if v.untyped_storage().data_ptr() == base.untyped_storage().data_ptr():
+                    mark = torch.zeros_like(base, dtype=torch.bool)
+                    mark.as_strided(v.shape, v.stride(), v.storage_offset()).fill_(True)
+                    covered |= mark
+            assert not (changed & ~covered).any(), (plan.passes[k], name)
+    for t in (work.sc_h, work.sc_keep, work.sc_dz, work.part_img, work.part_w):
+        assert not torch.isnan(t).any()
+
+
+@pytest.mark.parametrize(
+    "trunk,hidden,n_mm,passes",
+    [("bfloat16", 256, 5, True), ("bfloat16", 64, 1, True), ("bfloat16", 192, 3, True),
+     ("bfloat16", 96, 2, False), ("bfloat16", 32, 2, False), ("float32", 256, 5, False),
+     ("bfloat16", 256, 0, False)],
+    ids=["zoo", "narrow", "192", "96", "32", "float32", "film_one_layer"],
+)
+def test_step_route_rule(trunk, hidden, n_mm, passes):
+    """The routing rule: the passes take bf16 widths that are a multiple of
+    64 with an H x H product; the chain kernel the float32 trunk, other bf16
+    widths and a FiLM trunk of one layer. The shared-memory figure and the
+    limit follow the route."""
+    assert ts.pass_route(trunk, hidden, n_mm) is passes
+    smem = ts.step_smem_bytes(trunk, hidden, n_mm)
+    assert smem == (ts.pass_smem_bytes(hidden) if passes
+                    else ts.chain_smem_bytes(trunk, hidden, n_mm))
+    if passes:
+        assert ts.step_smem_bytes(trunk, hidden, n_mm + 20) == smem  # no depth limit

@@ -7,7 +7,9 @@ of a kernel source in one process chain on one card.
 
 Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
 decoders, bf16 trunk, fast sine) prints the median time of both train-step
-kernels at 100 x 8,192 and 21 x 8,192, of both backward kernels at 21 x
+kernels at 100 x 8,192 and 21 x 8,192 (at 100 x 8,192 also each of their
+layer-major passes alone, with bytes, FLOPs and achieved rates, and the
+torch.matmul yardstick of chip_smoke.pass_timings), of both backward kernels at 21 x
 32,768 with and without weight gradients, and of the forward kernel, each
 after one check against its plain version (max |difference| / max |plain|
 per result). Two cards, or one card at two moments, differ by up to 12% on
@@ -106,6 +108,8 @@ def main(argv=None) -> int:
             ops, kw = step_case(batch, 128)
             ms = cs.time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
             print(f"siren_step {batch} x 8,192: {ms:.3f} ms")
+            if batch == 100:
+                cs.pass_timings("siren_step", cfg, ops, kw, dev)
         del ops
         cfg_f, dec_f, _ = cs.load_entry(cs.FILM, dev)
         for batch, width in ((100, 64), (100, 128), (21, 128)):
@@ -121,6 +125,8 @@ def main(argv=None) -> int:
             else:
                 ms = cs.time_ms(lambda: ts.film_step_cuda(*fops, **fkw), runs=15)
                 print(f"film_step {batch} x 8,192: {ms:.3f} ms")
+                if batch == 100:
+                    cs.pass_timings("film_step", cfg_f, fops, fkw, dev)
         del fops
         D = sphere.get_directions(256, device=dev)
         g = cs.cotangent(z21, D.shape[1], seed=3)
