@@ -14,13 +14,24 @@ Phases (any failure exits non-zero and prints no result line):
                  grid, per-image (B, P) grids, and the float32 trunk once;
                  then the shared grids of FIT_LATENT's three stages (21 x
                  512, 2,048 and 8,192 directions); both the Cond-by-Concat
-                 and the FiLM Zoo decoder
+                 and the FiLM Zoo decoder; then the forward's smaller row
+                 tiles: a random 2-layer trunk of width 512 (float32) and
+                 1,024 (bf16) against its plain version, and a digest of the
+                 serving-shape outputs (the 64-row tile's bits)
 3. compare_bwd - the same for each backward kernel, every gradient, with
                  and without the weight gradients: shared and per-image
-                 grids, and the float32 trunk once; then FIT_LATENT's three
-                 stage grids without weight gradients, as FIT_LATENT runs
-                 them; bars max |kernel - plain| <= 1e-2 (bf16) / 1e-4
-                 (float32) x max |plain|. The kernels line reports the
+                 grids, and the float32 trunk once (the chain kernel); then
+                 FIT_LATENT's three stage grids with and without weight
+                 gradients, and at 21 x 2,048 the Zoo trunk deepened to 8
+                 products; bars max |kernel - plain| <= 1e-2 (bf16) / 1e-4
+                 (float32) x max |plain|, two calls bitwise equal. The bf16
+                 trunk runs as the layer-major passes (csrc/step_passes.cuh
+                 with the cotangent last pass). Then each pass kernel of the
+                 backward against its plain pass at 21 x 8,192, with and
+                 without weight gradients; and the differentiable trunk's
+                 route at FIT_LATENT's stages: the forward as the passes
+                 against the plain forward, the backward from their scratch
+                 against the plain backward. The kernels line reports the
                  largest absolute difference (max_abs_err) and the largest
                  difference over max |plain| (max_rel_err, what the bar holds)
 4. serve       - the serving path (reni_tpu_torch.cli.serve.make_server) on
@@ -72,7 +83,11 @@ Phases (any failure exits non-zero and prints no result line):
                  kernels not at all; each stage's last epoch loss must be
                  below its first; PSNR of the student's 64x128 decodes
                  within 0.1 dB between the runs; the result round-trips
-                 through save_checkpoint / load_checkpoint
+                 through save_checkpoint / load_checkpoint. The kernel run's
+                 64x128 steps after two of warm-up run with
+                 torch.cuda.set_sync_debug_mode on: every synchronising call
+                 is printed with where it came from, and one from the latent
+                 noise draw (RENIModel.sample_latent) fails the phase
 8. compare_film_step, fit_decoder_film - phases 6 and 7 for FiLM: the FiLM
                  step kernel against its plain version on the FiLM Zoo
                  decoder and 100 of its training latents (the same eight
@@ -83,7 +98,15 @@ Phases (any failure exits non-zero and prints no result line):
                  its 1,000 training latents, with the same cut and the same
                  checks: the FiLM step kernel once per step, no forward or
                  backward kernel during training
-9. anatomy     - the probes of kernels/anatomy.py at 21 x 8,192 on the
+9. guard       - the passes' device scratch under a forced budget: the
+                 step of each conditioning at 100 x 8,192 and the backward
+                 at 21 x 32,768 (with and without weight gradients) in
+                 groups of images, every result but dWs bitwise equal to one
+                 call, dWs within 1e-2 x max |one call|; then one
+                 FIT_DECODER step of the Cond-by-Concat student at batch
+                 1,000 x 8,192 (the 1,000 training maps) under the card's own
+                 budget: a finite loss, its groups and peak memory printed
+10. anatomy    - the probes of kernels/anatomy.py at 21 x 8,192 on the
                  Cond-by-Concat decoder: each forward and backward variant
                  and the weight-gradient product alone against its plain
                  version (the interleaved forwards equal to the shipped
@@ -93,9 +116,14 @@ Phases (any failure exits non-zero and prints no result line):
                  result), then the probe tool's path
                  (time_anatomy, what time_kernels.py --anatomy runs) with the
                  probes' launch counts zeroed before and read after
-10. timings    - each kernel and its plain version: the forward at the
-                 phase-2 shapes, the backward at 21 x 32,768 and 21 x 8,192
-                 with and without weight gradients, each train step at 100 x
+11. timings   - each kernel and its plain version: the forward at the
+                 phase-2 shapes and at 21 x 8,192, the backward at 21 x
+                 32,768 and 21 x 8,192 with and without weight gradients
+                 (each backward pass timed alone at 21 x 8,192, with its
+                 bytes, FLOPs and the design's byte floor; the forward
+                 kernel against the backward's forward passes; the handoff
+                 A/B at 21 x 8,192: forward kernel + recomputing backward
+                 against the passes' forward + backward from its scratch), each train step at 100 x
                  8,192 and 21 x 8,192 beside the forward + backward kernels
                  at the same shapes; median of CUDA-event timed runs after
                  warm-up; the bound is the larger of FLOPs / 989 TFLOP/s
@@ -108,7 +136,7 @@ Phases (any failure exits non-zero and prints no result line):
                  port never calls. Launch counts are also kept per
                  FIT_LATENT and FIT_DECODER stage, so that a count can be
                  paired with a time at the same shape
-11. report     - one JSON line of kernels, the card's name and power limit,
+12. report    - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 """
 
@@ -117,6 +145,7 @@ from __future__ import annotations
 import base64
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -124,8 +153,10 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -167,6 +198,10 @@ STEP_LOSS_BAR = {"bfloat16": 1e-4, "float32": 1e-6}  # relative, kernel vs plain
 STEP_TIMED = (100, 21)  # batches timed at 64 x 128
 ANATOMY_WIDTH = 128  # the probes are held against their plain versions at 21 x 8,192
 ANATOMY_RUNS = 5  # timed runs per probe here; time_kernels.py --anatomy takes more
+WIDE = (("float32", 512), ("bfloat16", 1024))  # forward widths past the 64-row tile
+DEEP_MM = 8  # products of the deepened trunk the backward is held at
+GUARD_BATCH = 1000  # FIT_DECODER batch of the device-memory guard's step
+SYNC_WARMUP = 2  # 64x128 FIT_DECODER steps before the sync check
 
 
 class SmokeFailure(Exception):
@@ -377,6 +412,21 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_time_ms(fn, runs: int = 25) -> float:
+    """Median host time of one call of ``fn`` (no synchronisation inside the
+    timing, after a synchronised warm-up): what the host spends to enqueue
+    it, which bounds a call from below when the card is faster."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def min_bytes(ops, k: int, n_out: int, film: bool, trunk: str) -> int:
     """Bytes of the trunk's inputs without the kernel's padding: k real
     direction features, n_out real output channels, and the matmul weights
@@ -450,16 +500,36 @@ def cotangent(Z: torch.Tensor, npix: int, seed: int) -> torch.Tensor:
     return torch.randn((Z.shape[0], npix, 8), generator=gen, device=Z.device)
 
 
-def compare_bwd(cfg, dec, Z, D, trunk, weight_grads, seed) -> tuple[float, float]:
-    """Backward kernel vs plain version, every gradient; returns the largest
-    max |difference| and the largest max |difference| / max |plain| (the
-    quantity the bar holds: the gradients' scales differ by orders of
-    magnitude)."""
+def deeper(ops, film: bool, n_mm: int):
+    """Trunk operands with ``n_mm`` H x H products: the decoder's hidden
+    layers repeated in order (the widths of the Zoo entry, a deeper trunk
+    than any)."""
+    idx = [i % ops[2 if film else 3].shape[0] for i in range(n_mm)]
+    if not film:
+        d, a, b0, ws, bs, wf, bf = ops
+        return d, a, b0, ws[idx], bs[idx], wf, bf
+    d, a, ws, bs, wf, bf, fr, ph = ops
+    layers = [0] + [i + 1 for i in idx]  # trunk layer 0, then each product's layer
+    B, H = a.shape[0], a.shape[-1]
+    mod = lambda t: t.view(B, 1, -1, H)[:, :, layers].reshape(B, 1, -1)
+    return d, a, ws[idx], bs[layers], wf, bf, mod(fr), mod(ph)
+
+
+def compare_bwd(cfg, dec, Z, D, trunk, weight_grads, seed, n_mm=None) -> tuple[float, float]:
+    """Backward kernel vs plain version, every gradient (``n_mm``: on the
+    trunk deepened to that many products), and two kernel calls bit for
+    bit; returns the largest max |difference| and the largest max
+    |difference| / max |plain| (the quantity the bar holds: the gradients'
+    scales differ by orders of magnitude)."""
     kernel, plain, kw = bwd_fns(cfg, trunk, weight_grads)
     ops = packed(cfg, dec, Z, D)
+    if n_mm is not None:
+        ops = deeper(ops, cfg.is_film, n_mm)
     g = cotangent(Z, D.shape[1], seed)
-    got, ref = kernel(*ops, g, **kw), plain(*ops, g, **kw)
+    got, again, ref = kernel(*ops, g, **kw), kernel(*ops, g, **kw), plain(*ops, g, **kw)
     torch.cuda.synchronize()
+    for i, (x, y) in enumerate(zip(got, again)):
+        check(x is None or torch.equal(x, y), f"gradient {i} differs between two calls")
     bar = BWD_BAR[kw["trunk"]]
     worst, worst_rel, report = 0.0, 0.0, []
     for i, (x, y) in enumerate(zip(got, ref)):
@@ -557,6 +627,7 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_bwd as tb
     from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
     from reni_tpu_torch.models.reni import RENIModel
     from reni_tpu_torch.train import checkpoint as ckpt
     from reni_tpu_torch.train import tasks
@@ -568,8 +639,9 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
     task = fit_task_config(masked)
     events: dict = {}
 
-    fwd = tk.fused_film_apply if cfg.is_film else tk.fused_apply
-    bwd = tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda
+    counters = {"fwd": tk.fused_film_apply if cfg.is_film else tk.fused_apply,
+                "fwd_passes": ts.passes_forward,
+                "bwd": tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda}
     per_stage: dict = {}
 
     def timed_step(model, directions, sineweight, res):
@@ -577,18 +649,19 @@ def fit_latent(entry: str, device, *, masked: bool, plain: bool, targets: dict):
             model, directions, sineweight, alpha=task.prior_loss_weight,
             beta=task.cosine_similarity_weight,
         )
-        return counted(timed(step, events.setdefault(res, [])),
-                       {"fwd": fwd, "bwd": bwd}, per_stage.setdefault(res, {}))
+        return counted(timed(step, events.setdefault(res, [])), counters,
+                       per_stage.setdefault(res, {}))
 
     torch.cuda.synchronize()
-    fwd.launches = bwd.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     with plain_trunks() if plain else contextlib.nullcontext():
         fitted, metrics = tasks.fit_task(
             model, params, task, lambda res: targets[res], torch.Generator().manual_seed(1),
             mask_path=task.mask_path, step_builder=timed_step,
         )
     torch.cuda.synchronize()
-    launches = {"fwd": fwd.launches, "bwd": bwd.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     ms = median_ms(events)
     with torch.no_grad():
         maps = model.apply(fitted, fitted["latents"]["mu"],
@@ -625,13 +698,16 @@ def fit_latent_phase(device) -> dict:
             check(bool(torch.isfinite(maps).all()), f"{label}: non-finite fitted maps")
             steps = FIT_EPOCHS  # one batch of 21 per epoch
             if plain:
-                check(n == {"fwd": 0, "bwd": 0}, f"{label}: the plain run launched kernels {n}")
+                check(not any(n.values()), f"{label}: the plain run launched kernels {n}")
             else:
-                check(n == {"fwd": steps, "bwd": steps},
-                      f"{label}: {n} launches in {steps} steps (one each per step)")
+                # a forward (the passes', whose scratch the backward reads, or
+                # the forward kernel's) and a backward per step
+                check(n["fwd"] + n["fwd_passes"] == steps and n["bwd"] == steps,
+                      f"{label}: {n} launches in {steps} steps (a forward and a backward each)")
                 launches[name] += n["bwd"]
                 for res, c in by_stage.items():
-                    for key, kname in (("bwd", name), ("fwd", fwd_name[name])):
+                    for key, kname in (("bwd", name), ("fwd", fwd_name[name]),
+                                       ("fwd_passes", f"{name}_fwd_passes")):
                         tag = f"{kname}@{res[0]}x{res[1]}"
                         launches[tag] = launches.get(tag, 0) + c[key]
             loss = metrics["fit_latent_loss"]
@@ -784,23 +860,14 @@ def compare_step_phase(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
     return errs, rels
 
 
-def compare_passes(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
-    """Each pass kernel of the step ``name`` against its plain pass at the
-    flagship shape (100 training latents x 8,192 directions, the next 100
-    maps as targets): the plain chain up to a pass feeds both, and every
-    output the pass writes (scratch rows, slot columns) is held to 1e-2 x
-    max |plain|. Returns the absolute and relative errors."""
-    from reni_tpu_torch.core import sphere
+def compare_plan_passes(label, plan, ops, kw, device) -> tuple[list, list]:
+    """Each pass kernel of ``plan`` (a step's or a backward's) against its
+    plain pass: the plain chain up to a pass feeds both, and every output the
+    pass writes (scratch rows, slot columns) is held to 1e-2 x max |plain|.
+    Returns the absolute and relative errors."""
     from reni_tpu_torch.kernels import siren_step as ts
 
-    res = FIT_RES[1]
-    D = sphere.get_directions(res[1], device=device)
-    ops = step_operands(cfg, dec, mu[:DEC_BATCH], D, maps[res][DEC_BATCH:2 * DEC_BATCH],
-                        sphere.get_sineweight(res[1], device=device))
-    kw = step_kwargs(cfg, D.shape[1])
-    plan = ts.step_plan_cuda(cfg.is_film, ops, device)
-    check(ts.pass_route(kw["trunk"], plan.hidden, plan.n_mm),
-          f"{name}: the flagship step does not take the passes")
+    check(ts.pass_route(kw["trunk"], plan.hidden, plan.n_mm), f"{label}: not on the pass route")
     ref = ts.PassWork.for_plan(plan, kw["trunk"], device)
     prep = ts.pass_operands(plan, ops, kw)
     errs, rels = [], []
@@ -813,14 +880,15 @@ def compare_passes(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
             outs, report = ts.pass_outputs(plan, k, got), []
             for key, y in ts.pass_outputs(plan, k, ref).items():
                 x, y = outs[key].float(), y.float()
-                check(bool(torch.isfinite(x).all()), f"{name} pass {kind} {j}: non-finite {key}")
+                check(bool(torch.isfinite(x).all()), f"{label} pass {kind} {j}: non-finite {key}")
                 err, scale = (x - y).abs().max().item(), y.abs().max().item()
                 check(err <= BWD_BAR["bfloat16"] * scale,
-                      f"{name} pass {kind} {j} {key}: max |diff| {err:.3g} > 1e-2 x {scale:.3g}")
+                      f"{label} pass {kind} {j} {key}: max |diff| {err:.3g} > 1e-2 x {scale:.3g}")
+                rel = err / scale if scale else 0.0  # a backward's mse slot holds zeros
                 errs.append(err)
-                rels.append(err / scale)
-                report.append(f"{key} {err / scale:.2g}")
-            print(f"  {name} pass {k} ({kind} {j}) vs its plain pass, max |diff| / max |plain|: "
+                rels.append(rel)
+                report.append(f"{key} {rel:.2g}")
+            print(f"  {label} pass {k} ({kind} {j}) vs its plain pass, max |diff| / max |plain|: "
                   f"{', '.join(report)}")
             del got
     del ref, prep
@@ -828,35 +896,139 @@ def compare_passes(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
     return errs, rels
 
 
-def pass_timings(name, cfg, ops, kw, device) -> dict:
-    """The passes of one step timed alone at the step's shape, each with its
-    bytes, FLOPs and achieved rates; the weight-gradient product alone; and,
-    as a yardstick only (the port never calls it), torch.matmul of the same
-    rows x H x H bf16 product. Returns the numbers for the kernels line."""
+def compare_passes(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
+    """Each pass kernel of the step ``name`` against its plain pass at the
+    flagship shape (100 training latents x 8,192 directions, the next 100
+    maps as targets). Returns the absolute and relative errors."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    res = FIT_RES[1]
+    D = sphere.get_directions(res[1], device=device)
+    ops = step_operands(cfg, dec, mu[:DEC_BATCH], D, maps[res][DEC_BATCH:2 * DEC_BATCH],
+                        sphere.get_sineweight(res[1], device=device))
+    kw = step_kwargs(cfg, D.shape[1])
+    return compare_plan_passes(name, ts.step_plan_cuda(cfg.is_film, ops, device), ops, kw, device)
+
+
+def bwd_plan(cfg, dec, Z, device, weight_grads: bool):
+    """(plan, operands with the cotangent, keyword arguments) of the backward
+    at FIT_LATENT's last stage (21 x 8,192)."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    ops = (*packed(cfg, dec, Z, D), cotangent(Z, D.shape[1], seed=8))
+    kw = bwd_fns(cfg, weight_grads=weight_grads)[2]
+    plan = ts.step_plan_cuda(cfg.is_film, ops, device, bwd=True, weight_grads=weight_grads)
+    return plan, ops, kw
+
+
+def compare_bwd_passes(name, cfg, dec, Z, device) -> tuple[list, list]:
+    """Each pass kernel of the backward ``name`` against its plain pass at 21
+    x 8,192, with and without weight gradients."""
+    errs, rels = [], []
+    for weight_grads in (False, True):
+        plan, ops, kw = bwd_plan(cfg, dec, Z, device, weight_grads)
+        e, r = compare_plan_passes(f"{name} ({'with' if weight_grads else 'no'} weight gradients)",
+                                   plan, ops, kw, device)
+        errs += e
+        rels += r
+    return errs, rels
+
+
+def compare_handoff(name, cfg, dec, Z, device) -> tuple[list, list]:
+    """The differentiable trunk's route on the card at FIT_LATENT's stages
+    (21 x 512, 2,048 and 8,192), with and without weight gradients: the
+    forward as the passes (the fwd passes and the output last pass) against
+    the plain forward at the forward's bars, then the backward from their
+    scratch against the plain backward at 1e-2 x max |plain| per result.
+    Returns the backward's absolute and relative errors."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    errs, rels = [], []
+    _, plain_bwd, _ = bwd_fns(cfg)
+    plain_fwd = tk.film_trunk_reference if cfg.is_film else tk.siren_trunk_reference
+    for (h, w), _ in fit_task_config(False).resolution_stages():
+        D = sphere.get_directions(w, device=device)
+        ops, g = packed(cfg, dec, Z, D), cotangent(Z, D.shape[1], seed=12)
+        for weight_grads in (False, True):
+            kw = bwd_fns(cfg, weight_grads=weight_grads)[2]
+            fkw = {k: v for k, v in kw.items() if k != "weight_grads"}
+            with torch.no_grad():
+                out, handed = ts.passes_forward(cfg.is_film, ops, fkw, weight_grads)
+                got = ts.passes_bwd_handoff(handed, g)
+                ref_out, ref = plain_fwd(*ops, **fkw), plain_bwd(*ops, g, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref_out).abs()
+            label = (f"{name} handoff B={Z.shape[0]} P={D.shape[1]} "
+                     f"({'with' if weight_grads else 'no'} weight gradients)")
+            check(err.max().item() < MAX_ERR and err.mean().item() < MEAN_ERR,
+                  f"{label}: the passes' forward off the bf16 bar")
+            worst, report = 0.0, []
+            for i, (x, y) in enumerate(zip(got, ref)):
+                if y is None:
+                    check(x is None, f"{label}: result {i} computed without weight gradients")
+                    continue
+                e, scale = (x - y).abs().max().item(), y.abs().max().item()
+                check(e <= BWD_BAR["bfloat16"] * scale, f"{label}: result {i} {e:.3g} > 1e-2 x "
+                      f"{scale:.3g}")
+                errs.append(e)
+                rels.append(e / scale)
+                report.append(f"{e / scale:.2g}")
+            print(f"{label}: forward max abs err {err.max().item():.3g}, mean "
+                  f"{err.mean().item():.3g}; backward max |diff| / max |plain| per result: "
+                  f"{' '.join(report)}")
+    return errs, rels
+
+
+def time_plan_passes(label, plan, ops, kw, device, runs: int = 10) -> tuple[dict, float]:
+    """The passes of ``plan`` timed alone, each with its bytes, FLOPs and
+    achieved rates, and (with weight gradients) the weight-gradient product
+    alone, then the design's byte floor (printed); returns ({pass: ms}, dWs
+    ms or 0)."""
     from reni_tpu_torch.kernels import anatomy as ta
     from reni_tpu_torch.kernels import siren_step as ts
 
-    plan = ts.step_plan_cuda(cfg.is_film, ops, device)
     work = ts.PassWork.for_plan(plan, kw["trunk"], device)
-    prep = ts.pass_operands(plan, ops, kw)  # cast and transposed once, as the step does
+    prep = ts.pass_operands(plan, ops, kw)  # cast and transposed once, as a call does
     for k in range(len(plan.passes)):  # the scratch each pass reads
         ts.step_pass_cuda(plan, k, ops, kw, work, prep)
     passes, total = {}, 0
     for k, (kind, j) in enumerate(plan.passes):
-        ms = time_ms(lambda: ts.step_pass_cuda(plan, k, ops, kw, work, prep), runs=10, warmup=1)
+        ms = time_ms(lambda: ts.step_pass_cuda(plan, k, ops, kw, work, prep), runs=runs, warmup=1)
         flops, nbytes = plan.pass_cost(k)
         total += nbytes
         passes[f"{kind}{j}"] = ms
-        print(f"  {name} pass {kind} {j}: {ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} FLOP -> "
+        print(f"  {label} pass {kind} {j}: {ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} FLOP -> "
               f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    wgrad_ms = time_ms(lambda: ta.weight_grads_cuda(work.sc_h, work.sc_dz), runs=5, warmup=1)
-    flops, nbytes = plan.wgrad_cost()
-    total += nbytes
-    print(f"  {name} dWs (wgrad_bf16 + its sum): {wgrad_ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} "
-          f"FLOP -> {nbytes / (wgrad_ms * 1e-3) / 1e12:.3f} TB/s, "
-          f"{flops / (wgrad_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    wgrad_ms = 0.0
+    if plan.weight_grads:
+        wgrad_ms = time_ms(lambda: ta.weight_grads_cuda(work.sc_h, work.sc_dz), runs=5, warmup=1)
+        flops, nbytes = plan.wgrad_cost()
+        total += nbytes
+        print(f"  {label} dWs (wgrad_bf16 + its sum): {wgrad_ms:.4f} ms, {nbytes:.4g} B, "
+              f"{flops:.4g} FLOP -> {nbytes / (wgrad_ms * 1e-3) / 1e12:.3f} TB/s, "
+              f"{flops / (wgrad_ms * 1e-3) / 1e12:.1f} TFLOP/s")
     del work, prep
     torch.cuda.empty_cache()
+    print(f"  {label}: the design's byte floor {total:.4g} B ({total / plan.rows:.0f} per row) -> "
+          f"{total / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12:.2f} TB/s; sum of the passes"
+          f"{' and dWs' if plan.weight_grads else ''} {sum(passes.values()) + wgrad_ms:.4f} ms")
+    return passes, wgrad_ms
+
+
+def pass_timings(name, cfg, ops, kw, device) -> dict:
+    """The passes of one step timed alone at the step's shape
+    (``time_plan_passes``); and, as a yardstick only (the port never calls
+    it), torch.matmul of the same rows x H x H bf16 product. Returns the
+    numbers for the kernels line."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    plan = ts.step_plan_cuda(cfg.is_film, ops, device)
+    passes, wgrad_ms = time_plan_passes(name, plan, ops, kw, device)
     gen = torch.Generator(device=device).manual_seed(7)
     x = torch.randn((plan.rows, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
     w = torch.randn((plan.hidden, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
@@ -865,11 +1037,23 @@ def pass_timings(name, cfg, ops, kw, device) -> dict:
     print(f"  yardstick (not called by the port): torch.matmul {plan.rows} x {plan.hidden} x "
           f"{plan.hidden} bf16 {mm_ms:.4f} ms -> {mm_bytes / (mm_ms * 1e-3) / 1e12:.3f} TB/s")
     del x, w
-    floor_ms = total / PEAK_BYTES * 1e3
-    print(f"  {name}: the design's byte floor {total:.4g} B ({total / plan.rows:.0f} per row) -> "
-          f"{floor_ms:.4f} ms at {PEAK_BYTES / 1e12:.2f} TB/s; sum of the passes and dWs "
-          f"{sum(passes.values()) + wgrad_ms:.4f} ms")
     return {"passes_ms": passes, "wgrad_ms": wgrad_ms, "matmul_yardstick_ms": mm_ms}
+
+
+def bwd_pass_timings(name, cfg, dec, Z, device) -> dict:
+    """Each pass of the backward timed alone at 21 x 8,192, without and with
+    weight gradients (the design's byte floor printed); returns the times for
+    the kernels line."""
+    out = {}
+    for weight_grads in (False, True):
+        plan, ops, kw = bwd_plan(cfg, dec, Z, device, weight_grads)
+        tag = "wgrad" if weight_grads else "no_wgrad"
+        passes, wgrad_ms = time_plan_passes(f"{name} 21 x 8,192 ({tag})", plan, ops, kw, device,
+                                            runs=25)
+        out[f"passes_ms_21x8192_{tag}"] = passes
+        if weight_grads:
+            out["wgrad_ms_21x8192"] = wgrad_ms
+    return out
 
 
 def step_peak_memory(kernel, ops, kw) -> float:
@@ -912,11 +1096,41 @@ def kernel_counters(cfg) -> dict:
     return {"step": step_fns(cfg)[0], "fwd": tk.fused_apply, "bwd": tb.siren_trunk_bwd_cuda}
 
 
-def fit_decoder(device, entry: str, *, plain: bool, maps: dict):
+def sync_watched(step, hits: list, warmup: int = SYNC_WARMUP):
+    """``step`` with torch.cuda.set_sync_debug_mode("error") around each
+    call after the first ``warmup``: a call that synchronises the host with
+    the card raises there, and is appended to ``hits`` as (message, the
+    innermost frames of the package and this script that made it) before the
+    error goes on."""
+    calls = [0]
+
+    def run(state, batch):
+        calls[0] += 1
+        if calls[0] <= warmup:
+            return step(state, batch)
+        with warnings.catch_warnings():  # the mode's one-time notice that it is a prototype
+            warnings.filterwarnings("ignore", message="Synchronization debug mode")
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(state, batch)
+        except RuntimeError as e:
+            frames = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.name}"
+                      for f in traceback.extract_tb(e.__traceback__)
+                      if "reni_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+            hits.append((str(e).splitlines()[0], frames[-4:]))
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return run
+
+
+def fit_decoder(device, entry: str, *, plain: bool, maps: dict, sync_hits: list | None = None):
     """One FIT_DECODER run of a fresh student of ``entry``'s configuration,
     through the step kernel or (``plain``) its plain version; returns (trained
     params, model, per-stage step times in ms, metrics, launches {step, fwd,
-    bwd} during the run)."""
+    bwd} during the run). With ``sync_hits`` the final stage's steps after
+    warm-up are ``sync_watched`` into it."""
     from reni_tpu_torch.models.reni import RENIModel
     from reni_tpu_torch.train import checkpoint as ckpt
     from reni_tpu_torch.train import tasks
@@ -932,6 +1146,8 @@ def fit_decoder(device, entry: str, *, plain: bool, maps: dict):
     def timed_step(model, directions, sineweight, res):
         step = tasks.make_fit_decoder_step(model, directions, sineweight,
                                            kld_weighting=task.kld_weighting)
+        if sync_hits is not None and res == FIT_RES[1]:
+            step = sync_watched(step, sync_hits)
         return counted(timed(step, events.setdefault(res, [])), counters,
                        per_stage.setdefault(res, {}))
 
@@ -967,10 +1183,23 @@ def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
     for plain in (False, True):
         run = "plain" if plain else "kernel"
         t0 = time.perf_counter()
-        trained, model, ms, metrics, n, by_stage = fit_decoder(device, entry, plain=plain,
-                                                              maps=maps)
+        hits = None if plain else []
+        try:
+            trained, model, ms, metrics, n, by_stage = fit_decoder(device, entry, plain=plain,
+                                                                  maps=maps, sync_hits=hits)
+        except RuntimeError:
+            if not hits:
+                raise
+            msg, frames = hits[0]
+            raise SmokeFailure(f"FIT_DECODER [{run}]: a timed step synchronised the host with the "
+                               f"card: {msg!r} at {' <- '.join(reversed(frames))}")
         wall = time.perf_counter() - t0
         tag = f"FIT_DECODER {model.config.conditioning} [{run}]"
+        if hits is not None:
+            watched = (DEC_EPOCHS - DEC_CURRICULUM[-1]) * (DEC_MAPS // DEC_BATCH) - SYNC_WARMUP
+            print(f"{tag} sync check: {watched} timed {FIT_RES[1][0]}x{FIT_RES[1][1]} steps "
+                  f"after {SYNC_WARMUP} of warm-up under torch.cuda.set_sync_debug_mode('error'): "
+                  f"no synchronising call")
         if plain:
             check(n == {"step": 0, "fwd": 0, "bwd": 0}, f"the plain run launched kernels {n}")
         else:
@@ -1253,6 +1482,42 @@ def probe_row(name, side, variant, cfg, dec, Z, device, times, replaces, launche
     }
 
 
+def handoff_ab(cfg, dec, Z, device, rounds: int = 2) -> dict:
+    """FIT_LATENT's trunk at its last stage (21 x 8,192, no weight
+    gradients), forward and backward, both ways in turns: the forward kernel
+    and a backward that runs the forward again as passes ("recompute"), and
+    the forward as passes whose scratch the backward reads ("handoff", what
+    the differentiable trunks do under the device-memory budget). Returns
+    the median ms of each, over ``rounds`` timings in turns."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    ops, g = packed(cfg, dec, Z, D), cotangent(Z, D.shape[1], seed=11)
+    bwd, _, kw = bwd_fns(cfg, weight_grads=False)
+    fkw = {k: v for k, v in kw.items() if k != "weight_grads"}
+    fwd = tk.film_trunk_cuda if cfg.is_film else tk.siren_trunk_cuda
+
+    def recompute():
+        fwd(*ops, **fkw)
+        bwd(*ops, g, **kw)
+
+    def handoff():
+        _, handed = ts.passes_forward(cfg.is_film, ops, fkw, False)
+        ts.passes_bwd_handoff(handed, g)
+
+    times = {"recompute": [], "handoff": []}
+    for _ in range(rounds):
+        for name, fn in (("recompute", recompute), ("handoff", handoff)):
+            times[name].append(time_ms(fn, runs=25))
+    out = {k: statistics.median(v) for k, v in times.items()}
+    print(f"handoff A/B at 21 x 8,192, forward + backward without weight gradients (in turns, "
+          f"{rounds} x 25 runs): recompute {out['recompute']:.4f} ms, handoff "
+          f"{out['handoff']:.4f} ms")
+    return out
+
+
 def bwd_flops(cfg, k: int, n_out: int, weight_grads: bool) -> float:
     """FLOP per pixel of a backward, counted without padding: the forward
     again without its final layer, g @ Wf^T, every dz @ W^T and d^T dz0, and
@@ -1281,6 +1546,186 @@ def bwd_bytes(ops, k: int, n_out: int, film: bool, trunk: str, weight_grads: boo
     if weight_grads:
         n += 4 * (ws.numel() + bs.numel() + H * n_out + n_out)
     return n
+
+
+def wide_trunk(H: int, device, B: int = 21, P: int = 8192, L: int = 2, seed: int = 9):
+    """Random Cond-by-Concat trunk operands of width ``H`` (SIREN-scaled, from
+    a numpy generator): a width no Zoo entry has."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, b):
+        return torch.as_tensor(rng.uniform(-b, b, size=shape).astype(np.float32), device=device)
+
+    d = torch.zeros(1, P, 8, device=device)
+    d[..., :4] = u(1, P, 4, b=1.0)
+    a = torch.zeros(B, 8, H, device=device)
+    a[:, :4] = u(B, 4, H, b=0.5)
+    wf = torch.zeros(H, 8, device=device)
+    wf[:, :3] = u(H, 3, b=np.sqrt(6 / H) / 30)
+    return (d, a, u(B, 1, H, b=0.1), u(L, H, H, b=np.sqrt(6 / H) / 30), u(L, H, b=0.05), wf,
+            torch.zeros(1, 8, device=device))
+
+
+def compare_wide(device, errors, rel_errors) -> None:
+    """The forward at widths past the 64-row tile (WIDE) against its plain
+    version at 21 x 8,192: the launch takes the 32-row tile."""
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    kw0 = dict(omega0=30.0, omega_h=30.0, fast_sine=True)
+    for trunk, H in WIDE:
+        ops = wide_trunk(H, device)
+        kw = dict(kw0, trunk=trunk)
+        check(tk.unsupported_reason(ops[0].shape[1], H, 21, trunk) is None,
+              f"the forward declines H = {H} ({trunk})")
+        with torch.no_grad():
+            out, ref = tk.siren_trunk_cuda(*ops, **kw), tk.siren_trunk_reference(*ops, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        print(f"siren_fwd H={H} {trunk} (a {tk.tile_rows(H, trunk)}-row tile) B=21 P=8192: "
+              f"max abs err {mx:.3g}, mean {mean:.3g}")
+        if trunk == "float32":
+            check(mx < F32_MAX_ERR[True], f"H = {H} float32 forward off the float32 bar")
+        else:
+            check(mx < MAX_ERR and mean < MEAN_ERR, f"H = {H} bf16 forward off the bf16 bar")
+        errors["siren_fwd"].append(mx)
+        rel_errors["siren_fwd"].append(mx / ref.abs().max().item())
+
+
+def forward_digest(entries, device) -> None:
+    """Print the sha256 (16 hex digits) of the forward kernel's output bytes
+    at the serving shape (21 x 32,768, shared grid) for each Zoo decoder:
+    the bits of the 64-row tile, to compare two trees by."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    D = sphere.get_directions(WIDTH, device=device)
+    out = {}
+    with torch.no_grad():
+        for name, (cfg, dec, Z) in entries.items():
+            ops = packed(cfg, dec, Z, D)
+            kw = dict(trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
+            if cfg.is_film:
+                y = tk.film_trunk_cuda(*ops, **kw)
+            else:
+                y = tk.siren_trunk_cuda(*ops, omega0=cfg.first_omega_0,
+                                        omega_h=cfg.hidden_omega_0, **kw)
+            out[name] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"forward digest at 21 x {D.shape[1]:,} (serving shape): {out}")
+
+
+def held_in_groups(label, plan, run, dws_at: int) -> None:
+    """``run(budget)`` of ``plan`` under a third of its scratch against one
+    call (``run(None)``): every result but dWs (at ``dws_at``) bitwise
+    equal, dWs within 1e-2 x max |one call|."""
+    budget = plan.scratch_bytes // 3
+    groups = plan.groups(budget)
+    check(len(groups) > 1, f"{label}: a third of the scratch still fits one group")
+    with torch.no_grad():
+        one = run(None)
+        grouped = run(budget)
+    torch.cuda.synchronize()
+    rel = 0.0
+    for i, (x, y) in enumerate(zip(one, grouped)):
+        if x is None:
+            check(y is None, f"{label}: result {i} computed in groups only")
+        elif i == dws_at:
+            rel = (x - y).abs().max().item() / x.abs().max().item()
+            check(rel <= BWD_BAR["bfloat16"], f"{label}: grouped dWs off by {rel:.3g} x max")
+        else:
+            check(torch.equal(x, y), f"{label}: result {i} differs from one call")
+    print(f"{label}: {len(groups)} groups of up to {groups[0][1] - groups[0][0]} images under a "
+          f"budget of {budget / 1e9:.3f} GB (one call's scratch {plan.scratch_bytes / 1e9:.3f} "
+          f"GB): every result but dWs bitwise equal to one call, dWs max |diff| / max {rel:.2g}")
+
+
+def guard_phase(device, cases, mu_maps) -> dict:
+    """The passes' device scratch under a forced budget (``held_in_groups``):
+    each step at 100 x 8,192 and each backward at 21 x 32,768 with and
+    without weight gradients; then one FIT_DECODER step of a fresh
+    Cond-by-Concat student at GUARD_BATCH x 8,192 under the card's own
+    budget. ``cases`` {name: (cfg, dec, test latents)}, ``mu_maps`` {name:
+    (training latents, maps)}. Returns the big step's numbers."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    res = FIT_RES[1]
+    D = sphere.get_directions(res[1], device=device)
+    sw = sphere.get_sineweight(res[1], device=device)
+    for name, (cfg, dec, Z) in cases.items():
+        film = cfg.is_film
+        mu, maps = mu_maps[name]
+        ops = step_operands(cfg, dec, mu[:DEC_BATCH], D, maps[res][DEC_BATCH:2 * DEC_BATCH], sw)
+        kw = step_kwargs(cfg, D.shape[1])
+        held_in_groups(f"{'film' if film else 'siren'}_step B={DEC_BATCH} P={D.shape[1]}",
+                       ts.step_plan_cuda(film, ops, device),
+                       lambda budget: ts._passes_step(film, ops, kw, budget=budget),
+                       2 if film else 3)
+        wide = sphere.get_directions(WIDTH, device=device)
+        tops = packed(cfg, dec, Z, wide)
+        g = cotangent(Z, wide.shape[1], seed=10)
+        for weight_grads in (False, True):
+            kw = bwd_fns(cfg, weight_grads=weight_grads)[2]
+            held_in_groups(
+                f"{'film' if film else 'siren'}_bwd B={Z.shape[0]} P={wide.shape[1]} "
+                f"({'with' if weight_grads else 'no'} weight gradients)",
+                ts.step_plan_cuda(film, (*tops, g), device, bwd=True, weight_grads=weight_grads),
+                lambda budget: ts._passes_bwd(film, tops, g, kw, weight_grads, budget=budget),
+                1 if film else 2)
+        del ops, tops, g
+        torch.cuda.empty_cache()
+
+    # one FIT_DECODER step at GUARD_BATCH x 8,192 under the card's own budget
+    mu, maps = mu_maps["siren_fwd"]
+    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint")))
+    check(model.fused_step_reason(GUARD_BATCH, D.shape[1]) is None,
+          "the train-step kernel declines the guard's batch")
+    params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+    state = tasks.init_train_state(model, params, decoder_task_config().optim,
+                                   torch.Generator().manual_seed(1))
+    step = tasks.make_fit_decoder_step(model, D, sw, kld_weighting=1e-4)
+    batch = (maps[res][:GUARD_BATCH], torch.arange(GUARD_BATCH, device=device),
+             torch.ones(GUARD_BATCH, device=device))
+    cfg = model.config
+    plan = ts.step_plan(False, GUARD_BATCH, D.shape[1], cfg.hidden_features, cfg.hidden_layers,
+                        torch.cuda.get_device_properties(device).multi_processor_count)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    budget = ts.device_budget(device)
+    seen, real = [], ts._work_and_groups  # the groups the step's call takes
+
+    def spy(*args):
+        work, groups = real(*args)
+        seen.append(groups)
+        return work, groups
+
+    n0 = ts.siren_step_cuda.launches
+    ts._work_and_groups = spy
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ts._work_and_groups = real
+    check(len(seen) == 1, f"the guard's step ran the passes {len(seen)} times, not once")
+    groups = seen[0]
+    peak = torch.cuda.max_memory_allocated()
+    loss = metrics["loss"].item()
+    check(ts.siren_step_cuda.launches == n0 + 1, "the guard's step did not take the step kernel")
+    check(np.isfinite(loss), f"the {GUARD_BATCH}-map step's loss is {loss}")
+    print(f"FIT_DECODER step at {GUARD_BATCH} x {D.shape[1]:,}: loss {loss:.6g}, {wall * 1e3:.1f} "
+          f"ms (first call), scratch of one call {plan.scratch_bytes / 1e9:.3f} GB (the card's "
+          f"budget before the step {budget / 1e9:.3f} GB) -> {len(groups)} group(s) of up to "
+          f"{groups[0][1] - groups[0][0]} images; peak device memory {peak / 1e9:.3f} GB")
+    del state, batch, step, params
+    torch.cuda.empty_cache()
+    return {"guard_step_groups": len(groups), "guard_step_peak_gb": peak / 1e9,
+            "guard_step_ms": wall * 1e3}
 
 
 def main() -> int:
@@ -1329,6 +1774,8 @@ def main() -> int:
                     check(mx < bar, f"{name} {label} off the float32 bar {bar}")
                 else:
                     check(mx < MAX_ERR and mean < MEAN_ERR, f"{name} {label} off the bf16 bar")
+    compare_wide(dev, errors, rel_errors)
+    forward_digest(entries, dev)
 
     phase("compare_bwd at full width and at FIT_LATENT's shapes")
     for fwd_name, name in (("siren_fwd", "siren_bwd"), ("film_fwd", "film_bwd")):
@@ -1342,13 +1789,28 @@ def main() -> int:
                 ("per-image grids, no weight gradients", grids, None, False),
                 ("float32 trunk, shared grid, no weight gradients", D, "float32", False),
                 ("float32 trunk, shared grid, weight gradients", D, "float32", True),
-                *((f"{label}, no weight gradients", grid, None, False)
-                  for label, grid in fit_grids),
+                *((f"float32 trunk, {fit_grids[-1][0]}, {'' if wgrad else 'no '}weight "
+                   f"gradients", fit_grids[-1][1], "float32", wgrad) for wgrad in (False, True)),
+                *((f"{label}, {'' if wgrad else 'no '}weight gradients", grid, None, wgrad)
+                  for label, grid in fit_grids for wgrad in (False, True)),
             ):
                 print(f"{name} B={Z.shape[0]} P={grid.shape[1]} {label}:")
                 err, rel = compare_bwd(cfg, dec, Z, grid, trunk, wgrad, seed=2)
                 errors[name].append(err)
                 rel_errors[name].append(rel)
+            for wgrad in (False, True):
+                grid = fit_grids[1][1]
+                print(f"{name} B={Z.shape[0]} P={grid.shape[1]} the trunk deepened to {DEEP_MM} "
+                      f"products, {'' if wgrad else 'no '}weight gradients:")
+                err, rel = compare_bwd(cfg, dec, Z, grid, None, wgrad, seed=2, n_mm=DEEP_MM)
+                errors[name].append(err)
+                rel_errors[name].append(rel)
+        err, rel = compare_bwd_passes(name, cfg, dec, Z, dev)
+        errors[name] += err
+        rel_errors[name] += rel
+        err, rel = compare_handoff(name, cfg, dec, Z, dev)
+        errors[name] += err
+        rel_errors[name] += rel
 
     phase("serve")
     # direct decodes to check the daemon against, made before the counts
@@ -1405,6 +1867,11 @@ def main() -> int:
     launches["film_step"] = fit_decoder_phase(dev, maps_film, FILM)
     print(f"FiLM step-kernel launches during FIT_DECODER (kernel run): {launches['film_step']}")
 
+    phase("guard")
+    torch.cuda.empty_cache()
+    guard = guard_phase(dev, {k: entries[k] for k in ("siren_fwd", "film_fwd")},
+                        {"siren_fwd": (mu, maps), "film_fwd": (mu_film, maps_film)})
+
     phase("anatomy")
     torch.cuda.empty_cache()
     anatomy_ms = anatomy_phase(cfg_cbc, dec_cbc, entries["siren_fwd"][2], dev, errors,
@@ -1422,6 +1889,7 @@ def main() -> int:
         "siren_bwd": "reni_tpu/kernels/siren_pallas.py:151",
         "film_bwd": "reni_tpu/kernels/siren_pallas.py:221",
     }
+    fit_ms = {}
     with torch.inference_mode():
         for name in ("siren_fwd", "film_fwd"):
             cfg, dec, Z = entries[name]
@@ -1450,19 +1918,21 @@ def main() -> int:
             # its forward launches run
             small = packed(cfg, dec, Z, sphere.get_directions(FIT_RES[1][1], device=dev))
             ms_fit = time_ms(lambda: kernel(*small, **kw))
+            plain_fit = time_ms(lambda: plain(*small, **kw))
+            fit_ms[name] = ms_fit
             print(f"{name} B={B} P={small[0].shape[1]} (FIT_LATENT's last stage): kernel "
-                  f"{ms_fit:.4f} ms")
+                  f"{ms_fit:.4f} ms, plain {plain_fit:.4f} ms")
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces[name], "launches": launches[name],
                 "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name]),
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                "ms_fit_latent_last_stage": ms_fit,
+                "ms_fit_latent_last_stage": ms_fit, "plain_ms_fit_latent_last_stage": plain_fit,
             })
         for fwd_name, name in (("siren_fwd", "siren_bwd"), ("film_fwd", "film_bwd")):
             cfg, dec, Z = entries[fwd_name]
-            row = None
+            row, shapes = None, {}
             for width in BWD_WIDTHS:
                 grid = sphere.get_directions(width, device=dev)
                 ops = packed(cfg, dec, Z, grid)
@@ -1477,20 +1947,35 @@ def main() -> int:
                     bound_ms, bound_by = bound(flops, nbytes)
                     runs = 25 if P * B <= 21 * 8192 or not wgrad else 10
                     ms = time_ms(lambda: kernel(*ops, g, **kw), runs=runs)
+                    host_ms = host_time_ms(lambda: kernel(*ops, g, **kw))
                     plain_ms = time_ms(lambda: plain(*ops, g, **kw), runs=runs)
                     print(f"{name} B={B} P={P} {'with' if wgrad else 'without'} weight "
-                          f"gradients: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                          f"gradients: kernel {ms:.4f} ms (host {host_ms:.4f} ms a call), "
+                          f"plain {plain_ms:.4f} ms, bound "
                           f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP, {nbytes:.4g} B) "
                           f"-> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+                    shapes[f"{B}x{P}{'_wgrad' if wgrad else ''}"] = {
+                        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
                     if row is None:  # 21 x 32,768 without weight gradients (FIT_LATENT's mode)
                         row = {
-                            "name": name, "route": "cuda", "source": SOURCE_BWD,
+                            "name": name, "route": "cuda",
+                            "source": SOURCE_FILM_STEP if cfg.is_film else SOURCE_STEP,
+                            "chain_source": SOURCE_BWD,
                             "replaces": replaces[name], "launches": launches[name],
                             "max_abs_err": max(errors[name]),
                             "max_rel_err": max(rel_errors[name]),
                             "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         }
+            row["shapes"] = shapes
+            row.update(bwd_pass_timings(name, cfg, dec, Z, dev))
+            fwd_passes = sum(v for k, v in row["passes_ms_21x8192_no_wgrad"].items()
+                             if k.startswith("fwd"))
+            row["handoff_ab_ms"] = handoff_ab(cfg, dec, Z, dev)
+            print(f"{name} at 21 x 8,192: the forward kernel {fit_ms[fwd_name]:.4f} ms; the "
+                  f"backward without weight gradients "
+                  f"{shapes[f'21x{FIT_RES[1][0] * FIT_RES[1][1]}']['ms']:.4f} ms, of which its "
+                  f"forward passes {fwd_passes:.4f} ms")
             rows.append(row)
         rows.append(time_step("siren_step", cfg_cbc, dec_cbc, mu, maps, dev, replaces, launches,
                               errors, rel_errors))
@@ -1503,9 +1988,11 @@ def main() -> int:
     rows.append(probe_row("bwd_variant", "bwd", "bwd_no_sincos", cfg_cbc, dec_cbc, z21, dev,
                           anatomy_ms, replaces, launches, errors, rel_errors))
     for row in rows:  # launches per resolution stage, where a path counts them
-        by = {k.split("@")[1]: v for k, v in launches.items() if k.startswith(row["name"] + "@")}
-        if by:
-            row["launches_by_stage"] = by
+        for key, tag in (("launches_by_stage", "@"), ("fwd_passes_by_stage", "_fwd_passes@")):
+            by = {k.split("@")[1]: v for k, v in launches.items()
+                  if k.startswith(row["name"] + tag)}
+            if by:
+                row[key] = by
     print(f"total_s {time.perf_counter() - t_start:.1f}")
 
     card = card_line()

@@ -27,8 +27,11 @@ Forward variants (operands and result of ``siren_trunk_reference``):
 Backward variants (operands of ``siren_trunk_bwd_reference``):
 
 - ``transcendental=False``: (sin, cos) becomes ``(0.8 * z, 0.6 * z)``;
-- ``weight_grads=False``: the shipped backward without weight gradients;
-  both together are the pure product skeleton ("mxu_only");
+- ``weight_grads=False``: the shipped chain backward without weight
+  gradients (``siren_bwd.siren_bwd_chain_cuda``: the chain kernel also for
+  the bf16 trunk, which the backward's own wrapper routes to the
+  layer-major passes); both together are the pure product skeleton
+  ("mxu_only");
 - ``accum=False``: the TPU probe writes its weight gradients in place of
   accumulating them across its sequential grid, which removes a
   read-modify-write between grid steps. The port has no such accumulation
@@ -230,8 +233,8 @@ def bwd_variant_cuda(
     """A backward variant on the card; returns what ``bwd_variant_reference``
     returns for the grid ``siren_bwd.launch_grid`` gives these shapes."""
     accum = accum or not weight_grads
-    if transcendental and accum:
-        out = siren_bwd.siren_trunk_bwd_cuda(
+    if transcendental and accum:  # the shipped chain kernel, on either trunk
+        out = siren_bwd.siren_bwd_chain_cuda(
             d_pad, a, b0, ws, bs, wf, bf, g, omega0=omega0, omega_h=omega_h, trunk=trunk,
             fast_sine=fast_sine, weight_grads=weight_grads,
         )

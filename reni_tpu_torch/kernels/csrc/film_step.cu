@@ -30,26 +30,30 @@ int reni_film_step(const float* d, long long d_bstride, const float* a0, const v
   return launch<true>(args, sums, batch, bf16, fast, act, stream);
 }
 
-// The bf16 FiLM train step as layer-major passes (step_passes.cuh), T =
-// n_trunk >= 2: passes [pass_lo, pass_hi) of the 2 (T - 1) and, with
-// `finish`, the slot sums and dWs. ws is W as stored, wst its transpose per
-// layer (bf16); sc_keep (T - 2, B P, H) float32 holds the pre-modulation
-// values of layers 1..T-2. Outputs as for reni_film_step. Returns a
-// cudaError_t.
+// The bf16 FiLM train step, or (gin set) the backward of _film_bwd_kernel,
+// as layer-major passes (step_passes.cuh), T = n_trunk >= 2: passes
+// [pass_lo, pass_hi) of the 2 (T - 1), then what `finish` asks for
+// (reni_pass::FINISH_*). ws is W as stored, wst its transpose per layer
+// (bf16); sc_keep (T - 2, B P, H) float32 holds the pre-modulation values of
+// layers 1..T-2. tgt, sw, bm, gin, out and wgrad as for
+// reni_siren_step_passes.
+// Outputs as for reni_film_step. Returns a cudaError_t.
 int reni_film_step_passes(const float* d, long long d_bstride, const float* a0, const void* ws,
                           const void* wst, const float* bs, const void* wf, const float* bf,
                           const float* fr, const float* ph, const float* tgt, const float* sw,
-                          const float* bm, float* part_img, float* out_img, float* part_w,
+                          const float* bm, const float* gin, float* out, float* part_img,
+                          float* out_img, float* part_w,
                           float* out_w, void* sc_h, float* sc_keep, void* sc_dz, float* part_dws,
                           float* dws, int batch, int P, int H, int n_trunk, int tiles_per_cta,
                           int n_chunks, int rows_per_chunk, int n_wchunks, float gscale, int fast,
-                          int act, int pass_lo, int pass_hi, int finish, void* stream) {
+                          int act, int wgrad, int pass_lo, int pass_hi, int finish,
+                          void* stream) {
   using reni_pass::bf16;
   const reni_pass::PassArgs args{
       d, d_bstride, a0, nullptr, static_cast<const bf16*>(ws), static_cast<const bf16*>(wst),
-      bs, static_cast<const bf16*>(wf), bf, fr, ph, tgt, sw, bm, part_img, part_w,
+      bs, static_cast<const bf16*>(wf), bf, fr, ph, tgt, sw, bm, gin, out, part_img, part_w,
       static_cast<bf16*>(sc_h), sc_keep, static_cast<bf16*>(sc_dz), P, H, n_trunk - 1,
-      tiles_per_cta, n_chunks, act, 0.0f, 0.0f, 2.0f * gscale, 0};
+      tiles_per_cta, n_chunks, act, wgrad, 0.0f, 0.0f, 2.0f * gscale, 0};
   const Sums sums{out_img, out_w, part_dws, dws, rows_per_chunk, n_wchunks};
   return reni_pass::launch_passes<true>(args, sums, batch, fast, pass_lo, pass_hi, finish,
                                         static_cast<cudaStream_t>(stream));
@@ -64,6 +68,14 @@ int reni_film_step_smem_bytes(int bf16, int H, int n_mm) {
 // Bytes of shared memory one CTA of any pass takes (kernels/siren_step.py
 // mirrors this in pass_smem_bytes; pass_route there decides the route).
 int reni_pass_smem_bytes(int H) { return (int)reni_pass::pass_layout(H).total; }
+
+// out[b][j] = the sum over slots, in slot order, of part[b][slot][j]: the
+// sum of the slots of grouped calls (kernels/siren_step.py). Returns a
+// cudaError_t.
+int reni_pass_reduce(const float* part, float* out, int batch, int n_slots, long long n,
+                     void* stream) {
+  return (int)launch_reduce(part, out, batch, n_slots, n, static_cast<cudaStream_t>(stream));
+}
 
 const char* reni_film_step_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -21,13 +21,16 @@
 // What bounds it on the H100: tensor-core operations. Per pixel, 5 x 256 x 256
 // multiply-adds (~6.6e5 FLOP) against ~1.5e3 sines and 32 bytes written;
 // weights (5 x 128 KB in bf16) are read by every CTA from L2. The design:
-//   - one CTA per (image, 64-pixel tile); the tile's activations stay in
+//   - one CTA per (image, TM-pixel tile); the tile's activations stay in
 //     shared memory (two bf16 buffers, ping-pong) across all layers, so no
-//     (B, P, H) tensor ever goes to device memory;
+//     (B, P, H) tensor ever goes to device memory. TM is 64, or 32 or 16
+//     where two 64-row buffers do not fit in shared memory (H = 512 with the
+//     float32 trunk, H >= 880 in bf16): launch() takes the largest that fits;
+//     the rows of a tile are independent, so TM changes no result;
 //   - hidden layers are wmma 16x16x16 bf16 products with float32
 //     accumulators: each warp owns 16-column strips of the output and
 //     reads each B fragment once per CTA from global/L2, reusing it over the
-//     four 16-row tiles; the epilogue (bias, omega, sine, bf16 cast) runs
+//     TM / 16 row tiles; the epilogue (bias, omega, sine, bf16 cast) runs
 //     from a per-warp float32 staging tile;
 //   - the K = 8 first layer and the N = 8 final layer are plain FMA loops
 //     on the same bf16-rounded inputs (too narrow for a tensor-core tile);
@@ -58,7 +61,7 @@ namespace reni_fwd {
 using namespace nvcuda;
 using namespace reni;
 
-constexpr int TM = 64;  // pixel rows per CTA
+constexpr int TILE_ROWS[] = {64, 32, 16};  // pixel rows per CTA, largest first
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROW_PAD = 8;  // elements of padding per activation row
@@ -91,7 +94,7 @@ __device__ __forceinline__ float activate(const Args& g, int b, int layer, int c
   return sine<SINE>(g.omega_h * (acc + g.bs[(size_t)(layer - 1) * g.H + c]));
 }
 
-template <bool FILM, bool BF16, int SINE, typename act_t>
+template <bool FILM, bool BF16, int SINE, int TM, typename act_t>
 __device__ void first_layer(const Args& g, int b, int p0, act_t* h, int lda) {
   const float* d = g.d + b * g.d_bstride;
   const float* a = g.a + (size_t)b * K_PAD * g.H;
@@ -107,7 +110,7 @@ __device__ void first_layer(const Args& g, int b, int p0, act_t* h, int lda) {
   }
 }
 
-template <bool FILM, int SINE, int IL>
+template <bool FILM, int SINE, int IL, int TM>
 __device__ void hidden_layer_bf16(const Args& g, int b, int layer, const __nv_bfloat16* w,
                                   const __nv_bfloat16* hin, __nv_bfloat16* hout,
                                   float* scratch, int lda) {
@@ -144,7 +147,7 @@ __device__ void hidden_layer_bf16(const Args& g, int b, int layer, const __nv_bf
   }
 }
 
-template <bool FILM, int SINE>
+template <bool FILM, int SINE, int TM>
 __device__ void hidden_layer_f32(const Args& g, int b, int layer, const float* w,
                                  const float* hin, float* hout, int lda) {
   for (int i = threadIdx.x; i < TM * g.H; i += THREADS) {
@@ -156,7 +159,7 @@ __device__ void hidden_layer_f32(const Args& g, int b, int layer, const float* w
   }
 }
 
-template <typename act_t>
+template <int TM, typename act_t>
 __device__ void final_layer(const Args& g, int b, int p0, const act_t* h, int lda) {
   const act_t* wf = static_cast<const act_t*>(g.wf);
   for (int i = threadIdx.x; i < TM * C_PAD; i += THREADS) {
@@ -169,7 +172,7 @@ __device__ void final_layer(const Args& g, int b, int p0, const act_t* h, int ld
   }
 }
 
-template <bool FILM, bool BF16, int SINE, int IL = 1>
+template <bool FILM, bool BF16, int SINE, int IL = 1, int TM = 64>
 __global__ void __launch_bounds__(THREADS) trunk_fwd(Args g) {
   using act_t = typename std::conditional<BF16, __nv_bfloat16, float>::type;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -179,35 +182,50 @@ __global__ void __launch_bounds__(THREADS) trunk_fwd(Args g) {
   float* scratch = reinterpret_cast<float*>(h1 + (size_t)TM * lda);
   const int b = blockIdx.y, p0 = blockIdx.x * TM;
 
-  first_layer<FILM, BF16, SINE>(g, b, p0, h0, lda);
+  first_layer<FILM, BF16, SINE, TM>(g, b, p0, h0, lda);
   __syncthreads();
   const act_t* ws = static_cast<const act_t*>(g.ws);
   for (int l = 0; l < g.n_mm; ++l) {
     const act_t* w = ws + (size_t)l * g.H * g.H;
     if constexpr (BF16) {
-      hidden_layer_bf16<FILM, SINE, IL>(g, b, l + 1, w, h0, h1, scratch, lda);
+      hidden_layer_bf16<FILM, SINE, IL, TM>(g, b, l + 1, w, h0, h1, scratch, lda);
     } else {
-      hidden_layer_f32<FILM, SINE>(g, b, l + 1, w, h0, h1, lda);
+      hidden_layer_f32<FILM, SINE, TM>(g, b, l + 1, w, h0, h1, lda);
     }
     __syncthreads();
     act_t* t = h0;
     h0 = h1;
     h1 = t;
   }
-  final_layer<act_t>(g, b, p0, h0, lda);
+  final_layer<TM, act_t>(g, b, p0, h0, lda);
 }
 
 using KernelFn = void (*)(Args);
 
-// Launch one instantiation over the (pixel tile, image) grid; returns a
-// cudaError_t.
-inline int launch(KernelFn kern, const Args& g, int batch, int bf16, void* stream) {
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a CTA on the H100
+
+// Shared memory of a CTA with tm-row tiles: two activation buffers and the
+// per-warp staging tiles (kernels/siren_fwd.py mirrors this).
+__host__ __device__ inline size_t smem_bytes(int tm, int H, bool bf16) {
   const size_t act = bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const size_t smem = 2 * (size_t)TM * (g.H + ROW_PAD) * act + WARPS * 256 * sizeof(float);
+  return 2 * (size_t)tm * (H + ROW_PAD) * act + WARPS * 256 * sizeof(float);
+}
+
+// The row tile of a launch: the largest of TILE_ROWS whose CTA fits.
+inline int tile_rows_for(int H, bool bf16) {
+  for (int tm : TILE_ROWS)
+    if (smem_bytes(tm, H, bf16) <= SMEM_LIMIT) return tm;
+  return TILE_ROWS[2];
+}
+
+// Launch one instantiation, whose row tile is tm, over the (pixel tile,
+// image) grid; returns a cudaError_t.
+inline int launch(KernelFn kern, const Args& g, int batch, int bf16, void* stream, int tm = 64) {
+  const size_t smem = smem_bytes(tm, g.H, bf16 != 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.P + TM - 1) / TM, batch);
+  const dim3 grid((g.P + tm - 1) / tm, batch);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,16 @@
-// Layer-major train step for Hopper (sm_90a): the bf16 trunk of the
-// Cond-by-Concat and FiLM train steps as a short sequence of passes, each a
-// kernel that streams 128-row tiles of one layer's input through that
-// layer's weights with wgmma and fuses the layer's epilogue. siren_step.cu
-// instantiates the Cond-by-Concat passes, film_step.cu the FiLM ones.
+// Layer-major train step and backward for Hopper (sm_90a): the bf16 trunk
+// of the Cond-by-Concat and FiLM train steps, and of their backward given an
+// output cotangent, as a short sequence of passes, each a kernel that
+// streams 128-row tiles of one layer's input through that layer's weights
+// with wgmma and fuses the layer's epilogue. siren_step.cu instantiates the
+// Cond-by-Concat passes, film_step.cu the FiLM ones.
 //
-// Replaces, with the chain kernel of siren_step.cuh for the float32 trunk
-// and for bf16 widths that are not a multiple of 64, the Pallas kernels
-// _step_kernel and _film_step_kernel of reni_tpu/kernels/siren_pallas.py.
-// What a step computes is written down in siren_step.cuh; the passes
+// Replaces, with the chain kernels of siren_step.cuh and siren_bwd.cuh for
+// the float32 trunk and for bf16 widths that are not a multiple of 64, the
+// Pallas kernels _step_kernel and _film_step_kernel (the train steps) and
+// _bwd_kernel and _film_bwd_kernel (the backward) of
+// reni_tpu/kernels/siren_pallas.py. What a step computes is written down in
+// siren_step.cuh and what a backward computes in siren_bwd.cuh; the passes
 // compute the same with the same bf16 rounding points.
 //
 // What bounds it on the H100. The chain kernel keeps every layer of a
@@ -34,6 +37,17 @@
 // Then dWs = h^T dz over sc_h / sc_dz by wgrad_bf16 and the slot sums by
 // reduce_slots (siren_chain.cuh), as for the chain kernel.
 //
+// The backward (gin set) runs the same passes with the cotangent last pass
+// (last_pass<..., LAST_COT>): it reads the tile's output cotangent g from
+// device memory in place of targets, pixel weights and the loss, and skips
+// the final layer. Without weight gradients (wgrad = 0) no pass stores h_0,
+// the dbs / dWf / dbf sums or any weight slot, and dWs is not formed: what
+// is left are the per-image sums (dA, db0; FiLM dA0, dfreqs, dphases).
+// A differentiable forward (out set) runs the fwd passes and the output
+// last pass (LAST_OUT: the last product, activation and final layer to out)
+// and hands its scratch to the backward, which then runs the cotangent last
+// pass and the bwd passes only: the forward is not computed twice.
+//
 // Design:
 //   - grid (chunks, images), one CTA per chunk of consecutive 128-row tiles
 //     of one image, 256 threads: two warpgroups of 64 rows. A tile never
@@ -58,7 +72,10 @@
 //     per-CTA sums go to per-CTA slots. Two calls on the same inputs give
 //     the same bits.
 // Limits: H a multiple of 64 and one layer's weights plus a tile in shared
-// memory (pass_layout; H <= 256); any depth.
+// memory (pass_layout; H <= 256); any depth. The device scratch (sc_h, sc_dz,
+// sc_keep: about 9 KB per row at 5 x 256) is the caller's: over its
+// device-memory budget, kernels/siren_step.py runs the images in groups, each
+// group its full pass sequence into its own rows of the per-CTA slots.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,12 +109,15 @@ struct PassArgs {
   const float* tgt;     // (B, P, C_PAD) targets
   const float* sw;      // (P, C_PAD) pixel weights
   const float* bm;      // (B, C_PAD) batch mask
+  const float* gin;     // (B, P, C_PAD) output cotangent of a backward; null for a step
+  float* out;           // (B, P, C_PAD) the trunk's output of a forward; null otherwise
   float* part_img;      // (B, n_chunks, n_img) per-image partial sums
   float* part_w;        // (B * n_chunks, n_w) loss and small weight sums
   bf16* sc_h;           // (n_mm, B * P, H) inputs h_j of the products
   float* sc_keep;       // (n_mm - 1, B * P, H) kept values of layers 1..n_mm-1
   bf16* sc_dz;          // (n_mm, B * P, H) cotangents dz_j of the products' outputs
   int P, H, n_mm, tiles_per_cta, n_chunks, act;
+  int wgrad;            // 1: weight gradients (a step always); 0: per-image sums only
   float omega0, omega_h, gscale2;
   int j;                // the product this pass runs
 };
@@ -339,9 +359,10 @@ __device__ __forceinline__ float layer0(const float* d, const float* a, float bi
   return acc + bias;
 }
 
-// h_0 of the tile into the swizzled input tile and, for rows < valid, into
-// sc_h[0]; a thread per column (conflict-free reads of `a`); `a` (K_PAD, H)
-// rounded to bf16 unless ROUND_A
+// h_0 of the tile into the swizzled input tile and, for rows < valid and
+// with weight gradients (only dWs reads it), into sc_h[0]; a thread per
+// column (conflict-free reads of `a`); `a` (K_PAD, H) rounded to bf16 unless
+// ROUND_A
 template <bool FILM, int SN, bool ROUND_A>
 __device__ void prologue(const PassArgs& g, const float* dt, const float* a, bf16* at,
                          const Tile& t) {
@@ -364,7 +385,7 @@ __device__ void prologue(const PassArgs& g, const float* dt, const float* a, bf1
       const float s = FILM ? sine<SN>(__fadd_rn(__fmul_rn(f, x), p)) : sine<SN>(g.omega0 * x);
       const bf16 v = __float2bfloat16_rn(s);
       at[swz(r, c, TILE)] = v;
-      if (r < t.valid) g.sc_h[(t.row0 + r) * H + c] = v;
+      if (g.wgrad && r < t.valid) g.sc_h[(t.row0 + r) * H + c] = v;
     }
   }
 }
@@ -479,12 +500,32 @@ __device__ __forceinline__ float activate(int act, float o, float* dact) {
   return o;
 }
 
-template <bool FILM, bool FAST>
+// the output cotangent of a tile (TILE, C_PAD) float32 into `dst`, rows at
+// or past `valid` zero-filled (copies in flight: tile_ready() completes it)
+__device__ __forceinline__ void load_gtile(const PassArgs& g, float* dst, const Tile& t) {
+  for (int i = threadIdx.x * 4; i < TILE * C_PAD; i += PTHREADS * 4) {
+    const int r = i / C_PAD;
+    const bool in = r < t.valid;
+    cp_async16(dst + i, g.gin + (t.row0 + (in ? r : 0)) * C_PAD + i % C_PAD, in);
+  }
+}
+
+enum { LAST_STEP = 0, LAST_COT = 1, LAST_OUT = 2 };
+
+// The last pass. LAST_STEP: the last product and activation, the final
+// layer, the loss and g. LAST_COT (a backward): the last product and
+// activation, g read from gin; no final layer and no loss. Then in both:
+// dWf and dbf (with weight gradients), dh = g Wf^T and the last layer's
+// backward epilogue. LAST_OUT (a forward): the last product, activation and
+// final layer, the output to out, nothing else.
+template <bool FILM, bool FAST, int MODE>
 __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
+  constexpr bool COT = MODE == LAST_COT;
   constexpr int SN = FAST ? SINE_FAST : SINE_EXACT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
+  const bool wgrad = g.wgrad != 0;
   const PassLayout lay = pass_layout(H);
   bf16* w = reinterpret_cast<bf16*>(smem + lay.w);
   bf16* at = reinterpret_cast<bf16*>(smem + lay.a);
@@ -500,7 +541,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   float* gf = red;  // g of the tile in float32
   const size_t rows = (size_t)gridDim.y * g.P;
   bf16* dz_out = g.sc_dz + (size_t)j * rows * H;
-  const float* bm = g.bm + (size_t)b * C_PAD;
+  const float* bm = MODE == LAST_STEP ? g.bm + (size_t)b * C_PAD : nullptr;
 
   load_rows(w, g.wst + (size_t)j * H * H, H, H, H);
   load_layer_vectors<FILM>(g, vec, j + 1);
@@ -514,6 +555,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   float acc[NCH][32] = {};
   Tile t;
   for (int it = 0; next_tile(g, it, &t); ++it) {
+    if constexpr (COT) load_gtile(g, gf, t);
     fill_input<FILM, SN, true>(g, dt, g.a + (size_t)b * K_PAD * H, at, t, rows);
     tile_ready();
     mma_tile(acc, at, w, H);
@@ -540,9 +582,12 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
       }
     }
     __syncthreads();
-    // final layer, activation, loss terms and the output cotangent: a pair
-    // of threads per row, each over half of K, then each over 4 lanes
-    {
+    if constexpr (COT) {
+      // the tile's g, read with the input: rounded to bf16 for the products
+      for (int i = tid; i < TILE * C_PAD; i += PTHREADS) gt[i] = rnd<true>(gf[i]);
+    } else {
+      // final layer, activation, loss terms and the output cotangent: a pair
+      // of threads per row, each over half of K, then each over 4 lanes
       const int r = tid / 2, half = tid % 2, kh = H / 2;
       float o[C_PAD] = {};
       for (int k0 = half * kh; k0 < (half + 1) * kh; k0 += 8) {
@@ -562,6 +607,10 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
 #pragma unroll
       for (int q = 0; q < C_PAD / 2; ++q) {
         const int c = half * (C_PAD / 2) + q;
+        if constexpr (MODE == LAST_OUT) {
+          if (r < t.valid) g.out[(t.row0 + r) * C_PAD + c] = o[c] + g.bf[c];
+          continue;
+        }
         float dact;
         const float out = activate(g.act, o[c] + g.bf[c], &dact);
         float gv = 0.0f, loss = 0.0f;
@@ -578,24 +627,28 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
       }
     }
     __syncthreads();
-    if (tid < 2 * C_PAD) {  // mse and dbf partials, rows in order
-      const float* src = tid < C_PAD ? lt : gf;
-      const int c = tid % C_PAD;
-      float s = 0.0f;
-      for (int r = 0; r < TILE; ++r) s += src[r * C_PAD + c];
-      sums[tid] += s;
-    }
-    if (tid < H) {  // dWf row tid: h_last^T g over the tile
-      float s[C_PAD] = {};
-      for (int r = 0; r < TILE; ++r) {
-        const float h = get(at[swz(r, tid, TILE)]);
-        float gv[C_PAD];
-        load8(gt + r * C_PAD, gv);
-#pragma unroll
-        for (int c = 0; c < C_PAD; ++c) s[c] = fmaf(h, gv[c], s[c]);
+    if constexpr (MODE == LAST_OUT) continue;  // the input tile is refilled first thing
+    if (wgrad) {
+      // mse (the step only) and dbf partials, rows in order
+      if (tid < 2 * C_PAD && (!COT || tid >= C_PAD)) {
+        const float* src = tid < C_PAD ? lt : gf;
+        const int c = tid % C_PAD;
+        float s = 0.0f;
+        for (int r = 0; r < TILE; ++r) s += src[r * C_PAD + c];
+        sums[tid] += s;
       }
+      if (tid < H) {  // dWf row tid: h_last^T g over the tile
+        float s[C_PAD] = {};
+        for (int r = 0; r < TILE; ++r) {
+          const float h = get(at[swz(r, tid, TILE)]);
+          float gv[C_PAD];
+          load8(gt + r * C_PAD, gv);
 #pragma unroll
-      for (int c = 0; c < C_PAD; ++c) dwf[c] += s[c];
+          for (int c = 0; c < C_PAD; ++c) s[c] = fmaf(h, gv[c], s[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < C_PAD; ++c) dwf[c] += s[c];
+      }
     }
     // dh = g Wf^T and the last layer's backward epilogue, a quad (rows r,
     // r + 8; columns c, c + 1) at a time
@@ -633,13 +686,15 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
             col_add(cs[0], idx + e,
                     __fmul_rn(dm[e], acc[nc][i + e]) + __fmul_rn(dm[e + 2], acc[nc][i + e + 2]));
             col_add(cs[1], idx + e, dm[e] + dm[e + 2]);
-            col_add(cs[2], idx + e, dz[e] + dz[e + 2]);
+            if (wgrad) col_add(cs[2], idx + e, dz[e] + dz[e + 2]);
           }
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) dz[q] = __fmul_rn(dh[q], acc[nc][i + q]);
+          if (wgrad) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) col_add(cs[0], idx + e, dz[e] + dz[e + 2]);
+            for (int e = 0; e < 2; ++e) col_add(cs[0], idx + e, dz[e] + dz[e + 2]);
+          }
         }
         if (r < t.valid)
           *reinterpret_cast<__nv_bfloat162*>(dz_out + (t.row0 + r) * H + c) =
@@ -652,24 +707,28 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
     __syncthreads();  // the tile buffers are refilled next
   }
 
+  if constexpr (MODE == LAST_OUT) return;
   const int n_mm = g.n_mm, n_w = reni_step::weight_values(FILM, H, n_mm);
   const int layer = FILM ? j + 1 : j;  // the bias row of the last layer's dz
   float* part_w = g.part_w + ((size_t)b * g.n_chunks + blockIdx.x) * n_w;
   float* dwf_out = part_w + C_PAD + (size_t)reni_step::bias_rows(FILM, n_mm) * H;
-  if (tid < H)
+  if (wgrad) {  // the backward's mse slot stays 0
+    if (tid < H) {
 #pragma unroll
-    for (int c = 0; c < C_PAD; ++c) dwf_out[tid * C_PAD + c] = dwf[c];
-  if (tid < C_PAD) {
-    part_w[tid] = mse_acc[tid];
-    dwf_out[H * C_PAD + tid] = dbf_acc[tid];
+      for (int c = 0; c < C_PAD; ++c) dwf_out[tid * C_PAD + c] = dwf[c];
+    }
+    if (tid < C_PAD) {
+      part_w[tid] = mse_acc[tid];
+      dwf_out[H * C_PAD + tid] = dbf_acc[tid];
+    }
   }
   if constexpr (FILM) {
     const int T = n_mm + 1, n_img = reni_step::image_values(true, H, n_mm);
     float* part_img = g.part_img + ((size_t)b * g.n_chunks + blockIdx.x) * n_img;
     flush_cols(cs[0], H, red, part_img + (K_PAD + layer) * H);
     flush_cols(cs[1], H, red, part_img + (K_PAD + T + layer) * H);
-    flush_cols(cs[2], H, red, part_w + C_PAD + (size_t)layer * H);
-  } else {
+    if (wgrad) flush_cols(cs[2], H, red, part_w + C_PAD + (size_t)layer * H);
+  } else if (wgrad) {
     flush_cols(cs[0], H, red, part_w + C_PAD + (size_t)layer * H);
   }
 }
@@ -680,6 +739,9 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
+  // the column sums of dz: dbs (weight gradients only) or, Cond-by-Concat at
+  // j = 0, the per-image db0; FiLM's dfreqs and dphases sums always run
+  const bool dz_sums = g.wgrad != 0 || (!FILM && j == 0);
   const PassLayout lay = pass_layout(H);
   bf16* w = reinterpret_cast<bf16*>(smem + lay.w);
   bf16* at = reinterpret_cast<bf16*>(smem + lay.a);
@@ -776,14 +838,16 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
             col_add(cs[0], idx + e,
                     __fmul_rn(dm[e], kv[i + e]) + __fmul_rn(dm[e + 2], kv[i + e + 2]));
             col_add(cs[1], idx + e, dm[e] + dm[e + 2]);
-            col_add(cs[2], idx + e, dz[e] + dz[e + 2]);
+            if (dz_sums) col_add(cs[2], idx + e, dz[e] + dz[e + 2]);
           }
         } else {
           const float om = j > 0 ? g.omega_h : g.omega0;
 #pragma unroll
           for (int q = 0; q < 4; ++q) dz[q] = __fmul_rn(acc[nc][i + q], __fmul_rn(om, kv[i + q]));
+          if (dz_sums) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) col_add(cs[0], idx + e, dz[e] + dz[e + 2]);
+            for (int e = 0; e < 2; ++e) col_add(cs[0], idx + e, dz[e] + dz[e + 2]);
+          }
         }
         const __nv_bfloat162 v0 = __floats2bfloat162_rn(dz[0], dz[1]);
         const __nv_bfloat162 v1 = __floats2bfloat162_rn(dz[2], dz[3]);
@@ -830,8 +894,8 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
     const int T = n_mm + 1;
     flush_cols(cs[0], H, red, part_img + (K_PAD + j) * H);
     flush_cols(cs[1], H, red, part_img + (K_PAD + T + j) * H);
-    flush_cols(cs[2], H, red, part_w + C_PAD + (size_t)j * H);
-  } else {
+    if (dz_sums) flush_cols(cs[2], H, red, part_w + C_PAD + (size_t)j * H);
+  } else if (dz_sums) {
     flush_cols(cs[0], H, red, j > 0 ? part_w + C_PAD + (size_t)(j - 1) * H : part_img + K_PAD * H);
   }
   if (j == 0 && tid < H)
@@ -845,44 +909,59 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
 
 using PassFn = void (*)(PassArgs);
 
-// pass k of 2 n_mm: products 0..n_mm-2 forward, n_mm-1 the last pass, then
-// the backward from product n_mm-1 down to 0
+// pass k of 2 n_mm: products 0..n_mm-2 forward, n_mm-1 the last pass (of
+// the given mode), then the backward from product n_mm-1 down to 0
 template <bool FILM>
-PassFn pass_kernel(int k, int n_mm, int fast, int* j) {
+PassFn pass_kernel(int k, int n_mm, int fast, int last, int* j) {
   if (k < n_mm - 1) {
     *j = k;
     return fast ? fwd_pass<FILM, true> : fwd_pass<FILM, false>;
   }
   if (k == n_mm - 1) {
     *j = k;
-    return fast ? last_pass<FILM, true> : last_pass<FILM, false>;
+    if (last == LAST_COT) {
+      return fast ? last_pass<FILM, true, LAST_COT> : last_pass<FILM, false, LAST_COT>;
+    }
+    if (last == LAST_OUT) {
+      return fast ? last_pass<FILM, true, LAST_OUT> : last_pass<FILM, false, LAST_OUT>;
+    }
+    return fast ? last_pass<FILM, true, LAST_STEP> : last_pass<FILM, false, LAST_STEP>;
   }
   *j = 2 * n_mm - 1 - k;
   return fast ? bwd_pass<FILM, true> : bwd_pass<FILM, false>;
 }
 
-// Passes [lo, hi) of a step on one stream and, with `finish`, the slot sums
-// and the weight-gradient product. Returns a cudaError_t.
+// what follows the passes, as flags: the per-image slot sums, the weight
+// slot sums, dWs = h^T dz over this call's scratch (with its split-K sum)
+enum { FINISH_IMG = 1, FINISH_W = 2, FINISH_DWS = 4 };
+
+// Passes [lo, hi) of a step, of a backward (gin set) or of a forward (out
+// set) on one stream, then what `finish` asks for. Returns a cudaError_t.
 template <bool FILM>
 int launch_passes(PassArgs g, const reni_step::Sums& o, int batch, int fast, int lo, int hi,
                   int finish, cudaStream_t s) {
   const size_t smem = pass_layout(g.H).total;
+  const int last = g.gin != nullptr ? LAST_COT : g.out != nullptr ? LAST_OUT : LAST_STEP;
   cudaError_t err;
   for (int k = lo; k < hi && k < 2 * g.n_mm; ++k) {
-    const PassFn fn = pass_kernel<FILM>(k, g.n_mm, fast, &g.j);
+    const PassFn fn = pass_kernel<FILM>(k, g.n_mm, fast, last, &g.j);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     fn<<<dim3(g.n_chunks, batch), PTHREADS, smem, s>>>(g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (!finish) return 0;
-  err = launch_reduce(g.part_img, o.out_img, batch, g.n_chunks,
-                      reni_step::image_values(FILM, g.H, g.n_mm), s);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_reduce(g.part_w, o.out_w, 1, batch * g.n_chunks,
-                      reni_step::weight_values(FILM, g.H, g.n_mm), s);
-  if (err != cudaSuccess) return (int)err;
+  if (finish & FINISH_IMG) {
+    err = launch_reduce(g.part_img, o.out_img, batch, g.n_chunks,
+                        reni_step::image_values(FILM, g.H, g.n_mm), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (finish & FINISH_W) {
+    err = launch_reduce(g.part_w, o.out_w, 1, batch * g.n_chunks,
+                        reni_step::weight_values(FILM, g.H, g.n_mm), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(finish & FINISH_DWS)) return 0;
   return (int)launch_weight_grads(true, g.sc_h, g.sc_dz, o.part_dws, o.dws,
                                   (long long)batch * g.P, o.rows_per_chunk, o.n_wchunks, g.H,
                                   g.n_mm, s);

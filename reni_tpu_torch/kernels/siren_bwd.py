@@ -14,10 +14,21 @@ With ``weight_grads=False`` the weight gradients (dWs, dbs, dWf, dbf) are
 None and not computed: FIT_LATENT trains the latents through a frozen
 decoder and needs only the per-image gradients.
 
-``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda`` launch the hand-written
-kernel of ``csrc/siren_bwd.cu`` (template in ``csrc/siren_bwd.cuh``; CUDA
-tensors only) and count their calls in ``.launches``. Every sum has a fixed
-order (per-CTA slots added in slot order; dWs through a device scratch and a
+``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda`` launch hand-written
+kernels (CUDA tensors only; a failed build or launch raises, with no
+fallback) and count their calls in ``.launches``, one per call. By
+``siren_step.pass_route`` (the train steps' rule) the bf16 trunk at widths
+that are a multiple of 64, up to 256, runs as the layer-major ``wgmma``
+passes of ``csrc/step_passes.cuh`` with a last pass that reads ``g``
+(``siren_step._passes_bwd``; built into ``csrc/siren_step.cu`` and
+``csrc/film_step.cu``), at any depth; the float32 trunk, other bf16 widths
+and a FiLM trunk of one layer run the chain kernel of ``csrc/siren_bwd.cu``
+(template in ``csrc/siren_bwd.cuh``), which keeps one tile of every layer in
+shared memory (``bwd_unsupported_reason``). A differentiable decode on the
+passes' route hands the scratch of its forward passes to the backward
+(``bwd_from_handoff``), which then runs from the last pass on. Every sum has
+a fixed order
+(per-CTA slots added in slot order; dWs through a device scratch and a
 split-K product, ``csrc/siren_chain.cuh``), so two calls on the same inputs
 give the same bits. ``siren_trunk_bwd_reference`` /
 ``film_trunk_bwd_reference`` are their plain PyTorch versions, written step
@@ -93,9 +104,14 @@ def bwd_smem_bytes(film: bool, trunk: str, hidden: int, n_mm: int) -> int:
 def bwd_unsupported_reason(
     hidden_features: int, n_mm: int, film: bool, trunk: str = "bfloat16"
 ) -> str | None:
-    """Why the backward kernel cannot take this trunk (None = it can): one
-    tile's activations and cos factors of every layer must fit in a CTA's
-    shared memory."""
+    """Why the backward kernels cannot take this trunk (None = they can).
+    The passes (``siren_step.pass_route``) take any depth; on the chain
+    kernel one tile's activations and cos factors of every layer must fit
+    in a CTA's shared memory."""
+    from reni_tpu_torch.kernels.siren_step import pass_route
+
+    if pass_route(trunk, hidden_features, n_mm):
+        return None
     smem = bwd_smem_bytes(film, trunk, hidden_features, n_mm)
     if smem > SMEM_LIMIT:
         return (
@@ -355,10 +371,8 @@ class WeightGradWork:
         return dbs, dwf, o[-C_PAD:].view(1, C_PAD)
 
 
-def _prepare(kind, film, trunk, d_pad, batch, hidden, n_mm, g, weights, weight_grads):
-    """Validate the operands and allocate the outputs: (d, d batch stride,
-    float32 cotangent, tiles per CTA, CTAs per image, partial-sum buffer,
-    per-image output (B, n_img), weight-gradient work space or None)."""
+def _validate(kind, trunk, d_pad, batch, hidden, n_mm, film, g, weights):
+    """Validate a backward's operands: (d, d batch stride)."""
     d, d_bstride = _cuda_operands(kind, trunk, d_pad, batch, (*weights, g))
     npix = d.shape[1]
     if tuple(g.shape) != (batch, npix, C_PAD):
@@ -366,7 +380,16 @@ def _prepare(kind, film, trunk, d_pad, batch, hidden, n_mm, g, weights, weight_g
     reason = bwd_unsupported_reason(hidden, n_mm, film, trunk)
     if reason:
         raise ValueError(f"the {kind} CUDA kernel cannot take these operands: {reason}")
-    dev = d.device
+    return d, d_bstride
+
+
+def _prepare(kind, film, trunk, d_pad, batch, hidden, n_mm, g, weights, weight_grads):
+    """Validate the operands and allocate the chain kernel's outputs: (d, d
+    batch stride, float32 cotangent, tiles per CTA, CTAs per image,
+    partial-sum buffer, per-image output (B, n_img), weight-gradient work
+    space or None)."""
+    d, d_bstride = _validate(kind, trunk, d_pad, batch, hidden, n_mm, film, g, weights)
+    npix, dev = d.shape[1], d.device
     tiles, chunks = launch_grid(npix, batch, trunk, dev)
     n_img = image_values(film, hidden, n_mm)
     part = torch.empty((batch, chunks, n_img), dtype=torch.float32, device=dev)
@@ -388,12 +411,50 @@ def _work_args(work: WeightGradWork | None) -> tuple[tuple, tuple]:
     return work.pointers(), (work.rows_per_chunk, work.n_wchunks)
 
 
+def bwd_from_handoff(handoff, g) -> tuple:
+    """The backward on the card from the scratch of a forward through the
+    passes (``siren_step.passes_forward``, ``siren_step.Handoff``): the
+    cotangent last pass and the bwd passes, without the forward again;
+    counted as a call of ``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda``.
+    Returns what ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference``
+    return."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    out = ts.passes_bwd_handoff(handoff, g)
+    (film_trunk_bwd_cuda if handoff.plan.film else siren_trunk_bwd_cuda).launches += 1
+    return out
+
+
 def siren_trunk_bwd_cuda(
     d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
     fast_sine=False, weight_grads=True,
 ):
-    """Cond-by-Concat backward on the card (``csrc/siren_bwd.cu``); returns
-    what ``siren_trunk_bwd_reference`` returns."""
+    """Cond-by-Concat backward on the card: the passes or the chain kernel of
+    ``csrc/siren_bwd.cu``, by ``siren_step.pass_route``; returns what
+    ``siren_trunk_bwd_reference`` returns."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    if ts.pass_route(trunk, a.shape[-1], ws.shape[0]):
+        kw = dict(omega0=omega0, omega_h=omega_h, trunk=trunk, fast_sine=fast_sine)
+        out = ts._passes_bwd(False, (d_pad, a, b0, ws, bs, wf, bf), g, kw, weight_grads)
+    else:
+        out = siren_bwd_chain_cuda(d_pad, a, b0, ws, bs, wf, bf, g, omega0=omega0,
+                                   omega_h=omega_h, trunk=trunk, fast_sine=fast_sine,
+                                   weight_grads=weight_grads)
+    siren_trunk_bwd_cuda.launches += 1
+    return out
+
+
+siren_trunk_bwd_cuda.launches = 0
+
+
+def siren_bwd_chain_cuda(
+    d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
+    fast_sine=False, weight_grads=True,
+):
+    """The Cond-by-Concat chain kernel of ``csrc/siren_bwd.cu`` (any trunk its
+    shared memory takes; the anatomy probes' shipped backward); not
+    counted."""
     batch, hidden, n_mm = a.shape[0], a.shape[-1], ws.shape[0]
     d, d_bstride, g, tiles, chunks, part, out, work = _prepare(
         "siren_bwd", False, trunk, d_pad, batch, hidden, n_mm, g,
@@ -413,7 +474,6 @@ def siren_trunk_bwd_cuda(
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
     _check(err, lib.reni_bwd_error_string, "siren_bwd")
-    siren_trunk_bwd_cuda.launches += 1
     da = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
     db0 = out[:, K_PAD * hidden :].view(batch, 1, hidden)
     if work is None:
@@ -421,15 +481,33 @@ def siren_trunk_bwd_cuda(
     return (da, db0, work.dws, *work.small_sums(n_mm, hidden))
 
 
-siren_trunk_bwd_cuda.launches = 0
-
-
 def film_trunk_bwd_cuda(
     d_pad, a0, ws, bs, wf, bf, fr, ph, g, *, trunk="bfloat16", fast_sine=False,
     weight_grads=True,
 ):
-    """FiLM backward on the card (``csrc/siren_bwd.cu``); returns what
+    """FiLM backward on the card: the passes or the chain kernel of
+    ``csrc/siren_bwd.cu``, by ``siren_step.pass_route``; returns what
     ``film_trunk_bwd_reference`` returns."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    if ts.pass_route(trunk, a0.shape[-1], bs.shape[0] - 1):
+        kw = dict(trunk=trunk, fast_sine=fast_sine)
+        out = ts._passes_bwd(True, (d_pad, a0, ws, bs, wf, bf, fr, ph), g, kw, weight_grads)
+    else:
+        out = film_bwd_chain_cuda(d_pad, a0, ws, bs, wf, bf, fr, ph, g, trunk=trunk,
+                                  fast_sine=fast_sine, weight_grads=weight_grads)
+    film_trunk_bwd_cuda.launches += 1
+    return out
+
+
+film_trunk_bwd_cuda.launches = 0
+
+
+def film_bwd_chain_cuda(
+    d_pad, a0, ws, bs, wf, bf, fr, ph, g, *, trunk="bfloat16", fast_sine=False,
+    weight_grads=True,
+):
+    """The FiLM chain kernel of ``csrc/siren_bwd.cu``; not counted."""
     batch, hidden, n_trunk = a0.shape[0], a0.shape[-1], bs.shape[0]
     d, d_bstride, g, tiles, chunks, part, out, work = _prepare(
         "film_bwd", True, trunk, d_pad, batch, hidden, n_trunk - 1, g,
@@ -449,7 +527,6 @@ def film_trunk_bwd_cuda(
             int(bool(fast_sine)), int(bool(weight_grads)), stream,
         )
     _check(err, lib.reni_bwd_error_string, "film_bwd")
-    film_trunk_bwd_cuda.launches += 1
     th = n_trunk * hidden
     da0 = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
     dfr = out[:, K_PAD * hidden : K_PAD * hidden + th].view(batch, 1, th)
@@ -458,6 +535,3 @@ def film_trunk_bwd_cuda(
         return da0, None, None, None, None, dfr, dph
     dbs, dwf, dbf = work.small_sums(n_trunk, hidden)
     return da0, work.dws, dbs, dwf, dbf, dfr, dph
-
-
-film_trunk_bwd_cuda.launches = 0

@@ -46,10 +46,25 @@ from reni_tpu_torch.models import siren as siren_lib
 C_PAD = 8  # output channels padded
 K_PAD = 8  # direction-feature width padded (actual <= 4)
 TRUNKS = ("bfloat16", "float32")
-# launch geometry of csrc/siren_fwd.cu
-TM, ROW_PAD, WARPS = 64, 8, 8
+# launch geometry of csrc/siren_fwd.cu: row tiles, largest first
+TILE_ROWS, ROW_PAD, WARPS = (64, 32, 16), 8, 8
 SMEM_LIMIT = 227 * 1024  # H100 dynamic shared memory per block
 MAX_GRID_Y = 65535  # the image index is the grid's y
+
+
+def fwd_smem_bytes(tm: int, hidden: int, trunk: str) -> int:
+    """Shared memory of a forward CTA with ``tm``-row tiles: two activation
+    buffers and the per-warp staging tiles (``smem_bytes`` of
+    ``csrc/siren_fwd.cuh``)."""
+    act = 2 if trunk == "bfloat16" else 4
+    return 2 * tm * (hidden + ROW_PAD) * act + WARPS * 256 * 4
+
+
+def tile_rows(hidden: int, trunk: str) -> int | None:
+    """The row tile the forward launch takes: the largest of TILE_ROWS whose
+    CTA fits in shared memory (None: none fits)."""
+    return next((tm for tm in TILE_ROWS if fwd_smem_bytes(tm, hidden, trunk) <= SMEM_LIMIT),
+                None)
 
 
 def unsupported_reason(
@@ -58,18 +73,20 @@ def unsupported_reason(
 ) -> str | None:
     """Why the CUDA kernels cannot take this shape (None = they can): the
     wmma tiles need a hidden width that is a multiple of 16, a CTA's two
-    activation buffers must fit in shared memory, and the batch is the
-    grid's y. Any pixel count works: a ragged tail tile is masked."""
+    activation buffers must fit in shared memory at one of the row tiles
+    (64, 32 or 16 rows), and the batch is the grid's y. Any pixel count
+    works: a ragged tail tile is masked."""
     if npix < 1:
         return f"no pixels to decode (npix={npix})"
     if hidden_features < 16 or hidden_features % 16:
         return f"hidden_features={hidden_features} is not a multiple of 16"
-    act = 2 if trunk == "bfloat16" else 4
-    smem = 2 * TM * (hidden_features + ROW_PAD) * act + WARPS * 256 * 4
-    if smem > SMEM_LIMIT:
+    if tile_rows(hidden_features, trunk) is None:
+        tm = TILE_ROWS[-1]
+        smem = fwd_smem_bytes(tm, hidden_features, trunk)
         return (
             f"hidden_features={hidden_features} needs {smem} B of shared "
-            f"memory per CTA with the {trunk} trunk (limit {SMEM_LIMIT})"
+            f"memory per CTA with the {trunk} trunk at the smallest row tile "
+            f"({tm} rows; limit {SMEM_LIMIT})"
         )
     if batch is not None and batch > MAX_GRID_Y:
         return f"batch {batch} exceeds the kernel grid limit {MAX_GRID_Y}"
@@ -332,28 +349,58 @@ def film_trunk_cuda(
 # ---------------------------------------------------------------------------
 
 
+def _handoff_forward(film, ops, kw, weight_grads):
+    """A differentiable forward on the card through the layer-major passes
+    (``siren_step.passes_forward``) where the backward takes them
+    (``siren_step.pass_route``) and their scratch fits the device-memory
+    budget: (output, handoff), or None. Counted in
+    ``siren_step.passes_forward.launches``, not in the forward kernel's
+    count."""
+    from reni_tpu_torch.kernels import siren_step
+
+    a, ws = ops[1], ops[2 if film else 3]
+    if not siren_step.pass_route(kw["trunk"], a.shape[-1], ws.shape[0]):
+        return None
+    return siren_step.passes_forward(film, ops, kw, weight_grads)
+
+
 class SirenTrunk(torch.autograd.Function):
     """The Cond-by-Concat trunk with its backward (the ``custom_vjp`` of
-    ``make_fused_siren``): the forward saves its inputs, not activations; the
-    backward recomputes them. ``kernel=True`` runs the CUDA kernels of
-    ``csrc/siren_fwd.cu`` / ``csrc/siren_bwd.cu``, ``kernel=False`` their
-    plain versions. The weight gradients are computed only when a weight
-    needs one; ``d_pad`` gets none."""
+    ``make_fused_siren``). ``kernel=False`` runs the plain versions: the
+    forward saves its inputs, not activations, and the backward recomputes
+    them. ``kernel=True`` runs the CUDA kernels: on the passes' route
+    (``siren_step.pass_route``) the forward runs as the passes and hands
+    their scratch (h and the kept values of every row) to the backward,
+    which does not compute the forward again; elsewhere, or when that
+    scratch does not fit the card's memory budget, the forward kernel of
+    ``csrc/siren_fwd.cu`` and a backward that recomputes
+    (``siren_bwd.siren_trunk_bwd_cuda``). The weight gradients are computed
+    only when a weight needs one; ``d_pad`` gets none."""
 
     @staticmethod
     def forward(ctx, d_pad, a, b0, ws, bs, wf, bf, kernel, kw):
         ctx.save_for_backward(d_pad, a, b0, ws, bs, wf, bf)
-        ctx.kernel, ctx.kw = kernel, kw
-        return SirenTrunk.trunks[kernel](d_pad, a, b0, ws, bs, wf, bf, **kw)
+        ctx.kernel, ctx.kw, ctx.handoff = kernel, kw, None
+        ops = (d_pad, a, b0, ws, bs, wf, bf)
+        handed = kernel and _handoff_forward(False, ops, kw, any(ctx.needs_input_grad[3:7]))
+        if handed:
+            out, ctx.handoff = handed
+            return out
+        return SirenTrunk.trunks[kernel](*ops, **kw)
 
     @staticmethod
     def backward(ctx, g):
         from reni_tpu_torch.kernels import siren_bwd
 
-        bwd = siren_bwd.siren_trunk_bwd_cuda if ctx.kernel else siren_bwd.siren_trunk_bwd_reference
-        grads = bwd(
-            *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[3:7]), **ctx.kw
-        )
+        if ctx.handoff is not None:
+            grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
+            ctx.handoff = None
+        else:
+            bwd = (siren_bwd.siren_trunk_bwd_cuda if ctx.kernel
+                   else siren_bwd.siren_trunk_bwd_reference)
+            grads = bwd(
+                *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[3:7]), **ctx.kw
+            )
         return (None, *grads, None, None)
 
 
@@ -364,17 +411,28 @@ class FilmTrunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, d_pad, a0, ws, bs, wf, bf, fr, ph, kernel, kw):
         ctx.save_for_backward(d_pad, a0, ws, bs, wf, bf, fr, ph)
-        ctx.kernel, ctx.kw = kernel, kw
-        return FilmTrunk.trunks[kernel](d_pad, a0, ws, bs, wf, bf, fr, ph, **kw)
+        ctx.kernel, ctx.kw, ctx.handoff = kernel, kw, None
+        ops = (d_pad, a0, ws, bs, wf, bf, fr, ph)
+        handed = kernel and _handoff_forward(True, ops, kw, any(ctx.needs_input_grad[2:6]))
+        if handed:
+            out, ctx.handoff = handed
+            return out
+        return FilmTrunk.trunks[kernel](*ops, **kw)
 
     @staticmethod
     def backward(ctx, g):
         from reni_tpu_torch.kernels import siren_bwd
 
-        bwd = siren_bwd.film_trunk_bwd_cuda if ctx.kernel else siren_bwd.film_trunk_bwd_reference
-        da0, dws, dbs, dwf, dbf, dfr, dph = bwd(
-            *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[2:6]), **ctx.kw
-        )
+        if ctx.handoff is not None:
+            grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
+            ctx.handoff = None
+        else:
+            bwd = (siren_bwd.film_trunk_bwd_cuda if ctx.kernel
+                   else siren_bwd.film_trunk_bwd_reference)
+            grads = bwd(
+                *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[2:6]), **ctx.kw
+            )
+        da0, dws, dbs, dwf, dbf, dfr, dph = grads
         return None, da0, dws, dbs, dwf, dbf, dfr, dph, None, None
 
 

@@ -24,13 +24,26 @@ Padded lanes and masked rows carry zero weight.
 build or launch raises) and count their calls in ``.launches``; two calls on
 the same inputs give the same bits. By ``pass_route`` a step runs either as
 layer-major ``wgmma`` passes over 128-row tiles (``csrc/step_passes.cuh``; the
-bf16 trunk at widths that are a multiple of 64) or as the chain kernel
-(``csrc/siren_step.cuh``; the float32 trunk, other bf16 widths, a FiLM trunk
-of one layer). ``siren_step_reference`` / ``film_step_reference`` are their
-plain PyTorch versions, step by step like the TPU kernels with their bf16
-rounding; ``step_pass_reference`` is the plain version of one pass, in the
-passes' own scratch and slot layout (``StepPlan``, ``PassWork``), which
-``step_pass_cuda`` runs on the card.
+bf16 trunk at widths that are a multiple of 64, up to 256) or as the chain
+kernel (``csrc/siren_step.cuh``; the float32 trunk, other bf16 widths, a FiLM
+trunk of one layer). The same passes, with a last pass that reads an output
+cotangent in place of the loss, are the backward of ``kernels/siren_bwd.py``
+on that route (``StepPlan(bwd=True)``, ``_passes_bwd``); a differentiable
+forward on that route runs the fwd passes and a last pass that writes the
+output, and hands their scratch to the backward (``passes_forward``,
+``passes_bwd_handoff``).
+``siren_step_reference`` / ``film_step_reference`` are their plain PyTorch
+versions, step by step like the TPU kernels with their bf16 rounding;
+``step_pass_reference`` is the plain version of one pass, in the passes' own
+scratch and slot layout (``StepPlan``, ``PassWork``), which ``step_pass_cuda``
+runs on the card.
+
+The passes keep h, dz and the kept values of every row in device memory
+(about 9 KB a row at 5 x 256). A call whose scratch the caching allocator
+refuses takes a budget (the card's free memory less ``MEM_MARGIN``) and runs
+its images in groups, one after another, each into its own rows of the
+per-CTA slots (``StepPlan.groups``): the per-image results and the loss keep
+the bits of one call, and dWs sums the groups' products in group order.
 ``StepMSE`` makes the loss differentiable: the value is a scalar, so the
 forward pass computes every gradient and the backward pass scales them by
 the incoming cotangent (``_wrap_step_vjp`` / ``_wrap_film_step_vjp``).
@@ -44,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -56,6 +70,7 @@ from reni_tpu_torch.kernels.siren_bwd import (
     _pixel_dot,
     _rounded,
     tile_rows,
+    wgrad_chunks,
 )
 from reni_tpu_torch.kernels.siren_fwd import (
     C_PAD,
@@ -85,17 +100,25 @@ def weight_values(hidden: int, n_mm: int, film: bool = False) -> int:
 
 PASS_ROWS = 128  # rows of one tile of the layer-major passes (csrc/step_passes.cuh TILE)
 PASS_WIDTH = 64  # the passes take widths that are a multiple of this (one wgmma column block)
+# device memory a grouped call leaves free beside its pass scratch: the
+# operands' casts, the split-K partials of dWs (52 MB at 5 x 256 on 132 SMs)
+# and the allocator's rounding
+MEM_MARGIN = 1 << 30
+FINISH_IMG, FINISH_W, FINISH_DWS = 1, 2, 4  # csrc/step_passes.cuh FINISH_*
 
 
 def pass_route(trunk: str, hidden: int, n_mm: int) -> bool:
-    """The routing rule between the two step kernels. The layer-major wgmma
-    passes (``csrc/step_passes.cuh``) take the bf16 trunk at a width that is
-    a multiple of 64 with at least one H x H product; the chain kernel
-    (``csrc/siren_step.cuh``) takes the float32 trunk, bf16 widths that are a
-    multiple of 16 but not of 64, and a FiLM trunk of one layer (no H x H
+    """The routing rule between the layer-major wgmma passes
+    (``csrc/step_passes.cuh``) and the chain kernels, for the train steps and
+    the backward alike. The passes take the bf16 trunk at a width that is a
+    multiple of 64 with at least one H x H product, where one layer's
+    weights and a 128-row tile fit in a CTA's shared memory (H <= 256); the
+    chain kernels (``csrc/siren_step.cuh``, ``csrc/siren_bwd.cuh``) take the
+    float32 trunk, other bf16 widths and a FiLM trunk of one layer (no H x H
     product). The rule is by dtype and shape only: a failed build or launch
     raises on either route."""
-    return trunk == "bfloat16" and hidden % PASS_WIDTH == 0 and n_mm >= 1
+    return (trunk == "bfloat16" and hidden % PASS_WIDTH == 0 and n_mm >= 1
+            and pass_smem_bytes(hidden) <= SMEM_LIMIT)
 
 
 def pass_smem_bytes(hidden: int) -> int:
@@ -238,11 +261,16 @@ def film_step_reference(
 
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
-    """The pass plan of one step (``csrc/step_passes.cuh``): a grid of
+    """The pass plan of one call (``csrc/step_passes.cuh``): a grid of
     (``chunks`` per image, ``batch``) CTAs, each walking ``tiles_per_cta``
     consecutive 128-row tiles of one image, and ``2 n_mm`` passes:
     ``("fwd", j)`` for products 0..n_mm-2, ``("last", n_mm - 1)``, then
-    ``("bwd", j)`` from n_mm - 1 down to 0."""
+    ``("bwd", j)`` from n_mm - 1 down to 0. A train step (``bwd=False``)
+    forms the output cotangent from the loss in its last pass; a backward
+    (``bwd=True``) reads it, and without ``weight_grads`` forms the
+    per-image gradients alone. A differentiable forward runs a backward
+    plan's passes up to its last one in the output mode and hands the
+    scratch to the backward (``passes_forward``)."""
 
     film: bool
     batch: int
@@ -251,6 +279,8 @@ class StepPlan:
     n_mm: int
     tiles_per_cta: int
     chunks: int
+    bwd: bool = False
+    weight_grads: bool = True
 
     @property
     def rows(self) -> int:
@@ -283,20 +313,52 @@ class StepPlan:
                 "sc_dz": (self.n_mm, R, H), "part_img": (self.batch, self.chunks, self.n_img),
                 "part_w": (self.batch * self.chunks, self.n_w)}
 
+    @property
+    def row_bytes(self) -> int:
+        """Scratch bytes per row: sc_h and sc_dz (bf16), sc_keep (float32)."""
+        return self.hidden * (2 * 2 * self.n_mm + 4 * self.n_keep)
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device memory of one call's scratch and slots (``scratch_shapes``
+        and the slots' sums); the split-K partials of dWs sit in
+        ``MEM_MARGIN``."""
+        slots = self.batch * self.chunks * (self.n_img + self.n_w)
+        return self.rows * self.row_bytes + 4 * (slots + self.batch * self.n_img + self.n_w)
+
+    def groups(self, budget: int) -> tuple:
+        """The image ranges [g0, g1) a call runs one after another under a
+        device-memory budget of ``budget`` bytes: all images at once when
+        ``scratch_bytes`` fits, else as few groups as fit, of one size but
+        the last, at least one image each. Every group keeps this plan's
+        grid (``tiles_per_cta``, ``chunks``), so each per-CTA slot holds what
+        it holds in one call."""
+        if self.scratch_bytes <= budget:
+            return ((0, self.batch),)
+        fixed = self.scratch_bytes - self.rows * self.row_bytes
+        fit = max(1, (budget - fixed) // (self.npix * self.row_bytes))
+        size = math.ceil(self.batch / math.ceil(self.batch / fit))
+        return tuple((g0, min(g0 + size, self.batch)) for g0 in range(0, self.batch, size))
+
     def pass_cost(self, k: int) -> tuple[float, int]:
         """(FLOP, bytes) of pass k: bytes of each operand read once and each
-        result written once (directions, targets and pixel weights as the
-        kernel reads them, 8 float32 lanes), weights once."""
+        result written once (directions, targets, pixel weights and the
+        output cotangent as the kernel reads them, 8 float32 lanes), weights
+        once. Without weight gradients h_0 is not stored and dWf not formed."""
         kind, j = self.passes[k]
         R, H = self.rows, self.hidden
         flops = 2.0 * R * H * H
         nbytes = 2 * H * H
         if kind != "bwd":
             first = j == 0
-            nbytes += R * ((K_PAD * 4 + 2 * H) if first else 2 * H)  # input (and h_0 out)
+            h0 = 2 * H if self.weight_grads else 0
+            nbytes += R * ((K_PAD * 4 + h0) if first else 2 * H)  # input (and h_0 out)
             flops += 2.0 * R * K_PAD * H if first else 0.0
         if kind == "fwd":
             nbytes += R * (2 * H + 4 * H)  # h and the kept value out
+        elif kind == "last" and self.bwd:
+            nbytes += R * (C_PAD * 4 + 2 * H) + H * C_PAD * 2  # g in; dz out; Wf
+            flops += (2 if self.weight_grads else 1) * 2.0 * R * H * C_PAD  # g Wf^T (, dWf)
         elif kind == "last":
             nbytes += R * (2 * C_PAD * 4 + 2 * H) + H * C_PAD * 2  # tgt, sw in; dz out; Wf
             flops += 3 * 2.0 * R * H * C_PAD  # final layer, dWf, g Wf^T
@@ -310,7 +372,10 @@ class StepPlan:
         return flops, nbytes
 
     def wgrad_cost(self) -> tuple[float, int]:
-        """(FLOP, bytes) of dWs = h^T dz over the scratch."""
+        """(FLOP, bytes) of dWs = h^T dz over the scratch (none without
+        weight gradients)."""
+        if not self.weight_grads:
+            return 0.0, 0
         R, H = self.rows, self.hidden
         return 2.0 * self.n_mm * R * H * H, self.n_mm * (R * 4 * H + H * H * 4)
 
@@ -321,30 +386,65 @@ def pass_grid(npix: int, batch: int, sms: int) -> tuple[int, int]:
     return siren_bwd.tile_grid(npix, batch, PASS_ROWS, sms)
 
 
-def step_plan(film: bool, batch: int, npix: int, hidden: int, n_mm: int, sms: int) -> StepPlan:
+def step_plan(film: bool, batch: int, npix: int, hidden: int, n_mm: int, sms: int,
+              bwd: bool = False, weight_grads: bool = True) -> StepPlan:
     tiles, chunks = pass_grid(npix, batch, sms)
-    return StepPlan(film, batch, npix, hidden, n_mm, tiles, chunks)
+    return StepPlan(film, batch, npix, hidden, n_mm, tiles, chunks, bwd, weight_grads)
 
 
 @dataclasses.dataclass
 class PassWork(WeightGradWork):
     """``WeightGradWork`` plus what the passes add: the kept values' scratch
     ``sc_keep`` (n_mm - 1, rows, H) float32, the per-image slots
-    ``part_img`` (B, chunks, n_img) and their sum ``out_img``."""
+    ``part_img`` (B, chunks, n_img) and their sum ``out_img``. Without weight
+    gradients ``part_dws`` and ``dws`` are empty."""
 
     sc_keep: torch.Tensor
     part_img: torch.Tensor
     out_img: torch.Tensor
 
     @classmethod
-    def for_plan(cls, plan: StepPlan, trunk: str, device, sms: int | None = None):
-        base = WeightGradWork.allocate(trunk, plan.n_mm, plan.rows, plan.hidden,
-                                       plan.batch * plan.chunks, plan.n_w, device, sms)
-        shapes, f32 = plan.scratch_shapes(), dict(dtype=torch.float32, device=device)
-        return cls(**{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
-                   sc_keep=torch.empty(shapes["sc_keep"], **f32),
-                   part_img=torch.empty(shapes["part_img"], **f32),
+    def for_plan(cls, plan: StepPlan, trunk: str, device, sms: int | None = None,
+                 images: int | None = None):
+        """The work space of ``plan``: the slots for the whole batch, the
+        scratch (and dWs partials) for ``images`` images, all of them by
+        default (a group's size in a grouped call)."""
+        rows = (plan.batch if images is None else images) * plan.npix
+        n_mm, H = plan.n_mm, plan.hidden
+        f32 = dict(dtype=torch.float32, device=device)
+        act = dict(dtype=torch.bfloat16 if trunk == "bfloat16" else torch.float32, device=device)
+        per, chunks = (wgrad_chunks(rows, H, n_mm, trunk, device, sms) if plan.weight_grads
+                       else (0, 0))
+        return cls(part_w=torch.empty((plan.batch * plan.chunks, plan.n_w), **f32),
+                   out_w=torch.empty((plan.n_w,), **f32),
+                   sc_h=torch.empty((n_mm, rows, H), **act),
+                   sc_dz=torch.empty((n_mm, rows, H), **act),
+                   part_dws=torch.empty((chunks, n_mm, H, H), **f32),
+                   dws=torch.empty((n_mm if plan.weight_grads else 0, H, H), **f32),
+                   rows_per_chunk=per, n_wchunks=chunks,
+                   sc_keep=torch.empty((plan.n_keep, rows, H), **f32),
+                   part_img=torch.empty((plan.batch, plan.chunks, plan.n_img), **f32),
                    out_img=torch.empty((plan.batch, plan.n_img), **f32))
+
+    def group(self, plan: StepPlan, g0: int, g1: int, dws: torch.Tensor, trunk: str,
+              sms: int | None = None) -> "PassWork":
+        """The work space of images [g0, g1) of a grouped call: their rows
+        of the slots, the scratch laid out for g1 - g0 images (as the kernels
+        index it, from the front of this one's) and their own dWs ``dws``."""
+        rows = (g1 - g0) * plan.npix
+
+        def front(t):
+            n, _, H = t.shape
+            return t.view(-1)[: n * rows * H].view(n, rows, H)
+
+        per, chunks = ((0, 0) if not plan.weight_grads else
+                       wgrad_chunks(rows, plan.hidden, plan.n_mm, trunk, dws.device, sms))
+        assert chunks <= self.part_dws.shape[0]
+        c = plan.chunks
+        return dataclasses.replace(
+            self, part_w=self.part_w[g0 * c : g1 * c], part_img=self.part_img[g0:g1],
+            out_img=self.out_img[g0:g1], sc_h=front(self.sc_h), sc_dz=front(self.sc_dz),
+            sc_keep=front(self.sc_keep), dws=dws, rows_per_chunk=per, n_wchunks=chunks)
 
     def clone(self) -> "PassWork":
         return dataclasses.replace(self, **{
@@ -361,19 +461,20 @@ def pass_outputs(plan: StepPlan, k: int, work: PassWork) -> dict:
     if kind == "fwd":
         out["sc_h"] = work.sc_h[j + 1]
         out["sc_keep"] = work.sc_keep[j]
-    if kind != "bwd" and j == 0:
+    if kind != "bwd" and j == 0 and plan.weight_grads:
         out["sc_h0"] = work.sc_h[0]
     layer = j + 1 if plan.film else j  # the bias row of the dz this pass forms
     if kind == "last":
         out["sc_dz"] = work.sc_dz[j]
-        out["mse"] = w[:, :C_PAD]
-        out["dbs"] = w[:, C_PAD + layer * H : C_PAD + (layer + 1) * H]
-        out["dwf_dbf"] = w[:, -(H * C_PAD + C_PAD):]
+        if plan.weight_grads:
+            out["mse"] = w[:, :C_PAD]
+            out["dbs"] = w[:, C_PAD + layer * H : C_PAD + (layer + 1) * H]
+            out["dwf_dbf"] = w[:, -(H * C_PAD + C_PAD):]
     if kind == "bwd":
         layer = j if plan.film else j - 1
         if j > 0:
             out["sc_dz"] = work.sc_dz[j - 1]
-        if layer >= 0:
+        if layer >= 0 and plan.weight_grads:
             out["dbs"] = w[:, C_PAD + layer * H : C_PAD + (layer + 1) * H]
         if j == 0:
             out["dA"] = img[..., : K_PAD * H]
@@ -385,11 +486,12 @@ def pass_outputs(plan: StepPlan, k: int, work: PassWork) -> dict:
     return out
 
 
-def _step_operands(film, ops):
-    """The step's operands by name."""
-    names = (("d", "a", "ws", "bs", "wf", "bf", "fr", "ph", "tgt", "sw", "bm") if film
-             else ("d", "a", "b0", "ws", "bs", "wf", "bf", "tgt", "sw", "bm"))
-    return dict(zip(names, ops))
+def _step_operands(film, ops, bwd=False):
+    """The operands of a step (the trunk's, then tgt, sw, bm) or of a
+    backward (the trunk's, then the output cotangent g) by name."""
+    trunk = (("d", "a", "ws", "bs", "wf", "bf", "fr", "ph") if film
+             else ("d", "a", "b0", "ws", "bs", "wf", "bf"))
+    return dict(zip(trunk + (("g",) if bwd else ("tgt", "sw", "bm")), ops))
 
 
 def _cta_rows(x: torch.Tensor, plan: StepPlan) -> torch.Tensor:
@@ -436,28 +538,35 @@ def _scratch(t: torch.Tensor, plan: StepPlan) -> torch.Tensor:
 
 
 def _film_sums(plan, work, layer, dmod, pre, f):
-    """FiLM's per-CTA modulation sums of ``layer``: dfreqs, dphases, dbs."""
+    """FiLM's per-CTA modulation sums of ``layer``: dfreqs, dphases and
+    (with weight gradients) dbs."""
     H, T = plan.hidden, plan.n_mm + 1
     img, w = work.part_img, work.part_w.view(plan.batch, plan.chunks, -1)
     img[..., (K_PAD + layer) * H : (K_PAD + layer + 1) * H] = _cta_sums(dmod * pre, plan)
     img[..., (K_PAD + T + layer) * H : (K_PAD + T + layer + 1) * H] = _cta_sums(dmod, plan)
-    w[..., C_PAD + layer * H : C_PAD + (layer + 1) * H] = _cta_sums(dmod * f, plan)
+    if plan.weight_grads:
+        w[..., C_PAD + layer * H : C_PAD + (layer + 1) * H] = _cta_sums(dmod * f, plan)
 
 
 def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None:
     """Plain version of pass k of ``csrc/step_passes.cuh``: reads and writes
     ``work`` in the kernel's layout, with its rounding points (both operands
     of every product rounded to bf16 by ``_matmul``, h and dz stored in the
-    trunk's dtype, kept values and every sum in float32). ``kw`` as for
-    ``siren_step_reference`` / ``film_step_reference``."""
+    trunk's dtype, kept values and every sum in float32). ``ops`` and ``kw``
+    as for ``siren_step_reference`` / ``film_step_reference``, or for a
+    backward plan as for ``siren_trunk_bwd_reference`` /
+    ``film_trunk_bwd_reference`` (the trunk's operands and g): its last pass
+    takes g in place of the loss, and without weight gradients no pass
+    writes h_0 or a weight slot."""
     kind, j = plan.passes[k]
-    o, trunk, H = _step_operands(plan.film, ops), kw["trunk"], plan.hidden
+    o, trunk, H = _step_operands(plan.film, ops, plan.bwd), kw["trunk"], plan.hidden
     sc_h, sc_keep, sc_dz = (_scratch(t, plan) for t in (work.sc_h, work.sc_keep, work.sc_dz))
     w_slots = work.part_w.view(plan.batch, plan.chunks, -1)
     if kind in ("fwd", "last"):
         if j == 0:
             h_in = _layer0(plan, o, kw)[0]
-            sc_h[0] = h_in
+            if plan.weight_grads:
+                sc_h[0] = h_in
         else:
             h_in = sc_h[j].float()
         h, kept, cos = _layer(plan, o, kw, _matmul(h_in, o["ws"][j], trunk), j + 1)
@@ -465,15 +574,20 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
             sc_h[j + 1] = h
             sc_keep[j] = kept
             return
-        h = h.to(sc_h.dtype).float()  # the final layer takes the stored activation
-        out = _matmul(h, o["wf"], trunk) + o["bf"]
-        mse_rows, g = _loss_cotangent(out, o["tgt"], o["sw"], o["bm"], kw["out_act"],
-                                      kw["gscale"], rows=True)
-        dwf = torch.einsum("bcsm,bcsn->bcmn", *(_rounded(_cta_rows(x, plan), trunk)
-                                                for x in (h, g)))
-        w_slots[..., :C_PAD] = _cta_sums(mse_rows, plan)
-        w_slots[..., -(H * C_PAD + C_PAD) : -C_PAD] = dwf.flatten(2)
-        w_slots[..., -C_PAD:] = _cta_sums(g, plan)
+        if plan.bwd:
+            g = o["g"]
+        else:
+            h = h.to(sc_h.dtype).float()  # the final layer takes the stored activation
+            out = _matmul(h, o["wf"], trunk) + o["bf"]
+            mse_rows, g = _loss_cotangent(out, o["tgt"], o["sw"], o["bm"], kw["out_act"],
+                                          kw["gscale"], rows=True)
+        if plan.weight_grads:
+            h = h.to(sc_h.dtype).float()  # dWf takes the stored activation
+            dwf = torch.einsum("bcsm,bcsn->bcmn", *(_rounded(_cta_rows(x, plan), trunk)
+                                                    for x in (h, g)))
+            w_slots[..., :C_PAD] = 0.0 if plan.bwd else _cta_sums(mse_rows, plan)
+            w_slots[..., -(H * C_PAD + C_PAD) : -C_PAD] = dwf.flatten(2)
+            w_slots[..., -C_PAD:] = _cta_sums(g, plan)
         dh = _matmul(g, o["wf"].transpose(0, 1), trunk)
         if plan.film:
             dmod = dh * cos
@@ -482,7 +596,8 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
             sc_dz[j] = dmod * f
         else:
             dz = dh * (kw["omega_h"] * cos)
-            w_slots[..., C_PAD + j * H : C_PAD + (j + 1) * H] = _cta_sums(dz, plan)
+            if plan.weight_grads:
+                w_slots[..., C_PAD + j * H : C_PAD + (j + 1) * H] = _cta_sums(dz, plan)
             sc_dz[j] = dz
         return
     dh = _matmul(sc_dz[j].float(), o["ws"][j].transpose(0, 1), trunk)
@@ -500,10 +615,10 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
         dz = dmod * f
     else:
         dz = dh * ((kw["omega_h"] if j > 0 else kw["omega0"]) * cos)
-        if j > 0:
-            w_slots[..., C_PAD + (j - 1) * H : C_PAD + j * H] = _cta_sums(dz, plan)
-        else:
+        if j == 0:
             work.part_img[..., K_PAD * H :] = _cta_sums(dz, plan)
+        elif plan.weight_grads:
+            w_slots[..., C_PAD + (j - 1) * H : C_PAD + j * H] = _cta_sums(dz, plan)
     if j > 0:
         sc_dz[j - 1] = dz
         return
@@ -513,44 +628,100 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     work.part_img[..., : K_PAD * H] = da.flatten(2)
 
 
-def step_finish_reference(plan: StepPlan, work: PassWork, trunk: str) -> None:
-    """Plain version of what follows the passes: the slot sums and dWs =
-    h^T dz over the scratch."""
-    work.out_img.copy_(work.part_img.sum(1))
-    work.out_w.copy_(work.part_w.sum(0))
-    for j in range(plan.n_mm):
-        work.dws[j] = _pixel_dot(work.sc_h[j][None].float(), work.sc_dz[j][None].float(), trunk)
+def step_finish_reference(plan: StepPlan, work: PassWork, trunk: str,
+                          finish: int = FINISH_IMG | FINISH_W | FINISH_DWS) -> None:
+    """Plain version of what follows the passes (``finish`` as the kernels'
+    FINISH_* flags): the slot sums and dWs = h^T dz over the scratch."""
+    if finish & FINISH_IMG:
+        work.out_img.copy_(work.part_img.sum(1))
+    if finish & FINISH_W:
+        work.out_w.copy_(work.part_w.sum(0))
+    if finish & FINISH_DWS:
+        for j in range(plan.n_mm):
+            work.dws[j] = _pixel_dot(work.sc_h[j][None].float(), work.sc_dz[j][None].float(),
+                                     trunk)
 
 
-def _step_results(plan: StepPlan, work) -> tuple:
-    """What ``siren_step_reference`` / ``film_step_reference`` return, as
-    views of the summed slots and dWs."""
+def _finish_flags(plan: StepPlan) -> int:
+    return FINISH_IMG | (FINISH_W | FINISH_DWS if plan.weight_grads else 0)
+
+
+def _results(plan: StepPlan, work) -> tuple:
+    """What ``siren_step_reference`` / ``film_step_reference`` (a step plan)
+    or ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference`` (a
+    backward plan) return, as views of the summed slots and dWs."""
     B, H = plan.batch, plan.hidden
     out_img = work.out_img
-    mse_row = work.out_w[:C_PAD].view(1, C_PAD)
+    mse_row = () if plan.bwd else (work.out_w[:C_PAD].view(1, C_PAD),)
     da = out_img[:, : K_PAD * H].view(B, K_PAD, H)
+    n_bs = plan.n_mm + 1 if plan.film else plan.n_mm
+    weights = ((work.dws, *work.small_sums(n_bs, H, skip=C_PAD)) if plan.weight_grads
+               else (None,) * 4)
     if not plan.film:
-        db0 = out_img[:, K_PAD * H :].view(B, 1, H)
-        return (mse_row, da, db0, work.dws, *work.small_sums(plan.n_mm, H, skip=C_PAD))
+        return (*mse_row, da, out_img[:, K_PAD * H :].view(B, 1, H), *weights)
     th = (plan.n_mm + 1) * H
     dfr = out_img[:, K_PAD * H : K_PAD * H + th].view(B, 1, th)
     dph = out_img[:, K_PAD * H + th :].view(B, 1, th)
-    dbs, dwf, dbf = work.small_sums(plan.n_mm + 1, H, skip=C_PAD)
-    return mse_row, da, work.dws, dbs, dwf, dbf, dfr, dph
+    return (*mse_row, da, *weights, dfr, dph)
 
 
-def step_passes_reference(film: bool, ops, kw, sms: int = 132) -> tuple:
+def _group_operands(plan: StepPlan, ops, g0: int, g1: int) -> tuple:
+    """The operands of images [g0, g1): the per-image ones sliced (the
+    directions only where each image has its own grid)."""
+    per_image = ("a", "b0", "fr", "ph", "tgt", "bm", "g")
+    return tuple(x[g0:g1] if name in per_image or (name == "d" and x.shape[0] > 1) else x
+                 for name, x in _step_operands(plan.film, ops, plan.bwd).items())
+
+
+def passes_reference(plan: StepPlan, ops, kw, sms: int, budget: int | None = None) -> PassWork:
+    """The plain passes of ``plan`` chained, then the slot sums and dWs,
+    through the scratch and per-CTA slots of a card of ``sms`` SMs; with a
+    ``budget`` (bytes) in the groups the card runs under it
+    (``StepPlan.groups``), each group's dWs summed in group order."""
+    trunk, dev = kw["trunk"], ops[0].device
+    groups = plan.groups(budget) if budget is not None else ((0, plan.batch),)
+    work = PassWork.for_plan(plan, trunk, dev, sms, images=groups[0][1] - groups[0][0])
+    finish = _finish_flags(plan)
+    if len(groups) == 1:
+        for k in range(len(plan.passes)):
+            step_pass_reference(plan, k, ops, kw, work)
+        step_finish_reference(plan, work, trunk, finish)
+        return work
+    total = None
+    for g0, g1 in groups:
+        gplan = dataclasses.replace(plan, batch=g1 - g0)
+        gwork = work.group(plan, g0, g1, torch.empty_like(work.dws), trunk, sms)
+        gops = _group_operands(plan, ops, g0, g1)
+        for k in range(len(plan.passes)):
+            step_pass_reference(gplan, k, gops, kw, gwork)
+        step_finish_reference(gplan, gwork, trunk, finish & FINISH_DWS)
+        total = gwork.dws if total is None else total + gwork.dws
+    step_finish_reference(plan, work, trunk, finish & ~FINISH_DWS)
+    work.dws.copy_(total)
+    return work
+
+
+def step_passes_reference(film: bool, ops, kw, sms: int = 132, budget: int | None = None):
     """The plain passes chained, then the slot sums and dWs: what
     ``siren_step_reference`` / ``film_step_reference`` return, through the
-    scratch and per-CTA slots of a card of ``sms`` SMs."""
+    scratch and per-CTA slots of a card of ``sms`` SMs (in groups under a
+    ``budget``, as ``passes_reference``)."""
     o = _step_operands(film, ops)
-    B, H, n_mm = o["a"].shape[0], o["a"].shape[-1], o["ws"].shape[0]
-    plan = step_plan(film, B, o["d"].shape[1], H, n_mm, sms)
-    work = PassWork.for_plan(plan, kw["trunk"], o["d"].device, sms)
-    for k in range(len(plan.passes)):
-        step_pass_reference(plan, k, ops, kw, work)
-    step_finish_reference(plan, work, kw["trunk"])
-    return _step_results(plan, work)
+    plan = step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1],
+                     o["ws"].shape[0], sms)
+    return _results(plan, passes_reference(plan, ops, kw, sms, budget))
+
+
+def bwd_passes_reference(film: bool, ops, g, kw, weight_grads: bool, sms: int = 132,
+                         budget: int | None = None):
+    """The backward as the plain passes chained (the cotangent last pass,
+    no weight slots without ``weight_grads``): what
+    ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference`` return, on
+    the same operands and keyword arguments."""
+    o = _step_operands(film, (*ops, g), bwd=True)
+    plan = step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1],
+                     o["ws"].shape[0], sms, bwd=True, weight_grads=weight_grads)
+    return _results(plan, passes_reference(plan, (*ops, g), kw, sms, budget))
 
 
 # ---------------------------------------------------------------------------
@@ -563,9 +734,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "reni_siren_step": [_P, ctypes.c_longlong, *[_P] * 17, *[_I] * 8, _F, _F, _F, _I, _I, _I, _P],
     "reni_film_step": [_P, ctypes.c_longlong, *[_P] * 18, *[_I] * 8, _F, _I, _I, _I, _P],
-    "reni_siren_step_passes": [_P, ctypes.c_longlong, *[_P] * 19, *[_I] * 8, _F, _F, _F,
-                               *[_I] * 5, _P],
-    "reni_film_step_passes": [_P, ctypes.c_longlong, *[_P] * 20, *[_I] * 8, _F, *[_I] * 5, _P],
+    "reni_siren_step_passes": [_P, ctypes.c_longlong, *[_P] * 21, *[_I] * 8, _F, _F, _F,
+                               *[_I] * 6, _P],
+    "reni_film_step_passes": [_P, ctypes.c_longlong, *[_P] * 22, *[_I] * 8, _F, *[_I] * 6, _P],
+    "reni_pass_reduce": [_P, _P, _I, _I, ctypes.c_longlong, _P],
 }
 
 
@@ -580,18 +752,20 @@ _SYMBOLS = {
 
 def library(film: bool = False):
     """The built ``csrc/siren_step.cu`` or ``csrc/film_step.cu`` (compiled at
-    first call), with ``step`` (the chain kernel), ``passes``,
-    ``smem_bytes`` (the chain kernel's layout), ``pass_smem_bytes`` (the
-    passes') and ``error_string`` bound."""
+    first call), with ``step`` (the chain kernel), ``passes`` (a step's or a
+    backward's), ``reduce`` (a sum of slots), ``smem_bytes`` (the chain
+    kernel's layout), ``pass_smem_bytes`` (the passes') and ``error_string``
+    bound."""
     from reni_tpu_torch.kernels import _build
 
     source, step, passes, smem, error_string = _SYMBOLS[film]
     lib = _build.load(source)
     if not hasattr(lib, "step"):
         lib.step, lib.passes = getattr(lib, step), getattr(lib, passes)
+        lib.reduce = lib.reni_pass_reduce
         lib.smem_bytes, lib.pass_smem_bytes = getattr(lib, smem), lib.reni_pass_smem_bytes
         lib.error_string = getattr(lib, error_string)
-        for fn, name in ((lib.step, step), (lib.passes, passes)):
+        for fn, name in ((lib.step, step), (lib.passes, passes), (lib.reduce, "reni_pass_reduce")):
             fn.argtypes, fn.restype = _SIGNATURES[name], ctypes.c_int
         lib.smem_bytes.argtypes, lib.smem_bytes.restype = [_I, _I, _I], ctypes.c_int
         lib.pass_smem_bytes.argtypes, lib.pass_smem_bytes.restype = [_I], ctypes.c_int
@@ -631,51 +805,79 @@ def _chain_work(film, trunk, d, batch, hidden, n_mm):
 
 @dataclasses.dataclass
 class PassOperands:
-    """The operands of the pass kernels, cast and laid out once per step
-    (``pass_operands``): ``head`` the pointers before the work space in the C
-    argument order, ``depth`` n_hidden (cbc) or n_trunk (FiLM), ``scalars``
-    omega0, omega_h, gscale (cbc) or gscale (FiLM), ``flags`` the fast sine
-    and the output activation; ``tensors`` own the pointers."""
+    """The operands of the pass kernels, cast and laid out once per call
+    (``pass_operands``): ``tensors`` by their C argument name in the C order
+    (None where the call has none: tgt, sw and bm of a backward or a
+    forward, gin of a step or a forward, out of all but a forward), ``depth``
+    n_hidden (cbc) or n_trunk (FiLM), ``scalars`` omega0,
+    omega_h, gscale (cbc) or gscale (FiLM), ``flags`` the fast sine and the
+    output activation."""
 
-    head: tuple
+    tensors: dict
+    d_bstride: int
     depth: int
     scalars: tuple
     flags: tuple
     device: torch.device
-    tensors: tuple
+
+    PER_IMAGE = ("a", "b0", "fr", "ph", "tgt", "bm", "gin", "out")
+
+    def head(self, g0: int = 0) -> tuple:
+        """The pointers before the work space, in the C argument order, for
+        the images from ``g0`` on (a group of a grouped call)."""
+        ptrs = []
+        for name, t in self.tensors.items():
+            if t is not None and (name in self.PER_IMAGE or (name == "d" and self.d_bstride)):
+                t = t[g0:]
+            ptrs.append(None if t is None else t.data_ptr())
+            if name == "d":
+                ptrs.append(self.d_bstride)
+        return tuple(ptrs)
+
+
+def _validate_passes(film: bool, bwd: bool, ops, kw) -> tuple:
+    """Validate the operands of a step or (``bwd``) of a backward on the pass
+    route: (d, d batch stride). Raises before the card is asked anything."""
+    o = _step_operands(film, ops, bwd)
+    kind = f"{'film' if film else 'siren'}_{'bwd' if bwd else 'step'} passes"
+    batch, hidden, n_mm = o["a"].shape[0], o["a"].shape[-1], o["ws"].shape[0]
+    if bwd:
+        return siren_bwd._validate(kind, kw["trunk"], ops[0], batch, hidden, n_mm, film,
+                                   o["g"], ops[1:-1])
+    return _validate(kind, film, kw["trunk"], ops[0], batch, hidden, n_mm + film,
+                     kw["out_act"], ops[1:-3], *ops[-3:])
 
 
 def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
-    """Cast and lay out the step's operands for the pass kernels: the
-    float32 vectors, W in bf16 and its transpose per layer (the forward's B
-    operand, K-major; a copy, not a product). ``d`` and ``d_bstride`` are
-    the step's validated directions; without them the operands are
-    validated here."""
-    o = _step_operands(plan.film, ops)
+    """Cast and lay out the operands of a step or (a backward plan) of a
+    backward for the pass kernels: the float32 vectors, W in bf16 and its
+    transpose per layer (the forward's B operand, K-major; a copy, not a
+    product). ``d`` and ``d_bstride`` are the call's validated directions;
+    without them the operands are validated here."""
+    o = _step_operands(plan.film, ops, plan.bwd)
     if d is None:
-        kind = "film_step passes" if plan.film else "siren_step passes"
-        d, d_bstride = _validate(kind, plan.film, kw["trunk"], ops[0], plan.batch, plan.hidden,
-                                 plan.n_mm + plan.film, kw["out_act"], ops[1:-3], *ops[-3:])
+        d, d_bstride = _validate_passes(plan.film, plan.bwd, ops, kw)
     ws = _weights(o["ws"], "bfloat16")
-    wst = ws.transpose(1, 2).contiguous()
-    wf = _weights(o["wf"], "bfloat16")
-    first = ("a",) if plan.film else ("a", "b0")
-    after = (("bf", "fr", "ph") if plan.film else ("bf",)) + ("tgt", "sw", "bm")
-    f32 = {k: _f32(o[k]) for k in (*first, "bs", *after)}
-    ptrs = lambda names: [f32[n].data_ptr() for n in names]
-    head = (d.data_ptr(), d_bstride, *ptrs(first), ws.data_ptr(), wst.data_ptr(),
-            f32["bs"].data_ptr(), wf.data_ptr(), *ptrs(after))
-    scalars = ((float(kw["gscale"]),) if plan.film
-               else (float(kw["omega0"]), float(kw["omega_h"]), float(kw["gscale"])))
-    flags = (int(bool(kw["fast_sine"])), ACTIVATIONS[kw["out_act"]])
-    return PassOperands(head, plan.n_mm + plan.film, scalars, flags, d.device,
-                        (d, ws, wst, wf, *f32.values()))
+    f32 = {k: _f32(v) for k, v in o.items() if k not in ("d", "ws", "wf") and v is not None}
+    tensors = dict(d=d, a=f32["a"], b0=f32.get("b0"), ws=ws, wst=ws.transpose(1, 2).contiguous(),
+                   bs=f32["bs"], wf=_weights(o["wf"], "bfloat16"), bf=f32["bf"], fr=f32.get("fr"),
+                   ph=f32.get("ph"), tgt=f32.get("tgt"), sw=f32.get("sw"), bm=f32.get("bm"),
+                   gin=f32.get("g"), out=None)
+    if not plan.film:
+        del tensors["fr"], tensors["ph"]
+    else:
+        del tensors["b0"]
+    gscale = float(kw.get("gscale", 0.0))
+    scalars = (gscale,) if plan.film else (float(kw["omega0"]), float(kw["omega_h"]), gscale)
+    flags = (int(bool(kw["fast_sine"])), ACTIVATIONS[kw.get("out_act")])
+    return PassOperands(tensors, d_bstride, plan.n_mm + plan.film, scalars, flags, d.device)
 
 
 def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: int,
-               finish: bool) -> None:
-    """Passes [lo, hi) of ``plan`` on the card over ``work`` and, with
-    ``finish``, the slot sums and dWs (``csrc/step_passes.cuh``)."""
+               finish: int, g0: int = 0) -> None:
+    """Passes [lo, hi) of ``plan`` on the card over ``work`` for the images
+    from ``g0`` on, then what ``finish`` (FINISH_* flags) asks for
+    (``csrc/step_passes.cuh``)."""
     rest = (work.part_img.data_ptr(), work.out_img.data_ptr(), work.part_w.data_ptr(),
             work.out_w.data_ptr(), work.sc_h.data_ptr(), work.sc_keep.data_ptr(),
             work.sc_dz.data_ptr(), work.part_dws.data_ptr(), work.dws.data_ptr(), plan.batch,
@@ -684,19 +886,139 @@ def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: 
     lib = library(plan.film)
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
-        err = lib.passes(*prep.head, *rest, prep.depth, *grid, *prep.scalars, *prep.flags, lo,
-                         hi, int(finish), stream)
-    _check(err, lib.error_string, "film_step passes" if plan.film else "siren_step passes")
+        err = lib.passes(*prep.head(g0), *rest, prep.depth, *grid, *prep.scalars, *prep.flags,
+                         int(plan.weight_grads), lo, hi, finish, stream)
+    _check(err, lib.error_string,
+           f"{'film' if plan.film else 'siren'}_{'bwd' if plan.bwd else 'step'} passes")
 
 
-def _passes_step(film, d, d_bstride, ops, kw) -> tuple:
-    """The whole step through the passes: plan, work space, every pass, the
-    slot sums and dWs."""
+def device_budget(device) -> int:
+    """Bytes the pass scratch of one call may take on ``device``: the
+    card's free memory and the blocks the caching allocator holds unused,
+    less ``MEM_MARGIN``. cudaMemGetInfo waits for the card to finish its
+    queued work, so a call reads this only when the allocator has refused
+    its whole scratch (``_work_and_groups``)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return free + cached - MEM_MARGIN
+
+
+def _work_and_groups(plan: StepPlan, device, budget: int | None) -> tuple:
+    """(work space, image groups) of one call. With a ``budget`` (bytes; a
+    keyword for the tests) the groups follow ``plan.groups(budget)``.
+    Without one the caching allocator is asked for the whole scratch, and
+    only when it refuses does the budget come from ``device_budget`` (whose
+    cudaMemGetInfo would otherwise hold every call until the card is idle)."""
+    if budget is None:
+        try:
+            return PassWork.for_plan(plan, "bfloat16", device), ((0, plan.batch),)
+        except torch.cuda.OutOfMemoryError:
+            budget = device_budget(device)
+    groups = plan.groups(budget)
+    return (PassWork.for_plan(plan, "bfloat16", device, images=groups[0][1] - groups[0][0]),
+            groups)
+
+
+def _run_passes(plan: StepPlan, prep: PassOperands, budget: int | None = None) -> PassWork:
+    """Every pass of ``plan`` on the card, then the slot sums and (with
+    weight gradients) dWs; returns the work space the results are views of.
+    Under the device-memory guard (``_work_and_groups``): when the scratch
+    does not fit, the images run in groups (``StepPlan.groups``) over one
+    group-sized scratch, each its full pass sequence into its own rows of
+    the slots and its dWs into a slot of its own; the slots are then summed
+    as in one call, and the groups' dWs in group order."""
+    work, groups = _work_and_groups(plan, prep.device, budget)
+    finish, n = _finish_flags(plan), len(plan.passes)
+    if len(groups) == 1:
+        _pass_call(plan, prep, work, 0, n, finish)
+        return work
+    group_dws = torch.empty((len(groups), *work.dws.shape), dtype=torch.float32,
+                            device=prep.device)
+    for i, (g0, g1) in enumerate(groups):
+        gplan = dataclasses.replace(plan, batch=g1 - g0)
+        gwork = work.group(plan, g0, g1, group_dws[i], "bfloat16")
+        _pass_call(gplan, prep, gwork, 0, n, finish & FINISH_DWS, g0)
+    _pass_call(plan, prep, work, 0, 0, finish & ~FINISH_DWS)
+    if plan.weight_grads:
+        lib = library(plan.film)
+        with torch.cuda.device(prep.device):
+            stream = torch.cuda.current_stream(prep.device).cuda_stream
+            err = lib.reduce(group_dws.data_ptr(), work.dws.data_ptr(), 1, len(groups),
+                             work.dws.numel(), stream)
+        _check(err, lib.error_string, "the groups' dWs sum")
+    return work
+
+
+def _passes_step(film, ops, kw, budget: int | None = None) -> tuple:
+    """The whole step through the passes (operands validated here): what
+    ``siren_step_reference`` / ``film_step_reference`` return."""
+    d, d_bstride = _validate_passes(film, False, ops, kw)
     plan = step_plan_cuda(film, ops, d.device)
-    prep = pass_operands(plan, ops, kw, d, d_bstride)
-    work = PassWork.for_plan(plan, kw["trunk"], d.device)
-    _pass_call(plan, prep, work, 0, len(plan.passes), True)
-    return _step_results(plan, work)
+    return _results(plan, _run_passes(plan, pass_operands(plan, ops, kw, d, d_bstride), budget))
+
+
+def _passes_bwd(film, ops, g, kw, weight_grads: bool, budget: int | None = None) -> tuple:
+    """The backward through the passes (operands validated here): what
+    ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference`` return."""
+    d, d_bstride = _validate_passes(film, True, (*ops, g), kw)
+    plan = step_plan_cuda(film, (*ops, g), d.device, bwd=True, weight_grads=weight_grads)
+    return _results(plan, _run_passes(plan, pass_operands(plan, (*ops, g), kw, d, d_bstride),
+                                      budget))
+
+
+@dataclasses.dataclass
+class Handoff:
+    """What a forward through the passes (``passes_forward``) hands to the
+    backward: the plan, the cast operands and the scratch the fwd passes
+    filled (h_j and the kept values of every row)."""
+
+    plan: StepPlan
+    prep: PassOperands
+    work: PassWork
+
+
+def passes_forward(film, ops, kw, weight_grads: bool, budget: int | None = None):
+    """The trunk's forward (operands of ``siren_trunk_reference`` /
+    ``film_trunk_reference``) as the fwd passes and the output last pass,
+    into a scratch that the backward then reads in place of running the
+    forward again: (output (B, P, 8), ``Handoff``). None when that scratch,
+    held from the forward to the backward, does not fit at once (the
+    allocator refuses it, or it exceeds ``budget``): the caller takes the
+    forward kernel and the backward recomputes, in groups. Counted in
+    ``.launches``."""
+    kind = f"{'film' if film else 'siren'}_fwd passes"
+    o = _step_operands(film, ops)
+    d, d_bstride = _cuda_operands(kind, kw["trunk"], ops[0], o["a"].shape[0], ops[1:])
+    plan = step_plan_cuda(film, (*ops, None), d.device, bwd=True, weight_grads=weight_grads)
+    if budget is not None and len(plan.groups(budget)) > 1:
+        return None
+    try:
+        work = PassWork.for_plan(plan, "bfloat16", d.device)
+    except torch.cuda.OutOfMemoryError:
+        return None
+    prep = pass_operands(plan, (*ops, None), kw, d, d_bstride)
+    out = torch.empty((plan.batch, plan.npix, C_PAD), dtype=torch.float32, device=d.device)
+    _pass_call(plan, dataclasses.replace(prep, tensors={**prep.tensors, "out": out}), work, 0,
+               plan.n_mm, 0)
+    passes_forward.launches += 1
+    return out, Handoff(plan, prep, work)
+
+
+passes_forward.launches = 0
+
+
+def passes_bwd_handoff(handoff: Handoff, g) -> tuple:
+    """The backward on the scratch a ``passes_forward`` filled: the
+    cotangent last pass and the bwd passes, then the slot sums and (with
+    weight gradients) dWs; returns what ``siren_trunk_bwd_reference`` /
+    ``film_trunk_bwd_reference`` return."""
+    plan, prep = handoff.plan, handoff.prep
+    if not g.is_cuda or tuple(g.shape) != (plan.batch, plan.npix, C_PAD):
+        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device}: a CUDA tensor of shape "
+                         f"{(plan.batch, plan.npix, C_PAD)} is needed")
+    prep = dataclasses.replace(prep, tensors={**prep.tensors, "gin": _f32(g)})
+    _pass_call(plan, prep, handoff.work, plan.n_mm - 1, len(plan.passes), _finish_flags(plan))
+    return _results(plan, handoff.work)
 
 
 def step_pass_cuda(plan: StepPlan, k: int, ops, kw, work: PassWork,
@@ -704,22 +1026,24 @@ def step_pass_cuda(plan: StepPlan, k: int, ops, kw, work: PassWork,
     """Pass k alone on the card over ``work`` (which holds the scratch of
     the passes before it): what ``step_pass_reference`` does, for holding
     each pass kernel against its plain pass. ``prepared`` (``pass_operands``
-    of these ``ops``, made once) leaves the step's per-call casts and the
-    transpose of W out of a timed pass. Counted in ``.launches``, apart from
-    the step's own count."""
-    _pass_call(plan, prepared or pass_operands(plan, ops, kw), work, k, k + 1, False)
+    of these ``ops``, made once) leaves the call's casts and the transpose
+    of W out of a timed pass. Counted in ``.launches``, apart from the
+    step's and the backward's own counts."""
+    _pass_call(plan, prepared or pass_operands(plan, ops, kw), work, k, k + 1, 0)
     step_pass_cuda.launches += 1
 
 
 step_pass_cuda.launches = 0
 
 
-def step_plan_cuda(film: bool, ops, device) -> StepPlan:
-    """The plan the step takes for these operands on ``device``."""
-    o = _step_operands(film, ops)
+def step_plan_cuda(film: bool, ops, device, bwd: bool = False,
+                   weight_grads: bool = True) -> StepPlan:
+    """The plan the step (or, ``bwd``, the backward) takes for these
+    operands on ``device``."""
+    o = _step_operands(film, ops, bwd)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1], o["ws"].shape[0],
-                     sms)
+                     sms, bwd, weight_grads)
 
 
 def siren_step_cuda(
@@ -730,14 +1054,14 @@ def siren_step_cuda(
     passes or the chain kernel, by ``pass_route``; returns what
     ``siren_step_reference`` returns."""
     batch, hidden, n_mm = a.shape[0], a.shape[-1], ws.shape[0]
-    d, d_bstride = _validate("siren_step", False, trunk, d_pad, batch, hidden, n_mm, out_act,
-                             (a, b0, ws, bs, wf, bf), tgt, sw, bm)
     if pass_route(trunk, hidden, n_mm):
         kw = dict(omega0=omega0, omega_h=omega_h, out_act=out_act, gscale=gscale, trunk=trunk,
                   fast_sine=fast_sine)
-        out = _passes_step(False, d, d_bstride, (d_pad, a, b0, ws, bs, wf, bf, tgt, sw, bm), kw)
+        out = _passes_step(False, (d_pad, a, b0, ws, bs, wf, bf, tgt, sw, bm), kw)
         siren_step_cuda.launches += 1
         return out
+    d, d_bstride = _validate("siren_step", False, trunk, d_pad, batch, hidden, n_mm, out_act,
+                             (a, b0, ws, bs, wf, bf), tgt, sw, bm)
     tiles, chunks, part_img, out_img, work = _chain_work(False, trunk, d, batch, hidden, n_mm)
     part_w, out_w, *rest = work.pointers()
     a, b0, bs, bf, tgt, sw, bm = map(_f32, (a, b0, bs, bf, tgt, sw, bm))
@@ -782,8 +1106,7 @@ def film_step_cuda(
         raise ValueError(f"{ws.shape[0]} hidden weights for {n_trunk} trunk layers")
     if pass_route(trunk, hidden, n_trunk - 1):
         kw = dict(out_act=out_act, gscale=gscale, trunk=trunk, fast_sine=fast_sine)
-        out = _passes_step(True, d, d_bstride, (d_pad, a0, ws, bs, wf, bf, fr, ph, tgt, sw, bm),
-                           kw)
+        out = _passes_step(True, (d_pad, a0, ws, bs, wf, bf, fr, ph, tgt, sw, bm), kw)
         film_step_cuda.launches += 1
         return out
     tiles, chunks, part_img, out_img, work = _chain_work(True, trunk, d, batch, hidden,

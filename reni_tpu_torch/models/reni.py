@@ -179,8 +179,10 @@ class RENIModel:
         """Reparameterised sample (VAD): (Z = mu + eps * exp(log_var / 2), mu,
         log_var) for the rows ``idx``. ``eps`` ~ N(0, 1) is drawn on the CPU
         from ``generator`` (the same numbers on any device), or is ``noise``
-        when given (the tests feed the noise JAX drew). An AD returns
-        (Z, Z, zeros)."""
+        when given (the tests feed the noise JAX drew). On the card the draw
+        lands in pinned host memory and reaches the device by a copy that
+        does not block the host (the caching host allocator keeps the buffer
+        until the copy's stream is past it). An AD returns (Z, Z, zeros)."""
         if not self.config.is_variational:
             table = params["latents"]["Z"]
             z = table[self._as_index(idx, table.device)]
@@ -190,8 +192,10 @@ class RENIModel:
         mu, log_var = table[idx], params["latents"]["log_var"][idx]
         std = torch.exp(0.5 * log_var)
         if noise is None:
-            noise = torch.randn(std.shape, generator=generator, dtype=std.dtype)
-        return mu + noise.to(std.device, std.dtype) * std, mu, log_var
+            noise = torch.empty(std.shape, dtype=std.dtype,
+                                pin_memory=std.device.type == "cuda")
+            noise.normal_(generator=generator)
+        return mu + noise.to(std.device, std.dtype, non_blocking=True) * std, mu, log_var
 
     def apply(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
         """Decode radiance at directions D given latent codes Z.

@@ -6,6 +6,7 @@ without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -179,8 +180,10 @@ def test_bwd_kernel_matches_plain(cuda, equiv, film, trunk, fast_sine, weight_gr
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
-    """Three tiles per CTA, 17 tiles per image (the last CTA has two): the
-    per-image sums are the same as with one tile per CTA, to float32
+    """Several tiles per CTA on each route: the chain kernel (float32 trunk,
+    8-row tiles) three per CTA, 33 tiles per image; the passes (bf16, 128-row
+    tiles) two per CTA, 3 tiles per image (the last CTA has one). The
+    per-image sums are the same as with the default grid, to float32
     rounding, and bitwise the same from run to run."""
     rng = np.random.default_rng(21)
     N, B, H, L, P = 5, 3, 128, 2, 264
@@ -190,27 +193,34 @@ def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
     ops = _pack(dec, "SO2", N, Z, D, film, H)
     g = torch.randn(B, P, 8, device=cuda)
     kernel, plain = _bwd_pair(film)
-    kw = dict(trunk="bfloat16", fast_sine=True, weight_grads=False)
-    if not film:
-        kw.update(omega0=30.0, omega_h=30.0)
-    one = kernel(*ops, g, **kw)
-    monkeypatch.setattr(tb, "launch_grid", lambda npix, b, t, dev: (3, math.ceil(npix / 16 / 3)))
-    three = kernel(*ops, g, **kw)
-    again = kernel(*ops, g, **kw)
-    ref = plain(*ops, g, **kw)
-    torch.cuda.synchronize()
-    _assert_grads_close(three, ref, "bfloat16", "3 tiles per CTA")
-    for x, y, z in zip(one, three, again):
-        if x is not None:
-            assert torch.equal(y, z)
-            assert (x - y).abs().max().item() <= 1e-5 * x.abs().max().item()
+    for trunk in ("float32", "bfloat16"):
+        kw = dict(trunk=trunk, fast_sine=True, weight_grads=False)
+        if not film:
+            kw.update(omega0=30.0, omega_h=30.0)
+        one = kernel(*ops, g, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(tb, "launch_grid", lambda npix, b, t, dev: (
+                3, math.ceil(npix / tb.tile_rows(t) / 3)))
+            m.setattr(ts, "pass_grid", lambda npix, b, sms: (2, math.ceil(npix / 128 / 2)))
+            three = kernel(*ops, g, **kw)
+            again = kernel(*ops, g, **kw)
+        ref = plain(*ops, g, **kw)
+        torch.cuda.synchronize()
+        _assert_grads_close(three, ref, trunk, f"several tiles per CTA, {trunk}")
+        for x, y, z in zip(one, three, again):
+            if x is not None:
+                assert torch.equal(y, z)
+                assert (x - y).abs().max().item() <= 1e-5 * x.abs().max().item()
 
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_fused_apply_backward_launches_both_kernels(cuda, film):
-    """One autograd backward through fused_apply on the card launches the
-    forward and the backward kernel once each, and its gradients (latents
-    and every decoder weight) match the plain Function's."""
+    """One autograd backward through fused_apply on the card launches a
+    forward and the backward once each, and its gradients (latents and every
+    decoder weight) match the plain Function's. On the passes' route (bf16,
+    H = 128) the forward is the passes' (siren_step.passes_forward, whose
+    scratch the backward reads), not the forward kernel; with the float32
+    trunk it is the forward kernel and a backward that recomputes."""
     rng = np.random.default_rng(22)
     N, B, H, L, P = 5, 3, 128, 2, 200
     dec = _decoder(rng, "SO2", N, H, L, film, cuda)
@@ -221,24 +231,26 @@ def test_fused_apply_backward_launches_both_kernels(cuda, film):
     kernel = _bwd_pair(film)[0]
     leaves = [dec["final"]["w"], dec["layers"][-1]["w"], dec["layers"][0]["b"]]
 
-    def grads(fn):
+    def grads(fn, trunk):
         Z = Z0.clone().requires_grad_()
         for t in leaves:
             t.requires_grad_()
-        out = _run(fn, dec, "SO2", N, Z, D, film, L, H, "bfloat16", True)
+        out = _run(fn, dec, "SO2", N, Z, D, film, L, H, trunk, True)
         (out ** 2).sum().backward()
         got = [Z.grad] + [t.grad for t in leaves]
         for t in leaves:
             t.grad = None
         return got
 
-    n_fwd, n_bwd = wrap.launches, kernel.launches
-    got = grads(wrap)
-    torch.cuda.synchronize()
-    assert (wrap.launches, kernel.launches) == (n_fwd + 1, n_bwd + 1)
-    ref = grads(ref_fn)
-    assert (wrap.launches, kernel.launches) == (n_fwd + 1, n_bwd + 1)
-    _assert_grads_close(got, ref, "bfloat16", "fused_apply backward")
+    for trunk, passes in (("bfloat16", 1), ("float32", 0)):
+        counts = lambda: (wrap.launches, ts.passes_forward.launches, kernel.launches)
+        n0 = counts()
+        got = grads(wrap, trunk)
+        torch.cuda.synchronize()
+        assert counts() == (n0[0] + 1 - passes, n0[1] + passes, n0[2] + 1), trunk
+        ref = grads(ref_fn, trunk)
+        assert counts() == (n0[0] + 1 - passes, n0[1] + passes, n0[2] + 1), trunk
+        _assert_grads_close(got, ref, trunk, f"fused_apply backward, {trunk}")
 
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
@@ -852,3 +864,199 @@ def test_weight_grads_product_alone_matches_plain(cuda):
         assert torch.equal(got, again)
         assert (got - ref).abs().max().item() <= rel * ref.abs().max().item()
         assert (parts.sum(0) - got).abs().max().item() <= rel * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the backward on the layer-major passes, the device-memory guard of the
+# passes' scratch, the forward's smaller row tiles
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(rng, cuda, film, H, n_mm, B, P, per_image=False):
+    """The trunk operands of a pass case and an output cotangent (B, P, 8)."""
+    ops = _pass_case(rng, cuda, film, H, n_mm, B, P, per_image)[: 8 if film else 7]
+    return ops, torch.as_tensor(rng.normal(size=(B, P, 8)).astype(np.float32), device=cuda)
+
+
+def _bwd_kw(film, weight_grads, fast_sine=True):
+    kw = dict(trunk="bfloat16", fast_sine=fast_sine, weight_grads=weight_grads)
+    if not film:
+        kw.update(omega0=30.0, omega_h=30.0)
+    return kw
+
+
+@pytest.mark.parametrize("weight_grads", [False, True], ids=["no_wgrad", "wgrad"])
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("H,n_mm", [(256, 5), (64, 2), (192, 1)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_each_bwd_pass_matches_its_plain_pass(cuda, film, H, n_mm, fast_sine, weight_grads):
+    """Each pass kernel of the backward (the cotangent last pass among them)
+    against its plain pass on the same scratch: every output it writes,
+    max |diff| <= 1e-2 x max |plain|, a ragged P. Not counted as backward
+    calls."""
+    rng = np.random.default_rng(60)
+    B, P = 3, 1000
+    ops, g = _bwd_case(rng, cuda, film, H, n_mm, B, P)
+    kw = _bwd_kw(film, weight_grads, fast_sine)
+    plan = ts.step_plan_cuda(film, (*ops, g), cuda, bwd=True, weight_grads=weight_grads)
+    ref = ts.PassWork.for_plan(plan, "bfloat16", cuda)
+    calls = (tb.siren_trunk_bwd_cuda.launches, tb.film_trunk_bwd_cuda.launches)
+    with torch.no_grad():
+        for k in range(len(plan.passes)):
+            got = ref.clone()
+            ts.step_pass_cuda(plan, k, (*ops, g), kw, got)
+            ts.step_pass_reference(plan, k, (*ops, g), kw, ref)
+            torch.cuda.synchronize()
+            outs = ts.pass_outputs(plan, k, got)
+            for name, y in ts.pass_outputs(plan, k, ref).items():
+                x, y = outs[name].float(), y.float()
+                assert torch.isfinite(x).all(), (plan.passes[k], name)
+                err, scale = (x - y).abs().max().item(), y.abs().max().item()
+                assert err <= 1e-2 * scale, (plan.passes[k], name, err, scale)
+    assert (tb.siren_trunk_bwd_cuda.launches, tb.film_trunk_bwd_cuda.launches) == calls
+
+
+@pytest.mark.parametrize("npix", [512, 2048, 8192, 32768])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_bwd_passes_match_plain_at_fit_latent_shapes(cuda, film, npix):
+    """Both backward kernels on the pass route at FIT_LATENT's batch (21) and
+    stage shapes and at 21 x 32,768 (5 x 256; FiLM 5 trunk layers) and, at 21
+    x 2,048, 8 products, with and without weight gradients: each result
+    within 1e-2 x max |plain|, two calls bitwise equal, one launch each."""
+    rng = np.random.default_rng(61)
+    kernel, plain = _bwd_pair(film)
+    depths = [4 if film else 5] + ([8] if npix == 2048 else [])
+    for n_mm in depths:
+        ops, g = _bwd_case(rng, cuda, film, 256, n_mm, 21, npix)
+        assert ts.pass_route("bfloat16", 256, n_mm)
+        for weight_grads in (False, True):
+            kw = _bwd_kw(film, weight_grads)
+            n0 = kernel.launches
+            with torch.no_grad():
+                got, again = kernel(*ops, g, **kw), kernel(*ops, g, **kw)
+                ref = plain(*ops, g, **kw)
+            torch.cuda.synchronize()
+            assert kernel.launches == n0 + 2
+            for x, y in zip(got, again):
+                assert (x is None and y is None) or torch.equal(x, y)
+            _assert_grads_close(got, ref, "bfloat16", (film, n_mm, npix, weight_grads))
+            del got, again, ref
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize(
+    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, False), ("bfloat16", 96, False),
+                       ("bfloat16", 512, False)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_bwd_route_on_card(cuda, film, trunk, H, passes, monkeypatch):
+    """The backward follows the steps' routing rule: bf16 at a multiple of
+    64 up to 256 takes the passes; the float32 trunk, other bf16 widths and
+    H = 512 (one layer's weights and a tile do not fit) the chain kernel.
+    Each route matches the plain backward, with weight gradients."""
+    calls = []
+    real = ts._pass_call
+    monkeypatch.setattr(ts, "_pass_call", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    rng = np.random.default_rng(63)
+    ops, g = _bwd_case(rng, cuda, film, H, 1 if H == 512 else 2, 3, 300)
+    kw = {**_bwd_kw(film, True), "trunk": trunk}
+    kernel, plain = _bwd_pair(film)
+    got, ref = kernel(*ops, g, **kw), plain(*ops, g, **kw)
+    torch.cuda.synchronize()
+    assert bool(calls) is passes
+    _assert_grads_close(got, ref, trunk, (trunk, H))
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_grouped_passes_equal_one_call(cuda, film):
+    """The device-memory guard: under a budget that holds the scratch of 2
+    of 5 images the step and the backward (with and without weight
+    gradients) run in groups of 2, 2 and 1 images (per-image grids, a ragged
+    P). Every result but dWs is bitwise that of one call (the same per-CTA
+    slots, summed in the same order); dWs sums the same products by group,
+    within 1e-5 x max |one call|."""
+    rng = np.random.default_rng(62)
+    B, P, H, n_mm = 5, 1000, 128, 3
+    ops = _pass_case(rng, cuda, film, H, n_mm, B, P, per_image=True)
+    g = torch.as_tensor(rng.normal(size=(B, P, 8)).astype(np.float32), device=cuda)
+    trunk_ops = ops[: 8 if film else 7]
+    # dWs follows mse_row, dA (and db0) in a step's results, dA (and db0) in a backward's
+    runs = [(ts.step_plan_cuda(film, ops, cuda),
+             lambda budget: ts._passes_step(film, ops, _pass_kw(film, P), budget=budget),
+             2 if film else 3)]
+    for wgrad in (False, True):
+        runs.append((ts.step_plan_cuda(film, (*trunk_ops, g), cuda, bwd=True, weight_grads=wgrad),
+                     lambda budget, w=wgrad: ts._passes_bwd(film, trunk_ops, g, _bwd_kw(film, w),
+                                                            w, budget=budget),
+                     1 if film else 2))
+    for plan, run, dws_at in runs:
+        budget = plan.scratch_bytes - 3 * P * plan.row_bytes
+        assert plan.groups(budget) == ((0, 2), (2, 4), (4, 5))
+        with torch.no_grad():
+            one, grouped = run(None), run(budget)
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(zip(one, grouped)):
+            if x is None:
+                assert y is None
+            elif i == dws_at:
+                assert (x - y).abs().max().item() <= 1e-5 * x.abs().max().item(), plan
+            else:
+                assert torch.equal(x, y), (plan, i)
+
+
+@pytest.mark.parametrize("trunk,H,tm", [("float32", 512, 32), ("bfloat16", 1024, 32)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_forward_takes_wide_trunks_on_a_smaller_row_tile(cuda, film, trunk, H, tm):
+    """H = 512 with the float32 trunk and H = 1024 in bf16, where two
+    64-row activation buffers do not fit in shared memory: the forward takes
+    the 32-row tile (the library's choice and its mirror agree) and holds
+    the forward bars against the plain version; a ragged P."""
+    lib = tk._kernel("reni_siren_fwd")[1]
+    lib.reni_fwd_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    for width in (256, H):
+        assert lib.reni_fwd_tile_rows(width, int(trunk == "bfloat16")) == tk.tile_rows(width, trunk)
+    assert tk.tile_rows(H, trunk) == tm and tk.tile_rows(256, trunk) == 64
+    rng = np.random.default_rng(64)
+    N, B, L, P = 5, 3, 2, 1000
+    dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = torch.nn.functional.normalize(torch.randn(1, P, 3, device=cuda), dim=-1)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
+    n0 = wrap.launches
+    with torch.no_grad():
+        out = _run(wrap, dec, "SO2", N, Z, D, film, L, H, trunk, True)
+        ref = _run(ref_fn, dec, "SO2", N, Z, D, film, L, H, trunk, True)
+    torch.cuda.synchronize()
+    assert wrap.launches == n0 + 1
+    _assert_close(out, ref, trunk, True, (H, trunk))
+
+
+@pytest.mark.parametrize("weight_grads", [False, True], ids=["no_wgrad", "wgrad"])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_handoff_forward_and_backward_match_plain(cuda, film, weight_grads):
+    """The differentiable trunk's route on the card: the forward as the
+    passes (the fwd passes and the output last pass) holds the forward bars
+    against the plain forward; the backward from their scratch holds 1e-2 x
+    max |plain| per result against the plain backward and equals the
+    backward that recomputes the forward bit for bit (the same passes on the
+    same scratch). A ragged P; one launch counted on each side."""
+    rng = np.random.default_rng(65)
+    B, P, H, n_mm = 3, 1000, 256, 5
+    ops, g = _bwd_case(rng, cuda, film, H, n_mm, B, P)
+    kw = _bwd_kw(film, weight_grads)
+    fkw = {k: v for k, v in kw.items() if k != "weight_grads"}
+    kernel, plain = _bwd_pair(film)
+    n0 = ts.passes_forward.launches
+    with torch.no_grad():
+        out, handed = ts.passes_forward(film, ops, fkw, weight_grads)
+        got = ts.passes_bwd_handoff(handed, g)
+        again = kernel(*ops, g, **kw)
+        ref_out = (tk.film_trunk_reference if film else tk.siren_trunk_reference)(*ops, **fkw)
+        ref = plain(*ops, g, **kw)
+    torch.cuda.synchronize()
+    assert ts.passes_forward.launches == n0 + 1
+    _assert_close(out, ref_out, "bfloat16", True, "the passes' forward")
+    _assert_grads_close(got, ref, "bfloat16", "the backward from the handoff")
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert ts.passes_forward(film, ops, fkw, weight_grads, budget=0) is None

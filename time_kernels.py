@@ -10,7 +10,8 @@ decoders, bf16 trunk, fast sine) prints the median time of both train-step
 kernels at 100 x 8,192 and 21 x 8,192 (at 100 x 8,192 also each of their
 layer-major passes alone, with bytes, FLOPs and achieved rates, and the
 torch.matmul yardstick of chip_smoke.pass_timings), of both backward kernels at 21 x
-32,768 with and without weight gradients, and of the forward kernel, each
+32,768 and 21 x 8,192 with and without weight gradients (the bf16 trunk on the
+layer-major passes), and of the forward kernel, each
 after one check against its plain version (max |difference| / max |plain|
 per result). Two cards, or one card at two moments, differ by up to 12% on
 the same code: to compare two versions of a source, run this script once
@@ -128,17 +129,20 @@ def main(argv=None) -> int:
                 if batch == 100:
                     cs.pass_timings("film_step", cfg_f, fops, fkw, dev)
         del fops
+        for width in (256, 128):
+            D = sphere.get_directions(width, device=dev)
+            g = cs.cotangent(z21, D.shape[1], seed=3)
+            for name, entry in (("siren_bwd", cs.CBC), ("film_bwd", cs.FILM)):
+                cfg_e, dec_e, z = cs.load_entry(entry, dev)
+                trunk_ops = cs.packed(cfg_e, dec_e, z, D)
+                for wgrad in (False, True):
+                    kernel, plain, bkw = cs.bwd_fns(cfg_e, weight_grads=wgrad)
+                    errs = relative_errors(kernel(*trunk_ops, g, **bkw),
+                                           plain(*trunk_ops, g, **bkw))
+                    ms = cs.time_ms(lambda: kernel(*trunk_ops, g, **bkw), runs=10)
+                    print(f"{name} 21 x {D.shape[1]:,} {'with' if wgrad else 'without'} weight "
+                          f"gradients: {ms:.3f} ms; vs plain {errs}")
         D = sphere.get_directions(256, device=dev)
-        g = cs.cotangent(z21, D.shape[1], seed=3)
-        for name, entry in (("siren_bwd", cs.CBC), ("film_bwd", cs.FILM)):
-            cfg_e, dec_e, z = cs.load_entry(entry, dev)
-            trunk_ops = cs.packed(cfg_e, dec_e, z, D)
-            for wgrad in (False, True):
-                kernel, plain, bkw = cs.bwd_fns(cfg_e, weight_grads=wgrad)
-                errs = relative_errors(kernel(*trunk_ops, g, **bkw), plain(*trunk_ops, g, **bkw))
-                ms = cs.time_ms(lambda: kernel(*trunk_ops, g, **bkw), runs=10)
-                print(f"{name} 21 x 32,768 {'with' if wgrad else 'without'} weight gradients: "
-                      f"{ms:.3f} ms; vs plain {errs}")
         trunk_ops = cs.packed(cfg, dec, z21, D)
         fkw = dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
                    trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
