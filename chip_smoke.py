@@ -13,11 +13,19 @@ Phases (any failure exits non-zero and prints no result line):
                  against its plain PyTorch version on the card: shared (1, P)
                  grid, per-image (B, P) grids, and the float32 trunk once;
                  then the shared grids of FIT_LATENT's three stages (21 x
-                 512, 2,048 and 8,192 directions); both the Cond-by-Concat
-                 and the FiLM Zoo decoder; then the forward's smaller row
-                 tiles: a random 2-layer trunk of width 512 (float32) and
-                 1,024 (bf16) against its plain version, and a digest of the
-                 serving-shape outputs (the 64-row tile's bits)
+                 512, 2,048 and 8,192 directions), the serving widths 128
+                 and 130 (16,384 and 8,450 directions) and 100 training
+                 latents x 8,192 (the batch of training_maps' decodes); both
+                 the Cond-by-Concat and the FiLM Zoo decoder. The bf16
+                 decodes take the fused kernel (csrc/fused_fwd.cuh), the
+                 float32 ones the row-tile kernel (csrc/siren_fwd.cuh): the
+                 route counters must say so. At the serving shape the fused
+                 kernel gives the same bits twice, on persistent grids of 7,
+                 64 and 131 CTAs and in lock step. Then the row-tile
+                 kernel's smaller row tiles: a random 2-layer trunk of width
+                 512 (float32) and 1,024 (bf16) against its plain version,
+                 and a digest of the serving-shape outputs (the fused
+                 kernel's bits)
 3. compare_bwd - the same for each backward kernel, every gradient, with
                  and without the weight gradients: shared and per-image
                  grids, and the float32 trunk once (the chain kernel); then
@@ -43,7 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
                  the unrotated decode, concurrent requests that the
                  micro-batcher coalesces; served arrays checked against a
                  direct load_decoder call. Launch counts are zeroed just
-                 before and read just after: both kernels must have launched
+                 before and read just after: both kernels must have launched,
+                 every decode through the fused kernel (its route counter),
+                 none through the row-tile kernel
 5. fit_latent  - train.tasks.fit_task FIT_LATENT on each Zoo decoder at the
                  published hyperparameters (21 maps in one batch, Adam b1=0
                  b2=0.9, LR 1e-2 -> 1e-4, curriculum 16x32 -> 32x64 ->
@@ -109,15 +119,20 @@ Phases (any failure exits non-zero and prints no result line):
 10. anatomy    - the probes of kernels/anatomy.py at 21 x 8,192 on the
                  Cond-by-Concat decoder: each forward and backward variant
                  and the weight-gradient product alone against its plain
-                 version (the interleaved forwards equal to the shipped
-                 forward bit for bit and on its phase-2 bars, as is the
+                 version (the interleaved forwards equal bit for bit to the
+                 kernel they rearrange, the fused kernel in lock step or the
+                 row-tile kernel, and on its phase-2 bars, as is the
                  scratch of activations that the backward without its
                  reduction returns; the others 1e-2 x max |plain| per
                  result), then the probe tool's path
                  (time_anatomy, what time_kernels.py --anatomy runs) with the
                  probes' launch counts zeroed before and read after
 11. timings   - each kernel and its plain version: the forward at the
-                 phase-2 shapes and at 21 x 8,192, the backward at 21 x
+                 phase-2 shapes and at 21 x 8,192, the fused kernel and the
+                 row-tile kernel's bf16 instantiation in turns at both
+                 (ms, bound, the design's L2 weight bytes, TFLOP/s, host ms a
+                 call) beside L2's read rate (a copy loop over 2 x 8 MB),
+                 the backward at 21 x
                  32,768 and 21 x 8,192 with and without weight gradients
                  (each backward pass timed alone at 21 x 8,192, with its
                  bytes, FLOPs and the design's byte floor; the forward
@@ -147,6 +162,7 @@ import concurrent.futures
 import contextlib
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -176,6 +192,8 @@ F32_MAX_ERR = {False: 1e-5, True: 2e-5}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOURCE = "reni_tpu_torch/kernels/csrc/siren_fwd.cu"
+SOURCE_FUSED = "reni_tpu_torch/kernels/csrc/fused_fwd.cuh"
+SOURCE_TILE = "reni_tpu_torch/kernels/csrc/siren_fwd.cuh"
 SOURCE_BWD = "reni_tpu_torch/kernels/csrc/siren_bwd.cu"
 SOURCE_STEP = "reni_tpu_torch/kernels/csrc/siren_step.cu"
 SOURCE_FILM_STEP = "reni_tpu_torch/kernels/csrc/film_step.cu"
@@ -368,8 +386,9 @@ def serve_entry(entry: str, expected: dict, *, rotation_width: int, concurrent: 
 def breakdown(base: str, service, latents: np.ndarray, width: int, name: str) -> None:
     """Where a served decode's time goes, medians of 5: the HTTP round trip
     of /decode_idx (JSON, base64, socket, plus the service's decode), the
-    service's decode alone (device work + copy to host), and the device
-    time of the decoder call (CUDA events)."""
+    service's decode alone (device work + copy to host), the device time of
+    the decoder call (CUDA events) and its host time (what the host spends
+    to enqueue it: a synchronisation inside the call would show here)."""
     http_ms, svc_ms, dev_ms = [], [], []
     d = service.directions(width).expand(latents.shape[0], -1, -1)
     payload = {"idx": list(range(latents.shape[0])), "width": width, "format": "base64"}
@@ -388,10 +407,11 @@ def breakdown(base: str, service, latents: np.ndarray, width: int, name: str) ->
         end.record()
         end.synchronize()
         dev_ms.append(start.elapsed_time(end))
+    host_ms = host_time_ms(lambda: service.fn(latents, d), runs=5)
     print(f"{name} width {width} x {latents.shape[0]}: HTTP round trip "
           f"{statistics.median(http_ms):.2f} ms, service.decode "
           f"{statistics.median(svc_ms):.2f} ms, decoder call on the device "
-          f"{statistics.median(dev_ms):.2f} ms")
+          f"{statistics.median(dev_ms):.2f} ms (host {host_ms:.2f} ms a call)")
 
 
 def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -743,11 +763,9 @@ def training_maps(device, entry: str = CBC) -> tuple[torch.Tensor, dict]:
     forward kernel 100 latents at a time."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.serve import load_decoder
-    from reni_tpu_torch.train import checkpoint as ckpt
 
     path = os.path.join(entry, "checkpoint")
-    mu = torch.as_tensor(ckpt.load_checkpoint(path)[0]["latents"]["mu"], device=device)
-    check(tuple(mu.shape) == (DEC_MAPS, 49, 3), f"training latents {tuple(mu.shape)}")
+    mu = training_latents(entry, device)
     fn = load_decoder(path, device)
     maps = {}
     for res, _ in decoder_task_config().resolution_stages():
@@ -1398,16 +1416,21 @@ def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
     grid = tb.launch_grid(D.shape[1], Z.shape[0], kw["trunk"], device)
     for name in ("fwd_variant", "bwd_variant"):
         errors[name], rel_errors[name] = [], []
+    fused = tk.fwd_route(kw["trunk"], cfg.hidden_features, cfg.hidden_layers) == "fused"
     with torch.no_grad():
         shipped = tk.siren_trunk_cuda(*ops, **kw)
+        tile = tk.siren_trunk_cuda(*ops, route="tile", **kw)
         for name, side, variant in ANATOMY_VARIANTS:
             label = f"{name} B={Z.shape[0]} P={D.shape[1]}"
             if side == "fwd":
                 got = ta.fwd_variant_cuda(*ops, **variant, **kw)
                 ref = ta.fwd_variant_reference(*ops, **variant, **kw)
                 if variant.get("transcendental", True):
-                    # numerically the shipped forward: its bits and its phase-2 bars
-                    check(torch.equal(got, shipped), f"{name} differs from the shipped forward")
+                    # numerically the kernel it rearranges (on the fused route
+                    # interleave 4 is the row-tile kernel's): its bits and the
+                    # phase-2 bars
+                    base = tile if fused and variant.get("interleave") == 4 else shipped
+                    check(torch.equal(got, base), f"{name} differs from the kernel it rearranges")
                     err = (got - ref).abs()
                     check(err.max().item() < MAX_ERR and err.mean().item() < MEAN_ERR,
                           f"{name} off the bf16 bar")
@@ -1482,6 +1505,79 @@ def probe_row(name, side, variant, cfg, dec, Z, device, times, replaces, launche
     }
 
 
+L2_READ_MB, L2_READ_REPS = 16, 50  # a buffer that fits in L2, read over and over
+
+
+def l2_read_rate(device) -> float:
+    """L2's read rate on this card in TB/s: the L2 probe of kernels/anatomy.py
+    (checked once against its plain version) reading L2_READ_MB MB
+    L2_READ_REPS times."""
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    buf = torch.randint(0, 256, (L2_READ_MB << 20,), dtype=torch.uint8, device=device,
+                        generator=gen)
+    check(torch.equal(ta.l2_read_cuda(buf, 3), ta.l2_read_reference(buf, 3)),
+          "the L2 probe differs from its plain version")
+    ms = time_ms(lambda: ta.l2_read_cuda(buf, L2_READ_REPS), runs=10)
+    tbs = L2_READ_REPS * buf.numel() / (ms * 1e-3) / 1e12
+    print(f"L2 read rate: {L2_READ_MB} MB read {L2_READ_REPS} times in {ms:.4f} ms -> "
+          f"{tbs:.3f} TB/s")
+    return tbs
+
+
+def fwd_timing(name, cfg, dec, Z, device, l2_tbs: float) -> dict:
+    """The forward kernel's kernels-line row: at 21 x 32,768 (serving) and
+    21 x 8,192 the fused kernel and the row-tile kernel's instantiation for
+    the same trunk in turns (fused, row-tile, row-tile, fused), the plain
+    version, the bound, the weight bytes each design reads from L2 (every
+    tile reads every hidden weight: 128-row tiles against 64-row ones) and
+    the fused call's host time."""
+    from reni_tpu_torch.core import encodings, sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    kernel, plain, kw = trunk_fns(cfg)
+    B, H, n_out = Z.shape[0], cfg.hidden_features, cfg.out_features
+    n_mm = cfg.hidden_layers - cfg.is_film
+    row, shapes = None, {}
+    for width in (WIDTH, FIT_RES[1][1]):
+        D = sphere.get_directions(width, device=device)
+        ops = packed(cfg, dec, Z, D)
+        P, k = D.shape[1], encodings.d_features(cfg.equivariance, D).shape[-1]
+        flops = 2.0 * B * P * (k * H + n_mm * H * H + H * n_out)
+        nbytes = min_bytes(ops, k, n_out, cfg.is_film, cfg.pallas_trunk) + B * P * n_out * 4
+        bound_ms, bound_by = bound(flops, nbytes)
+        times = {"fused": [], "tile": []}
+        for route in ("fused", "tile", "tile", "fused"):
+            times[route].append(time_ms(lambda: kernel(*ops, route=route, **kw)))
+        host_ms = host_time_ms(lambda: kernel(*ops, **kw))
+        plain_ms = time_ms(lambda: plain(*ops, **kw), runs=5 if P > 8192 else 10)
+        l2 = {route: B * math.ceil(P / rows) * n_mm * H * H * 2
+              for route, rows in (("fused", tk.FUSED_TILE), ("tile", tk.tile_rows(H, cfg.pallas_trunk)))}
+        ms = statistics.mean(times["fused"])
+        print(f"{name} B={B} P={P}: fused kernel {times['fused'][0]:.4f} / {times['fused'][1]:.4f} "
+              f"ms (host {host_ms:.4f} ms a call), row-tile kernel {times['tile'][0]:.4f} / "
+              f"{times['tile'][1]:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops:.4g} FLOP, {nbytes:.4g} B) -> {flops / (ms * 1e-3) / 1e12:.1f} "
+              f"TFLOP/s; weight bytes from L2 {l2['fused']:.4g} (fused; "
+              f"{l2['fused'] / (l2_tbs * 1e12) * 1e3:.4f} ms at {l2_tbs:.3f} TB/s) against "
+              f"{l2['tile']:.4g} (row-tile)")
+        shapes[f"{B}x{P}"] = {"ms": ms, "fused_ms": times["fused"], "tile_ms": times["tile"],
+                              "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "l2_weight_bytes": l2["fused"], "tile_l2_weight_bytes": l2["tile"]}
+        if row is None:  # the serving shape
+            row = {
+                "name": name, "route": "cuda", "source": SOURCE_FUSED, "library": SOURCE,
+                "kernel": f"fused_fwd<{'true' if cfg.is_film else 'false'}, ...> "
+                          f"(row-tile kernel trunk_fwd: {SOURCE_TILE})",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "tile_ms": statistics.mean(times["tile"]), "host_ms": host_ms,
+                "l2_read_tbs": l2_tbs,
+            }
+    row["shapes"] = shapes
+    return row
+
+
 def handoff_ab(cfg, dec, Z, device, rounds: int = 2) -> dict:
     """FIT_LATENT's trunk at its last stage (21 x 8,192, no weight
     gradients), forward and backward, both ways in turns: the forward kernel
@@ -1548,6 +1644,54 @@ def bwd_bytes(ops, k: int, n_out: int, film: bool, trunk: str, weight_grads: boo
     return n
 
 
+def training_latents(entry: str, device) -> torch.Tensor:
+    """A Zoo entry's 1,000 training latents mu."""
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    path = os.path.join(entry, "checkpoint")
+    mu = torch.as_tensor(ckpt.load_checkpoint(path)[0]["latents"]["mu"], device=device)
+    check(tuple(mu.shape) == (DEC_MAPS, 49, 3), f"training latents {tuple(mu.shape)}")
+    return mu
+
+
+def trunk_fns(cfg):
+    """(kernel wrapper, plain version, keyword arguments) of a forward."""
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    kw = dict(trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
+    if cfg.is_film:
+        return tk.film_trunk_cuda, tk.film_trunk_reference, kw
+    kw.update(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0)
+    return tk.siren_trunk_cuda, tk.siren_trunk_reference, kw
+
+
+FUSED_GRIDS = (7, 64, 131)  # persistent grids the fused kernel's bits are held across
+
+
+def fused_bits(name, cfg, dec, Z, D) -> None:
+    """The fused kernel at the serving shape: two calls, persistent grids of
+    FUSED_GRIDS CTAs and the lock-step schedule give the same bits."""
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    ops = packed(cfg, dec, Z, D)
+    kernel, _, kw = trunk_fns(cfg)
+    first = kernel(*ops, **kw)
+    check(torch.equal(first, kernel(*ops, **kw)), f"{name}: two fused calls differ")
+    check(torch.equal(first, kernel(*ops, sched=tk.SCHED_LOCKSTEP, **kw)),
+          f"{name}: the lock-step schedule changes the bits")
+    sm_count = tk._sm_count
+    try:
+        for grid in FUSED_GRIDS:
+            tk._sm_count = lambda device, grid=grid: grid
+            check(torch.equal(first, kernel(*ops, **kw)),
+                  f"{name}: a persistent grid of {grid} CTAs changes the bits")
+    finally:
+        tk._sm_count = sm_count
+    torch.cuda.synchronize()
+    print(f"{name} fused kernel at B={Z.shape[0]} P={D.shape[1]}: two calls, grids of "
+          f"{', '.join(map(str, FUSED_GRIDS))} CTAs and lock step bitwise equal")
+
+
 def wide_trunk(H: int, device, B: int = 21, P: int = 8192, L: int = 2, seed: int = 9):
     """Random Cond-by-Concat trunk operands of width ``H`` (SIREN-scaled, from
     a numpy generator): a width no Zoo entry has."""
@@ -1568,7 +1712,7 @@ def wide_trunk(H: int, device, B: int = 21, P: int = 8192, L: int = 2, seed: int
 
 def compare_wide(device, errors, rel_errors) -> None:
     """The forward at widths past the 64-row tile (WIDE) against its plain
-    version at 21 x 8,192: the launch takes the 32-row tile."""
+    version at 21 x 8,192: the row-tile kernel, on its 32-row tile."""
     from reni_tpu_torch.kernels import siren_fwd as tk
 
     kw0 = dict(omega0=30.0, omega_h=30.0, fast_sine=True)
@@ -1577,9 +1721,11 @@ def compare_wide(device, errors, rel_errors) -> None:
         kw = dict(kw0, trunk=trunk)
         check(tk.unsupported_reason(ops[0].shape[1], H, 21, trunk) is None,
               f"the forward declines H = {H} ({trunk})")
+        tiles = tk.tile_fwd_launches
         with torch.no_grad():
             out, ref = tk.siren_trunk_cuda(*ops, **kw), tk.siren_trunk_reference(*ops, **kw)
         torch.cuda.synchronize()
+        check(tk.tile_fwd_launches == tiles + 1, f"H = {H} ({trunk}) did not take the row-tile kernel")
         err = (out - ref).abs()
         mx, mean = err.max().item(), err.mean().item()
         print(f"siren_fwd H={H} {trunk} (a {tk.tile_rows(H, trunk)}-row tile) B=21 P=8192: "
@@ -1595,7 +1741,7 @@ def compare_wide(device, errors, rel_errors) -> None:
 def forward_digest(entries, device) -> None:
     """Print the sha256 (16 hex digits) of the forward kernel's output bytes
     at the serving shape (21 x 32,768, shared grid) for each Zoo decoder:
-    the bits of the 64-row tile, to compare two trees by."""
+    the fused kernel's bits, to compare two trees by."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_fwd as tk
 
@@ -1603,13 +1749,8 @@ def forward_digest(entries, device) -> None:
     out = {}
     with torch.no_grad():
         for name, (cfg, dec, Z) in entries.items():
-            ops = packed(cfg, dec, Z, D)
-            kw = dict(trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
-            if cfg.is_film:
-                y = tk.film_trunk_cuda(*ops, **kw)
-            else:
-                y = tk.siren_trunk_cuda(*ops, omega0=cfg.first_omega_0,
-                                        omega_h=cfg.hidden_omega_0, **kw)
+            kernel, _, kw = trunk_fns(cfg)
+            y = kernel(*packed(cfg, dec, Z, D), **kw)
             out[name] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
     print(f"forward digest at 21 x {D.shape[1]:,} (serving shape): {out}")
 
@@ -1753,27 +1894,40 @@ def main() -> int:
     errors = {"siren_fwd": [], "film_fwd": [], "siren_bwd": [], "film_bwd": []}
     rel_errors = {name: [] for name in errors}
     entries = {}
+    maps_grid = sphere.get_directions(FIT_RES[1][1], device=dev)
+    serve_grids = [(f"serving width {w}", sphere.get_directions(w, device=dev))
+                   for w in SERVE_WIDTHS if w != WIDTH]
     for name, entry in (("siren_fwd", CBC), ("film_fwd", FILM)):
         cfg, dec, Z = load_entry(entry, dev)
         check(tuple(Z.shape) == (21, 49, 3), f"test latents {tuple(Z.shape)}")
         entries[name] = (cfg, dec, Z)
+        mu100 = training_latents(entry, dev)[:DEC_BATCH]
         with torch.inference_mode():
-            for label, grid, trunk in (
-                ("shared (1, P) grid", D, None),
-                ("per-image (B, P) grids", per_image_grids(D, Z.shape[0], seed=0), None),
-                ("float32 trunk, shared grid", D, "float32"),
-                *((label, grid, None) for label, grid in fit_grids),
+            for label, grid, trunk, lat in (
+                ("shared (1, P) grid", D, None, Z),
+                ("per-image (B, P) grids", per_image_grids(D, Z.shape[0], seed=0), None, Z),
+                ("float32 trunk, shared grid", D, "float32", Z),
+                *((label, grid, None, Z) for label, grid in fit_grids + serve_grids),
+                ("training latents, training_maps' grid", maps_grid, None, mu100),
             ):
-                mx, mean, scale = compare(cfg, dec, Z, grid, trunk)
+                routes = (tk.fused_fwd_launches, tk.tile_fwd_launches)
+                mx, mean, scale = compare(cfg, dec, lat, grid, trunk)
                 errors[name].append(mx)
                 rel_errors[name].append(mx / scale)
-                print(f"{name} {os.path.basename(entry)} B={Z.shape[0]} P={grid.shape[1]} "
-                      f"{label}: max abs err {mx:.3g}, mean {mean:.3g}")
+                route = tk.fwd_route(trunk or cfg.pallas_trunk, cfg.hidden_features,
+                                     cfg.hidden_layers - cfg.is_film)
+                print(f"{name} {os.path.basename(entry)} B={lat.shape[0]} P={grid.shape[1]} "
+                      f"{label} ({route} kernel): max abs err {mx:.3g}, mean {mean:.3g}")
+                fused = route == "fused"
+                check((tk.fused_fwd_launches, tk.tile_fwd_launches)
+                      == (routes[0] + fused, routes[1] + (not fused)),
+                      f"{name} {label} did not take the {route} kernel")
                 if (trunk or cfg.pallas_trunk) == "float32":
                     bar = F32_MAX_ERR[cfg.fast_sine]
                     check(mx < bar, f"{name} {label} off the float32 bar {bar}")
                 else:
                     check(mx < MAX_ERR and mean < MEAN_ERR, f"{name} {label} off the bf16 bar")
+            fused_bits(name, cfg, dec, Z, D)
     compare_wide(dev, errors, rel_errors)
     forward_digest(entries, dev)
 
@@ -1827,13 +1981,17 @@ def main() -> int:
     torch.cuda.synchronize()
     tk.fused_apply.launches = 0
     tk.fused_film_apply.launches = 0
+    tk.fused_fwd_launches = tk.tile_fwd_launches = 0
     serve_entry(CBC, expected["siren_fwd"], rotation_width=WIDTH, concurrent=True)
     serve_entry(FILM, expected["film_fwd"], rotation_width=WIDTH, concurrent=False)
     torch.cuda.synchronize()
     launches = {"siren_fwd": tk.fused_apply.launches, "film_fwd": tk.fused_film_apply.launches}
-    print(f"launches during serving: {launches}")
+    routes = {"fused": tk.fused_fwd_launches, "tile": tk.tile_fwd_launches}
+    print(f"launches during serving: {launches}; by route: {routes}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the serving path")
+    check(routes == {"fused": sum(launches.values()), "tile": 0},
+          "a served decode did not take the fused kernel")
 
     phase("fit_latent")
     launches.update(fit_latent_phase(dev))
@@ -1891,45 +2049,14 @@ def main() -> int:
     }
     fit_ms = {}
     with torch.inference_mode():
+        l2_tbs = l2_read_rate(dev)
         for name in ("siren_fwd", "film_fwd"):
             cfg, dec, Z = entries[name]
-            d_feats = encodings.d_features(cfg.equivariance, D)
-            B, P, H = Z.shape[0], D.shape[1], cfg.hidden_features
-            ops = packed(cfg, dec, Z, D)
-            if name == "siren_fwd":
-                kw = dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
-                          trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
-                kernel, plain = tk.siren_trunk_cuda, tk.siren_trunk_reference
-                n_mm = ops[3].shape[0]
-            else:
-                kw = dict(trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
-                kernel, plain = tk.film_trunk_cuda, tk.film_trunk_reference
-                n_mm = ops[2].shape[0]
-            k, n_out = d_feats.shape[-1], cfg.out_features
-            flops = 2.0 * B * P * (k * H + n_mm * H * H + H * n_out)
-            nbytes = min_bytes(ops, k, n_out, cfg.is_film, cfg.pallas_trunk) + B * P * n_out * 4
-            bound_ms, bound_by = bound(flops, nbytes)
-            ms = time_ms(lambda: kernel(*ops, **kw))
-            plain_ms = time_ms(lambda: plain(*ops, **kw))
-            print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; {flops:.4g} FLOP, {nbytes:.4g} B) -> "
-                  f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-            # FIT_LATENT's largest stage (64x128 = 21 x 8,192), where most of
-            # its forward launches run
-            small = packed(cfg, dec, Z, sphere.get_directions(FIT_RES[1][1], device=dev))
-            ms_fit = time_ms(lambda: kernel(*small, **kw))
-            plain_fit = time_ms(lambda: plain(*small, **kw))
-            fit_ms[name] = ms_fit
-            print(f"{name} B={B} P={small[0].shape[1]} (FIT_LATENT's last stage): kernel "
-                  f"{ms_fit:.4f} ms, plain {plain_fit:.4f} ms")
-            rows.append({
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name]),
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                "ms_fit_latent_last_stage": ms_fit, "plain_ms_fit_latent_last_stage": plain_fit,
-            })
+            row = fwd_timing(name, cfg, dec, Z, dev, l2_tbs)
+            fit_ms[name] = row["shapes"][f"21x{FIT_RES[1][0] * FIT_RES[1][1]}"]["ms"]
+            row.update({"replaces": replaces[name], "launches": launches[name],
+                        "max_abs_err": max(errors[name]), "max_rel_err": max(rel_errors[name])})
+            rows.append(row)
         for fwd_name, name in (("siren_fwd", "siren_bwd"), ("film_fwd", "film_bwd")):
             cfg, dec, Z = entries[fwd_name]
             row, shapes = None, {}

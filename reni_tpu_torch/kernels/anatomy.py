@@ -15,14 +15,25 @@ without it) is held against on the card. Each wrapper counts its launches in
 kernel unchanged, the backward without weight gradients) is launched from
 that library, not compiled twice.
 
-Forward variants (operands and result of ``siren_trunk_reference``):
+Forward variants (operands and result of ``siren_trunk_reference``). Where
+the shipped forward is the fused kernel (``siren_fwd.fwd_route`` gives
+``"fused"``: the bf16 trunk at the Zoo's widths):
 
-- ``transcendental=False``: every sine becomes ``0.8 * z``;
-- ``interleave`` 2 or 4: the TPU probe works its tile as independent
-  sub-tiles layer by layer. Here each hidden layer works the CTA's 64-row
-  tile as 2 or 4 sub-tiles one after the other, so a weight fragment read
-  from L2 serves 2 or 1 row tiles of 16 instead of 4. The results are those
-  of the shipped forward, bit for bit, which is the check.
+- ``transcendental=False``: every sine becomes ``0.8 * z`` (the fused
+  kernel built with the linear stand-in);
+- ``interleave=2``: the TPU probe works its tile as independent sub-tiles
+  one after the other. Its counterpart here is the fused kernel with its two
+  warpgroups in lock step (``siren_fwd.SCHED_LOCKSTEP``), so that no
+  epilogue runs under a product; launched from the shipped library. Its
+  results are the shipped forward's, bit for bit, which is the check;
+- ``interleave=4`` has no counterpart in the fused design: it stays the
+  row-tile kernel working each 64-row tile as 4 sub-tiles (a weight fragment
+  read from L2 serves one row tile of 16 instead of 4), and gives the
+  row-tile kernel's bits (``siren_trunk_cuda(..., route="tile")``).
+
+Where the shipped forward is the row-tile kernel (the float32 trunk, other
+widths), every variant is that kernel's: the linear stand-in, and each
+64-row tile worked as 2 or 4 sub-tiles, with the shipped forward's bits.
 
 Backward variants (operands of ``siren_trunk_bwd_reference``):
 
@@ -44,6 +55,10 @@ Backward variants (operands of ``siren_trunk_bwd_reference``):
   dbf, and per pixel row the operands h_i and dz_i of the product that
   would form dWs_i. They depend on the launch grid ``(tiles per CTA, CTAs
   per image)``, which the plain version takes as ``grid``.
+
+``l2_read_cuda`` reads a buffer that fits in L2 ``reps`` times over and sums
+its 32-bit words (modulo 2^32; ``l2_read_reference``), so that its time gives
+L2's read rate: the rate at which the fused forward's weight slabs can come.
 
 ``weight_grads_cuda`` runs that product alone on a given scratch (the
 ``wgrad_bf16`` / ``wgrad_f32`` kernel of ``csrc/siren_chain.cuh`` and, with
@@ -167,11 +182,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "reni_anatomy_fwd": [_P, ctypes.c_longlong, *[_P] * 7, *[_I] * 4, _F, _F, _I, _I, _I, _P],
+    "reni_anatomy_fwd_fused": [
+        _P, ctypes.c_longlong, *[_P] * 7, *[_I] * 4, _F, _F, _I, _I, _I, _P,
+    ],
     "reni_anatomy_bwd": [
         _P, ctypes.c_longlong, *[_P] * 14, *[_I] * 8, _F, _F, _I, _I, _I, _I, _P,
     ],
     "reni_anatomy_wgrad": [_P, _P, _P, _P, ctypes.c_longlong, *[_I] * 6, _P],
+    "reni_anatomy_l2_read": [_P, ctypes.c_longlong, _I, _P, _I, _P],
 }
+L2_READ_CTAS_PER_SM = 4
 
 
 def library():
@@ -200,24 +220,35 @@ def fwd_variant_cuda(
             f"no forward variant with interleave={interleave}, transcendental={transcendental}"
         )
     kw = dict(omega0=omega0, omega_h=omega_h, trunk=trunk, fast_sine=fast_sine)
-    if transcendental and interleave == 1:
-        out = siren_fwd.siren_trunk_cuda(d_pad, a, b0, ws, bs, wf, bf, **kw)
+    fused = siren_fwd.fwd_route(trunk, a.shape[-1], ws.shape[0]) == "fused"
+    if transcendental and (interleave == 1 or (fused and interleave == 2)):
+        sched = siren_fwd.SCHED_LOCKSTEP if interleave == 2 else None
+        out = siren_fwd.siren_trunk_cuda(d_pad, a, b0, ws, bs, wf, bf, sched=sched, **kw)
         fwd_variant_cuda.launches += 1
         return out
     batch, hidden = a.shape[0], a.shape[-1]
     d, d_bstride = _cuda_operands("fwd_variant", trunk, d_pad, batch, (a, b0, ws, bs, wf, bf))
     a, b0, bs, bf = _f32(a), _f32(b0), _f32(bs), _f32(bf)
-    ws, wf = _weights(ws, trunk), _weights(wf, trunk)
-    out = torch.empty((batch, d.shape[1], C_PAD), dtype=torch.float32, device=d.device)
+    wf = _weights(wf, trunk)
+    npix, n_mm = d.shape[1], ws.shape[0]
+    out = torch.empty((batch, npix, C_PAD), dtype=torch.float32, device=d.device)
     lib = library()
+    head = (d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr())
+    if fused and not transcendental:
+        slabs, stages, sched, grid = siren_fwd._fused_args(ws, hidden, False, npix, batch,
+                                                           d.device, None)
+        fn = lib.reni_anatomy_fwd_fused
+        args = (*head, slabs.data_ptr(), bs.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                out.data_ptr(), batch, npix, hidden, n_mm, float(omega0), float(omega_h),
+                stages, sched, grid)
+    else:
+        ws = _weights(ws, trunk)
+        fn = lib.reni_anatomy_fwd
+        args = (*head, ws.data_ptr(), bs.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                out.data_ptr(), batch, npix, hidden, n_mm, float(omega0), float(omega_h),
+                int(trunk == "bfloat16"), _sine_mode(transcendental, fast_sine), interleave)
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.reni_anatomy_fwd(
-            d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-            wf.data_ptr(), bf.data_ptr(), out.data_ptr(), batch, d.shape[1], hidden,
-            ws.shape[0], float(omega0), float(omega_h), int(trunk == "bfloat16"),
-            _sine_mode(transcendental, fast_sine), interleave, stream,
-        )
+        err = fn(*args, torch.cuda.current_stream(d.device).cuda_stream)
     _check(err, lib.reni_anatomy_error_string, "fwd_variant")
     fwd_variant_cuda.launches += 1
     return out
@@ -300,3 +331,30 @@ def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool =
 
 
 weight_grads_cuda.launches = 0
+
+
+def l2_read_reference(buf: torch.Tensor, reps: int) -> torch.Tensor:
+    """The sum of the 32-bit words of ``buf`` (uint8, a multiple of 16 bytes),
+    ``reps`` times, modulo 2^32 -> (1,) int64."""
+    words = buf.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return ((words.sum() * reps) % 2**32).reshape(1)
+
+
+def l2_read_cuda(buf: torch.Tensor, reps: int) -> torch.Tensor:
+    """``l2_read_reference`` on the card: every SM reads ``buf`` from L2
+    ``reps`` times over (the time of a call gives L2's read rate)."""
+    if not buf.is_cuda or buf.dtype != torch.uint8 or buf.numel() % 16 or not buf.is_contiguous():
+        raise ValueError("l2_read takes a contiguous CUDA uint8 buffer of 16-byte pieces")
+    sink = torch.zeros(1, dtype=torch.int32, device=buf.device)
+    grid = L2_READ_CTAS_PER_SM * siren_fwd._sm_count(buf.device)
+    lib = library()
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = lib.reni_anatomy_l2_read(buf.data_ptr(), buf.numel(), reps, sink.data_ptr(), grid,
+                                       stream)
+    _check(err, lib.reni_anatomy_error_string, "l2_read")
+    l2_read_cuda.launches += 1
+    return sink.to(torch.int64) & 0xFFFFFFFF
+
+
+l2_read_cuda.launches = 0

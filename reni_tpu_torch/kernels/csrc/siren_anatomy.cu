@@ -1,6 +1,7 @@
 // Anatomy probes of the Cond-by-Concat forward and backward kernels: the
-// kernel templates of siren_fwd.cuh and siren_bwd.cuh instantiated with one
-// part taken out or rearranged, to see which part bounds the shipped kernels.
+// kernel templates of fused_fwd.cuh, siren_fwd.cuh and siren_bwd.cuh
+// instantiated with one part taken out or rearranged, to see which part
+// bounds the shipped kernels.
 //
 // Replaces the Pallas probe kernels _fwd_kernel_variant and
 // _bwd_kernel_variant of benchmarks/bwd_anatomy.py. They are timed by
@@ -8,11 +9,22 @@
 // path. This is a translation unit of its own, so the shipped libraries
 // (siren_fwd.cu, siren_bwd.cu) hold the same machine code with or without it.
 //
-// Forward variants:
+// Forward variants. Where the shipped bf16 forward is the fused kernel
+// (fused_fwd.cuh; kernels/siren_fwd.py::fwd_route):
 //   - sine mode SINE_LINEAR: every sine becomes 0.8 x (no transcendental);
-//   - interleave 2 or 4: each hidden layer works the CTA's 64-row tile as 2 or
-//     4 independent sub-tiles, so a weight fragment read from L2 serves 2 or 1
-//     row tiles of 16 instead of 4; the results are the shipped kernel's.
+//     built here (reni_anatomy_fwd_fused);
+//   - interleave 2: the fused kernel with its two warpgroups in lock step
+//     (SCHED_LOCKSTEP), so that no epilogue runs under a product: the
+//     counterpart of the TPU probe's sub-tiles worked one after the other.
+//     The schedule is an argument of the shipped kernel, so this variant is
+//     launched from siren_fwd.cu; its results are the shipped kernel's bits;
+//   - interleave 4 has no counterpart in the fused design: it stays the
+//     row-tile kernel of siren_fwd.cuh working each 64-row tile as 4
+//     sub-tiles, so a weight fragment read from L2 serves one row tile of 16;
+//     its results are the row-tile kernel's bits.
+// Where the shipped forward is the row-tile kernel (the float32 trunk, other
+// widths): SINE_LINEAR, and interleave 2 or 4 as the sub-tiles of the row-tile
+// kernel, with the row-tile kernel's bits.
 // Backward variants:
 //   - sine mode SINE_LINEAR: (sin, cos) becomes (0.8 x, 0.6 x), with or
 //     without the weight gradients;
@@ -22,18 +34,23 @@
 //     kernel, so this variant runs the chain kernel with weight gradients
 //     alone; the per-CTA slots and the scratch of h and dz are the result and
 //     the slot sums and the split-K product are skipped.
+// reni_anatomy_l2_read reads a buffer that fits in L2 many times over, so that
+// its time gives L2's read rate on this card: the rate the fused forward's
+// weight slabs come at (fused_fwd.cuh).
 // Beside them, reni_anatomy_wgrad runs the training kernels' weight-gradient
 // product (wgrad_bf16 / wgrad_f32 of siren_chain.cuh) alone on a given
 // scratch, with or without the sum of its split-K partials, so that it can
 // be timed apart from the chain kernel.
-// Every variant but the interleaved forward is numerically wrong on purpose,
+// Every variant but the interleaved forwards is numerically wrong on purpose,
 // and each is a definite function with a plain version in kernels/anatomy.py.
 // The variants the shipped libraries already hold (the backward without
-// weight gradients, and each kernel unchanged) are launched from there.
+// weight gradients, each kernel unchanged, the fused kernel in lock step) are
+// launched from there.
 //
-// What bounds them on the H100: as the shipped kernels (tensor-core
-// operations); the point of a probe is the time that its missing part took.
+// What bounds them on the H100: as the shipped kernels; the point of a probe
+// is the time that its missing part took.
 
+#include "fused_fwd.cuh"
 #include "siren_bwd.cuh"
 #include "siren_fwd.cuh"
 
@@ -71,6 +88,24 @@ reni_bwd::KernelFn pick_bwd(int sine, int wgrad, int reduce) {
                            : trunk_bwd<false, BF16, SINE_EXACT, true>;
 }
 
+// every thread sums the 32-bit words of its 16-byte pieces of buf, `reps`
+// times over (ld.global.cg: cached in L2, not L1); the CTAs add their sums
+// into *sink with integer atomics, so the total is exact
+__global__ void l2_read(const uint4* buf, long long pieces, int reps, unsigned* sink) {
+  unsigned s = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int r = 0; r < reps; ++r)
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < pieces; i += stride) {
+      unsigned x, y, z, w;
+      asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(x), "=r"(y), "=r"(z), "=r"(w)
+                   : "l"(buf + i));
+      s += x + y + z + w;
+    }
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (threadIdx.x % 32 == 0) atomicAdd(sink, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,6 +123,20 @@ int reni_anatomy_fwd(const float* d, long long d_bstride, const float* a, const 
       bf16 ? pick_fwd<true>(sine, interleave) : pick_fwd<false>(sine, interleave);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   return reni_fwd::launch(kern, g, batch, bf16, stream);
+}
+
+// The fused forward (Cond-by-Concat) with the linear stand-in for every sine;
+// the arguments of reni_siren_fwd_fused but `fast`. Returns a cudaError_t.
+int reni_anatomy_fwd_fused(const float* d, long long d_bstride, const float* a, const float* b0,
+                           const void* slabs, const float* bs, const void* wf, const float* bf,
+                           float* out, int batch, int P, int H, int n_hidden, float omega0,
+                           float omega_h, int stages, int sched, int grid, void* stream) {
+  using reni_wg::bf16;
+  const reni_fused::FusedArgs g{d, d_bstride, a, b0, static_cast<const bf16*>(slabs), bs,
+                                static_cast<const bf16*>(wf), bf, nullptr, nullptr, out,
+                                batch, P, H, n_hidden, stages, sched, omega0, omega_h};
+  return reni_fused::launch_fused(reni_fused::fused_fwd<false, reni::SINE_LINEAR>, false, g, grid,
+                                  stream);
 }
 
 // A backward variant; the arguments of reni_siren_bwd with the sine mode and
@@ -122,6 +171,16 @@ int reni_anatomy_wgrad(const void* h, const void* dz, float* part, float* dws, l
                        int reduce, void* stream) {
   return (int)launch_weight_grads(bf16 != 0, h, dz, part, dws, rows, rows_per_chunk, n_wchunks,
                                   H, n_layers, static_cast<cudaStream_t>(stream), reduce != 0);
+}
+
+// *sink += the sum of the 32-bit words of buf (`bytes`, a multiple of 16),
+// `reps` times, modulo 2^32, by `grid` CTAs of 256 threads. Returns a
+// cudaError_t.
+int reni_anatomy_l2_read(const void* buf, long long bytes, int reps, unsigned* sink, int grid,
+                         void* stream) {
+  l2_read<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(buf), bytes / 16, reps, sink);
+  return (int)cudaGetLastError();
 }
 
 const char* reni_anatomy_error_string(int err) {

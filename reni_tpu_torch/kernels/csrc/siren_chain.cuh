@@ -29,8 +29,6 @@ constexpr int ROW_PAD = 8;  // elements of padding per activation row
 
 __host__ __device__ constexpr int tile_rows(bool bf16) { return bf16 ? 16 : 8; }
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
 // One hidden layer of a 16-row tile: epi(r, c, sum_k hin[r][k] W[k][c]) for
 // every (r, c); one 16-column strip per warp.
 template <typename Epi>

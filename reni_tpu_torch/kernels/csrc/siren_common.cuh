@@ -18,6 +18,8 @@ namespace reni {
 constexpr int K_PAD = 8;  // direction-feature width, padded
 constexpr int C_PAD = 8;  // output channels, padded
 
+__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
+
 constexpr float PI_HI = 0x1.92p+1f;
 constexpr float PI_LO = 0x1.fb5444p-11f;
 constexpr float INV_PI = 0x1.45f306p-2f;
@@ -62,6 +64,25 @@ __device__ __forceinline__ float fast_cos(float x) {
   float sign;
   const float r = reduce_pi(x, &sign);
   return poly_cos(r * r) * sign;
+}
+
+// fast_sin of N arguments in place, each step over all of them before the
+// next: the same operations, so the same bits, as independent chains that
+// the scheduler can interleave
+template <int N>
+__device__ __forceinline__ void fast_sin_n(float (&x)[N]) {
+  float k[N], sign[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) k[i] = rintf(x[i] * INV_PI);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float half = k[i] * 0.5f;
+    sign[i] = 1.0f - 4.0f * (half - floorf(half));
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = (x[i] - k[i] * PI_HI) - k[i] * PI_LO;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = poly_sin(x[i], x[i] * x[i]) * sign[i];
 }
 
 // sin and cos of one argument sharing one range reduction

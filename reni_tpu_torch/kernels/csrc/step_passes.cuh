@@ -83,16 +83,16 @@
 #include <stdint.h>
 
 #include "siren_step.cuh"
+#include "wgmma.cuh"
 
 namespace reni_pass {
 
 using namespace reni;
+using namespace reni_wg;
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE = 128;      // rows of one tile
 constexpr int PTHREADS = 256;  // two warpgroups
 constexpr int PWARPS = PTHREADS / 32;
-constexpr int NCH = 4;         // 64-column blocks a warpgroup holds: H <= 256
 
 struct PassArgs {
   const float* d;       // (B_d, P, K_PAD) direction features
@@ -152,31 +152,8 @@ __host__ __device__ inline PassLayout pass_layout(int H) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper building blocks
+// loads of the passes
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// element offset of (row, col) in a swizzled K-major tile of `rows` rows:
-// [col / 64][row][64], 16-byte chunk (col / 8) % 8 stored at chunk ^ (row % 8)
-__device__ __forceinline__ int swz(int row, int col, int rows) {
-  return (col >> 6) * rows * 64 + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// make this thread's shared-memory writes visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // `rows` rows of a row-major bf16 matrix (pitch H) into a swizzled tile;
 // rows at or past `valid` are zero-filled
@@ -197,69 +174,6 @@ __device__ __forceinline__ void load_floats(float* dst, const float* src, int n)
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 x = reinterpret_cast<const float4*>(p)[0], y = reinterpret_cast<const float4*>(p)[1];
   v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w, v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
-}
-
-// wgmma matrix descriptor of a K-major, 128-byte-swizzled operand: start
-// address, leading offset (unused with this swizzle), 1024 B between 8-row
-// groups, layout 1 (128-byte swizzle)
-__device__ __forceinline__ uint64_t gmma_desc(const bf16* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// keep the compiler from moving uses of the accumulators across the
-// asynchronous product
-__device__ __forceinline__ void fence_acc(float (&acc)[NCH][32]) {
-#pragma unroll
-  for (int nc = 0; nc < NCH; ++nc)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[nc][i])::"memory");
-}
-
-// acc = the warpgroup's 64 rows of the tile `a` times B^T (B = `w`, H x H,
-// both swizzled K-major), over K = H; column block nc of 64 in acc[nc]
-__device__ __forceinline__ void mma_tile(float (&acc)[NCH][32], const bf16* a, const bf16* w,
-                                         int H) {
-  const int wg = threadIdx.x / 128, nch = H / 64;
-  fence_acc(acc);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-  for (int kb = 0; kb < nch; ++kb) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t da = gmma_desc(a + (size_t)kb * TILE * 64 + wg * 64 * 64 + ks * 16);
-#pragma unroll
-      for (int nc = 0; nc < NCH; ++nc)
-        if (nc < nch)
-          wgmma_64x64(acc[nc], da, gmma_desc(w + (size_t)kb * H * 64 + nc * 64 * 64 + ks * 16),
-                      kb | ks);
-    }
-  }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
-}
-
-// the tile row and column of accumulator element i of block nc
-__device__ __forceinline__ int acc_row(int i) {
-  return (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 4 + ((i >> 1) & 1) * 8;
-}
-__device__ __forceinline__ int acc_col(int nc, int i) {
-  return nc * 64 + (i >> 2) * 8 + (threadIdx.x % 4) * 2 + (i & 1);
 }
 
 // Column sums over the rows of every tile a CTA walks, kept in registers
@@ -311,11 +225,6 @@ struct Tile {
   int p0, valid;
   size_t row0;
 };
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_addr(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
 
 __device__ __forceinline__ bool next_tile(const PassArgs& g, int i, Tile* t) {
   t->p0 = (blockIdx.x * g.tiles_per_cta + i) * TILE;

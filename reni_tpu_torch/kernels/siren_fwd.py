@@ -6,7 +6,7 @@ model parameters into the kernel layout (per-image first-layer weight A,
 stacked hidden weights, channel-padded final layer), run the trunk, then
 slice the real output channels and apply the output activation.
 
-The trunk runs where its tensors are: on a CUDA tensor it is the
+The trunk runs where its tensors are: on a CUDA tensor it is a
 hand-written kernel of ``csrc/siren_fwd.cu`` (``siren_trunk_cuda``,
 ``film_trunk_cuda``); on a CPU tensor it is the plain PyTorch version
 (``siren_trunk_reference``, ``film_trunk_reference``). A CUDA tensor never
@@ -15,7 +15,18 @@ takes the plain version: a build or launch failure raises.
 plain version, on any device — the tests and ``chip_smoke.py`` hold the
 kernels against them.
 
-Each wrapper counts the kernel launches it makes in ``.launches``.
+Two kernels serve a CUDA trunk, chosen by dtype and shape alone
+(``fwd_route``): the fused kernel of ``csrc/fused_fwd.cuh`` (``"fused"``:
+the bf16 trunk with H a multiple of 64 up to 256 and 1 to MAX_FUSED_MM H x H
+products: every Zoo entry and serving shape) and the row-tile kernel of
+``csrc/siren_fwd.cuh`` (``"tile"``: the float32 trunk, other widths, a FiLM
+trunk of one layer). The fused kernel reads the hidden weights as swizzled
+64-row slabs (``pack_slabs``), packed once per weight tensor and kept while
+the tensor is unchanged (``weight_slabs``); a persistent grid of one CTA per
+SM walks the (image, 128-row tile) items in order (``fused_schedule``).
+
+Each wrapper counts its calls in ``.launches``; ``fused_fwd_launches`` and
+``tile_fwd_launches`` count the launches of each route.
 
 The trunks are differentiable (``SirenTrunk``, ``FilmTrunk``: the
 ``custom_vjp`` of the JAX package). Their backward is the port of
@@ -35,6 +46,7 @@ Operand layout (float32; K_PAD = C_PAD = 8):
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -50,6 +62,14 @@ TRUNKS = ("bfloat16", "float32")
 TILE_ROWS, ROW_PAD, WARPS = (64, 32, 16), 8, 8
 SMEM_LIMIT = 227 * 1024  # H100 dynamic shared memory per block
 MAX_GRID_Y = 65535  # the image index is the grid's y
+# the fused kernel (csrc/fused_fwd.cuh): widths, depths, row tile, ring stages
+FUSED_WIDTHS = (64, 128, 192, 256)
+MAX_FUSED_MM = 16
+FUSED_TILE = 128
+FUSED_STAGES = (4, 3, 2)  # deepest first
+SCHED_LOCKSTEP, SCHED_PINGPONG = 0, 1
+fused_fwd_launches = 0  # launches of the fused kernel
+tile_fwd_launches = 0  # launches of the row-tile kernel
 
 
 def fwd_smem_bytes(tm: int, hidden: int, trunk: str) -> int:
@@ -91,6 +111,137 @@ def unsupported_reason(
     if batch is not None and batch > MAX_GRID_Y:
         return f"batch {batch} exceeds the kernel grid limit {MAX_GRID_Y}"
     return None
+
+
+def fwd_route(trunk: str, hidden: int, n_mm: int) -> str:
+    """The kernel a CUDA trunk of this dtype and shape takes: ``"fused"``
+    (bf16, H in FUSED_WIDTHS, 1 <= n_mm <= MAX_FUSED_MM; ``n_mm`` counts
+    the H x H products) or ``"tile"``."""
+    fused = trunk == "bfloat16" and hidden in FUSED_WIDTHS and 1 <= n_mm <= MAX_FUSED_MM
+    return "fused" if fused else "tile"
+
+
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def fused_layout_bytes(hidden: int, n_mm: int, film: bool, stages: int) -> int:
+    """Shared memory of a fused-kernel CTA with a ring of ``stages`` slabs
+    (``fused_layout_at`` of ``csrc/fused_fwd.cuh``): the activation tile, the
+    ring, the first-layer weight, the per-layer vectors, Wf, the barriers
+    and the alignment slack."""
+    vec = (3 if film else 1) * (n_mm + 1) * hidden * 4
+    return (FUSED_TILE * hidden * 2 + stages * hidden * 64 * 2 + _align128(K_PAD * hidden * 4)
+            + _align128(vec) + _align128(hidden * C_PAD * 2) + _align128(2 * stages * 8) + 1024)
+
+
+def fused_layout(hidden: int, n_mm: int, film: bool) -> tuple[int, int] | None:
+    """(stages, shared memory bytes) of the deepest ring that fits
+    (``fused_layout``), or None."""
+    for stages in FUSED_STAGES:
+        total = fused_layout_bytes(hidden, n_mm, film, stages)
+        if total <= SMEM_LIMIT:
+            return stages, total
+    return None
+
+
+def fused_sched(hidden: int, stages: int) -> int:
+    """The shipped schedule: the warpgroups take turns at the tensor cores
+    (SCHED_PINGPONG) where the ring holds a whole layer, else lock step."""
+    return SCHED_PINGPONG if stages >= hidden // 64 else SCHED_LOCKSTEP
+
+
+def fused_grid(batch: int, npix: int, sms: int) -> int:
+    """The persistent grid: one CTA per SM, at most one per item
+    (``fused_grid`` of the header)."""
+    return min(sms, batch * -(-npix // FUSED_TILE))
+
+
+def fused_schedule(batch: int, npix: int, grid: int) -> list[list[tuple[int, int]]]:
+    """The (image, tile) items each CTA of a launch on ``grid`` CTAs walks,
+    in its order: CTA c takes items c * n // grid to (c + 1) * n // grid - 1
+    of the image-major list (the kernel's loop)."""
+    tiles = -(-npix // FUSED_TILE)
+    items = batch * tiles
+    return [[divmod(i, tiles) for i in range(c * items // grid, (c + 1) * items // grid)]
+            for c in range(grid)]
+
+
+def swz(row, col, rows: int):
+    """Element offset of (row, col) in a swizzled K-major tile of ``rows``
+    rows (``swz`` of ``csrc/wgmma.cuh``): [col / 64][row][64], the 16-byte
+    chunk (col / 8) % 8 stored at chunk ^ (row % 8). Works on ints and
+    integer tensors."""
+    return (col >> 6) * rows * 64 + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7)
+
+
+def slab_offsets(hidden: int, device=None) -> torch.Tensor:
+    """(H, H) int64: where W[k, n] of one layer lands in its packed slabs:
+    element (n, k) of W^T in the swizzled (H / 64, H, 64) layout, slab kb
+    (K rows 64 kb to 64 kb + 63) the contiguous kb-th H x 64 block."""
+    k = torch.arange(hidden, device=device)[:, None]
+    n = torch.arange(hidden, device=device)[None, :]
+    return swz(n, k, hidden)
+
+
+def pack_slabs(ws: torch.Tensor) -> torch.Tensor:
+    """(L, H, H) hidden weights -> (L, H * H) bf16 in the fused kernel's
+    slab order (``slab_offsets``)."""
+    n_mm, hidden = ws.shape[0], ws.shape[-1]
+    out = torch.empty((n_mm, hidden * hidden), dtype=torch.bfloat16, device=ws.device)
+    out[:, slab_offsets(hidden, ws.device).flatten()] = ws.reshape(n_mm, -1).to(torch.bfloat16)
+    return out
+
+
+class _TensorCache:
+    """Values derived from tensors, kept while those tensors are unchanged:
+    keyed by their identities and version counters (an in-place update, as
+    Adam's, bumps the counter). An entry holds its tensors, so no other
+    tensor takes their identity while it lives; inference tensors, which
+    have no version counter, are never cached. The oldest entries go first.
+    The daemon decodes from several threads: a lock guards the entries."""
+
+    def __init__(self, size: int):
+        self.size, self.entries, self.lock = size, {}, threading.Lock()
+
+    def get(self, tensors, make):
+        if any(t.is_inference() for t in tensors):
+            return make()
+        key = tuple(id(t) for t in tensors)
+        versions = tuple(t._version for t in tensors)
+        with self.lock:
+            hit = self.entries.get(key)
+            if hit is not None and hit[1] == versions:
+                return hit[2]
+            value = make()
+            self.entries.pop(key, None)
+            self.entries[key] = (tuple(tensors), versions, value)
+            while len(self.entries) > self.size:
+                self.entries.pop(next(iter(self.entries)))
+            return value
+
+
+_stacks = _TensorCache(8)
+_slabs = _TensorCache(8)
+
+
+def _stack(tensors: list) -> torch.Tensor:
+    """torch.stack of per-layer weights; where autograd records nothing,
+    the same tensor again while none of them has changed (so that its
+    packed slabs are reused)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return torch.stack(tensors)
+
+    def make():
+        with torch.inference_mode(False), torch.no_grad():
+            return torch.stack(tensors)
+
+    return _stacks.get(tensors, make)
+
+
+def weight_slabs(ws: torch.Tensor) -> torch.Tensor:
+    """``pack_slabs(ws)``, packed once and kept while ``ws`` is unchanged."""
+    return _slabs.get((ws,), lambda: pack_slabs(ws.detach()))
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +296,7 @@ def pack_inputs(params, equivariance: str, ndims: int, Z, d_feats):
     a_pad = torch.nn.functional.pad(a, (0, 0, 0, K_PAD - a.shape[1]))
     b0 = (parts["bias_feats"] @ w_bias + layer0["b"])[:, None, :]  # (B, 1, H)
     d_pad = _pad_last(d_feats, K_PAD)
-    ws = torch.stack([l["w"] for l in params["layers"][1:]])  # (L, H, H)
+    ws = _stack([l["w"] for l in params["layers"][1:]])  # (L, H, H)
     bs = torch.stack([l["b"] for l in params["layers"][1:]])  # (L, H)
     wf, bf = _final_operands(params)
     return d_pad, a_pad, b0, ws, bs, wf, bf
@@ -171,7 +322,7 @@ def pack_film_inputs(params, equivariance: str, Z, d_feats, hidden_features: int
     d_pad = _pad_last(d_feats, K_PAD)
     layers = params["layers"]
     ws = (
-        torch.stack([l["w"] for l in layers[1:]])
+        _stack([l["w"] for l in layers[1:]])
         if len(layers) > 1
         else w0.new_zeros((0, hidden_features, hidden_features))
     )
@@ -230,17 +381,12 @@ def film_trunk_reference(
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
+_I, _F, _L = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "reni_siren_fwd": [
-        _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P,
-    ],
-    "reni_film_fwd": [
-        _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P,
-    ],
+    "reni_siren_fwd": [_P, _L, *[_P] * 7, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    "reni_film_fwd": [_P, _L, *[_P] * 8, _I, _I, _I, _I, _I, _I, _P],
+    "reni_siren_fwd_fused": [_P, _L, *[_P] * 7, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P],
+    "reni_film_fwd_fused": [_P, _L, *[_P] * 8, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -293,53 +439,106 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _route(kind, route, trunk, hidden, n_mm) -> str:
+    """The route of a call: ``fwd_route``'s unless the caller names one
+    (the fused kernel only where ``fwd_route`` gives it)."""
+    auto = fwd_route(trunk, hidden, n_mm)
+    if route is None:
+        return auto
+    if route not in ("fused", "tile") or (route == "fused" and auto != "fused"):
+        raise ValueError(f"{kind}: no {route!r} route for the {trunk} trunk at H = {hidden}, "
+                         f"{n_mm} products")
+    return route
+
+
+def _fused_args(ws, hidden, film, npix, batch, device, sched):
+    """(slabs, stages, schedule, grid) of a fused launch."""
+    n_mm = ws.shape[0]
+    stages = fused_layout(hidden, n_mm, film)[0]
+    sched = fused_sched(hidden, stages) if sched is None else sched
+    if sched == SCHED_PINGPONG and stages < hidden // 64:
+        raise ValueError(f"ping-pong needs a ring of a whole layer ({stages} stages at H = "
+                         f"{hidden})")
+    return weight_slabs(ws), stages, sched, fused_grid(batch, npix, _sm_count(device))
+
+
+def _launched(route: str) -> None:
+    global fused_fwd_launches, tile_fwd_launches
+    if route == "fused":
+        fused_fwd_launches += 1
+    else:
+        tile_fwd_launches += 1
+
+
 def siren_trunk_cuda(
     d_pad, a, b0, ws, bs, wf, bf, *, omega0, omega_h, trunk="bfloat16",
-    fast_sine=False,
+    fast_sine=False, route=None, sched=None,
 ):
-    """Cond-by-Concat trunk on the card (``csrc/siren_fwd.cu``) -> (B, P, 8)."""
+    """Cond-by-Concat trunk on the card (``csrc/siren_fwd.cu``) -> (B, P, 8):
+    the kernel ``fwd_route`` picks, or ``route`` ("fused" / "tile");
+    ``sched`` overrides the fused kernel's schedule (SCHED_*)."""
     batch, hidden = a.shape[0], a.shape[-1]
     d, d_bstride = _cuda_operands("siren_fwd", trunk, d_pad, batch, (a, b0, ws, bs, wf, bf))
+    route = _route("siren_fwd", route, trunk, hidden, ws.shape[0])
     a, b0, bs, bf = _f32(a), _f32(b0), _f32(bs), _f32(bf)
-    ws, wf = _weights(ws, trunk), _weights(wf, trunk)
+    wf = _weights(wf, trunk)
     npix = d.shape[1]
     out = torch.empty((batch, npix, C_PAD), dtype=torch.float32, device=d.device)
-    fn, lib = _kernel("reni_siren_fwd")
+    head = (d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr())
+    tail = (batch, npix, hidden, ws.shape[0], float(omega0), float(omega_h))
+    if route == "fused":
+        slabs, stages, sched, grid = _fused_args(ws, hidden, False, npix, batch, d.device, sched)
+        fn, lib = _kernel("reni_siren_fwd_fused")
+        args = (*head, slabs.data_ptr(), bs.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                out.data_ptr(), *tail, int(bool(fast_sine)), stages, sched, grid)
+    else:
+        ws = _weights(ws, trunk)
+        fn, lib = _kernel("reni_siren_fwd")
+        args = (*head, ws.data_ptr(), bs.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                out.data_ptr(), *tail, int(trunk == "bfloat16"), int(bool(fast_sine)))
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(
-            d.data_ptr(), d_bstride, a.data_ptr(), b0.data_ptr(), ws.data_ptr(),
-            bs.data_ptr(), wf.data_ptr(), bf.data_ptr(), out.data_ptr(),
-            batch, npix, hidden, ws.shape[0], float(omega0), float(omega_h),
-            int(trunk == "bfloat16"), int(bool(fast_sine)), stream,
-        )
+        err = fn(*args, torch.cuda.current_stream(d.device).cuda_stream)
     _check(err, lib.reni_error_string, "siren_fwd")
+    _launched(route)
     fused_apply.launches += 1
     return out
 
 
 def film_trunk_cuda(
-    d_pad, a0, ws, bs, wf, bf, fr, ph, *, trunk="bfloat16", fast_sine=False,
+    d_pad, a0, ws, bs, wf, bf, fr, ph, *, trunk="bfloat16", fast_sine=False, route=None,
+    sched=None,
 ):
-    """FiLM trunk on the card (``csrc/siren_fwd.cu``) -> (B, P, 8)."""
+    """FiLM trunk on the card (``csrc/siren_fwd.cu``) -> (B, P, 8); the
+    route as for ``siren_trunk_cuda``."""
     batch, hidden = a0.shape[0], a0.shape[-1]
     d, d_bstride = _cuda_operands(
         "film_fwd", trunk, d_pad, batch, (a0, ws, bs, wf, bf, fr, ph)
     )
+    route = _route("film_fwd", route, trunk, hidden, ws.shape[0])
     a0, bs, bf, fr, ph = _f32(a0), _f32(bs), _f32(bf), _f32(fr), _f32(ph)
-    ws, wf = _weights(ws, trunk), _weights(wf, trunk)
+    wf = _weights(wf, trunk)
     npix = d.shape[1]
     out = torch.empty((batch, npix, C_PAD), dtype=torch.float32, device=d.device)
-    fn, lib = _kernel("reni_film_fwd")
+    tail = (fr.data_ptr(), ph.data_ptr(), out.data_ptr(), batch, npix, hidden, bs.shape[0])
+    if route == "fused":
+        slabs, stages, sched, grid = _fused_args(ws, hidden, True, npix, batch, d.device, sched)
+        fn, lib = _kernel("reni_film_fwd_fused")
+        args = (d.data_ptr(), d_bstride, a0.data_ptr(), slabs.data_ptr(), bs.data_ptr(),
+                wf.data_ptr(), bf.data_ptr(), *tail, int(bool(fast_sine)), stages, sched, grid)
+    else:
+        ws = _weights(ws, trunk)
+        fn, lib = _kernel("reni_film_fwd")
+        args = (d.data_ptr(), d_bstride, a0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+                wf.data_ptr(), bf.data_ptr(), *tail, int(trunk == "bfloat16"),
+                int(bool(fast_sine)))
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(
-            d.data_ptr(), d_bstride, a0.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-            wf.data_ptr(), bf.data_ptr(), fr.data_ptr(), ph.data_ptr(),
-            out.data_ptr(), batch, npix, hidden, bs.shape[0],
-            int(trunk == "bfloat16"), int(bool(fast_sine)), stream,
-        )
+        err = fn(*args, torch.cuda.current_stream(d.device).cuda_stream)
     _check(err, lib.reni_error_string, "film_fwd")
+    _launched(route)
     fused_film_apply.launches += 1
     return out
 

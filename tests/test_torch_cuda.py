@@ -788,21 +788,25 @@ def _probe_operands(rng, cuda, H, L, B, P):
 @pytest.mark.parametrize("fast_sine", [True, False])
 @pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
 def test_fwd_variants_match_plain(cuda, trunk, fast_sine):
-    """The interleaved forwards give the shipped forward's bits and hold its
-    bars against the plain version; the forward without sines is held to
-    1e-2 (bf16) / 1e-4 (float32) x max |plain| (its values are not bounded by
-    1). A ragged tail tile (P = 264)."""
+    """The interleaved forwards give the bits of the kernel they rearrange
+    (the shipped forward; interleave 4 on the fused route the row-tile
+    kernel) and hold its bars against the plain version; the forward
+    without sines is held to 1e-2 (bf16) / 1e-4 (float32) x max |plain| (its
+    values are not bounded by 1). A ragged tail tile (P = 264)."""
     rng = np.random.default_rng(50)
     kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=fast_sine)
     for H, L, P in ((128, 2, 256), (256, 3, 264)):
         ops = _probe_operands(rng, cuda, H, L, 3, P)
         shipped = tk.siren_trunk_cuda(*ops, **kw)
+        tile = tk.siren_trunk_cuda(*ops, route="tile", **kw)
+        fused = tk.fwd_route(trunk, H, L) == "fused"
+        assert fused == (trunk == "bfloat16")
         n0 = ta.fwd_variant_cuda.launches
         for il in (1, 2, 4):
             out = ta.fwd_variant_cuda(*ops, interleave=il, **kw)
             ref = ta.fwd_variant_reference(*ops, interleave=il, **kw)
             torch.cuda.synchronize()
-            assert torch.equal(out, shipped), il
+            assert torch.equal(out, tile if fused and il == 4 else shipped), il
             _assert_close(out, ref, trunk, fast_sine, (H, L, P, il))
         out = ta.fwd_variant_cuda(*ops, transcendental=False, **kw)
         ref = ta.fwd_variant_reference(*ops, transcendental=False, **kw)
@@ -1060,3 +1064,129 @@ def test_handoff_forward_and_backward_match_plain(cuda, film, weight_grads):
     for x, y in zip(got, again):
         assert (x is None and y is None) or torch.equal(x, y)
     assert ts.passes_forward(film, ops, fkw, weight_grads, budget=0) is None
+
+
+# ---------------------------------------------------------------------------
+# the fused forward (csrc/fused_fwd.cuh)
+# ---------------------------------------------------------------------------
+
+# (H, H x H products, P, per-image grids): every width, depths 1-6, P = 1,
+# 127, 129 (a ragged tile), 8,450 (serving width 130) and 32,768
+FUSED_CASES = (
+    (64, 1, 1, False), (64, 6, 129, True), (64, 3, 32768, False),
+    (128, 2, 127, False), (128, 5, 8450, True), (128, 4, 1, True),
+    (192, 3, 129, False), (192, 6, 8450, False), (192, 1, 32768, True),
+    (256, 5, 32768, False), (256, 6, 127, True), (256, 1, 8450, False),
+    (256, 2, 129, True),
+)
+
+
+def _fused_case(rng, cuda, film, H, n_mm, P, per_image, B=2, N=5):
+    """(decoder, Z, D, hidden_layers) of a random decoder with n_mm H x H
+    products (Cond-by-Concat L = n_mm hidden layers, FiLM T = n_mm + 1)."""
+    L = n_mm + 1 if film else n_mm
+    dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+    Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
+    D = rng.normal(size=(B if per_image else 1, P, 3)).astype(np.float32)
+    D = torch.as_tensor(D / np.linalg.norm(D, axis=-1, keepdims=True), device=cuda)
+    return dec, Z, D, L
+
+
+@pytest.mark.parametrize("fast_sine", [True, False])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_fused_forward_matches_plain(cuda, film, fast_sine):
+    """The fused kernel serves every bf16 width it takes at depths 1-6,
+    ragged and tiny P, shared and per-image grids, on the bf16 bars."""
+    rng = np.random.default_rng(70)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
+    for H, n_mm, P, per_image in FUSED_CASES:
+        dec, Z, D, L = _fused_case(rng, cuda, film, H, n_mm, P, per_image)
+        assert tk.fwd_route("bfloat16", H, n_mm) == "fused"
+        n0, f0, t0 = wrap.launches, tk.fused_fwd_launches, tk.tile_fwd_launches
+        with torch.no_grad():
+            out = _run(wrap, dec, "SO2", 5, Z, D, film, L, H, "bfloat16", fast_sine)
+            ref = _run(ref_fn, dec, "SO2", 5, Z, D, film, L, H, "bfloat16", fast_sine)
+        torch.cuda.synchronize()
+        assert (wrap.launches, tk.fused_fwd_launches, tk.tile_fwd_launches) == (n0 + 1, f0 + 1, t0)
+        assert out.shape == (2, P, 3) and torch.isfinite(out).all()
+        _assert_close(out, ref, "bfloat16", fast_sine, (H, n_mm, P, per_image))
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_fused_forward_bits_do_not_depend_on_the_schedule(cuda, film, monkeypatch):
+    """Two calls give the same bits, and so do persistent grids of 1, 2, 3
+    and 8 CTAs, the card's own, and the lock-step schedule."""
+    rng = np.random.default_rng(71)
+    for H, n_mm, P in ((256, 5, 1000), (128, 2, 300)):
+        dec, Z, D, _ = _fused_case(rng, cuda, film, H, n_mm, P, True, B=3)
+        ops = _pack(dec, "SO2", 5, Z, D, film, H)
+        fn = tk.film_trunk_cuda if film else tk.siren_trunk_cuda
+        kw = dict(trunk="bfloat16", fast_sine=True)
+        if not film:
+            kw.update(omega0=30.0, omega_h=30.0)
+        first = fn(*ops, **kw)
+        assert torch.equal(first, fn(*ops, **kw))
+        assert torch.equal(first, fn(*ops, sched=tk.SCHED_LOCKSTEP, **kw))
+        for sms in (1, 2, 3, 8):
+            monkeypatch.setattr(tk, "_sm_count", lambda device, sms=sms: sms)
+            assert torch.equal(first, fn(*ops, **kw)), sms
+        monkeypatch.undo()
+        torch.cuda.synchronize()
+
+
+def test_fused_layout_and_grid_match_the_library(cuda):
+    """fused_layout / fused_grid against the library's exports: the shared
+    memory and ring of every width and depth the route takes, and the
+    persistent grid on this card."""
+    lib = tk._kernel("reni_siren_fwd_fused")[1]
+    for sym in ("reni_fused_fwd_smem_bytes", "reni_fused_fwd_stages"):
+        getattr(lib, sym).argtypes = [ctypes.c_int] * 3
+    lib.reni_fused_fwd_grid.argtypes = [ctypes.c_int] * 2
+    for film in (False, True):
+        for H in tk.FUSED_WIDTHS:
+            for n_mm in range(1, tk.MAX_FUSED_MM + 1):
+                stages, total = tk.fused_layout(H, n_mm, film)
+                assert lib.reni_fused_fwd_stages(H, n_mm, int(film)) == stages
+                assert lib.reni_fused_fwd_smem_bytes(H, n_mm, int(film)) == total
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for batch, P in ((1, 1), (1, 8450), (21, 32768), (100, 8192), (3, 129)):
+        assert lib.reni_fused_fwd_grid(batch, P) == tk.fused_grid(batch, P, sms)
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_forward_route_counters(cuda, film):
+    """The serving configuration (bf16, 5 x 256) takes the fused kernel; the
+    float32 trunk and bf16 H = 1,024 take the row-tile kernel."""
+    rng = np.random.default_rng(72)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    for trunk, H, n_mm, route in (("bfloat16", 256, 5 - film, "fused"),
+                                  ("float32", 256, 5 - film, "tile"),
+                                  ("bfloat16", 1024, 1, "tile")):
+        dec, Z, D, L = _fused_case(rng, cuda, film, H, n_mm, 640, False)
+        f0, t0 = tk.fused_fwd_launches, tk.tile_fwd_launches
+        with torch.inference_mode():
+            _run(wrap, dec, "SO2", 5, Z, D, film, L, H, trunk, True)
+        assert tk.fused_fwd_launches == f0 + (route == "fused"), (trunk, H)
+        assert tk.tile_fwd_launches == t0 + (route == "tile"), (trunk, H)
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_fused_forward_sees_an_in_place_weight_update(cuda, film):
+    """Decode, update the hidden weights in place (as Adam does), decode
+    again: the packed slabs are not stale."""
+    rng = np.random.default_rng(73)
+    dec, Z, D, L = _fused_case(rng, cuda, film, 256, 4, 1000, False)
+    wrap = tk.fused_film_apply if film else tk.fused_apply
+    ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
+    with torch.inference_mode():
+        before = _run(wrap, dec, "SO2", 5, Z, D, film, L, 256, "bfloat16", True)
+        assert torch.equal(before, _run(wrap, dec, "SO2", 5, Z, D, film, L, 256, "bfloat16", True))
+    with torch.no_grad():
+        dec["layers"][2]["w"].mul_(-1.5)
+    with torch.inference_mode():
+        out = _run(wrap, dec, "SO2", 5, Z, D, film, L, 256, "bfloat16", True)
+        ref = _run(ref_fn, dec, "SO2", 5, Z, D, film, L, 256, "bfloat16", True)
+    torch.cuda.synchronize()
+    assert not torch.equal(out, before)
+    _assert_close(out, ref, "bfloat16", True, "after the update")

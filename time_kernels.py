@@ -11,18 +11,23 @@ kernels at 100 x 8,192 and 21 x 8,192 (at 100 x 8,192 also each of their
 layer-major passes alone, with bytes, FLOPs and achieved rates, and the
 torch.matmul yardstick of chip_smoke.pass_timings), of both backward kernels at 21 x
 32,768 and 21 x 8,192 with and without weight gradients (the bf16 trunk on the
-layer-major passes), and of the forward kernel, each
-after one check against its plain version (max |difference| / max |plain|
-per result). Two cards, or one card at two moments, differ by up to 12% on
-the same code: to compare two versions of a source, run this script once
-per version inside one command, in turns (old, new, new, old); the build
-directory is keyed by a hash of the sources, so each version builds anew.
+layer-major passes), each after one check against its plain version
+(max |difference| / max |plain| per result); then both forward kernels (the
+fused kernel and the row-tile kernel's instantiation for the same trunk) of
+both decoders at 21 x 32,768 and 21 x 8,192, and L2's read rate
+(``chip_smoke.l2_read_rate``). Two cards, or one card at two moments,
+differ by up to 12% on the same code: to compare two versions of a source,
+run this script once per version inside one command, in turns (old, new,
+new, old); the build directory is keyed by a hash of the sources, so each
+version builds anew.
 
 With ``--anatomy`` (the counterpart of ``benchmarks/bwd_anatomy.py``) it
 prints instead, at 21 x 32,768 and at 100 x 8,192 on the Cond-by-Concat Zoo
 decoder, the median time of the shipped forward and backward kernels and of
 each probe of ``reni_tpu_torch/kernels/anatomy.py`` (``fwd``, ``fwd_no_sine``,
-``fwd_interleave2``, ``fwd_interleave4``, ``bwd``, ``bwd_no_accum``,
+``fwd_interleave2``, ``fwd_interleave4`` (the bf16 forward's probes are the
+fused kernel without sines and in lock step, and the row-tile kernel's
+sub-tiles), ``bwd``, ``bwd_no_accum``,
 ``bwd_no_sincos``, ``bwd_no_dw``, ``bwd_mxu_only``), and of the
 weight-gradient product ``wgrad_bf16`` alone, without and with the sum of
 its split-K partials: what each part of a chain kernel costs.
@@ -82,7 +87,6 @@ def main(argv=None) -> int:
         return 0
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_bwd as tb
-    from reni_tpu_torch.kernels import siren_fwd as tk
     from reni_tpu_torch.kernels import siren_step as ts
     from reni_tpu_torch.train import checkpoint as ckpt
 
@@ -142,11 +146,18 @@ def main(argv=None) -> int:
                     ms = cs.time_ms(lambda: kernel(*trunk_ops, g, **bkw), runs=10)
                     print(f"{name} 21 x {D.shape[1]:,} {'with' if wgrad else 'without'} weight "
                           f"gradients: {ms:.3f} ms; vs plain {errs}")
-        D = sphere.get_directions(256, device=dev)
-        trunk_ops = cs.packed(cfg, dec, z21, D)
-        fkw = dict(omega0=cfg.first_omega_0, omega_h=cfg.hidden_omega_0,
-                   trunk=cfg.pallas_trunk, fast_sine=cfg.fast_sine)
-        print(f"siren_fwd 21 x 32,768: {cs.time_ms(lambda: tk.siren_trunk_cuda(*trunk_ops, **fkw)):.3f} ms")
+        for name, entry in (("siren_fwd", cs.CBC), ("film_fwd", cs.FILM)):
+            cfg_e, dec_e, z = cs.load_entry(entry, dev)
+            kernel, plain, fkw = cs.trunk_fns(cfg_e)
+            for width in (256, 128):
+                D = sphere.get_directions(width, device=dev)
+                trunk_ops = cs.packed(cfg_e, dec_e, z, D)
+                errs = relative_errors([kernel(*trunk_ops, **fkw)], [plain(*trunk_ops, **fkw)])
+                ms = {route: cs.time_ms(lambda: kernel(*trunk_ops, route=route, **fkw), runs=15)
+                      for route in ("fused", "tile")}
+                print(f"{name} 21 x {D.shape[1]:,}: fused kernel {ms['fused']:.3f} ms, row-tile "
+                      f"kernel {ms['tile']:.3f} ms; vs plain {errs}")
+    cs.l2_read_rate(dev)
     print(cs.card_line())
     return 0
 
