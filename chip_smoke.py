@@ -15,7 +15,7 @@ Phases (any failure exits non-zero and prints no result line):
                  then the shared grids of FIT_LATENT's three stages (21 x
                  512, 2,048 and 8,192 directions), the serving widths 128
                  and 130 (16,384 and 8,450 directions) and 100 training
-                 latents x 8,192 (the batch of training_maps' decodes); both
+                 latents x 8,192 (FIT_DECODER's batch and grid); both
                  the Cond-by-Concat and the FiLM Zoo decoder. The bf16
                  decodes take the fused kernel (csrc/fused_fwd.cuh), the
                  float32 ones the row-tile kernel (csrc/siren_fwd.cuh): the
@@ -66,7 +66,18 @@ Phases (any failure exits non-zero and prints no result line):
                  must launch once per step; the fitted maps' PSNR must be
                  within 0.1 dB of the same task run through the plain
                  forward and backward on the card
-6. compare_step - the train-step kernel against its plain version at full
+6. seed_maps   - the maps the Zoo was trained on (data/Zoo/README.md
+                 "Recipe": 1,000 train + 21 test synthetic skies, seed 1,
+                 width 128, ZIP half EXRs), written by the port's
+                 data/synthetic.py into a temporary directory and loaded
+                 with the port's data/datasets.get_dataset("RENI_HDR", ...)
+                 and the published transform (minmaxnormalise, [-18.0536,
+                 11.4633]); the training split staged on the card at
+                 FIT_DECODER's three resolutions. Prints the host stage in
+                 ms a map (generate and write, decode, stage) and a digest
+                 of the staged maps (not asserted: numpy's SIMD sin and exp
+                 may differ between CPUs)
+   compare_step - the train-step kernel against its plain version at full
                  width on the Cond-by-Concat Zoo decoder and 100 of its
                  training latents: the loss partials and every gradient at
                  100 x 8,192 (the flagship FIT_DECODER batch), 100 x 512 and
@@ -85,9 +96,9 @@ Phases (any failure exits non-zero and prints no result line):
                  1e-7, KLD weighting 1e-4, curriculum 16x32 -> 32x64 ->
                  64x128) with the epochs cut from 2,400 to 30 (curriculum
                  10, 20) on a fresh model.init student (VAD, Cond-by-Concat,
-                 SO2, N=49, 5x256, tanh, bf16 trunk, fast sine); training
-                 maps: the Zoo decoder's decodes of its 1,000 training
-                 latents. Once through the step kernel and once through its
+                 SO2, N=49, 5x256, tanh, bf16 trunk, fast sine) on the
+                 1,000 seed-1 training maps (fit_task takes the dataset's
+                 images_at). Once through the step kernel and once through its
                  plain version from the same generators. The step kernel
                  must launch once per step and the forward and backward
                  kernels not at all; each stage's last epoch loss must be
@@ -104,8 +115,8 @@ Phases (any failure exits non-zero and prints no result line):
                  cases and bars, dfreqs and dphases among the gradients),
                  then FIT_DECODER of a fresh model.init FiLM student (VAD,
                  FiLM, SO2, N=49, 5x256 trunk, mapping network 3x256, tanh,
-                 bf16 trunk, fast sine) on the FiLM Zoo decoder's decodes of
-                 its 1,000 training latents, with the same cut and the same
+                 bf16 trunk, fast sine) on the same 1,000 seed-1 maps,
+                 with the same cut and the same
                  checks: the FiLM step kernel once per step, no forward or
                  backward kernel during training
 9. guard       - the passes' device scratch under a forced budget: the
@@ -124,9 +135,22 @@ Phases (any failure exits non-zero and prints no result line):
                  row-tile kernel, and on its phase-2 bars, as is the
                  scratch of activations that the backward without its
                  reduction returns; the others 1e-2 x max |plain| per
-                 result), then the probe tool's path
-                 (time_anatomy, what time_kernels.py --anatomy runs) with the
-                 probes' launch counts zeroed before and read after
+                 result). The backward probes are built from the shipped
+                 backward's design, the layer-major passes (the route is
+                 printed), held against the plain passes in their slot
+                 layout; bwd and bwd_no_dw bitwise equal to the shipped
+                 backward, every backward probe bitwise equal over two
+                 calls, and wgrad_bf16 on the bwd_no_accum scratch bitwise
+                 the shipped dWs. Then the probe tool's path (time_anatomy,
+                 what time_kernels.py --anatomy runs) at 21 x 8,192 and 21 x
+                 32,768 with the probes' launch and route counts and the
+                 calls into the pass entries zeroed before and read after
+                 (the backward probes must run the passes of the step and
+                 anatomy libraries, not the chain kernel), and one
+                 attribution line of the shipped backward at each shape:
+                 sines, weight work, the reduction after the passes,
+                 wgrad_bf16 alone, the product skeleton, beside the bound
+                 and the passes' byte floor
 11. timings   - each kernel and its plain version: the forward at the
                  phase-2 shapes and at 21 x 8,192, the fused kernel and the
                  row-tile kernel's bf16 instantiation in turns at both
@@ -215,11 +239,16 @@ DEC_BATCH, DEC_MAPS = 100, 1000
 STEP_LOSS_BAR = {"bfloat16": 1e-4, "float32": 1e-6}  # relative, kernel vs plain
 STEP_TIMED = (100, 21)  # batches timed at 64 x 128
 ANATOMY_WIDTH = 128  # the probes are held against their plain versions at 21 x 8,192
+ANATOMY_WIDE = 256  # and timed there and at 21 x 32,768
 ANATOMY_RUNS = 5  # timed runs per probe here; time_kernels.py --anatomy takes more
 WIDE = (("float32", 512), ("bfloat16", 1024))  # forward widths past the 64-row tile
 DEEP_MM = 8  # products of the deepened trunk the backward is held at
 GUARD_BATCH = 1000  # FIT_DECODER batch of the device-memory guard's step
 SYNC_WARMUP = 2  # 64x128 FIT_DECODER steps before the sync check
+# the maps the Zoo was trained on (data/Zoo/README.md "Recipe") and the
+# published transform (configs/zoo_synthetic.yaml)
+SEED_MAPS = dict(train=1000, test=21, width=128, seed=1)
+PUBLISHED_TRANSFORMS = [["minmaxnormalise", [-18.0536, 11.4633]]]
 
 
 class SmokeFailure(Exception):
@@ -757,21 +786,57 @@ def fit_latent_phase(device) -> dict:
     return launches
 
 
-def training_maps(device, entry: str = CBC) -> tuple[torch.Tensor, dict]:
-    """(a Zoo entry's 1,000 training latents mu, {resolution: its decoder's
-    decodes of them (1000, P, 3)} at FIT_DECODER's stages), decoded by the
-    forward kernel 100 latents at a time."""
-    from reni_tpu_torch.core import sphere
-    from reni_tpu_torch.serve import load_decoder
+def seed_maps(device):
+    """The maps the Zoo was trained and evaluated on (``data/Zoo/README.md``
+    "Recipe"; SEED_MAPS): written by the port's ``data/synthetic.py`` (ZIP,
+    half) into a temporary directory, loaded with the port's ``get_dataset``
+    and the published transform, both splits, then staged to the card at
+    FIT_DECODER's resolutions. Prints the host stage (ms a map for generate
+    and write, decode, stage) and a digest of the staged 64x128 training
+    maps (numpy's SIMD sin and exp may differ between CPUs, so it is not
+    asserted). Returns (training set, test set)."""
+    import tempfile
 
-    path = os.path.join(entry, "checkpoint")
+    from reni_tpu_torch.data import datasets, synthetic
+
+    n = SEED_MAPS["train"] + SEED_MAPS["test"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        folders = synthetic.write_dataset(tmp, **SEED_MAPS)
+        t1 = time.perf_counter()
+        train, test = (datasets.get_dataset("RENI_HDR", folders[split], PUBLISHED_TRANSFORMS, True)
+                       for split in ("Train", "Test"))
+        t2 = time.perf_counter()
+    stages = [res for res, _ in decoder_task_config().resolution_stages()]
+    for res in stages:
+        train.images_at(res, device=device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check((len(train), len(test)) == (SEED_MAPS["train"], SEED_MAPS["test"]),
+          f"{len(train)} training and {len(test)} test maps")
+    test_maps = test.images_host_at(FIT_RES[1])
+    for res in stages:
+        x = train.images_at(res, device=device)
+        check(tuple(x.shape) == (SEED_MAPS["train"], res[0] * res[1], 3)
+              and bool(torch.isfinite(x).all()), f"training maps at {res}: {tuple(x.shape)}")
+    check(bool(np.isfinite(test_maps).all()), "non-finite test maps")
+    final = train.images_at(FIT_RES[1], device=device)
+    digest = hashlib.sha256(final.cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"seed-{SEED_MAPS['seed']} maps: {SEED_MAPS['train']} train + {SEED_MAPS['test']} test "
+          f"at {SEED_MAPS['width'] // 2}x{SEED_MAPS['width']}, log min/max {train.minmax}; "
+          f"staged range [{final.min().item():.4f}, {final.max().item():.4f}], digest {digest}")
+    print(f"host stage of the maps: generate and write {(t1 - t0) * 1e3 / n:.3f} ms a map, "
+          f"decode {(t2 - t1) * 1e3 / n:.3f}, stage {len(stages)} resolutions on the card "
+          f"{(t3 - t2) * 1e3 / SEED_MAPS['train']:.3f}; total {t3 - t0:.2f} s")
+    return train, test
+
+
+def training_maps(device, train, entry: str = CBC) -> tuple[torch.Tensor, dict]:
+    """(a Zoo entry's 1,000 training latents mu, {resolution: the seed-1
+    training maps (1000, P, 3) on the card} at FIT_DECODER's stages)."""
     mu = training_latents(entry, device)
-    fn = load_decoder(path, device)
-    maps = {}
-    for res, _ in decoder_task_config().resolution_stages():
-        D = sphere.get_directions(res[1], device=device)
-        # (clone: load_decoder decodes under inference_mode)
-        maps[res] = torch.cat([fn(z, D) for z in mu.split(DEC_BATCH)]).clone()
+    maps = {res: train.images_at(res, device=device)
+            for res, _ in decoder_task_config().resolution_stages()}
     return mu, maps
 
 
@@ -1143,12 +1208,15 @@ def sync_watched(step, hits: list, warmup: int = SYNC_WARMUP):
     return run
 
 
-def fit_decoder(device, entry: str, *, plain: bool, maps: dict, sync_hits: list | None = None):
-    """One FIT_DECODER run of a fresh student of ``entry``'s configuration,
-    through the step kernel or (``plain``) its plain version; returns (trained
+def fit_decoder(device, entry: str, *, plain: bool, train, sync_hits: list | None = None):
+    """One FIT_DECODER run of a fresh student of ``entry``'s configuration on
+    the dataset ``train`` (its ``images_at`` handed to ``fit_task``), through
+    the step kernel or (``plain``) its plain version; returns (trained
     params, model, per-stage step times in ms, metrics, launches {step, fwd,
     bwd} during the run). With ``sync_hits`` the final stage's steps after
     warm-up are ``sync_watched`` into it."""
+    import functools
+
     from reni_tpu_torch.models.reni import RENIModel
     from reni_tpu_torch.train import checkpoint as ckpt
     from reni_tpu_torch.train import tasks
@@ -1174,7 +1242,8 @@ def fit_decoder(device, entry: str, *, plain: bool, maps: dict, sync_hits: list 
         fn.launches = 0
     with plain_step() if plain else contextlib.nullcontext():
         trained, metrics = tasks.fit_task(
-            model, params, task, lambda res: maps[res], torch.Generator().manual_seed(1),
+            model, params, task, functools.partial(train.images_at, device=device),
+            torch.Generator().manual_seed(1),
             step_builder=timed_step,
         )
     torch.cuda.synchronize()
@@ -1182,10 +1251,10 @@ def fit_decoder(device, entry: str, *, plain: bool, maps: dict, sync_hits: list 
     return trained, model, median_ms(events), metrics, launches, per_stage
 
 
-def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
-    """FIT_DECODER of a student of ``entry``'s configuration through its step
-    kernel and through the plain version; returns the step kernel's launches
-    in the kernel run."""
+def fit_decoder_phase(device, train, entry: str = CBC) -> int:
+    """FIT_DECODER of a student of ``entry``'s configuration on the seed-1
+    training maps ``train`` through its step kernel and through the plain
+    version; returns the step kernel's launches in the kernel run."""
     import tempfile
 
     from reni_tpu_torch.core import sphere
@@ -1195,7 +1264,7 @@ def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
     task = decoder_task_config()
     stages = task.resolution_stages()
     steps = DEC_EPOCHS * (DEC_MAPS // DEC_BATCH)
-    target = maps[FIT_RES[1]]
+    target = train.images_at(FIT_RES[1], device=device)
     D = sphere.get_directions(FIT_RES[1][1], device=device)
     result, launched, final_ms = {}, 0, 0.0
     for plain in (False, True):
@@ -1204,7 +1273,7 @@ def fit_decoder_phase(device, maps: dict, entry: str = CBC) -> int:
         hits = None if plain else []
         try:
             trained, model, ms, metrics, n, by_stage = fit_decoder(device, entry, plain=plain,
-                                                                  maps=maps, sync_hits=hits)
+                                                                  train=train, sync_hits=hits)
         except RuntimeError:
             if not hits:
                 raise
@@ -1362,9 +1431,11 @@ def anatomy_operands(cfg, dec, Z, D):
 
 def time_anatomy(cfg, dec, Z, D, runs: int) -> dict:
     """Median ms of every probe of ANATOMY_VARIANTS and of the weight-gradient
-    product alone (on the scratch the backward without its reduction wrote;
-    with and without the sum of its split-K partials) at one shape: the path
-    of ``time_kernels.py --anatomy``."""
+    product alone (on the scratch the backward without its reduction wrote:
+    on the pass route the shipped backward's; with and without the sum of
+    its split-K partials) at one shape, then the attribution line of the
+    shipped backward (``attribution``): the path of ``time_kernels.py
+    --anatomy``."""
     from reni_tpu_torch.kernels import anatomy as ta
 
     ops, g, kw = anatomy_operands(cfg, dec, Z, D)
@@ -1378,7 +1449,61 @@ def time_anatomy(cfg, dec, Z, D, runs: int) -> dict:
     times["wgrad_bf16"] = time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz, reduce=False),
                                   runs=runs)
     times["wgrad_bf16_and_sum"] = time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz), runs=runs)
+    del sc_h, sc_dz
+    times["attribution"] = attribution(cfg, ops, times)
     return times
+
+
+def byte_floor_ms(plan) -> float:
+    """The passes' byte floor of a plan: the scratch each pass reads and
+    writes once (``StepPlan.pass_cost``) and the weight-gradient product's
+    (``wgrad_cost``), at PEAK_BYTES."""
+    nbytes = sum(plan.pass_cost(k)[1] for k in range(len(plan.passes))) + plan.wgrad_cost()[1]
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def attribution(cfg, ops, times: dict) -> dict:
+    """The shipped backward's time at one shape split by its probes (printed
+    as one line): sines = bwd - bwd_no_sincos, weight work = bwd -
+    bwd_no_dw, the reduction after the passes = bwd - bwd_no_accum,
+    wgrad_bf16 alone (and with its split-K sum), the product skeleton =
+    bwd_mxu_only; beside the bound with and without weight gradients and,
+    on the pass route, the passes' byte floor with and without them."""
+    import dataclasses
+
+    from reni_tpu_torch.core import encodings
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    B, P, H = ops[1].shape[0], ops[0].shape[1], cfg.hidden_features
+    k = encodings.d_features(cfg.equivariance, torch.zeros(1, 1, 3)).shape[-1]
+    out = {
+        "sines": times["bwd"] - times["bwd_no_sincos"],
+        "weight_work": times["bwd"] - times["bwd_no_dw"],
+        "reduction": times["bwd"] - times["bwd_no_accum"],
+        "wgrad_bf16": times["wgrad_bf16"],
+        "wgrad_bf16_and_sum": times["wgrad_bf16_and_sum"],
+        "skeleton": times["bwd_mxu_only"],
+    }
+    for wgrad, tag in ((True, "with"), (False, "without")):
+        out[f"bound_ms_{tag}"] = bound(B * P * bwd_flops(cfg, k, cfg.out_features, wgrad),
+                                       bwd_bytes(ops, k, cfg.out_features, False,
+                                                 cfg.pallas_trunk, wgrad))[0]
+    route = ta.bwd_route(cfg.pallas_trunk, H, cfg.hidden_layers)
+    floors = ""
+    if route == "passes":
+        sms = torch.cuda.get_device_properties(ops[0].device).multi_processor_count
+        plan = ta.bwd_plan(ops[0], ops[1], ops[3], sms)
+        out["floor_ms_with"] = byte_floor_ms(plan)
+        out["floor_ms_without"] = byte_floor_ms(dataclasses.replace(plan, weight_grads=False))
+        floors = (f"; the passes' byte floor {out['floor_ms_with']:.4f} ms with, "
+                  f"{out['floor_ms_without']:.4f} without")
+    print(f"attribution of the shipped backward ({route}) at {B} x {P:,}: bwd {times['bwd']:.4f} "
+          f"ms = sines {out['sines']:.4f} | weight work {out['weight_work']:.4f} | reduction "
+          f"after the passes {out['reduction']:.4f} (wgrad_bf16 alone {out['wgrad_bf16']:.4f}, "
+          f"with its split-K sum {out['wgrad_bf16_and_sum']:.4f}) | skeleton (bwd_mxu_only) "
+          f"{out['skeleton']:.4f}; bound {out['bound_ms_with']:.4f} ms with weight gradients, "
+          f"{out['bound_ms_without']:.4f} without" + floors)
+    return out
 
 
 def compare_probe(label: str, got, ref, bar: float) -> tuple[float, float]:
@@ -1401,25 +1526,39 @@ def compare_probe(label: str, got, ref, bar: float) -> tuple[float, float]:
 
 
 def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
-    """Hold every probe against its plain version at 21 x 8,192, then drive the
-    probe tool's path with the launch counts zeroed before and read after;
-    returns {probe name: ms} and fills errors / launches for fwd_variant and
+    """Hold every probe against its plain version at 21 x 8,192 (the backward
+    probes on the pass route in the passes' slot layout; ``bwd`` and
+    ``bwd_no_dw`` bitwise equal to the shipped backward; every probe equal
+    to itself over two calls), then drive the probe tool's path at 21 x 8,192
+    and 21 x 32,768 with the launch and route counts zeroed before and read
+    after; returns {probe name: ms} at 21 x 8,192 (the 21 x 32,768 times
+    under "21x32768") and fills errors / launches for fwd_variant and
     bwd_variant."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import anatomy as ta
     from reni_tpu_torch.kernels import siren_bwd as tb
     from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
 
     D = sphere.get_directions(ANATOMY_WIDTH, device=device)
     ops, g, kw = anatomy_operands(cfg, dec, Z, D)
     bar = BWD_BAR[kw["trunk"]]
-    grid = tb.launch_grid(D.shape[1], Z.shape[0], kw["trunk"], device)
+    route = ta.bwd_route(kw["trunk"], cfg.hidden_features, cfg.hidden_layers)
+    if route == "passes":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        layout = {"plan": ta.bwd_plan(ops[0], ops[1], ops[3], sms)}
+    else:
+        layout = {"grid": tb.launch_grid(D.shape[1], Z.shape[0], kw["trunk"], device)}
+    print(f"backward probes at {Z.shape[0]} x {D.shape[1]:,}: built from the {route} "
+          f"(the shipped backward's design), slot layout {layout}")
     for name in ("fwd_variant", "bwd_variant"):
         errors[name], rel_errors[name] = [], []
     fused = tk.fwd_route(kw["trunk"], cfg.hidden_features, cfg.hidden_layers) == "fused"
     with torch.no_grad():
         shipped = tk.siren_trunk_cuda(*ops, **kw)
         tile = tk.siren_trunk_cuda(*ops, route="tile", **kw)
+        shipped_bwd = {wgrad: tb.siren_trunk_bwd_cuda(*ops, g, weight_grads=wgrad, **kw)
+                       for wgrad in (True, False)}
         for name, side, variant in ANATOMY_VARIANTS:
             label = f"{name} B={Z.shape[0]} P={D.shape[1]}"
             if side == "fwd":
@@ -1436,8 +1575,18 @@ def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
                           f"{name} off the bf16 bar")
                 err, rel = compare_probe(label, [got], [ref], bar)
             else:
-                got = list(ta.bwd_variant_cuda(*ops, g, **variant, **kw))
-                ref = list(ta.bwd_variant_reference(*ops, g, grid=grid, **variant, **kw))
+                got = [x if x is None else x.clone()
+                       for x in ta.bwd_variant_cuda(*ops, g, **variant, **kw)]
+                again = ta.bwd_variant_cuda(*ops, g, **variant, **kw)
+                check(all((x is None and y is None) or torch.equal(x, y)
+                          for x, y in zip(got, again)), f"{name} differs between two calls")
+                del again
+                if variant in ({}, {"weight_grads": False}):
+                    base = shipped_bwd[variant.get("weight_grads", True)]
+                    check(all((x is None and y is None) or torch.equal(x, y)
+                              for x, y in zip(got, base)),
+                          f"{name} is not bitwise the shipped backward (siren_trunk_bwd_cuda)")
+                ref = list(ta.bwd_variant_reference(*ops, g, **layout, **variant, **kw))
                 if not variant.get("accum", True):
                     # the scratch of activations is a forward result: the forward's bars
                     h_err = (got.pop(2).float() - ref.pop(2).float()).abs()
@@ -1451,21 +1600,37 @@ def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
         _, _, sc_h, sc_dz = ta.bwd_variant_cuda(*ops, g, accum=False, **kw)
         dws, again = ta.weight_grads_cuda(sc_h, sc_dz), ta.weight_grads_cuda(sc_h, sc_dz)
         check(torch.equal(dws, again), "the weight-gradient product differs between two calls")
+        if route == "passes":
+            check(torch.equal(dws, shipped_bwd[True][2]),
+                  "wgrad_bf16 on the bwd_no_accum scratch is not the shipped backward's dWs")
         compare_probe("wgrad_bf16 alone", [dws], [ta.weight_grads_reference(sc_h, sc_dz)], 1e-4)
-        del sc_h, sc_dz, dws, again, got, ref
+        del sc_h, sc_dz, dws, again, got, ref, shipped_bwd
         torch.cuda.synchronize()
         ta.fwd_variant_cuda.launches = ta.bwd_variant_cuda.launches = 0
         ta.weight_grads_cuda.launches = 0
+        ta.bwd_variant_cuda.routes = {"passes": 0, "chain": 0}
+        ts.pass_launches.update({k: 0 for k in ts.pass_launches})
         times = time_anatomy(cfg, dec, Z, D, runs=ANATOMY_RUNS)
+        torch.cuda.empty_cache()
+        wide = sphere.get_directions(ANATOMY_WIDE, device=device)
+        times[f"{Z.shape[0]}x{wide.shape[1]}"] = time_anatomy(cfg, dec, Z, wide, runs=ANATOMY_RUNS)
         torch.cuda.synchronize()
     launches["fwd_variant"] = ta.fwd_variant_cuda.launches
     launches["bwd_variant"] = ta.bwd_variant_cuda.launches
+    routes, calls = dict(ta.bwd_variant_cuda.routes), dict(ts.pass_launches)
     print(f"probe launches on the probe tool's path: fwd_variant {launches['fwd_variant']}, "
-          f"bwd_variant {launches['bwd_variant']}, weight_grads {ta.weight_grads_cuda.launches}")
+          f"bwd_variant {launches['bwd_variant']} (by design {routes}), weight_grads "
+          f"{ta.weight_grads_cuda.launches}; calls into the pass entries {calls}")
     for name in ("fwd_variant", "bwd_variant"):
         check(launches[name] > 0, f"{name} was never launched on the probe tool's path")
     check(ta.weight_grads_cuda.launches > 0, "the weight-gradient product was never launched")
-    print("anatomy ms at 21 x 8,192: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if route == "passes":
+        check(routes["chain"] == 0 and calls["siren_step"] > 0 and calls["siren_anatomy"] > 0,
+              "the backward probes did not run the passes of the step and anatomy libraries")
+    for label, t in ((f"{Z.shape[0]} x {D.shape[1]:,}", times),
+                     (f"{Z.shape[0]} x {wide.shape[1]:,}", times[f"{Z.shape[0]}x{wide.shape[1]}"])):
+        print(f"anatomy ms at {label}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in t.items() if isinstance(v, float)))
     return times
 
 
@@ -1495,14 +1660,24 @@ def probe_row(name, side, variant, cfg, dec, Z, device, times, replaces, launche
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"{name} ({variant}) B={B} P={P}: kernel {times[variant]:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP)")
-    return {
+
+    def variants(t):
+        return {k: v for k, v in t.items() if isinstance(v, float) and (
+            k.startswith(side) or (side == "bwd" and k.startswith("wgrad")))}
+
+    wide = f"{B}x{ANATOMY_WIDE // 2 * ANATOMY_WIDE}"
+    row = {
         "name": name, "route": "cuda", "source": SOURCE_ANATOMY, "replaces": replaces[name],
         "launches": launches[name], "max_abs_err": max(errors[name]),
         "max_rel_err": max(rel_errors[name]), "ms": times[variant], "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "timed_variant": variant,
-        "variants_ms": {k: v for k, v in times.items() if k.startswith(side) or
-                        (side == "bwd" and k.startswith("wgrad"))},
+        "variants_ms": variants(times), f"variants_ms_{wide}": variants(times[wide]),
     }
+    if side == "bwd":
+        row["design"] = ta.bwd_route(kw["trunk"], H, cfg.hidden_layers)
+        row["attribution"] = {f"{B}x{P}": times["attribution"],
+                              wide: times[wide]["attribution"]}
+    return row
 
 
 L2_READ_MB, L2_READ_REPS = 16, 50  # a buffer that fits in L2, read over and over
@@ -1908,7 +2083,7 @@ def main() -> int:
                 ("per-image (B, P) grids", per_image_grids(D, Z.shape[0], seed=0), None, Z),
                 ("float32 trunk, shared grid", D, "float32", Z),
                 *((label, grid, None, Z) for label, grid in fit_grids + serve_grids),
-                ("training latents, training_maps' grid", maps_grid, None, mu100),
+                ("training latents, FIT_DECODER's 64x128 grid", maps_grid, None, mu100),
             ):
                 routes = (tk.fused_fwd_launches, tk.tile_fwd_launches)
                 mx, mean, scale = compare(cfg, dec, lat, grid, trunk)
@@ -1999,9 +2174,12 @@ def main() -> int:
           f"{ {k: launches[k] for k in ('siren_bwd', 'film_bwd')} }; per stage "
           f"{ {k: v for k, v in launches.items() if '@' in k} }")
 
+    phase("seed_maps")
+    train, _ = seed_maps(dev)
+
     phase("compare_step at full width and at FIT_DECODER's shapes")
     cfg_cbc, dec_cbc, _ = entries["siren_fwd"]
-    mu, maps = training_maps(dev)
+    mu, maps = training_maps(dev, train)
     errors["siren_step"], rel_errors["siren_step"] = compare_step_phase(
         "siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
     err, rel = compare_passes("siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
@@ -2009,12 +2187,12 @@ def main() -> int:
     rel_errors["siren_step"] += rel
 
     phase("fit_decoder")
-    launches["siren_step"] = fit_decoder_phase(dev, maps)
+    launches["siren_step"] = fit_decoder_phase(dev, train)
     print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
 
     phase("compare_film_step at full width and at FIT_DECODER's shapes")
     cfg_film, dec_film, _ = entries["film_fwd"]
-    mu_film, maps_film = training_maps(dev, FILM)
+    mu_film, maps_film = training_maps(dev, train, FILM)
     errors["film_step"], rel_errors["film_step"] = compare_step_phase(
         "film_step", cfg_film, dec_film, mu_film, maps_film, dev)
     err, rel = compare_passes("film_step", cfg_film, dec_film, mu_film, maps_film, dev)
@@ -2022,7 +2200,7 @@ def main() -> int:
     rel_errors["film_step"] += rel
 
     phase("fit_decoder_film")
-    launches["film_step"] = fit_decoder_phase(dev, maps_film, FILM)
+    launches["film_step"] = fit_decoder_phase(dev, train, FILM)
     print(f"FiLM step-kernel launches during FIT_DECODER (kernel run): {launches['film_step']}")
 
     phase("guard")

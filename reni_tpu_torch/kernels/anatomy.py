@@ -35,26 +35,42 @@ Where the shipped forward is the row-tile kernel (the float32 trunk, other
 widths), every variant is that kernel's: the linear stand-in, and each
 64-row tile worked as 2 or 4 sub-tiles, with the shipped forward's bits.
 
-Backward variants (operands of ``siren_trunk_bwd_reference``):
+Backward variants (operands of ``siren_trunk_bwd_reference``). Where the
+shipped backward is the layer-major passes (``siren_step.pass_route``: the
+bf16 trunk at a width that is a multiple of 64, up to 256; ``bwd_route``
+gives ``"passes"``), each variant is built from the passes:
 
-- ``transcendental=False``: (sin, cos) becomes ``(0.8 * z, 0.6 * z)``;
-- ``weight_grads=False``: the shipped chain backward without weight
-  gradients (``siren_bwd.siren_bwd_chain_cuda``: the chain kernel also for
-  the bf16 trunk, which the backward's own wrapper routes to the
-  layer-major passes); both together are the pure product skeleton
-  ("mxu_only");
+- the shipped backward (``bwd``) and ``weight_grads=False`` (``bwd_no_dw``:
+  per-image gradients alone, no weight work) are ``siren_step._passes_bwd``,
+  launched from the shipped library: their results are
+  ``siren_trunk_bwd_cuda``'s, bit for bit, which is the check;
+- ``transcendental=False``: (sin, cos) becomes ``(0.8 * z, 0.6 * z)`` in
+  every pass (the fwd passes, the cotangent last pass, the bwd passes and
+  the value of layer 0 that bwd pass 0 forms again), the same pass sequence
+  built with the linear stand-in in ``csrc/siren_anatomy.cu``; with
+  ``weight_grads=False`` too it is the skeleton ("mxu_only");
 - ``accum=False``: the TPU probe writes its weight gradients in place of
   accumulating them across its sequential grid, which removes a
   read-modify-write between grid steps. The port has no such accumulation
   (its CTAs run concurrently): what it has in that place is the reduction
-  after the chain kernel. So here ``accum=False`` runs the chain kernel with
-  weight gradients alone and skips the slot sums and the split-K
-  weight-gradient product; the result is the raw per-CTA slots and the
-  scratch, ``(part_img (B, chunks, 9H), part_w (B * chunks, n_w), sc_h
-  (L, B * P, H), sc_dz (L, B * P, H))``: per CTA dA | db0, then dbs | dWf |
-  dbf, and per pixel row the operands h_i and dz_i of the product that
-  would form dWs_i. They depend on the launch grid ``(tiles per CTA, CTAs
-  per image)``, which the plain version takes as ``grid``.
+  after the passes. So here ``accum=False`` runs the passes with weight
+  gradients and ``finish = 0`` (no ``reduce_slots``, no ``wgrad_bf16``), and
+  returns the raw per-CTA slots and the scratch in the passes' own layout
+  (``siren_step.StepPlan``): ``(part_img (B, chunks, 9H), part_w (B *
+  chunks, n_w), sc_h (L, B * P, H), sc_dz (L, B * P, H))``, per CTA dA |
+  db0, then mse (0) | dbs | dWf | dbf, and per pixel row the operands h_i and
+  dz_i of the product that would form dWs_i. Its plain version takes the
+  plan (``plan=``).
+
+Where the shipped backward is the chain kernel (the float32 trunk, bf16
+widths that are not a multiple of 64; ``bwd_route`` gives ``"chain"``),
+every variant is that kernel's (``csrc/siren_bwd.cuh``): the shipped chain
+kernel with and without weight gradients
+(``siren_bwd.siren_bwd_chain_cuda``), the linear stand-in, and
+``accum=False`` as the chain kernel with weight gradients alone, whose
+slots (``part_w`` without the mse lanes) and scratch depend on the launch
+grid ``(tiles per CTA, CTAs per image)``, which the plain version takes as
+``grid``.
 
 ``l2_read_cuda`` reads a buffer that fits in L2 ``reps`` times over and sums
 its 32-bit words (modulo 2^32; ``l2_read_reference``), so that its time gives
@@ -63,17 +79,19 @@ L2's read rate: the rate at which the fused forward's weight slabs can come.
 ``weight_grads_cuda`` runs that product alone on a given scratch (the
 ``wgrad_bf16`` / ``wgrad_f32`` kernel of ``csrc/siren_chain.cuh`` and, with
 ``reduce``, the sum of its split-K partials), so that it can be timed apart
-from the chain kernel; ``weight_grads_reference`` is its plain version.
+from the passes: on the scratch that ``accum=False`` returns, which is the
+shipped backward's; ``weight_grads_reference`` is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from reni_tpu_torch.core.fastmath import sincos_fns
-from reni_tpu_torch.kernels import siren_bwd, siren_fwd
+from reni_tpu_torch.kernels import siren_bwd, siren_fwd, siren_step
 from reni_tpu_torch.kernels.siren_bwd import _rounded, tile_rows
 from reni_tpu_torch.kernels.siren_fwd import (
     C_PAD,
@@ -129,16 +147,29 @@ def _slots(x: torch.Tensor, rows: int, chunks: int) -> torch.Tensor:
 
 def bwd_variant_reference(
     d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
-    transcendental=True, weight_grads=True, accum=True, grid=None,
+    transcendental=True, weight_grads=True, accum=True, grid=None, plan=None,
 ):
     """Plain version of a backward variant. With ``accum`` (or without weight
     gradients) -> what ``siren_trunk_bwd_reference`` returns; with
-    ``accum=False`` -> the per-CTA slots and the scratch for the launch grid
-    ``grid = (tiles per CTA, CTAs per image)`` (module docstring)."""
+    ``accum=False`` -> the per-CTA slots and the scratch (module docstring).
+    With a backward plan ``plan`` (``bwd_plan``; the route ``"passes"``) it
+    runs the plain passes (``siren_step.passes_reference``, in their slot
+    layout and with their rounding points); else the plain backward, and
+    ``accum=False`` in the chain kernel's layout for the launch grid ``grid
+    = (tiles per CTA, CTAs per image)``."""
     kw = dict(omega0=omega0, omega_h=omega_h, trunk=trunk)
+    sincos = _sincos(transcendental, fast_sine)
+    if plan is not None:
+        plan = dataclasses.replace(plan, weight_grads=weight_grads)
+        accum = accum or not weight_grads
+        work = siren_step.passes_reference(
+            plan, (d_pad, a, b0, ws, bs, wf, bf, g),
+            dict(kw, fast_sine=fast_sine, sincos=sincos), sms=1, finish=None if accum else 0)
+        if accum:
+            return siren_step._results(plan, work)
+        return work.part_img, work.part_w, work.sc_h, work.sc_dz
     hs, cs = siren_bwd.siren_forward_keep(
-        d_pad, a, b0, ws, bs, fast_sine=fast_sine, sincos=_sincos(transcendental, fast_sine),
-        **kw,
+        d_pad, a, b0, ws, bs, fast_sine=fast_sine, sincos=sincos, **kw,
     )
     if accum or not weight_grads:
         return siren_bwd.siren_chain_bwd(d_pad, ws, bs, wf, hs, cs, g, weight_grads=weight_grads,
@@ -167,6 +198,21 @@ def bwd_variant_reference(
     return part_img, part_w.flatten(0, 1), sc_h, sc_dz
 
 
+def bwd_route(trunk: str, hidden: int, n_mm: int) -> str:
+    """Which design the backward probes are built from: ``"passes"`` where the
+    shipped backward is the layer-major passes (``siren_step.pass_route``),
+    else ``"chain"``."""
+    return "passes" if siren_step.pass_route(trunk, hidden, n_mm) else "chain"
+
+
+def bwd_plan(d_pad, a, ws, sms: int) -> "siren_step.StepPlan":
+    """The backward plan with weight gradients that the pass-route probes run
+    for these operands on a card of ``sms`` SMs: the slot layout of
+    ``accum=False``."""
+    return siren_step.step_plan(False, a.shape[0], d_pad.shape[1], a.shape[-1], ws.shape[0],
+                                sms, bwd=True)
+
+
 def weight_grads_reference(sc_h: torch.Tensor, sc_dz: torch.Tensor) -> torch.Tensor:
     """dWs (L, H, H) = h_i^T dz_i over all rows of the scratches (L, rows, H),
     summed in float32."""
@@ -188,6 +234,7 @@ _SIGNATURES = {
     "reni_anatomy_bwd": [
         _P, ctypes.c_longlong, *[_P] * 14, *[_I] * 8, _F, _F, _I, _I, _I, _I, _P,
     ],
+    "reni_anatomy_passes": siren_step._SIGNATURES["reni_siren_step_passes"],
     "reni_anatomy_wgrad": [_P, _P, _P, _P, ctypes.c_longlong, *[_I] * 6, _P],
     "reni_anatomy_l2_read": [_P, ctypes.c_longlong, _I, _P, _I, _P],
 }
@@ -206,6 +253,9 @@ def library():
             fn.restype = ctypes.c_int
         lib.reni_anatomy_error_string.argtypes = [ctypes.c_int]
         lib.reni_anatomy_error_string.restype = ctypes.c_char_p
+        # what siren_step._pass_call takes of a library
+        lib.source, lib.passes = "siren_anatomy", lib.reni_anatomy_passes
+        lib.error_string = lib.reni_anatomy_error_string
     return lib
 
 
@@ -261,16 +311,58 @@ def bwd_variant_cuda(
     d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16", fast_sine=False,
     transcendental=True, weight_grads=True, accum=True,
 ):
-    """A backward variant on the card; returns what ``bwd_variant_reference``
-    returns for the grid ``siren_bwd.launch_grid`` gives these shapes."""
+    """A backward variant on the card, built from the design of ``bwd_route``;
+    returns what ``bwd_variant_reference`` returns for the plan ``bwd_plan``
+    (the passes) or the grid ``siren_bwd.launch_grid`` (the chain kernel)
+    gives these shapes. Each call counts one in ``.launches`` and one in
+    ``.routes`` under its design."""
     accum = accum or not weight_grads
-    if transcendental and accum:  # the shipped chain kernel, on either trunk
+    route = bwd_route(trunk, a.shape[-1], ws.shape[0])
+    if route == "passes":
+        out = _passes_variant((d_pad, a, b0, ws, bs, wf, bf), g,
+                              dict(omega0=omega0, omega_h=omega_h, trunk=trunk,
+                                   fast_sine=fast_sine),
+                              transcendental, weight_grads, accum)
+    elif transcendental and accum:  # the shipped chain kernel
         out = siren_bwd.siren_bwd_chain_cuda(
             d_pad, a, b0, ws, bs, wf, bf, g, omega0=omega0, omega_h=omega_h, trunk=trunk,
             fast_sine=fast_sine, weight_grads=weight_grads,
         )
-        bwd_variant_cuda.launches += 1
-        return out
+    else:
+        out = _chain_variant(d_pad, a, b0, ws, bs, wf, bf, g, omega0, omega_h, trunk,
+                             fast_sine, transcendental, weight_grads, accum)
+    bwd_variant_cuda.launches += 1
+    bwd_variant_cuda.routes[route] += 1
+    return out
+
+
+def _passes_variant(ops, g, kw, transcendental, weight_grads, accum):
+    """A backward variant on the passes: the shipped backward from the step
+    library, or the same passes with the linear stand-in from this module's
+    library, and with ``accum=False`` the passes alone (finish 0)."""
+    if transcendental and accum:
+        return siren_step._passes_bwd(False, ops, g, kw, weight_grads)
+    d, d_bstride = siren_step._validate_passes(False, True, (*ops, g), kw)
+    plan = siren_step.step_plan_cuda(False, (*ops, g), d.device, bwd=True,
+                                     weight_grads=weight_grads)
+    prep = siren_step.pass_operands(plan, (*ops, g), kw, d, d_bstride)
+    lib = None
+    if not transcendental:
+        prep = dataclasses.replace(prep, flags=(SINE_LINEAR, *prep.flags[1:]))
+        lib = library()
+    work = siren_step.PassWork.for_plan(plan, "bfloat16", d.device)
+    finish = siren_step._finish_flags(plan) if accum else 0
+    siren_step._pass_call(plan, prep, work, 0, len(plan.passes), finish, lib=lib)
+    if not accum:
+        return work.part_img, work.part_w, work.sc_h, work.sc_dz
+    return siren_step._results(plan, work)
+
+
+def _chain_variant(d_pad, a, b0, ws, bs, wf, bf, g, omega0, omega_h, trunk, fast_sine,
+                   transcendental, weight_grads, accum):
+    """A backward variant of the chain kernel that the shipped library does
+    not hold (the linear stand-in, or weight gradients without the
+    reduction), from this module's library."""
     batch, hidden, n_mm = a.shape[0], a.shape[-1], ws.shape[0]
     d, d_bstride, g, tiles, chunks, part, out, work = siren_bwd._prepare(
         "bwd_variant", False, trunk, d_pad, batch, hidden, n_mm, g, (a, b0, ws, bs, wf, bf),
@@ -290,7 +382,6 @@ def bwd_variant_cuda(
             int(bool(weight_grads)), int(bool(accum)), stream,
         )
     _check(err, lib.reni_anatomy_error_string, "bwd_variant")
-    bwd_variant_cuda.launches += 1
     if not accum:
         return part, work.part_w, work.sc_h, work.sc_dz
     da = out[:, : K_PAD * hidden].view(batch, K_PAD, hidden)
@@ -301,12 +392,15 @@ def bwd_variant_cuda(
 
 
 bwd_variant_cuda.launches = 0
+bwd_variant_cuda.routes = {"passes": 0, "chain": 0}
 
 
 def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool = True):
     """The training kernels' weight-gradient product alone, on the scratches
-    (L, rows, H) a chain kernel wrote (bf16 or float32) -> dWs (L, H, H); with
-    ``reduce=False`` the split-K partials (chunks, L, H, H), not summed."""
+    (L, rows, H) a backward wrote (bf16 or float32; the passes' or a chain
+    kernel's, which ``bwd_variant_cuda(..., accum=False)`` returns) -> dWs
+    (L, H, H); with ``reduce=False`` the split-K partials (chunks, L, H, H),
+    not summed."""
     trunk = "bfloat16" if sc_h.dtype == torch.bfloat16 else "float32"
     if not (sc_h.is_cuda and sc_dz.is_cuda):
         raise ValueError("weight_grads kernel operands must all be CUDA tensors")

@@ -55,8 +55,11 @@ int reni_film_step_passes(const float* d, long long d_bstride, const float* a0, 
       static_cast<bf16*>(sc_h), sc_keep, static_cast<bf16*>(sc_dz), P, H, n_trunk - 1,
       tiles_per_cta, n_chunks, act, wgrad, 0.0f, 0.0f, 2.0f * gscale, 0};
   const Sums sums{out_img, out_w, part_dws, dws, rows_per_chunk, n_wchunks};
-  return reni_pass::launch_passes<true>(args, sums, batch, fast, pass_lo, pass_hi, finish,
-                                        static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return fast ? reni_pass::launch_passes<true, reni::SINE_FAST>(args, sums, batch, pass_lo,
+                                                                 pass_hi, finish, s)
+              : reni_pass::launch_passes<true, reni::SINE_EXACT>(args, sums, batch, pass_lo,
+                                                                  pass_hi, finish, s);
 }
 
 // Bytes of shared memory one CTA of the chain kernel takes

@@ -1,13 +1,14 @@
 // Anatomy probes of the Cond-by-Concat forward and backward kernels: the
-// kernel templates of fused_fwd.cuh, siren_fwd.cuh and siren_bwd.cuh
-// instantiated with one part taken out or rearranged, to see which part
+// kernel templates of fused_fwd.cuh, siren_fwd.cuh, siren_bwd.cuh and
+// step_passes.cuh instantiated with one part taken out or rearranged, to see which part
 // bounds the shipped kernels.
 //
 // Replaces the Pallas probe kernels _fwd_kernel_variant and
 // _bwd_kernel_variant of benchmarks/bwd_anatomy.py. They are timed by
 // time_kernels.py --anatomy and called by nothing on a serving or training
 // path. This is a translation unit of its own, so the shipped libraries
-// (siren_fwd.cu, siren_bwd.cu) hold the same machine code with or without it.
+// (siren_fwd.cu, siren_bwd.cu, siren_step.cu) hold the same machine code with
+// or without it.
 //
 // Forward variants. Where the shipped bf16 forward is the fused kernel
 // (fused_fwd.cuh; kernels/siren_fwd.py::fwd_route):
@@ -25,15 +26,28 @@
 // Where the shipped forward is the row-tile kernel (the float32 trunk, other
 // widths): SINE_LINEAR, and interleave 2 or 4 as the sub-tiles of the row-tile
 // kernel, with the row-tile kernel's bits.
-// Backward variants:
-//   - sine mode SINE_LINEAR: (sin, cos) becomes (0.8 x, 0.6 x), with or
-//     without the weight gradients;
-//   - reduce = 0 ("no_accum"): the TPU probe writes its weight gradients in
-//     place of accumulating them across its sequential grid. This port has no
-//     such accumulation: its counterpart is the reduction after the chain
-//     kernel, so this variant runs the chain kernel with weight gradients
-//     alone; the per-CTA slots and the scratch of h and dz are the result and
-//     the slot sums and the split-K product are skipped.
+// Backward variants. Where the shipped bf16 backward is the layer-major
+// passes (step_passes.cuh; kernels/siren_step.py::pass_route: H a multiple
+// of 64 up to 256):
+//   - sine mode SINE_LINEAR: (sin, cos) becomes (0.8 x, 0.6 x) in every pass
+//     (the fwd passes, the cotangent last pass's backward epilogue, the bwd
+//     passes and the value of layer 0 that bwd pass 0 forms again from d),
+//     with or without the weight gradients; built here
+//     (reni_anatomy_passes);
+//   - the shipped passes with weight gradients and finish = 0 ("no_accum"):
+//     the TPU probe writes its weight gradients in place of accumulating
+//     them across its sequential grid. This port has no such accumulation:
+//     its counterpart is the reduction after the passes, so this variant
+//     runs the passes alone, and the per-CTA slots and the scratch of h and
+//     dz are the result (reduce_slots and the split-K product skipped). The
+//     passes take finish as an argument, so this variant and the shipped
+//     backward with and without weight gradients are launched from
+//     siren_step.cu.
+// Where the shipped backward is the chain kernel (the float32 trunk, bf16
+// widths that are not a multiple of 64), the same variants of the chain
+// kernel of siren_bwd.cuh: SINE_LINEAR, and reduce = 0 (the chain kernel
+// with weight gradients alone; the slot sums and the split-K product
+// skipped).
 // reni_anatomy_l2_read reads a buffer that fits in L2 many times over, so that
 // its time gives L2's read rate on this card: the rate the fused forward's
 // weight slabs come at (fused_fwd.cuh).
@@ -53,6 +67,7 @@
 #include "fused_fwd.cuh"
 #include "siren_bwd.cuh"
 #include "siren_fwd.cuh"
+#include "step_passes.cuh"
 
 namespace {
 
@@ -160,6 +175,32 @@ int reni_anatomy_bwd(const float* d, long long d_bstride, const float* a, const 
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   return reni_bwd::launch(kern, false, args, batch, bf16 != 0, wgrad ? &wg : nullptr, out,
                           stream, reduce != 0);
+}
+
+// Cond-by-Concat passes [pass_lo, pass_hi) of a backward (gin set) with the
+// sine mode `sine`, then what `finish` asks for (reni_pass::FINISH_*): the
+// arguments of reni_siren_step_passes with `sine` in place of `fast`. Only
+// SINE_LINEAR is built here (the exact and fast passes are siren_step.cu's);
+// another mode returns cudaErrorInvalidValue. Returns a cudaError_t.
+int reni_anatomy_passes(const float* d, long long d_bstride, const float* a, const float* b0,
+                        const void* ws, const void* wst, const float* bs, const void* wf,
+                        const float* bf, const float* tgt, const float* sw, const float* bm,
+                        const float* gin, float* out, float* part_img, float* out_img,
+                        float* part_w, float* out_w, void* sc_h, float* sc_keep, void* sc_dz,
+                        float* part_dws, float* dws, int batch, int P, int H, int n_hidden,
+                        int tiles_per_cta, int n_chunks, int rows_per_chunk, int n_wchunks,
+                        float omega0, float omega_h, float gscale, int sine, int act, int wgrad,
+                        int pass_lo, int pass_hi, int finish, void* stream) {
+  using reni_pass::bf16;
+  if (sine != reni::SINE_LINEAR) return (int)cudaErrorInvalidValue;
+  const reni_pass::PassArgs args{
+      d, d_bstride, a, b0, static_cast<const bf16*>(ws), static_cast<const bf16*>(wst), bs,
+      static_cast<const bf16*>(wf), bf, nullptr, nullptr, tgt, sw, bm, gin, out, part_img, part_w,
+      static_cast<bf16*>(sc_h), sc_keep, static_cast<bf16*>(sc_dz), P, H, n_hidden,
+      tiles_per_cta, n_chunks, act, wgrad, omega0, omega_h, 2.0f * gscale, 0};
+  const reni_step::Sums sums{out_img, out_w, part_dws, dws, rows_per_chunk, n_wchunks};
+  return reni_pass::launch_passes<false, reni::SINE_LINEAR>(
+      args, sums, batch, pass_lo, pass_hi, finish, static_cast<cudaStream_t>(stream));
 }
 
 // dws (n_layers, H, H) = h^T dz from the scratches h and dz (n_layers, rows,

@@ -328,9 +328,8 @@ __device__ __forceinline__ void load_layer_vectors(const PassArgs& g, float* vec
   }
 }
 
-template <bool FILM, bool FAST>
+template <bool FILM, int SN>
 __global__ void __launch_bounds__(PTHREADS, 1) fwd_pass(PassArgs g) {
-  constexpr int SN = FAST ? SINE_FAST : SINE_EXACT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int H = g.H, j = g.j, nch = H / 64;
@@ -427,10 +426,9 @@ enum { LAST_STEP = 0, LAST_COT = 1, LAST_OUT = 2 };
 // dWf and dbf (with weight gradients), dh = g Wf^T and the last layer's
 // backward epilogue. LAST_OUT (a forward): the last product, activation and
 // final layer, the output to out, nothing else.
-template <bool FILM, bool FAST, int MODE>
+template <bool FILM, int SN, int MODE>
 __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   constexpr bool COT = MODE == LAST_COT;
-  constexpr int SN = FAST ? SINE_FAST : SINE_EXACT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
@@ -642,9 +640,8 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   }
 }
 
-template <bool FILM, bool FAST>
+template <bool FILM, int SN>
 __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
-  constexpr int SN = FAST ? SINE_FAST : SINE_EXACT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
@@ -818,26 +815,23 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
 
 using PassFn = void (*)(PassArgs);
 
-// pass k of 2 n_mm: products 0..n_mm-2 forward, n_mm-1 the last pass (of
-// the given mode), then the backward from product n_mm-1 down to 0
-template <bool FILM>
-PassFn pass_kernel(int k, int n_mm, int fast, int last, int* j) {
+// pass k of 2 n_mm with the sine mode SN: products 0..n_mm-2 forward,
+// n_mm-1 the last pass (of the given mode), then the backward from product
+// n_mm-1 down to 0
+template <bool FILM, int SN>
+PassFn pass_kernel(int k, int n_mm, int last, int* j) {
   if (k < n_mm - 1) {
     *j = k;
-    return fast ? fwd_pass<FILM, true> : fwd_pass<FILM, false>;
+    return fwd_pass<FILM, SN>;
   }
   if (k == n_mm - 1) {
     *j = k;
-    if (last == LAST_COT) {
-      return fast ? last_pass<FILM, true, LAST_COT> : last_pass<FILM, false, LAST_COT>;
-    }
-    if (last == LAST_OUT) {
-      return fast ? last_pass<FILM, true, LAST_OUT> : last_pass<FILM, false, LAST_OUT>;
-    }
-    return fast ? last_pass<FILM, true, LAST_STEP> : last_pass<FILM, false, LAST_STEP>;
+    if (last == LAST_COT) return last_pass<FILM, SN, LAST_COT>;
+    if (last == LAST_OUT) return last_pass<FILM, SN, LAST_OUT>;
+    return last_pass<FILM, SN, LAST_STEP>;
   }
   *j = 2 * n_mm - 1 - k;
-  return fast ? bwd_pass<FILM, true> : bwd_pass<FILM, false>;
+  return bwd_pass<FILM, SN>;
 }
 
 // what follows the passes, as flags: the per-image slot sums, the weight
@@ -845,15 +839,17 @@ PassFn pass_kernel(int k, int n_mm, int fast, int last, int* j) {
 enum { FINISH_IMG = 1, FINISH_W = 2, FINISH_DWS = 4 };
 
 // Passes [lo, hi) of a step, of a backward (gin set) or of a forward (out
-// set) on one stream, then what `finish` asks for. Returns a cudaError_t.
-template <bool FILM>
-int launch_passes(PassArgs g, const reni_step::Sums& o, int batch, int fast, int lo, int hi,
-                  int finish, cudaStream_t s) {
+// set) with the sine mode SN on one stream, then what `finish` asks for.
+// siren_step.cu and film_step.cu instantiate SINE_EXACT and SINE_FAST, the
+// anatomy probes (siren_anatomy.cu) SINE_LINEAR. Returns a cudaError_t.
+template <bool FILM, int SN>
+int launch_passes(PassArgs g, const reni_step::Sums& o, int batch, int lo, int hi, int finish,
+                  cudaStream_t s) {
   const size_t smem = pass_layout(g.H).total;
   const int last = g.gin != nullptr ? LAST_COT : g.out != nullptr ? LAST_OUT : LAST_STEP;
   cudaError_t err;
   for (int k = lo; k < hi && k < 2 * g.n_mm; ++k) {
-    const PassFn fn = pass_kernel<FILM>(k, g.n_mm, fast, last, &g.j);
+    const PassFn fn = pass_kernel<FILM, SN>(k, g.n_mm, last, &g.j);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     fn<<<dim3(g.n_chunks, batch), PTHREADS, smem, s>>>(g);

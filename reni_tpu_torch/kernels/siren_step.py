@@ -507,9 +507,16 @@ def _cta_sums(x: torch.Tensor, plan: StepPlan) -> torch.Tensor:
     return _cta_rows(x, plan).sum(2)
 
 
+def _sincos(kw):
+    """The (sin, cos) pair of the plain passes: ``kw["sincos"]`` where given
+    (the anatomy probes' linear stand-in), else the trunk's exact or fast
+    sine."""
+    return kw.get("sincos") or sincos_fns(kw["fast_sine"])
+
+
 def _layer0(plan, o, kw):
     """Layer 0 of the tile rows: (h_0, kept value, cos factor), each (B, P, H)."""
-    sincos = sincos_fns(kw["fast_sine"])
+    sincos = _sincos(kw)
     z = _matmul(o["d"], o["a"], kw["trunk"])
     if plan.film:
         H = plan.hidden
@@ -522,7 +529,7 @@ def _layer0(plan, o, kw):
 
 def _layer(plan, o, kw, z, layer):
     """Layer ``layer`` >= 1 from its product z: (h, kept value, cos factor)."""
-    sincos = sincos_fns(kw["fast_sine"])
+    sincos = _sincos(kw)
     if plan.film:
         lo, hi = layer * plan.hidden, (layer + 1) * plan.hidden
         pre = z + o["bs"][layer]
@@ -557,7 +564,8 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     backward plan as for ``siren_trunk_bwd_reference`` /
     ``film_trunk_bwd_reference`` (the trunk's operands and g): its last pass
     takes g in place of the loss, and without weight gradients no pass
-    writes h_0 or a weight slot."""
+    writes h_0 or a weight slot. ``kw["sincos"]``, where given, takes the
+    place of the sine (the anatomy probes' linear stand-in)."""
     kind, j = plan.passes[k]
     o, trunk, H = _step_operands(plan.film, ops, plan.bwd), kw["trunk"], plan.hidden
     sc_h, sc_keep, sc_dz = (_scratch(t, plan) for t in (work.sc_h, work.sc_keep, work.sc_dz))
@@ -603,7 +611,7 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     dh = _matmul(sc_dz[j].float(), o["ws"][j].transpose(0, 1), trunk)
     if j > 0:
         kept = sc_keep[j - 1]
-        cos = (sincos_fns(kw["fast_sine"])(
+        cos = (_sincos(kw)(
             o["fr"][..., j * H : (j + 1) * H] * kept + o["ph"][..., j * H : (j + 1) * H])[1]
             if plan.film else kept)
     else:
@@ -673,15 +681,17 @@ def _group_operands(plan: StepPlan, ops, g0: int, g1: int) -> tuple:
                  for name, x in _step_operands(plan.film, ops, plan.bwd).items())
 
 
-def passes_reference(plan: StepPlan, ops, kw, sms: int, budget: int | None = None) -> PassWork:
-    """The plain passes of ``plan`` chained, then the slot sums and dWs,
-    through the scratch and per-CTA slots of a card of ``sms`` SMs; with a
-    ``budget`` (bytes) in the groups the card runs under it
-    (``StepPlan.groups``), each group's dWs summed in group order."""
+def passes_reference(plan: StepPlan, ops, kw, sms: int, budget: int | None = None,
+                     finish: int | None = None) -> PassWork:
+    """The plain passes of ``plan`` chained, then the slot sums and dWs (or
+    what ``finish``, FINISH_* flags, asks for), through the scratch and
+    per-CTA slots of a card of ``sms`` SMs; with a ``budget`` (bytes) in the
+    groups the card runs under it (``StepPlan.groups``), each group's dWs
+    summed in group order."""
     trunk, dev = kw["trunk"], ops[0].device
     groups = plan.groups(budget) if budget is not None else ((0, plan.batch),)
     work = PassWork.for_plan(plan, trunk, dev, sms, images=groups[0][1] - groups[0][0])
-    finish = _finish_flags(plan)
+    finish = _finish_flags(plan) if finish is None else finish
     if len(groups) == 1:
         for k in range(len(plan.passes)):
             step_pass_reference(plan, k, ops, kw, work)
@@ -761,6 +771,7 @@ def library(film: bool = False):
     source, step, passes, smem, error_string = _SYMBOLS[film]
     lib = _build.load(source)
     if not hasattr(lib, "step"):
+        lib.source = source
         lib.step, lib.passes = getattr(lib, step), getattr(lib, passes)
         lib.reduce = lib.reni_pass_reduce
         lib.smem_bytes, lib.pass_smem_bytes = getattr(lib, smem), lib.reni_pass_smem_bytes
@@ -874,22 +885,30 @@ def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
 
 
 def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: int,
-               finish: int, g0: int = 0) -> None:
+               finish: int, g0: int = 0, lib=None) -> None:
     """Passes [lo, hi) of ``plan`` on the card over ``work`` for the images
     from ``g0`` on, then what ``finish`` (FINISH_* flags) asks for
-    (``csrc/step_passes.cuh``)."""
+    (``csrc/step_passes.cuh``), through ``lib``'s ``passes`` (the step
+    library of the plan's conditioning by default; the anatomy probes pass
+    theirs). Counted in ``pass_launches`` by library."""
     rest = (work.part_img.data_ptr(), work.out_img.data_ptr(), work.part_w.data_ptr(),
             work.out_w.data_ptr(), work.sc_h.data_ptr(), work.sc_keep.data_ptr(),
             work.sc_dz.data_ptr(), work.part_dws.data_ptr(), work.dws.data_ptr(), plan.batch,
             plan.npix, plan.hidden)
     grid = (plan.tiles_per_cta, plan.chunks, work.rows_per_chunk, work.n_wchunks)
-    lib = library(plan.film)
+    lib = lib or library(plan.film)
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         err = lib.passes(*prep.head(g0), *rest, prep.depth, *grid, *prep.scalars, *prep.flags,
                          int(plan.weight_grads), lo, hi, finish, stream)
     _check(err, lib.error_string,
            f"{'film' if plan.film else 'siren'}_{'bwd' if plan.bwd else 'step'} passes")
+    pass_launches[lib.source] += 1
+
+
+# calls into each library's pass entry (its ``source``): siren_step,
+# film_step and the anatomy probes' siren_anatomy
+pass_launches = {"siren_step": 0, "film_step": 0, "siren_anatomy": 0}
 
 
 def device_budget(device) -> int:

@@ -18,24 +18,25 @@ from reni_tpu.core.fastmath import sincos_fns, sine_fns
 from reni_tpu_torch.kernels import anatomy as ta
 from reni_tpu_torch.kernels import siren_bwd as tb
 from reni_tpu_torch.kernels import siren_fwd as tk
+from reni_tpu_torch.kernels import siren_step as ts
 
 B, P, H, L = 2, 256, 128, 2
 TILE = 128
 DTYPES = {"float32": None, "bfloat16": jnp.bfloat16}
 
 
-def _operands(seed=0, batch=B, npix=P):
+def _operands(seed=0, batch=B, npix=P, hidden=H):
     """Numpy operands in the kernel layout, scaled as bwd_anatomy._run scales
     them; one shared direction grid (the probes' index map)."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     return (
         rng.normal(size=(1, npix, 8)).astype(f32),
-        (rng.normal(size=(batch, 8, H)) * 0.02).astype(f32),
-        (rng.normal(size=(batch, 1, H)) * 0.02).astype(f32),
-        (rng.normal(size=(L, H, H)) * 0.01).astype(f32),
-        (rng.normal(size=(L, H)) * 0.01).astype(f32),
-        (rng.normal(size=(H, 8)) * 0.01).astype(f32),
+        (rng.normal(size=(batch, 8, hidden)) * 0.02).astype(f32),
+        (rng.normal(size=(batch, 1, hidden)) * 0.02).astype(f32),
+        (rng.normal(size=(L, hidden, hidden)) * 0.01).astype(f32),
+        (rng.normal(size=(L, hidden)) * 0.01).astype(f32),
+        (rng.normal(size=(hidden, 8)) * 0.01).astype(f32),
         (rng.normal(size=(1, 8)) * 0.01).astype(f32),
         rng.normal(size=(batch, npix, 8)).astype(f32),
     )
@@ -177,6 +178,86 @@ def test_variants_plain_match_jax_bf16():
     got = ta.bwd_variant_reference(*_torch(ops), transcendental=False, **_kw("bfloat16", True))
     for name, x, y in zip(("dA", "db0", "dWs", "dbs", "dWf", "dbf"), got, ref):
         _assert_rel(x, y.reshape(x.shape), 2.5e-3, name)
+
+
+def _slot_sums(plan, part_img, part_w, sc_h, sc_dz):
+    """The per-CTA slots and the scratch of a pass-layout accum=False result,
+    summed: (dA, db0, dWs, dbs, dWf, dbf), the mse lanes (0 in a backward)
+    checked and dropped."""
+    hidden, n_mm = plan.hidden, plan.n_mm
+    img, w = part_img.sum(1), part_w.sum(0)
+    assert torch.equal(w[:8], torch.zeros(8))
+    w = w[8:]
+    return (img[:, : 8 * hidden].view(-1, 8, hidden), img[:, 8 * hidden :].view(-1, 1, hidden),
+            ta.weight_grads_reference(sc_h, sc_dz), w[: n_mm * hidden].view(n_mm, hidden),
+            w[n_mm * hidden : -8].view(hidden, 8), w[-8:].view(1, 8))
+
+
+@pytest.mark.parametrize("sms", [1, 2])
+@pytest.mark.parametrize("transcendental", [True, False], ids=["sincos", "no_sincos"])
+def test_no_accum_pass_layout_sums_to_the_plain_passes(transcendental, sms):
+    """accum=False on the pass route (bf16, a 2 x 64 trunk, 2 images, P = 456:
+    four 128-row tiles, the last ragged): the slots and scratch have the
+    plan's layout (two CTAs of two tiles an image on a card of one SM, four
+    of one on two SMs), their per-CTA sums are bitwise those of
+    siren_step.bwd_passes_reference (the same slot sums; dWs h^T dz over the
+    scratch to 1e-5 x max, a float32 einsum against the plain pass
+    product)."""
+    hidden, npix = 64, 456
+    ops = _torch(_operands(6, batch=2, npix=npix, hidden=hidden))
+    kw = _kw("bfloat16", True)
+    assert ta.bwd_route("bfloat16", hidden, L) == "passes"
+    plan = ta.bwd_plan(ops[0], ops[1], ops[3], sms)
+    assert plan.bwd and plan.weight_grads and plan.npix == npix
+    assert (plan.tiles_per_cta, plan.chunks) == ((2, 2) if sms == 1 else (1, 4))
+    got = ta.bwd_variant_reference(*ops, accum=False, transcendental=transcendental, plan=plan,
+                                   **kw)
+    part_img, part_w, sc_h, sc_dz = got
+    assert part_img.shape == (2, plan.chunks, 9 * hidden)
+    assert part_w.shape == (2 * plan.chunks, plan.n_w)
+    assert sc_h.shape == sc_dz.shape == (L, 2 * npix, hidden) and sc_h.dtype == torch.bfloat16
+    pkw = dict(kw, sincos=ta._sincos(transcendental, True))
+    ref = ts.bwd_passes_reference(False, ops[:7], ops[7], pkw, weight_grads=True, sms=sms)
+    sums = _slot_sums(plan, *got)
+    for name, x, y in zip(("dA", "db0", "dWs", "dbs", "dWf", "dbf"), sums, ref):
+        if name == "dWs":
+            _assert_rel(x, y, 1e-5, name)
+        else:
+            assert torch.equal(x, y), name
+    # accum=True with the plan: the plain passes' results, within the bf16
+    # bars of the plain backward
+    whole = ta.bwd_variant_reference(*ops, transcendental=transcendental, plan=plan, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(whole, ref))
+    chain = ta.bwd_variant_reference(*ops, transcendental=transcendental, **kw)
+    for name, x, y in zip(("dA", "db0", "dWs", "dbs", "dWf", "dbf"), whole, chain):
+        _assert_rel(x, y, 2.5e-3, name)
+
+
+@pytest.mark.parametrize(
+    "variant",
+    [dict(transcendental=False), dict(transcendental=False, weight_grads=False),
+     dict(transcendental=False, accum=False), dict(accum=False)],
+    ids=["no_sincos", "mxu_only", "no_sincos_no_accum", "no_accum"],
+)
+def test_pass_route_variants_plain_match_jax_bf16(variant):
+    """The backward probes on the pass route (bf16, H = 128) through the
+    plain passes against the Pallas probe in interpret mode, at the bars of
+    test_variants_plain_match_jax_bf16: every gradient within 2.5e-3 of its
+    largest entry. accum=False depends on the tiling, so one image and one
+    tile there: the probe writes the whole gradient and the port's slots and
+    scratch sum to it."""
+    accum = variant.get("accum", True)
+    ops = _operands(7, batch=B if accum else 1, npix=P if accum else TILE)
+    assert ta.bwd_route("bfloat16", H, L) == "passes"
+    ref = _jax_bwd(ops, "bfloat16", True, **variant)
+    plan = ta.bwd_plan(*_torch(ops)[:2], _torch(ops)[3], sms=1)
+    got = ta.bwd_variant_reference(*_torch(ops), plan=plan, **variant, **_kw("bfloat16", True))
+    if not accum:
+        got = _slot_sums(plan, *got)
+    n = 6 if variant.get("weight_grads", True) else 2
+    for name, x, y in zip(("dA", "db0", "dWs", "dbs", "dWf", "dbf")[:n], got, ref):
+        _assert_rel(x, y.reshape(x.shape), 2.5e-3, (variant, name))
+    assert all(x is None for x in got[n:])
 
 
 def test_probe_wrappers_refuse_cpu_tensors():

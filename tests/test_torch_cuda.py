@@ -824,20 +824,26 @@ def test_bwd_variants_match_plain(cuda, trunk, fast_sine):
     1e-2 (bf16) / 1e-4 (float32) x max |plain|: without sincos, without
     weight gradients, both, and without the reduction (the raw per-CTA slots
     and the scratch, several CTAs per image; the scratch of activations is a
-    forward result and holds the forward's bars)."""
+    forward result and holds the forward's bars). The bf16 probes run the
+    layer-major passes and are held against the plain passes in their slot
+    layout (``plan``), the float32 ones the chain kernel in its (``grid``)."""
     rng = np.random.default_rng(51)
     kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=fast_sine)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for H, L, P in ((128, 2, 256), (256, 3, 264)):
         ops = _probe_operands(rng, cuda, H, L, 3, P)
         g = torch.as_tensor(rng.normal(size=(3, P, 8)).astype(np.float32), device=cuda)
-        grid = tb.launch_grid(P, 3, trunk, cuda)
-        assert grid[1] >= 4
+        passes = ta.bwd_route(trunk, H, L) == "passes"
+        assert passes == (trunk == "bfloat16")
+        layout = (dict(plan=ta.bwd_plan(ops[0], ops[1], ops[3], sms)) if passes
+                  else dict(grid=tb.launch_grid(P, 3, trunk, cuda)))
+        assert (layout["plan"].chunks if passes else layout["grid"][1]) >= 2
         n0 = ta.bwd_variant_cuda.launches
         for variant in (dict(), dict(transcendental=False), dict(weight_grads=False),
                         dict(transcendental=False, weight_grads=False), dict(accum=False),
                         dict(transcendental=False, accum=False)):
             got = ta.bwd_variant_cuda(*ops, g, **variant, **kw)
-            ref = ta.bwd_variant_reference(*ops, g, grid=grid, **variant, **kw)
+            ref = ta.bwd_variant_reference(*ops, g, **layout, **variant, **kw)
             torch.cuda.synchronize()
             assert len(got) == len(ref) == (6 if variant.get("accum", True) else 4)
             got = [None if x is None else x.float() for x in got]
@@ -850,6 +856,41 @@ def test_bwd_variants_match_plain(cuda, trunk, fast_sine):
                     _assert_grads_close([h], [h_ref], trunk, (H, L, P, variant))
             _assert_grads_close(got, ref, trunk, (H, L, P, variant))
         assert ta.bwd_variant_cuda.launches == n0 + 6
+
+
+@pytest.mark.parametrize("H,L,P", [(128, 2, 256), (256, 5, 8192)])
+def test_bwd_probes_run_the_shipped_passes(cuda, H, L, P):
+    """On the pass route (bf16, H a multiple of 64) the backward probes run
+    the passes, not the chain kernel: ``bwd`` and ``bwd_no_dw`` give the bits
+    of ``siren_trunk_bwd_cuda``, every probe gives the same bits twice, the
+    route counter says "passes", the pass entries of the step library and of
+    the anatomy library are called and the chain kernel's anatomy entry is
+    not; the weight-gradient product alone on the ``bwd_no_accum`` scratch
+    gives the shipped dWs bit for bit (the same scratch and chunks)."""
+    rng = np.random.default_rng(52)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk="bfloat16", fast_sine=True)
+    ops = _probe_operands(rng, cuda, H, L, 3, P)
+    g = torch.as_tensor(rng.normal(size=(3, P, 8)).astype(np.float32), device=cuda)
+    assert ta.bwd_route("bfloat16", H, L) == "passes"
+    routes, calls = dict(ta.bwd_variant_cuda.routes), dict(ts.pass_launches)
+    for wgrad in (True, False):
+        got = ta.bwd_variant_cuda(*ops, g, weight_grads=wgrad, **kw)
+        shipped = tb.siren_trunk_bwd_cuda(*ops, g, weight_grads=wgrad, **kw)
+        assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, shipped))
+    shipped_dws, dws = tb.siren_trunk_bwd_cuda(*ops, g, **kw)[2], None
+    for variant in (dict(), dict(weight_grads=False), dict(transcendental=False),
+                    dict(transcendental=False, weight_grads=False), dict(accum=False)):
+        one = [x.clone() for x in ta.bwd_variant_cuda(*ops, g, **variant, **kw) if x is not None]
+        two = [x for x in ta.bwd_variant_cuda(*ops, g, **variant, **kw) if x is not None]
+        assert all(torch.equal(x, y) for x, y in zip(one, two)), variant
+        if variant == dict(accum=False):
+            dws = ta.weight_grads_cuda(one[2], one[3])
+    torch.cuda.synchronize()
+    assert torch.equal(dws, shipped_dws)
+    assert ta.bwd_variant_cuda.routes == {"passes": routes["passes"] + 12,
+                                          "chain": routes["chain"]}
+    assert ts.pass_launches["siren_step"] > calls["siren_step"]
+    assert ts.pass_launches["siren_anatomy"] == calls["siren_anatomy"] + 4
 
 
 def test_weight_grads_product_alone_matches_plain(cuda):

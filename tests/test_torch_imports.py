@@ -1,7 +1,9 @@
 """Import hygiene of the port: reni_tpu_torch (every module, the kernels'
-anatomy probes included), chip_smoke.py and time_kernels.py import neither
-JAX nor the JAX package nor its benchmarks, and the entry points run on the
-card unless the CPU is asked for."""
+anatomy probes, the config, data and codec modules included), chip_smoke.py
+and time_kernels.py import neither JAX nor the JAX package nor its
+benchmarks, nor at module level OpenCV, PIL or PyYAML (which the card's
+machine does not have), and the entry points run on the card unless the CPU
+is asked for."""
 
 import json
 import os
@@ -43,6 +45,34 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_port_loads_no_optional_image_or_yaml_library():
+    """Nothing on chip_smoke.py's path (every module of the port, the two
+    scripts) imports cv2, PIL or yaml when it is imported: they are imported
+    inside the functions that read such files (an .hdr or LDR image, a YAML
+    config), and the card's machine has none of them."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules() + SCRIPTS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in ('cv2', 'PIL', 'yaml', 'imageio') if m in sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_optional_library_at_module_level(path):
+    """No top-level import of cv2, PIL, yaml or imageio in a source of the
+    port (an indented import inside a function is the way)."""
+    bad = re.compile(r"^(import|from)\s+(cv2|PIL|yaml|imageio)(\.|\s|$)", re.M)
+    src = path.read_text()
+    assert not bad.search(src), bad.search(src).group(0)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -22,15 +22,20 @@ new, old); the build directory is keyed by a hash of the sources, so each
 version builds anew.
 
 With ``--anatomy`` (the counterpart of ``benchmarks/bwd_anatomy.py``) it
-prints instead, at 21 x 32,768 and at 100 x 8,192 on the Cond-by-Concat Zoo
+prints instead, at 21 x 8,192 and at 21 x 32,768 on the Cond-by-Concat Zoo
 decoder, the median time of the shipped forward and backward kernels and of
 each probe of ``reni_tpu_torch/kernels/anatomy.py`` (``fwd``, ``fwd_no_sine``,
 ``fwd_interleave2``, ``fwd_interleave4`` (the bf16 forward's probes are the
 fused kernel without sines and in lock step, and the row-tile kernel's
-sub-tiles), ``bwd``, ``bwd_no_accum``,
-``bwd_no_sincos``, ``bwd_no_dw``, ``bwd_mxu_only``), and of the
-weight-gradient product ``wgrad_bf16`` alone, without and with the sum of
-its split-K partials: what each part of a chain kernel costs.
+sub-tiles), ``bwd``, ``bwd_no_accum``, ``bwd_no_sincos``, ``bwd_no_dw``,
+``bwd_mxu_only`` (the bf16 backward's probes are the layer-major passes:
+the shipped ones, the passes built with the linear stand-in, and the passes
+without the reduction after them)), and of the weight-gradient product
+``wgrad_bf16`` alone, without and with the sum of its split-K partials; then
+the attribution line of the shipped backward at each shape
+(``chip_smoke.attribution``: sines, weight work, the reduction after the
+passes, ``wgrad_bf16``, the skeleton, against the bound and the passes' byte
+floor): what each part of the shipped kernels costs.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def relative_errors(got, ref) -> str:
     )
 
 
-ANATOMY_SHAPES = ((21, 256), (100, 128))  # (latents, width): 21 x 32,768 and 100 x 8,192
+ANATOMY_SHAPES = ((21, 128), (21, 256))  # (latents, width): 21 x 8,192 and 21 x 32,768
 
 
 def anatomy(dev) -> None:
@@ -67,7 +72,8 @@ def anatomy(dev) -> None:
             D = sphere.get_directions(width, device=dev)
             times = cs.time_anatomy(cfg, dec, mu[:batch], D, runs=15)
             for name, ms in times.items():
-                print(f"{name} {batch} x {D.shape[1]:,}: {ms:.3f} ms")
+                if isinstance(ms, float):
+                    print(f"{name} {batch} x {D.shape[1]:,}: {ms:.3f} ms")
             torch.cuda.empty_cache()
     print(cs.card_line())
 
