@@ -76,7 +76,40 @@ Phases (any failure exits non-zero and prints no result line):
                  FIT_DECODER's three resolutions. Prints the host stage in
                  ms a map (generate and write, decode, stage) and a digest
                  of the staged maps (not asserted: numpy's SIMD sin and exp
-                 may differ between CPUs)
+                 may differ between CPUs); the maps stay on disk for the
+                 evaluate phase
+   fit_inverse - render.inverse.fit_inverse on each Zoo decoder at the
+                 published RENI.FIT_INVERSE (data/3D_Models/teapot.obj, a
+                 64x64 render, KD_VALUE 1.0, one view, batch 1, 64x128 maps =
+                 8,192 lights, Adam b1=0 b2=0.999, LR 1e-2 -> 1e-5) with the
+                 epochs cut from 1,200 to 40 (840 steps), from fresh latents
+                 to the 21 seed-1 test maps, through the kernels and through
+                 the plain decoder from the same generators. First the
+                 backward at one latent x 8,192 against its plain version
+                 and the device-memory guard's plan there (one group), and
+                 the TF32 guard: a GT render at kd 0.5 in float32 against
+                 float64, sum |diff| / sum |f64| <= 1e-4 (the largest pixel
+                 error printed). Checks: the native rasterizer built the
+                 fragments; the last epoch's loss below the first; every
+                 step one forward as the fwd passes and one cotangent
+                 backward from their scratch (two calls into the pass
+                 entry), no forward kernel, no chain kernel; step 0's four
+                 metrics within 1e-2 relative and the recovered renders'
+                 PSNR against the GT renders within 0.1 dB between the runs;
+                 inverse_recovery_eval printed for both. Median ms a step
+                 (CUDA events), the render's and the decoder's forward +
+                 backward alone at a step's shape, and a torch.profiler
+                 split of five steps' device time (the decoder's kernels,
+                 PyTorch's, idle)
+   evaluate    - cli/evaluate.main on five HDR Zoo entries' latents_test
+                 and the seed-1 test maps at 64x128 (Mask-3 in-painting on
+                 the cbc entry), through the kernels and through the plain
+                 decoder on the card: psnr_mean, rotated PSNR within 0.05
+                 dB and ssim_mean within 1e-3 between the runs, printed
+                 beside eval.json (a TPU's numbers), self_consistency_psnr
+                 >= 50 dB; every decode through the fused forward. The LDR
+                 entry is left out: its maps need the --ldr PNG generation
+                 (ROADMAP A-6b)
    compare_step - the train-step kernel against its plain version at full
                  width on the Cond-by-Concat Zoo decoder and 100 of its
                  training latents: the loss partials and every gradient at
@@ -185,12 +218,14 @@ import base64
 import concurrent.futures
 import contextlib
 import hashlib
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -249,6 +284,34 @@ SYNC_WARMUP = 2  # 64x128 FIT_DECODER steps before the sync check
 # published transform (configs/zoo_synthetic.yaml)
 SEED_MAPS = dict(train=1000, test=21, width=128, seed=1)
 PUBLISHED_TRANSFORMS = [["minmaxnormalise", [-18.0536, 11.4633]]]
+# FIT_INVERSE: the published task (config.yaml RENI.FIT_INVERSE: teapot,
+# 64 x 64 render, KD_VALUE 1.0, one view, batch 1, 64 x 128 maps) with the
+# epochs cut from 1,200 to 40
+TEAPOT = os.path.join(ROOT, "data", "3D_Models", "teapot.obj")
+INV_EPOCHS, INV_RENDER, INV_KD = 40, 64, 1.0
+# the TF32 guard: one GT render with a specular term (kd 0.5) in float32
+# against float64, sum |f32 - f64| / sum |f64| (K = 3 dots whose inputs are
+# rounded to TF32's 10 mantissa bits put more than 1e-2 there:
+# tests/test_torch_render.py::test_tf32_guard_sees_a_tf32_dot); the largest
+# pixel error is printed, not held: a light within a few thousandths of a
+# degree of -V makes N.H ill-conditioned in the float32 inputs themselves
+TF32_GUARD_KD, TF32_GUARD_BAR = 0.5, 1e-4
+STEP0_BAR = 1e-2  # step 0's metrics, kernel vs plain run, relative
+INV_PROFILED = (100, 105)  # steps of the kernel run traced by torch.profiler
+# the decoder's own CUDA kernels, by name (everything else on the card in a
+# FIT_INVERSE step is PyTorch's: the shading's maps and light sums, the
+# loss, Adam, the encodings)
+DECODER_KERNELS = ("fused_fwd", "trunk_fwd", "trunk_bwd", "trunk_step", "fwd_pass", "last_pass",
+                   "bwd_pass", "reduce_slots", "wgrad")
+# evaluate: the five HDR Zoo entries with the transform of each one's
+# config.yaml (the exp entry trains on raw radiance; the LDR entry needs the
+# --ldr PNG maps, ROADMAP A-6b), kernel run vs plain run on the card
+EVAL_ENTRIES = (("latent_dim_49_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
+                ("latent_dim_49_net_5_256_vad_film_tanh_hdr", PUBLISHED_TRANSFORMS),
+                ("latent_dim_100_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
+                ("latent_dim_49_net_5_256_ad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
+                ("latent_dim_49_net_5_256_vad_cbc_exp_hdr", []))
+EVAL_DB, EVAL_SSIM, SELF_DB = 0.05, 1e-3, 50.0
 
 
 class SmokeFailure(Exception):
@@ -786,7 +849,7 @@ def fit_latent_phase(device) -> dict:
     return launches
 
 
-def seed_maps(device):
+def seed_maps(device, tmp: str):
     """The maps the Zoo was trained and evaluated on (``data/Zoo/README.md``
     "Recipe"; SEED_MAPS): written by the port's ``data/synthetic.py`` (ZIP,
     half) into a temporary directory, loaded with the port's ``get_dataset``
@@ -794,19 +857,17 @@ def seed_maps(device):
     FIT_DECODER's resolutions. Prints the host stage (ms a map for generate
     and write, decode, stage) and a digest of the staged 64x128 training
     maps (numpy's SIMD sin and exp may differ between CPUs, so it is not
-    asserted). Returns (training set, test set)."""
-    import tempfile
-
+    asserted). The maps stay in ``tmp`` for the evaluate phase. Returns
+    (training set, test set)."""
     from reni_tpu_torch.data import datasets, synthetic
 
     n = SEED_MAPS["train"] + SEED_MAPS["test"]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        folders = synthetic.write_dataset(tmp, **SEED_MAPS)
-        t1 = time.perf_counter()
-        train, test = (datasets.get_dataset("RENI_HDR", folders[split], PUBLISHED_TRANSFORMS, True)
-                       for split in ("Train", "Test"))
-        t2 = time.perf_counter()
+    t0 = time.perf_counter()
+    folders = synthetic.write_dataset(tmp, **SEED_MAPS)
+    t1 = time.perf_counter()
+    train, test = (datasets.get_dataset("RENI_HDR", folders[split], PUBLISHED_TRANSFORMS, True)
+                   for split in ("Train", "Test"))
+    t2 = time.perf_counter()
     stages = [res for res, _ in decoder_task_config().resolution_stages()]
     for res in stages:
         train.images_at(res, device=device)
@@ -829,6 +890,323 @@ def seed_maps(device):
           f"decode {(t2 - t1) * 1e3 / n:.3f}, stage {len(stages)} resolutions on the card "
           f"{(t3 - t2) * 1e3 / SEED_MAPS['train']:.3f}; total {t3 - t0:.2f} s")
     return train, test
+
+
+def inverse_task_config():
+    from reni_tpu_torch.train.optim import OptimConfig
+    from reni_tpu_torch.train.tasks import TaskConfig
+
+    return TaskConfig(
+        task="FIT_INVERSE",
+        optim=OptimConfig(lr_start=1e-2, lr_end=1e-5, optimizer="adam", beta1=0.0, beta2=0.999),
+        batch_size=1, epochs=INV_EPOCHS, multi_res_training=False,
+        initial_resolution=FIT_RES[0], final_resolution=FIT_RES[1],
+        cosine_similarity_weight=1e-4, prior_loss_weight=1e-7, render_resolution=INV_RENDER,
+        object_path=TEAPOT, kd_value=INV_KD,
+    )
+
+
+def render_psnr(pred: torch.Tensor, gt: torch.Tensor) -> float:
+    """PSNR of renders against GT renders, peak the largest GT value."""
+    mse = torch.mean((pred - gt) ** 2)
+    return (10.0 * torch.log10(gt.max() ** 2 / mse)).item()
+
+
+def fit_inverse(entry: str, device, test, setup, *, plain: bool):
+    """One FIT_INVERSE run (``render.inverse.fit_inverse``) from fresh latents
+    to the 21 seed-1 test maps, through the kernels or (``plain``) the plain
+    decoder; returns (fitted params, metrics, the first step's metrics,
+    median ms a step, launches {fwd, fwd_passes, bwd, pass calls, fused,
+    tile} during the run)."""
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.render import inverse
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    path = os.path.join(entry, "checkpoint")
+    cfg = ckpt.load_model_config(path, fixed_decoder=True)
+    model = RENIModel(cfg)
+    params = ckpt.load_decoder_only(path, model, SEED_MAPS["test"],
+                                    torch.Generator().manual_seed(0), device)
+    counters = {"fwd": tk.fused_film_apply if cfg.is_film else tk.fused_apply,
+                "fwd_passes": ts.passes_forward,
+                "bwd": tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda}
+    lib = "film_step" if cfg.is_film else "siren_step"
+    events, tally, first, prof = [], {}, [], {}
+
+    def wrap(step, res):
+        step = counted(timed(step, events), counters, tally)
+
+        def run(state, batch):
+            if not plain and len(events) == INV_PROFILED[0]:
+                torch.cuda.synchronize()
+                prof["p"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+            state, m = step(state, batch)
+            if "p" in prof and len(events) == INV_PROFILED[1]:
+                torch.cuda.synchronize()
+                prof["p"].__exit__(None, None, None)
+            if not first:
+                first.append({k: v.item() for k, v in m.items()})
+            return state, m
+
+        return run
+
+    setup.generate_gt_renders(test.images_at(FIT_RES[1], device=device), test.unnormalise,
+                              FIT_RES[1][1])  # made before the counts are zeroed
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    calls0 = ts.pass_launches[lib]
+    tk.fused_fwd_launches = tk.tile_fwd_launches = 0
+    with plain_trunks() if plain else contextlib.nullcontext():
+        fitted, metrics = inverse.fit_inverse(
+            model, params, inverse_task_config(),
+            lambda res: test.images_at(res, device=device), test.unnormalise,
+            torch.Generator().manual_seed(1), setup=setup, wrap_step=wrap,
+        )
+    torch.cuda.synchronize()
+    n = {k: fn.launches for k, fn in counters.items()}
+    n.update(pass_calls=ts.pass_launches[lib] - calls0, fused=tk.fused_fwd_launches,
+             tile=tk.tile_fwd_launches)
+    ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    if "p" in prof:
+        device_split(prof["p"], INV_PROFILED[1] - INV_PROFILED[0], ms, os.path.basename(entry))
+    return model, fitted, metrics, first[0], ms, n
+
+
+def device_split(prof, n_steps: int, step_ms: float, label: str) -> None:
+    """Device time a step from a torch.profiler trace of ``n_steps`` steps
+    (kernels, copies and fills; not the annotations' ranges): the decoder's
+    own kernels (DECODER_KERNELS) and PyTorch's (the shading, loss, Adam,
+    encodings), beside the median step of the unprofiled steps (the
+    profiler slows the host); the rest is the card's idle time. Printed,
+    not held."""
+    from torch.autograd import DeviceType
+
+    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    if not work:
+        print(f"{label}: the profiler saw no device time (CUDA events only)")
+        return
+    per_step = {}
+    for e in work:
+        per_step[e.name] = per_step.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_steps
+    ours = sum(v for k, v in per_step.items() if any(d in k for d in DECODER_KERNELS))
+    total = sum(per_step.values())
+    heavy = sorted(per_step.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{label}: a step's device time (torch.profiler, {n_steps} steps): the decoder's "
+          f"kernels {ours:.3f} ms, PyTorch's kernels {total - ours:.3f} ms, of a {step_ms:.3f} ms "
+          f"step (idle {max(step_ms - total, 0.0) / step_ms:.1%}); heaviest: "
+          + ", ".join(f"{k[:40]} {v:.3f}" for k, v in heavy))
+
+
+def shading_and_decoder_ms(model, params, setup, device) -> tuple[float, float]:
+    """The render's forward + backward alone at a FIT_INVERSE step's shape
+    (one 64 x 128 map's 8,192 lights, a 64 x 64 render), and the decoder's
+    (one latent x 8,192 directions, the gradient w.r.t. the latent), each
+    timed by CUDA events around whole calls."""
+    from reni_tpu_torch.core import sphere
+
+    width = FIT_RES[1][1]
+    render = setup.render_fn(width)
+    sw = sphere.get_sineweight(width, device=device)
+    env = torch.rand((1, sw.shape[1], 3), device=device, generator=torch.Generator(
+        device=device).manual_seed(5)).requires_grad_()
+
+    def shade():
+        render(env, sw).sum().backward()
+
+    D = sphere.get_directions(width, device=device)
+    z = model.latents(params, [0]).detach().clone().requires_grad_()
+
+    def decode():
+        model.apply(params, z, D).sum().backward()
+
+    return time_ms(shade, runs=10), time_ms(decode, runs=10)
+
+
+def tf32_guard(test, device) -> None:
+    """One GT render with a specular term (test map 0, kd 0.5) in float32
+    against float64 on the card: sum |f32 - f64| / sum |f64| <= the bar
+    (the largest pixel error printed beside it)."""
+    from reni_tpu_torch.render.inverse import InverseRenderSetup
+
+    setup = InverseRenderSetup(TEAPOT, render_resolution=INV_RENDER, kd=TF32_GUARD_KD,
+                               device=device)
+    maps = test.images_at(FIT_RES[1], device=device)[:1]
+    r32 = setup.generate_gt_renders(maps, test.unnormalise, FIT_RES[1][1]).double()
+    r64 = setup.generate_gt_renders(maps.double(), test.unnormalise, FIT_RES[1][1])
+    err = (r32 - r64).abs()
+    mean_rel = (err.sum() / r64.abs().sum()).item()
+    max_rel = (err.max() / r64.abs().max()).item()
+    print(f"TF32 guard: GT render of test map 0 at kd {TF32_GUARD_KD}, float32 vs float64: "
+          f"sum|diff|/sum|f64| {mean_rel:.3g} (bar {TF32_GUARD_BAR}), max|diff|/max|f64| "
+          f"{max_rel:.3g} (printed); allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+          f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+    check(bool(torch.isfinite(r32).all()), "non-finite float32 GT render")
+    check(mean_rel <= TF32_GUARD_BAR, f"float32 render off float64 by {mean_rel:.3g}")
+
+
+def batch_one_checks(entries, device) -> None:
+    """The decode at FIT_INVERSE's batch of one: the backward on the passes
+    against its plain version at 1 x 8,192 (each gradient, one image's 64
+    row tiles reduced into its latent gradient), and the device-memory
+    guard's plan at this size."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    for name, (cfg, dec, Z) in entries.items():
+        print(f"{name} backward at 1 x {D.shape[1]}, no weight gradients:")
+        compare_bwd(cfg, dec, Z[:1], D, None, False, seed=11)
+        plan = bwd_plan(cfg, dec, Z[:1], device, weight_grads=False)[0]
+        budget = ts.device_budget(device)
+        groups = plan.groups(budget)
+        print(f"  plan: {plan.tiles_per_cta} tiles a CTA x {plan.chunks} chunks, scratch "
+              f"{plan.scratch_bytes / 2**20:.2f} MiB against a budget of {budget / 2**30:.1f} GiB "
+              f"-> {len(groups)} group(s)")
+        check(ts.pass_route(cfg.pallas_trunk, cfg.hidden_features,
+                            cfg.hidden_layers - cfg.is_film), f"{name}: B = 1 is off the passes")
+        check(groups == ((0, 1),), f"{name}: one image in {groups}")
+
+
+def fit_inverse_phase(device, test, entries) -> dict:
+    """FIT_INVERSE on both Zoo decoders through the kernels and the plain
+    decoder; returns the kernel runs' backward and forward-pass launches
+    under ``<kernel>@fit_inverse``."""
+    from reni_tpu_torch import eval as ev
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.render import rasterizer
+    from reni_tpu_torch.render.inverse import InverseRenderSetup
+
+    t0 = time.perf_counter()
+    batch_one_checks(entries, device)
+    tf32_guard(test, device)
+    setup = InverseRenderSetup(TEAPOT, render_resolution=INV_RENDER, kd=INV_KD, device=device)
+    print(f"fragments: the native rasterizer {rasterizer.library_path().name}, "
+          f"{(setup.fragments.pix_to_face >= 0).mean():.3f} of the {INV_RENDER}x{INV_RENDER} "
+          f"render covered")
+    maps = test.images_at(FIT_RES[1], device=device)
+    gt = setup.generate_gt_renders(maps, test.unnormalise, FIT_RES[1][1])
+    render = setup.render_fn(FIT_RES[1][1])
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    sw = sphere.get_sineweight(FIT_RES[1][1], device=device)
+    steps = INV_EPOCHS * SEED_MAPS["test"]
+    launches = {}
+    for name, entry in (("siren_bwd", CBC), ("film_bwd", FILM)):
+        label = os.path.basename(entry)
+        result = {}
+        for plain in (False, True):
+            run = "plain" if plain else "kernels"
+            t1 = time.perf_counter()
+            model, fitted, metrics, first, ms, n = fit_inverse(entry, device, test, setup,
+                                                               plain=plain)
+            wall = time.perf_counter() - t1
+            loss = metrics["fit_inverse_loss"]
+            check(bool(np.isfinite(loss).all()) and loss[-1] < loss[0],
+                  f"{label} [{run}]: epoch loss {loss[0]} -> {loss[-1]}")
+            if plain:
+                check(not any(n.values()), f"{label}: the plain run launched kernels {n}")
+            else:
+                # a forward as the fwd passes and a cotangent backward from
+                # their scratch each step: two calls into the pass entry, no
+                # forward kernel, no chain kernel
+                check(n["fwd_passes"] == steps and n["bwd"] == steps and n["pass_calls"] == 2 * steps
+                      and n["fwd"] == n["fused"] == n["tile"] == 0,
+                      f"{label}: {n} in {steps} steps (passes route, nothing else)")
+                launches[f"{name}@fit_inverse"] = n["bwd"]
+                launches[f"{name}_fwd_passes@fit_inverse"] = n["fwd_passes"]
+            with torch.no_grad():
+                env = test.unnormalise(model.apply(fitted, fitted["latents"]["mu"], D))
+                pred = render(env, sw.expand(env.shape))
+            db = render_psnr(pred, gt)
+            rec = ev.inverse_recovery_eval(model, fitted, maps, FIT_RES[1], setup,
+                                           unnormalise=test.unnormalise)
+            result[plain] = (first, db)
+            print(f"{label} [{run}] {steps} steps in {wall:.1f} s: {ms:.3f} ms/step (median), "
+                  f"epoch loss {loss[0]:.6g} -> {loss[-1]:.6g}, launches {n}; renders vs GT "
+                  f"PSNR {db:.3f} dB; render correlation mean "
+                  f"{rec['render_correlation_mean']:.4f} min {rec['render_correlation_min']:.4f}, "
+                  f"envmap_rel_error {rec['envmap_rel_error']:.4f}")
+            if not plain:
+                shade_ms, dec_ms = shading_and_decoder_ms(model, fitted, setup, device)
+                print(f"{label}: at a step's shape the render's forward + backward alone "
+                      f"{shade_ms:.3f} ms, the decoder's {dec_ms:.3f} ms, of {ms:.3f} ms a step")
+        (k_first, k_db), (p_first, p_db) = result[False], result[True]
+        for k in k_first:
+            rel = abs(k_first[k] - p_first[k]) / max(abs(p_first[k]), 1e-30)
+            check(rel <= STEP0_BAR, f"{label}: step 0 {k} {k_first[k]} vs plain {p_first[k]}")
+        print(f"{label}: step 0 kernels vs plain " + ", ".join(
+            f"{k} {k_first[k]:.6g} / {p_first[k]:.6g}" for k in k_first)
+              + f"; renders PSNR kernels - plain {k_db - p_db:+.3f} dB")
+        check(abs(k_db - p_db) <= PSNR_BAR_DB, f"{label}: render PSNR gap {k_db - p_db:.3f} dB")
+    print(f"fit_inverse phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def evaluate_phase(device, maps_root: str) -> dict:
+    """``cli/evaluate.py`` on the HDR Zoo entries' test latents and the
+    seed-1 test maps, through the kernels and the plain decoder on the card;
+    returns the forward kernels' launches of the kernel runs under
+    ``<kernel>@evaluate``."""
+    from reni_tpu_torch.cli import evaluate
+    from reni_tpu_torch.kernels import siren_fwd as tk
+
+    t0 = time.perf_counter()
+    keys = ("psnr_mean", "ssim_mean", "rotated_reconstruction_psnr", "self_consistency_psnr")
+    launches = {"siren_fwd@evaluate": 0, "film_fwd@evaluate": 0}
+    for name, transforms in EVAL_ENTRIES:
+        entry = os.path.join(ZOO, name)
+        cfg_path = os.path.join(maps_root, f"{name}.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"DATASET": {"NAME": "RENI_HDR", "RENI_HDR": {
+                "PATH": maps_root, "TRANSFORMS": transforms, "IS_HDR": True}}}, f)
+        argv = ["--checkpoint", os.path.join(entry, "latents_test"), "--cfg_path", cfg_path,
+                "--device", "cuda"]
+        if entry == CBC:
+            argv += ["--mask", MASK]
+        with open(os.path.join(entry, "eval.json")) as f:
+            card = json.load(f)
+        reports = {}
+        for plain in (False, True):
+            torch.cuda.synchronize()
+            tk.fused_apply.launches = tk.fused_film_apply.launches = 0
+            tk.fused_fwd_launches = tk.tile_fwd_launches = 0
+            with plain_trunks() if plain else contextlib.nullcontext(), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                reports[plain] = evaluate.main(argv)
+            torch.cuda.synchronize()
+            n = {"fused": tk.fused_fwd_launches, "tile": tk.tile_fwd_launches,
+                 "cbc": tk.fused_apply.launches, "film": tk.fused_film_apply.launches}
+            if plain:
+                check(not any(n.values()), f"{name}: the plain run launched kernels {n}")
+            else:
+                check(n["fused"] == n["cbc"] + n["film"] > 0 and n["tile"] == 0,
+                      f"{name}: evaluation decodes {n} not all through the fused kernel")
+                launches["siren_fwd@evaluate"] += n["cbc"]
+                launches["film_fwd@evaluate"] += n["film"]
+        got, ref = reports[False], reports[True]
+        print(f"{name}: kernels / plain / eval.json " + "; ".join(
+            f"{k} {got[k]:.4f} / {ref[k]:.4f} / {card[k]:.4f}" for k in keys)
+              + ("; in-painting (Mask-3) observed {:.3f} / {:.3f}, hallucinated {:.3f} / {:.3f} "
+                 "dB".format(got["observed_psnr"], ref["observed_psnr"],
+                             got["hallucinated_psnr"], ref["hallucinated_psnr"])
+                 if "observed_psnr" in got else ""))
+        for k, bar in (("psnr_mean", EVAL_DB), ("rotated_reconstruction_psnr", EVAL_DB),
+                       ("ssim_mean", EVAL_SSIM), ("observed_psnr", EVAL_DB),
+                       ("hallucinated_psnr", EVAL_DB)):
+            if k in got:
+                check(abs(got[k] - ref[k]) <= bar, f"{name}: {k} kernels {got[k]} plain {ref[k]}")
+        check(got["self_consistency_psnr"] >= SELF_DB,
+              f"{name}: self_consistency_psnr {got['self_consistency_psnr']}")
+    print(f"launches during evaluation (kernel runs): {launches}; the LDR entry is left out (its "
+          f"maps need the --ldr PNG generation, ROADMAP A-6b); evaluate phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def training_maps(device, train, entry: str = CBC) -> tuple[torch.Tensor, dict]:
@@ -2175,7 +2553,22 @@ def main() -> int:
           f"{ {k: v for k, v in launches.items() if '@' in k} }")
 
     phase("seed_maps")
-    train, _ = seed_maps(dev)
+    maps_dir = tempfile.TemporaryDirectory()
+    train, test = seed_maps(dev, maps_dir.name)
+
+    phase("fit_inverse")
+    launches.update(fit_inverse_phase(dev, test, {k: entries[k] for k in ("siren_fwd", "film_fwd")}))
+
+    phase("evaluate")
+    launches.update(evaluate_phase(dev, maps_dir.name))
+    maps_dir.cleanup()
+    for name, path, tag in (("siren_bwd", "fit_inverse", "siren_bwd@fit_inverse"),
+                            ("film_bwd", "fit_inverse", "film_bwd@fit_inverse"),
+                            ("siren_fwd", "evaluate", "siren_fwd@evaluate"),
+                            ("film_fwd", "evaluate", "film_fwd@evaluate")):
+        launches[name] += launches[tag]
+    print(f"launches by kernel, all paths so far: "
+          f"{ {k: launches[k] for k in ('siren_fwd', 'film_fwd', 'siren_bwd', 'film_bwd')} }")
 
     phase("compare_step at full width and at FIT_DECODER's shapes")
     cfg_cbc, dec_cbc, _ = entries["siren_fwd"]

@@ -1,5 +1,5 @@
-"""Training tasks (counterpart of ``reni_tpu/train/tasks.py``): FIT_DECODER
-and FIT_LATENT.
+"""Training tasks (counterpart of ``reni_tpu/train/tasks.py``): FIT_DECODER,
+FIT_LATENT and FIT_INVERSE.
 
 The JAX package runs each resolution stage as one compiled ``lax.scan`` over
 epochs of a ``lax.scan`` over batches; here a plain Python loop runs the
@@ -19,8 +19,12 @@ Cond-by-Concat, ``fused_film_step_mse`` for FiLM; value and every gradient
 in one call) where ``RENIModel.fused_step_reason`` allows it, else through
 ``RENIModel.apply`` and autograd; a note says which route a shape took.
 
-FIT_INVERSE, the mesh, streaming, callbacks and resume arrive with later
-slices (ROADMAP.md Queue A); their arguments raise here.
+FIT_INVERSE's step (``make_fit_inverse_step``) decodes, unnormalises,
+renders (``reni_tpu_torch/render``) and takes the render loss; its scene and
+ground-truth renders come from ``render/inverse.py::fit_inverse``, which
+passes ``fit_task`` the step builder. The mesh, streaming, callbacks and
+resume arrive with later slices (ROADMAP.md Queue A); their arguments raise
+here.
 """
 
 from __future__ import annotations
@@ -49,9 +53,7 @@ Params = dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """Per-task training hyperparameters (configs/default.py:24-83).
-    ``from_config`` (a reference-format config tree) arrives with the port's
-    config module."""
+    """Per-task training hyperparameters (configs/default.py:24-83)."""
 
     task: str = "FIT_DECODER"  # FIT_DECODER | FIT_LATENT | FIT_INVERSE
     optim: OptimConfig = OptimConfig()
@@ -74,6 +76,49 @@ class TaskConfig:
     kd_value: float = 0.5
     azimuths: tuple[float, ...] = (0.0,)
     elevations: tuple[float, ...] = (0.0,)
+
+    @classmethod
+    def from_config(cls, config, task: str) -> "TaskConfig":
+        """Build from a reference-format config tree (``utils/config.py``):
+        config.RENI[task] (configs/default.py:24-83; key spellings kept,
+        INITAL_RESOLUTION included)."""
+        t = config.RENI[task]
+        optim = OptimConfig(
+            lr_start=float(t.LR_START),
+            lr_end=float(t.LR_END),
+            optimizer=t.OPTIMIZER,
+            beta1=float(t.OPTIMIZER_BETA_1),
+            beta2=float(t.OPTIMIZER_BETA_2),
+            scheduler_type=t.SCHEDULER_TYPE,
+            scheduler_step_size=int(t.SCHEDULER_STEP_SIZE),
+            scheduler_gamma=float(t.SCHEDULER_GAMMA),
+            epochs=int(t.EPOCHS),
+        )
+        kwargs = dict(
+            task=task,
+            optim=optim,
+            batch_size=int(t.BATCH_SIZE),
+            epochs=int(t.EPOCHS),
+            multi_res_training=bool(t.MULTI_RES_TRAINING),
+            initial_resolution=tuple(t.INITAL_RESOLUTION),
+            final_resolution=tuple(t.FINAL_RESOLUTION),
+            curriculum=tuple(t.CURRICULUM or ()),
+        )
+        if task == "FIT_DECODER":
+            kwargs["kld_weighting"] = float(t.KLD_WEIGHTING)
+        else:
+            kwargs["cosine_similarity_weight"] = float(t.COSINE_SIMILARITY_WEIGHT)
+            kwargs["prior_loss_weight"] = float(t.PRIOR_LOSS_WEIGHT)
+        if task == "FIT_LATENT":
+            kwargs["apply_mask"] = bool(t.APPLY_MASK)
+            kwargs["mask_path"] = t.MASK_PATH
+        if task == "FIT_INVERSE":
+            kwargs["render_resolution"] = int(t.RENDER_RESOLUTION)
+            kwargs["object_path"] = t.OBJECT_PATH
+            kwargs["kd_value"] = float(t.KD_VALUE)
+            kwargs["azimuths"] = tuple(float(a) for a in t.AZIMUTHS)
+            kwargs["elevations"] = tuple(float(e) for e in t.ELEVATIONS)
+        return cls(**kwargs)
 
     def effective_curriculum(self) -> tuple[int, ...]:
         """Curriculum epochs; when None/empty, resolution doublings are
@@ -254,6 +299,43 @@ def make_fit_latent_step(
     return step
 
 
+def make_fit_inverse_step(
+    model: RENIModel,
+    directions: torch.Tensor,
+    sineweight: torch.Tensor,
+    render_fn: Callable,
+    unnormalise: Callable,
+    *,
+    alpha: float,
+    beta: float,
+) -> Callable:
+    """One FIT_INVERSE update: decode -> unnormalise -> differentiable render
+    -> loss against the ground-truth renders (RENI_module.py:107-112,
+    386-396); the optimizer moves only the trainable latents.
+
+    render_fn: (envmaps (B, P, 3), sineweight (B, P, 3)) -> (B, H, W, 3).
+    Batch = (gt_renders (B, H, W, 3), idx (B,), bmask (B,)); returns (state,
+    metrics of 0-d tensors)."""
+
+    def step(state: TrainState, batch):
+        gt_renders, idx, bmask = batch
+        sw = sineweight * bmask[:, None, None]
+        params = state.params
+        Z = model.latents(params, idx) * bmask[:, None, None]
+        out = model.apply(params, Z, directions)
+        render = render_fn(unnormalise(out), sw)
+        loss, mse, prior, cos = losses.reni_test_loss_inverse_masked(
+            render, gt_renders, Z, bmask, alpha=alpha, beta=beta
+        )
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step()
+        metrics = {"loss": loss, "mse_loss": mse, "prior_loss": prior, "cosine_loss": cos}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # stage runner and task loop
 # ---------------------------------------------------------------------------
@@ -292,7 +374,7 @@ _LATER = {
     "stream_chunk": (1, "Queue A-9 (streaming tiers)"),
     "stream_dtype": (None, "Queue A-9 (streaming tiers)"),
     "precompile": (False, "Queue A-13 (left out until the card needs it)"),
-    "reaugment": (False, "Queue A-6 (datasets and transforms)"),
+    "reaugment": (False, "Queue A-4 (per-epoch re-staging, with the segment loop)"),
     "callback": (None, "Queue A-4 (segment callbacks, checkpoints, resume)"),
     "callback_every": (None, "Queue A-4 (segment callbacks, checkpoints, resume)"),
     "start_epoch": (0, "Queue A-4 (segment callbacks, checkpoints, resume)"),
@@ -348,8 +430,9 @@ def fit_task(
             raise NotImplementedError(f"fit_task({name}=...) is not ported yet: {where}")
     task_cfg.validate()
     if step_builder is None and task_cfg.task not in ("FIT_DECODER", "FIT_LATENT"):
-        raise NotImplementedError(
-            f"task {task_cfg.task} is not ported yet (FIT_INVERSE: Queue A-8)"
+        raise ValueError(
+            f"task {task_cfg.task}: provide step_builder (FIT_INVERSE is built by "
+            "reni_tpu_torch.render.inverse.fit_inverse)"
         )
     batch_size = task_cfg.batch_size
     stages = task_cfg.resolution_stages()

@@ -8,13 +8,15 @@ names and defaults reproduce configs/default.py:1-139 verbatim so published
 experiment YAMLs (e.g. the reference's configs/experiment.yaml) load
 unchanged; keys the port does not use yet (e.g. WANDB, the TPU block, which
 the JAX package reads) are accepted and kept, so that one YAML file drives
-both packages. ``yaml`` is imported by ``merge_from_file`` alone: nothing
-else here needs PyYAML.
+both packages. ``yaml`` is imported by ``merge_from_file`` alone, and only
+for a YAML file: a ``.json`` file (JSON is YAML too) is read with the
+standard library, for a machine without PyYAML.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any
 
 
@@ -56,10 +58,13 @@ class Config(dict):
         return self
 
     def merge_from_file(self, path: str) -> "Config":
-        import yaml
-
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            if path.lower().endswith(".json"):
+                data = json.load(f)
+            else:
+                import yaml
+
+                data = yaml.safe_load(f) or {}
         return self.merge_from_dict(data)
 
     def clone(self) -> "Config":

@@ -1231,3 +1231,101 @@ def test_fused_forward_sees_an_in_place_weight_update(cuda, film):
     torch.cuda.synchronize()
     assert not torch.equal(out, before)
     _assert_close(out, ref, "bfloat16", True, "after the update")
+
+
+# ---------------------------------------------------------------------------
+# the renderer and FIT_INVERSE's decode at a batch of one (render/, the
+# backward passes at B = 1)
+# ---------------------------------------------------------------------------
+
+
+def _teapot_scene(device):
+    """The teapot's float32 pixel geometry and camera at a 32 x 32 render,
+    made once on the CPU and moved to ``device``."""
+    import os
+
+    from reni_tpu_torch.render import mesh, rasterizer, shading
+
+    m = mesh.load_obj(os.path.join(os.path.dirname(__file__), "..", "data", "3D_Models",
+                                   "teapot.obj"))
+    frags, eye = rasterizer.rasterize_world(m, 32)
+    vn = mesh.vertex_normals(m)
+    pos, nrm = shading.pixel_geometry(frags, m.face_verts, vn[m.faces], "cpu")
+    return nrm.to(device), pos.to(device), torch.tensor(eye, device=device)
+
+
+def _teapot_render(device, dtype, kd, width=64):
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.render import shading
+
+    nrm, pos, cam = _teapot_scene(device)
+    rng = np.random.default_rng(81)
+    env = torch.tensor(rng.gamma(2.0, 1.0, size=(2, width * width // 2, 3)), dtype=dtype,
+                       device=device)
+    colors = env * sphere.get_sineweight(width, device=device).to(dtype)
+    dirs = sphere.get_directions(width, device=device)[0]
+    return shading.blinn_phong_env_shading(nrm, pos, cam, dirs, colors, kd=kd, ks=1.0 - kd)
+
+
+def test_render_on_the_card_matches_the_cpu(cuda):
+    """The float64 render on the card equals the CPU's on the same float32
+    geometry to 1e-10 x max (the light sums' order differs; kd 0.5, the
+    specular term on). The geometry is made once: a last-bit difference of
+    a float32 normal would come back 500-fold through the specular power."""
+    got = _teapot_render(cuda, torch.float64, 0.5).cpu()
+    ref = _teapot_render(torch.device("cpu"), torch.float64, 0.5)
+    assert (got - ref).abs().max() <= 1e-10 * ref.abs().max()
+
+
+def test_render_float32_against_float64_on_the_card(cuda):
+    """The TF32 guard: sum |f32 - f64| / sum |f64| <= 1e-4 with a specular
+    term (dots on TF32-rounded inputs put more than 1e-2 there:
+    tests/test_torch_render.py::test_tf32_guard_sees_a_tf32_dot)."""
+    r32 = _teapot_render(cuda, torch.float32, 0.5).double()
+    r64 = _teapot_render(cuda, torch.float64, 0.5)
+    assert torch.isfinite(r32).all()
+    assert ((r32 - r64).abs().sum() / r64.abs().sum()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_batch_of_one_decode_takes_the_passes(cuda, film):
+    """A differentiable decode of one latent at 8,192 directions (a
+    FIT_INVERSE step's) runs as the fwd passes and the cotangent backward
+    from their scratch: its latent gradient against the plain decoder's at
+    the backward bars."""
+    import os
+
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.models import reni as reni_mod
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    name = "film" if film else "cbc"
+    path = os.path.join(os.path.dirname(__file__), "..", "data", "Zoo",
+                        f"latent_dim_49_net_5_256_vad_{name}_tanh_hdr", "checkpoint")
+    cfg = ckpt.load_model_config(path, fixed_decoder=True)
+    model = RENIModel(cfg)
+    params = ckpt.load_decoder_only(path, model, 1, torch.Generator().manual_seed(0), cuda)
+    params["latents"]["mu"].normal_(generator=torch.Generator(device=cuda).manual_seed(3))
+    D = sphere.get_directions(128, device=cuda)
+    bwd = tb.film_trunk_bwd_cuda if film else tb.siren_trunk_bwd_cuda
+    before = (ts.passes_forward.launches, bwd.launches, tk.fused_fwd_launches)
+
+    def grad(plain):
+        mu = params["latents"]["mu"].detach().clone().requires_grad_()
+        saved = reni_mod.fused_apply, reni_mod.fused_film_apply
+        if plain:
+            reni_mod.fused_apply = tk.fused_apply_reference
+            reni_mod.fused_film_apply = tk.fused_film_apply_reference
+        try:
+            out = model.apply({**params, "latents": {**params["latents"], "mu": mu}}, mu, D)
+            (out * torch.linspace(-1, 1, out.numel(), device=cuda).view_as(out)).sum().backward()
+        finally:
+            reni_mod.fused_apply, reni_mod.fused_film_apply = saved
+        return mu.grad
+
+    got = grad(False)
+    after = (ts.passes_forward.launches, bwd.launches, tk.fused_fwd_launches)
+    ref = grad(True)
+    assert after == (before[0] + 1, before[1] + 1, before[2])
+    assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()

@@ -1,9 +1,10 @@
 """Import hygiene of the port: reni_tpu_torch (every module, the kernels'
-anatomy probes, the config, data and codec modules included), chip_smoke.py
-and time_kernels.py import neither JAX nor the JAX package nor its
-benchmarks, nor at module level OpenCV, PIL or PyYAML (which the card's
-machine does not have), and the entry points run on the card unless the CPU
-is asked for."""
+anatomy probes, the config, data and codec modules, the renderer
+(render/), the evaluation harness (eval.py, cli/evaluate.py) included),
+chip_smoke.py and time_kernels.py import neither JAX nor the JAX package
+nor its benchmarks, nor at module level OpenCV, PIL or PyYAML (which the
+card's machine does not have), turn no TF32 on, and the entry points run on
+the card unless the CPU is asked for."""
 
 import json
 import os
@@ -30,6 +31,13 @@ def _modules():
     return names
 
 
+def test_the_module_list_covers_this_slice():
+    names = set(_modules())
+    assert {"reni_tpu_torch.render.mesh", "reni_tpu_torch.render.rasterizer",
+            "reni_tpu_torch.render.shading", "reni_tpu_torch.render.inverse",
+            "reni_tpu_torch.eval", "reni_tpu_torch.cli.evaluate"} <= names
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, json, sys\n"
@@ -45,6 +53,35 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_importing_the_port_leaves_float32_matmuls_full_precision():
+    """No module of the port (nor the two scripts on import) turns TF32 on or
+    lowers torch's float32 matmul precision: the shading's specular power
+    (render/shading.py) would carry a 10-bit mantissa into every highlight."""
+    code = (
+        "import importlib, json, torch\n"
+        f"for m in {_modules() + SCRIPTS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps([torch.backends.cuda.matmul.allow_tf32,\n"
+        "                  torch.get_float32_matmul_precision()]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    tf32, precision = json.loads(res.stdout.strip().splitlines()[-1])
+    assert tf32 is False and precision == "highest"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_turn_no_tf32_on(path):
+    """No source of the port sets a TF32 flag or the float32 matmul
+    precision, except chip_smoke.py, which turns TF32 off for its own run."""
+    src = path.read_text()
+    sets = re.findall(r"(allow_tf32\s*=\s*\w+|set_float32_matmul_precision\([^)]*\))", src)
+    assert all(s.replace(" ", "").endswith("=False") for s in sets), sets
 
 
 def test_importing_the_port_loads_no_optional_image_or_yaml_library():
