@@ -110,6 +110,24 @@ Phases (any failure exits non-zero and prints no result line):
                  >= 50 dB; every decode through the fused forward. The LDR
                  entry is left out: its maps need the --ldr PNG generation
                  (ROADMAP A-6b)
+   cli_run     - the trainer, python -m reni_tpu_torch.cli.run, on
+                 configs/zoo_synthetic.yaml (written here as JSON: the card
+                 has no PyYAML) with the chain FIT_DECODER -> FIT_LATENT ->
+                 FIT_INVERSE (FIT_INVERSE as in the fit_inverse phase) on the
+                 seed-1 maps, cut to 30 / 60 / 10 epochs (curricula (10, 20)
+                 and (20, 40)), checkpoints every 5 epochs, 10 image grids
+                 every 10. Run A: the chain in this process through
+                 cli.run.cli, the step kernel once per FIT_DECODER step, the
+                 backward and the forward passes once per FIT_LATENT and
+                 FIT_INVERSE step, the fused forward once per grid; best-2 +
+                 _latest + _final checkpoints per task. Run B: the same
+                 command with --retries 1 as a child process, SIGKILLed when
+                 fit_decoder_latest.json reports an epoch off the stage ends,
+                 then run again: it must adopt run B's version_1 ("[relaunch]
+                 adopting", a relaunch_adopt event), its FIT_DECODER and
+                 FIT_LATENT final checkpoints must be run A's bit for bit
+                 (FIT_INVERSE's too, else within 1e-6 relative, printed), and
+                 its rows after the relaunch run A's rows of the same epochs
    compare_step - the train-step kernel against its plain version at full
                  width on the Cond-by-Concat Zoo decoder and 100 of its
                  training latents: the loss partials and every gradient at
@@ -312,6 +330,47 @@ EVAL_ENTRIES = (("latent_dim_49_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORM
                 ("latent_dim_49_net_5_256_ad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
                 ("latent_dim_49_net_5_256_vad_cbc_exp_hdr", []))
 EVAL_DB, EVAL_SSIM, SELF_DB = 0.05, 1e-3, 50.0
+# cli_run: configs/zoo_synthetic.yaml's values (held equal to the file by
+# tests/test_torch_cli.py; JSON on the card, which has no PyYAML), the chain
+# FIT_DECODER -> FIT_LATENT -> FIT_INVERSE, FIT_INVERSE as published
+# (inverse_task_config), the seed-1 maps; cuts: EPOCHS (curriculum) below,
+# checkpoints every 5 epochs, 10 image grids every 10 epochs
+ZOO_SYNTHETIC = {
+    "RENI": {
+        "TASKS": ["FIT_DECODER", "FIT_LATENT"],
+        "MODEL_TYPE": "VariationalAutoDecoder", "CONDITIONING": "Cond-by-Concat",
+        "EQUIVARIANCE": "SO2", "LATENT_DIMENSION": 49, "HIDDEN_LAYERS": 5,
+        "HIDDEN_FEATURES": 256, "OUT_FEATURES": 3, "LAST_LAYER_LINEAR": True,
+        "OUTPUT_ACTIVATION": "tanh", "FIRST_OMEGA_0": 30.0, "HIDDEN_OMEGA_0": 30.0,
+        "FIT_DECODER": {
+            "LR_START": 1.0e-5, "LR_END": 1.0e-7, "OPTIMIZER": "adam", "OPTIMIZER_BETA_1": 0.0,
+            "OPTIMIZER_BETA_2": 0.9, "BATCH_SIZE": 100, "EPOCHS": 2400,
+            "MULTI_RES_TRAINING": True, "INITAL_RESOLUTION": [16, 32],
+            "FINAL_RESOLUTION": [64, 128], "CURRICULUM": [800, 1600], "KLD_WEIGHTING": 1.0e-4},
+        "FIT_LATENT": {
+            "LR_START": 1.0e-2, "LR_END": 1.0e-4, "OPTIMIZER": "adam", "OPTIMIZER_BETA_1": 0.0,
+            "OPTIMIZER_BETA_2": 0.9, "BATCH_SIZE": 21, "EPOCHS": 2400,
+            "MULTI_RES_TRAINING": True, "INITAL_RESOLUTION": [16, 32],
+            "FINAL_RESOLUTION": [64, 128], "CURRICULUM": [800, 1600],
+            "COSINE_SIMILARITY_WEIGHT": 1.0e-4, "PRIOR_LOSS_WEIGHT": 1.0e-7,
+            "APPLY_MASK": False, "MASK_PATH": "data/Masks/Mask-3.png"},
+    },
+    "DATASET": {"NAME": "RENI_HDR", "RENI_HDR": {
+        "PATH": "/tmp/reni_zoo_data", "TRANSFORMS": [["minmaxnormalise", [-18.0536, 11.4633]]],
+        "IS_HDR": True}},
+    "TRAINER": {
+        "LOGGER_TYPE": "tensorboard", "SEED": 42,
+        "CHKPTS": {"SAVE": True, "SAVE_DIR": "/tmp/reni_zoo_ckpts", "EVERY_N_EPOCHS": 200},
+        "LOGGER": {"LOG_IMAGES": False, "NUMBER_OF_IMAGES": 10, "IMAGES_TO_SHOW": "random",
+                   "EPOCHS_BETWEEN_EXAMPLES": 10,
+                   "TB": {"SAVE_DIR": "/tmp/reni_zoo_runs", "NAME": "auto"}},
+    },
+}
+CLI_TASKS = ("FIT_DECODER", "FIT_LATENT", "FIT_INVERSE")
+CLI_CUTS = {"FIT_DECODER": (30, [10, 20]), "FIT_LATENT": (60, [20, 40]), "FIT_INVERSE": (10, None)}
+CLI_EVERY, CLI_IMAGES_EVERY = 5, 10
+CLI_PROBE_S = 600  # time limit of each process of the crash / relaunch probe
+CLI_INVERSE_BAR = 1e-6  # FIT_INVERSE's final latents, run B vs run A, relative, if not bitwise
 
 
 class SmokeFailure(Exception):
@@ -1207,6 +1266,278 @@ def evaluate_phase(device, maps_root: str) -> dict:
           f"maps need the --ldr PNG generation, ROADMAP A-6b); evaluate phase wall "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def cli_config(maps_root: str, runs: str):
+    """The trainer's config for the cli_run phase: ``get_cfg_defaults()``
+    merged with ZOO_SYNTHETIC, the three-task chain, FIT_INVERSE as
+    ``inverse_task_config`` has it, the seed-1 maps under ``maps_root`` and
+    runs under ``runs``, and the phase's cuts."""
+    import copy
+
+    from reni_tpu_torch.utils.config import get_cfg_defaults
+
+    cfg = get_cfg_defaults().merge_from_dict(copy.deepcopy(ZOO_SYNTHETIC))
+    cfg.RENI.TASKS = list(CLI_TASKS)
+    inv = inverse_task_config()
+    cfg.RENI.FIT_INVERSE.merge_from_dict({
+        "LR_START": inv.optim.lr_start, "LR_END": inv.optim.lr_end,
+        "OPTIMIZER": inv.optim.optimizer, "OPTIMIZER_BETA_1": inv.optim.beta1,
+        "OPTIMIZER_BETA_2": inv.optim.beta2, "BATCH_SIZE": inv.batch_size,
+        "MULTI_RES_TRAINING": inv.multi_res_training,
+        "FINAL_RESOLUTION": list(inv.final_resolution),
+        "COSINE_SIMILARITY_WEIGHT": inv.cosine_similarity_weight,
+        "PRIOR_LOSS_WEIGHT": inv.prior_loss_weight,
+        "RENDER_RESOLUTION": inv.render_resolution, "OBJECT_PATH": inv.object_path,
+        "KD_VALUE": inv.kd_value})
+    for task, (epochs, curriculum) in CLI_CUTS.items():
+        cfg.RENI[task].EPOCHS = epochs
+        if curriculum:
+            cfg.RENI[task].CURRICULUM = curriculum
+    cfg.DATASET.RENI_HDR.PATH = maps_root
+    cfg.TRAINER.CHKPTS.SAVE_DIR = "checkpoints"
+    cfg.TRAINER.CHKPTS.EVERY_N_EPOCHS = CLI_EVERY
+    cfg.TRAINER.LOGGER.LOG_IMAGES = True
+    cfg.TRAINER.LOGGER.EPOCHS_BETWEEN_EXAMPLES = CLI_IMAGES_EVERY
+    cfg.TRAINER.LOGGER.TB.SAVE_DIR = runs
+    return cfg
+
+
+def _cli_rows(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _cli_finals(log_dir: str) -> dict:
+    out = {}
+    for task in CLI_TASKS:
+        with np.load(os.path.join(log_dir, "checkpoints", f"{task.lower()}_final.npz")) as z:
+            out[task] = {k: z[k] for k in z.files}
+    return out
+
+
+def cli_chain(device, cfg, cfg_path: str) -> tuple[str, dict, dict]:
+    """Run A: the whole chain in this process through ``cli.run.cli``, the
+    kernels' counts zeroed just before and read just after; returns (its
+    run dir, {task: {part: wall seconds}}, launches). The parts: the whole
+    ``run_task``, its graph export, ``fit_task`` (the training loop with its
+    callbacks), and inside it the checkpoint saves and the image grids
+    (host clock, the card synchronised around each)."""
+    from reni_tpu_torch.cli import run as cli_run
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    counters = {"siren_step": ts.siren_step_cuda, "siren_bwd": tb.siren_trunk_bwd_cuda,
+                "siren_fwd": tk.fused_apply, "fwd_passes": ts.passes_forward}
+    parts = {"task": (cli_run, "run_task"), "graph": (cli_run, "_dump_model_graph"),
+             "fit_task": (tasks, "fit_task"), "saves": (ckpt, "save_checkpoint"),
+             "grids": (cli_run, "example_images")}
+    seconds: dict = {}
+    current = ["?"]
+
+    def timed(part, fn):
+        def run(*a, **k):
+            if part == "task":
+                current[0] = a[1]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                by = seconds.setdefault(current[0], {})
+                by[part] = by.get(part, 0.0) + time.perf_counter() - t
+        return run
+
+    argv = ["--cfg_path", cfg_path] + ([] if device.type == "cuda" else ["--device", "cpu"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    tk.fused_fwd_launches = tk.tile_fwd_launches = 0
+    real = {part: getattr(mod, name) for part, (mod, name) in parts.items()}
+    for part, (mod, name) in parts.items():
+        setattr(mod, name, timed(part, real[part]))
+    try:
+        rc = cli_run.cli(argv)
+    finally:
+        for part, (mod, name) in parts.items():
+            setattr(mod, name, real[part])
+    torch.cuda.synchronize()
+    n = {k: fn.launches for k, fn in counters.items()}
+    n.update(fused=tk.fused_fwd_launches, tile=tk.tile_fwd_launches)
+    check(rc == 0, f"run A: cli returned {rc}")
+    return cli_run._experiment_runs(cfg)[0], seconds, n
+
+
+def relaunch_probe(device, cfg, cfg_path: str, log_b: str, out_path: str) -> int:
+    """Run B: ``python -m reni_tpu_torch.cli.run --cfg_path ... --retries 1``,
+    SIGKILLed once ``fit_decoder_latest.json`` reports an epoch that is not
+    a stage end (a resume mid-stage, with the VAD noise and Adam's state in
+    play), then the same command again, which must adopt ``log_b``. Both
+    processes' output goes to ``out_path``; returns the killed epoch."""
+    import signal
+
+    from reni_tpu_torch.train.tasks import TaskConfig
+
+    cmd = [sys.executable, "-m", "reni_tpu_torch.cli.run", "--cfg_path", cfg_path,
+           "--retries", "1"] + ([] if device.type == "cuda" else ["--device", "cpu"])
+    stage_ends, off = set(), 0
+    for _, n in TaskConfig.from_config(cfg, "FIT_DECODER").resolution_stages():
+        off += n
+        stage_ends.add(off)
+    latest = os.path.join(log_b, "checkpoints", "fit_decoder_latest.json")
+    killed = None
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            limit = time.monotonic() + CLI_PROBE_S
+            while proc.poll() is None and time.monotonic() < limit:
+                try:
+                    with open(latest) as f:
+                        epoch = int(json.load(f)["epoch"])
+                except (OSError, ValueError, KeyError):
+                    epoch = None
+                if epoch is not None and epoch not in stage_ends:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    killed = epoch
+                    break
+                time.sleep(0.005)
+        finally:
+            if proc.poll() is None and killed is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=120)
+        check(killed is not None, f"run B ended (rc {proc.returncode}) before "
+                                  f"{latest} reported an epoch off the stage ends {stage_ends}")
+        out.write(f"\n[chip_smoke] SIGKILL at FIT_DECODER epoch {killed}\n")
+        out.flush()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=CLI_PROBE_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=120)
+    check(rc == 0, f"run B's relaunch exited {rc} (its output: {out_path})")
+    return killed
+
+
+def cli_run_phase(device, maps_root: str) -> dict:
+    """The trainer (``reni_tpu_torch.cli.run``) on the flagship configuration:
+    run A, the chain in this process; run B, the same command SIGKILLed in
+    FIT_DECODER and relaunched with --retries 1, which must adopt its run
+    dir and end bit for bit at run A's final checkpoints. Returns run A's
+    launches under ``<kernel>@cli_run``."""
+    t0 = time.perf_counter()
+    work = os.path.join(maps_root, "cli_run")
+    os.makedirs(work, exist_ok=True)
+    cfg = cli_config(maps_root, os.path.join(work, "runs"))
+    cfg_path = os.path.join(work, "zoo_synthetic_chain.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    print("cuts of configs/zoo_synthetic.yaml: " + "; ".join(
+        f"{t} EPOCHS {cfg.RENI[t].EPOCHS}" + (f", curriculum {cfg.RENI[t].CURRICULUM}"
+                                              if cfg.RENI[t].MULTI_RES_TRAINING else "")
+        for t in CLI_TASKS) + f"; checkpoints every {CLI_EVERY} epochs, "
+          f"{cfg.TRAINER.LOGGER.NUMBER_OF_IMAGES} images every {CLI_IMAGES_EVERY} epochs; "
+          f"FIT_INVERSE as published (teapot, {INV_RENDER}x{INV_RENDER}, KD {INV_KD}, batch 1)")
+
+    log_a, task_s, n = cli_chain(device, cfg, cfg_path)
+    wall_a = time.perf_counter() - t0
+    rows_a = _cli_rows(log_a)
+    steps = {t: cfg.RENI[t].EPOCHS * -(-(SEED_MAPS["train"] if t == "FIT_DECODER"
+                                         else SEED_MAPS["test"]) // cfg.RENI[t].BATCH_SIZE)
+             for t in CLI_TASKS}
+    ckdir = os.path.join(log_a, "checkpoints")
+    files = sorted(os.listdir(ckdir))
+    for task in CLI_TASKS:
+        t = task.lower()
+        kept = [f for f in files if f.startswith(f"{t}_epoch=") and f.endswith(".npz")]
+        loss = [r[f"{t}_loss"] for r in rows_a if f"{t}_loss" in r]
+        with open(os.path.join(ckdir, f"{t}_final.json")) as f:
+            final = json.load(f)
+        part = task_s[task]
+        print(f"run A {task}: {steps[task]} steps, {part['task']:.2f} s (graph export "
+              f"{part.get('graph', 0):.2f}, fit_task {part['fit_task']:.2f}; checkpoint saves "
+              f"{part.get('saves', 0):.2f}, grids {part.get('grids', 0):.2f}), final "
+              f"{t}_loss {final['loss']:.6g} (logged {loss[0]:.6g} -> {loss[-1]:.6g}); kept {kept}")
+        check(len(kept) == 2 and f"{t}_latest.npz" in files and f"{t}_final.npz" in files,
+              f"run A {task}: checkpoints {[f for f in files if f.startswith(t)]}")
+        check(bool(np.isfinite(loss).all()), f"run A {task}: non-finite loss {loss}")
+    images = sorted(os.listdir(os.path.join(log_a, "images")))
+    print(f"run A image grids: {images}")
+    check(len(images) == CLI_CUTS["FIT_DECODER"][0] // CLI_IMAGES_EVERY
+          + CLI_CUTS["FIT_LATENT"][0] // CLI_IMAGES_EVERY + 1, f"run A image grids {images}")
+    check(os.path.exists(os.path.join(log_a, "fit_decoder_graph.txt")), "no decoder graph")
+    print(f"run A launches: {n}")
+    # FIT_DECODER through the step kernel; FIT_LATENT's and FIT_INVERSE's
+    # decodes as the fwd passes and their backward from the passes' scratch;
+    # the grids (FIT_DECODER 3, FIT_LATENT 6, FIT_INVERSE's renders 1)
+    # through the fused forward kernel
+    check(n["siren_step"] == steps["FIT_DECODER"], f"step kernel {n['siren_step']} launches")
+    fit_steps = steps["FIT_LATENT"] + steps["FIT_INVERSE"]
+    check(n["siren_bwd"] == n["fwd_passes"] == fit_steps,
+          f"backward {n['siren_bwd']}, forward passes {n['fwd_passes']}: {fit_steps} steps")
+    check(n["siren_fwd"] == n["fused"] == len(images) and n["tile"] == 0,
+          f"forward kernel {n}: {len(images)} grids")
+
+    t1 = time.perf_counter()
+    log_b = os.path.join(os.path.dirname(log_a), "version_1")
+    out_b = os.path.join(work, "run_b.log")
+    killed = relaunch_probe(device, cfg, cfg_path, log_b, out_b)
+    wall_b = time.perf_counter() - t1
+    with open(out_b) as f:
+        text = f.read()
+    adopt = [line for line in text.splitlines() if line.startswith("[relaunch] adopting")]
+    print(f"run B: SIGKILL at FIT_DECODER epoch {killed}; relaunch: {adopt}")
+    check(len(adopt) == 1 and log_b in adopt[0], f"run B's relaunch did not adopt {log_b}")
+    runs = sorted(os.listdir(os.path.dirname(log_a)))
+    check(runs == ["version_0", "version_1"], f"run dirs {runs}")
+    rows_b = _cli_rows(log_b)
+    events = [i for i, r in enumerate(rows_b) if r.get("event") == "relaunch_adopt"]
+    check(len(events) == 1, f"run B's relaunch_adopt events: {events}")
+    fa, fb = _cli_finals(log_a), _cli_finals(log_b)
+    bitwise = {t: fa[t].keys() == fb[t].keys() and all(np.array_equal(fa[t][k], fb[t][k])
+                                                         for k in fa[t]) for t in CLI_TASKS}
+    print(f"run B's final checkpoints bit for bit run A's: {bitwise}")
+    for task in ("FIT_DECODER", "FIT_LATENT"):
+        check(bitwise[task], f"{task}: run B's final checkpoint is not run A's, bit for bit")
+    if not bitwise["FIT_INVERSE"]:
+        mu_a, mu_b = fa["FIT_INVERSE"]["latents/mu"], fb["FIT_INVERSE"]["latents/mu"]
+        rel = float(np.abs(mu_b - mu_a).max() / np.abs(mu_a).max())
+        print(f"FIT_INVERSE final latents run B vs A: max |diff| / max |A| {rel:.3g}")
+        check(rel <= CLI_INVERSE_BAR, f"FIT_INVERSE final latents differ by {rel:.3g}")
+    # run B's rows after the relaunch against run A's rows of the same task
+    # and epoch: every FIT_DECODER row after the killed epoch, every later row
+    def key(r):
+        return r["step"], tuple(sorted(r))
+
+    after = [r for r in rows_b[events[0] + 1:] if "event" not in r]
+    want = {key(r): r for r in rows_a
+            if "fit_decoder_loss" not in r or r["step"] > killed}
+    exact = sum(want.get(key(r)) == r for r in after)
+    print(f"run B's {len(after)} rows after the relaunch against run A's {len(want)} rows of "
+          f"the same epochs: {exact} equal exactly")
+    check(sorted(map(key, after)) == sorted(want), "run B's rows after the relaunch are not "
+                                                   "those of run A's epochs after the kill")
+    for r in after:
+        a = want[key(r)]
+        if r == a:
+            continue
+        check("fit_inverse_loss" in r and not bitwise["FIT_INVERSE"],
+              f"run B row {r} is not run A's {a}")
+        for k in r:
+            check(abs(r[k] - a[k]) <= CLI_INVERSE_BAR * max(abs(a[k]), 1e-30),
+                  f"run B row {r} vs run A's {a}")
+    print(f"cli_run phase wall {time.perf_counter() - t0:.1f} s: run A {wall_a:.1f} s, "
+          f"run B (both processes) {wall_b:.1f} s")
+    return {"siren_step@cli_run": n["siren_step"], "siren_bwd@cli_run": n["siren_bwd"],
+            "siren_bwd_fwd_passes@cli_run": n["fwd_passes"], "siren_fwd@cli_run": n["siren_fwd"]}
 
 
 def training_maps(device, train, entry: str = CBC) -> tuple[torch.Tensor, dict]:
@@ -2561,11 +2892,13 @@ def main() -> int:
 
     phase("evaluate")
     launches.update(evaluate_phase(dev, maps_dir.name))
+
+    phase("cli_run")
+    launches.update(cli_run_phase(dev, maps_dir.name))
     maps_dir.cleanup()
-    for name, path, tag in (("siren_bwd", "fit_inverse", "siren_bwd@fit_inverse"),
-                            ("film_bwd", "fit_inverse", "film_bwd@fit_inverse"),
-                            ("siren_fwd", "evaluate", "siren_fwd@evaluate"),
-                            ("film_fwd", "evaluate", "film_fwd@evaluate")):
+    for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
+                      ("siren_fwd", "siren_fwd@evaluate"), ("film_fwd", "film_fwd@evaluate"),
+                      ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run")):
         launches[name] += launches[tag]
     print(f"launches by kernel, all paths so far: "
           f"{ {k: launches[k] for k in ('siren_fwd', 'film_fwd', 'siren_bwd', 'film_bwd')} }")
@@ -2582,6 +2915,7 @@ def main() -> int:
     phase("fit_decoder")
     launches["siren_step"] = fit_decoder_phase(dev, train)
     print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
+    launches["siren_step"] += launches["siren_step@cli_run"]
 
     phase("compare_film_step at full width and at FIT_DECODER's shapes")
     cfg_film, dec_film, _ = entries["film_fwd"]

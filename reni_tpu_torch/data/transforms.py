@@ -66,7 +66,9 @@ class Normalise:
 
 class UnNormalise:
     """Inverse channel normalisation; accepts channel-last (..., C) or the
-    reference's channel-first (B, C, H, W) layout (custom_transforms.py:23-39)."""
+    reference's channel-first (B, C, H, W) layout (custom_transforms.py:23-39),
+    numpy arrays or torch tensors (autograd passes through: FIT_INVERSE
+    unnormalises the decoder's output)."""
 
     def __init__(self, mean, std):
         self.mean = np.asarray(mean, dtype=np.float32)
@@ -74,11 +76,12 @@ class UnNormalise:
 
     def __call__(self, img):
         c = self.mean.shape[0]
+        mean, std = self.mean, self.std
+        if isinstance(img, torch.Tensor):
+            mean, std = (torch.as_tensor(a, device=img.device) for a in (mean, std))
         if img.ndim == 4 and img.shape[1] == c and img.shape[-1] != c:
-            mean = self.mean.reshape(1, c, 1, 1)
-            std = self.std.reshape(1, c, 1, 1)
-            return img * std + mean
-        return img * self.std + self.mean
+            return img * std.reshape(1, c, 1, 1) + mean.reshape(1, c, 1, 1)
+        return img * std + mean
 
 
 def clip_positive_finite(img: np.ndarray) -> np.ndarray:

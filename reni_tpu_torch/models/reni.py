@@ -89,6 +89,43 @@ class RENIConfig:
     def is_film(self) -> bool:
         return self.conditioning == "FiLM"
 
+    @classmethod
+    def from_reni_cfg(cls, reni_cfg, task: str | None = None, tpu_cfg=None) -> "RENIConfig":
+        """Build from a config tree's RENI block (the reference's key names,
+        configs/default.py:6-20); ``fixed_decoder`` follows the task rule of
+        the reference factory (FIT_LATENT and FIT_INVERSE train latents
+        only). ``tpu_cfg``, the config's TPU block, sets the execution knobs:
+        USE_PALLAS -> ``use_pallas`` (the CUDA kernels), PRECISION ->
+        ``pallas_trunk`` (float32, else bfloat16), FAST_SINE -> ``fast_sine``."""
+        fixed = task in ("FIT_LATENT", "FIT_INVERSE") if task is not None else False
+        tpu_kwargs = {}
+        fls = reni_cfg.get("FIRST_LAYER_INIT_SCALE", 1.0)
+        if fls is not None and float(fls) != 1.0:
+            tpu_kwargs["first_layer_init_scale"] = float(fls)
+        if tpu_cfg is not None:
+            tpu_kwargs["use_pallas"] = bool(tpu_cfg.USE_PALLAS)
+            tpu_kwargs["pallas_trunk"] = (
+                "float32" if str(tpu_cfg.PRECISION).lower() == "float32" else "bfloat16"
+            )
+            tpu_kwargs["fast_sine"] = bool(tpu_cfg.get("FAST_SINE", False))
+        return cls(
+            **tpu_kwargs,
+            model_type=reni_cfg.MODEL_TYPE,
+            conditioning=reni_cfg.CONDITIONING,
+            equivariance=str(reni_cfg.EQUIVARIANCE),
+            latent_dim=reni_cfg.LATENT_DIMENSION,
+            hidden_layers=reni_cfg.HIDDEN_LAYERS,
+            hidden_features=reni_cfg.HIDDEN_FEATURES,
+            out_features=reni_cfg.OUT_FEATURES,
+            last_layer_linear=reni_cfg.LAST_LAYER_LINEAR,
+            output_activation=reni_cfg.OUTPUT_ACTIVATION,
+            first_omega_0=reni_cfg.FIRST_OMEGA_0,
+            hidden_omega_0=reni_cfg.HIDDEN_OMEGA_0,
+            mapping_layers=reni_cfg.MAPPING_LAYERS,
+            mapping_features=reni_cfg.MAPPING_FEATURES,
+            fixed_decoder=fixed,
+        )
+
 
 class RENIModel:
     """Functional model object: holds only the static config."""

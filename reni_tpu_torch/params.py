@@ -27,9 +27,19 @@ def map_tree(fn, tree):
 
 def tree_leaves(tree) -> list:
     """The leaves of a tree that are not None, in order."""
-    out = []
-    map_tree(out.append, tree)
-    return out
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_items(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """(path, leaf) of every leaf that is not None, in ``tree_leaves``'s
+    order; paths are the checkpoint keys, e.g. ``decoder/layers/0/w``."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in tree_items(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in tree_items(v, f"{prefix}{i}/")]
+    if tree is None:
+        return []
+    return [(prefix[:-1], tree)]
 
 
 def from_numpy(tree, device=None):

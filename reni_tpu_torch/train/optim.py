@@ -97,12 +97,16 @@ class Adagrad(torch.optim.Optimizer):
 
 class ScheduledOptimizer:
     """A ``torch.optim`` optimizer whose LR follows ``schedule(count)``, count
-    being the number of earlier updates (optax's step count)."""
+    being the number of earlier updates (optax's step count). ``names`` are
+    the checkpoint paths of its parameters, in their order
+    (``train/checkpoint.py`` stores the state under them)."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float]):
+    def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
+                 names: list[str] | None = None):
         self.optimizer = optimizer
         self.schedule = schedule
         self.count = 0
+        self.names = names
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -115,8 +119,10 @@ class ScheduledOptimizer:
         self.count += 1
 
 
-def build_optimizer(cfg: OptimConfig, params) -> ScheduledOptimizer:
-    """The optimizer of ``cfg`` over ``params`` (an iterable of tensors)."""
+def build_optimizer(cfg: OptimConfig, params, names: list[str] | None = None
+                    ) -> ScheduledOptimizer:
+    """The optimizer of ``cfg`` over ``params`` (an iterable of tensors, whose
+    checkpoint paths are ``names``)."""
     schedule = build_schedule(cfg)
     params = list(params)
     lr = schedule(0)
@@ -128,7 +134,7 @@ def build_optimizer(cfg: OptimConfig, params) -> ScheduledOptimizer:
         opt = Adagrad(params, lr=lr)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    return ScheduledOptimizer(opt, schedule)
+    return ScheduledOptimizer(opt, schedule, names)
 
 
 # ---------------------------------------------------------------------------

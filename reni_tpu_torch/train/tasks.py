@@ -22,24 +22,31 @@ in one call) where ``RENIModel.fused_step_reason`` allows it, else through
 FIT_INVERSE's step (``make_fit_inverse_step``) decodes, unnormalises,
 renders (``reni_tpu_torch/render``) and takes the render loss; its scene and
 ground-truth renders come from ``render/inverse.py::fit_inverse``, which
-passes ``fit_task`` the step builder. The mesh, streaming, callbacks and
-resume arrive with later slices (ROADMAP.md Queue A); their arguments raise
-here.
+passes ``fit_task`` the step builder.
+
+``fit_task`` runs each stage in segments between callbacks (checkpoints,
+images, the deadline) and resumes a task mid-way from a checkpoint's epoch,
+optimizer state and generator state, bit for bit the uncut run. The mesh
+and streaming arrive with later slices (ROADMAP.md Queue A); their
+arguments raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from reni_tpu_torch.core import sphere
-from reni_tpu_torch.params import map_tree, tree_leaves
+from reni_tpu_torch.params import map_tree, tree_items
 from reni_tpu_torch.models.reni import RENIModel, _note_trunk_path
 from reni_tpu_torch.train import losses
+from reni_tpu_torch.train.checkpoint import set_opt_state
 from reni_tpu_torch.train.optim import (
     OptimConfig,
     ScheduledOptimizer,
@@ -180,7 +187,8 @@ def init_train_state(
     trainable, frozen = partition_params(params, model.trainable_mask(params))
     trainable = map_tree(lambda t: t.detach().clone().requires_grad_(True), trainable)
     frozen = map_tree(lambda t: t.detach(), frozen)
-    optimizer = build_optimizer(optim_cfg, tree_leaves(trainable))
+    names, leaves = zip(*tree_items(trainable))
+    optimizer = build_optimizer(optim_cfg, leaves, list(names))
     return TrainState(trainable, frozen, optimizer, generator)
 
 
@@ -374,11 +382,6 @@ _LATER = {
     "stream_chunk": (1, "Queue A-9 (streaming tiers)"),
     "stream_dtype": (None, "Queue A-9 (streaming tiers)"),
     "precompile": (False, "Queue A-13 (left out until the card needs it)"),
-    "reaugment": (False, "Queue A-4 (per-epoch re-staging, with the segment loop)"),
-    "callback": (None, "Queue A-4 (segment callbacks, checkpoints, resume)"),
-    "callback_every": (None, "Queue A-4 (segment callbacks, checkpoints, resume)"),
-    "start_epoch": (0, "Queue A-4 (segment callbacks, checkpoints, resume)"),
-    "initial_opt_state": (None, "Queue A-4 (segment callbacks, checkpoints, resume)"),
 }
 
 
@@ -386,7 +389,7 @@ def fit_task(
     model: RENIModel,
     params: Params,
     task_cfg: TaskConfig,
-    images_at: Callable[[tuple[int, int]], torch.Tensor],
+    images_at: Callable[..., torch.Tensor],
     generator: torch.Generator,
     *,
     mask_path: str | None = None,
@@ -408,21 +411,36 @@ def fit_task(
     single-device path of the JAX ``fit_task``).
 
     images_at(res) -> (S, H*W, 3) normalised images at that resolution, on
-    the training device and in the training dtype (that of the latents).
-    Directions, sineweights and the mask are built in float32, as the JAX
-    package builds them; the sineweight is then cast to that dtype. ``step_builder(model,
-    directions, sineweight, res)`` replaces the task's step function.
+    the training device and in the training dtype (that of the latents);
+    with ``reaugment`` it is called as images_at(res, epoch) every epoch
+    (the reference's per-item random augmentation). Directions, sineweights
+    and the mask are built in float32, as the JAX package builds them; the
+    sineweight is then cast to that dtype. ``step_builder(model, directions,
+    sineweight, res)`` replaces the task's step function.
     ``latent_noise(shape)`` replaces the generator's noise in FIT_DECODER's
-    latent sampling. The remaining arguments are those of later slices and
-    raise NotImplementedError unless left at their defaults.
+    latent sampling.
 
-    Returns (params, metrics dict of (epochs,) arrays under the reference's
-    keys ``{task}_{name}``)."""
+    ``callback(state, epoch, metrics, res)`` runs every ``callback_every``
+    epochs and at each stage's end (``epoch`` the completed count, ``metrics``
+    the segment's per-epoch arrays); a truthy return stops the task. With
+    ``RENI_TPU_CKPT_WALL_S`` set, a stage's segments start at one epoch and
+    adapt (powers of two, at most ``callback_every``) so that callbacks come
+    about that many seconds apart.
+
+    Mid-task resume: ``start_epoch`` epochs are skipped, and
+    ``initial_opt_state`` restores the optimizer: an optax-layout dict
+    (``checkpoint.read_opt_state``) or a loader called with the fresh
+    ``TrainState`` (``checkpoint.load_train_state``: the optimizer state
+    into its optimizer, the generator state into its generator). The
+    optimizer's step count keeps
+    the LR schedule exact. The mesh and streaming arguments raise
+    NotImplementedError unless left at their defaults.
+
+    Returns (params, metrics dict of (epochs run,) arrays under the
+    reference's keys ``{task}_{name}``)."""
     given = dict(
         mesh=mesh, shard_latents=shard_latents, stream=stream, stream_chunk=stream_chunk,
-        stream_dtype=stream_dtype, precompile=precompile, reaugment=reaugment,
-        callback=callback, callback_every=callback_every, start_epoch=start_epoch,
-        initial_opt_state=initial_opt_state,
+        stream_dtype=stream_dtype, precompile=precompile,
     )
     for name, value in given.items():
         off, where = _LATER[name]
@@ -441,11 +459,15 @@ def fit_task(
         task_cfg.optim, epochs=task_cfg.epochs, steps_per_epoch=-(-n_images // batch_size)
     )
     state = init_train_state(model, params, optim_cfg, generator)
+    if initial_opt_state is not None:
+        if callable(initial_opt_state):
+            initial_opt_state(state)
+        else:
+            set_opt_state(state.optimizer, initial_opt_state)
     table = model.latents(state.params)
     dev, dtype = table.device, table.dtype
 
-    all_metrics = []
-    for res, n_epochs in stages:
+    def make_step(res):
         width = res[1]
         directions = sphere.get_directions(width, device=dev)
         sineweight = sphere.get_sineweight(width, device=dev)
@@ -455,20 +477,72 @@ def fit_task(
         # in float32 and promotes them, as the JAX package does
         sineweight = sineweight.to(dtype)
         if step_builder is not None:
-            step_fn = step_builder(model, directions, sineweight, res)
-        elif task_cfg.task == "FIT_DECODER":
-            step_fn = make_fit_decoder_step(
+            return step_builder(model, directions, sineweight, res)
+        if task_cfg.task == "FIT_DECODER":
+            return make_fit_decoder_step(
                 model, directions, sineweight, kld_weighting=task_cfg.kld_weighting,
                 latent_noise=latent_noise,
             )
-        else:
-            step_fn = make_fit_latent_step(
-                model, directions, sineweight,
-                alpha=task_cfg.prior_loss_weight, beta=task_cfg.cosine_similarity_weight,
-            )
-        state, metrics = run_stage(step_fn, state, images_at(tuple(res)), n_epochs, batch_size)
-        all_metrics.append(metrics)
+        return make_fit_latent_step(
+            model, directions, sineweight,
+            alpha=task_cfg.prior_loss_weight, beta=task_cfg.cosine_similarity_weight,
+        )
 
+    # (res, epochs to run, completed epochs before them) after the resume skip
+    plan, off = [], 0
+    for res, n in stages:
+        skip = min(max(0, start_epoch - off), n)
+        plan.append((tuple(res), n - skip, off + skip))
+        off += n
+
+    wall_target = float(os.environ.get("RENI_TPU_CKPT_WALL_S", "0") or 0)
+    all_metrics = []
+    stop = False
+    for res, n_epochs, epoch_offset in plan:
+        if n_epochs <= 0:  # the stage was done before start_epoch
+            continue
+        step_fn = make_step(res)
+        if reaugment:
+            for done in range(1, n_epochs + 1):
+                images = images_at(res, epoch_offset + done - 1)
+                state, metrics = run_stage(step_fn, state, images, 1, batch_size)
+                all_metrics.append(metrics)
+                if callback is not None and callback_every and (
+                    done % callback_every == 0 or done == n_epochs
+                ):
+                    stop = bool(callback(state, epoch_offset + done, metrics, res))
+                    if stop:
+                        break
+        elif callback is None or not callback_every:
+            state, metrics = run_stage(step_fn, state, images_at(res), n_epochs, batch_size)
+            all_metrics.append(metrics)
+        else:
+            images = images_at(res)
+            # with a wall target the first segment of a stage is one epoch
+            # (its speed is unknown yet), then segments adapt to the target
+            done, seg = 0, 1 if wall_target else min(callback_every, n_epochs)
+            while done < n_epochs:
+                seg = min(seg, n_epochs - done)
+                t0 = time.monotonic()
+                state, metrics = run_stage(step_fn, state, images, seg, batch_size)
+                done += seg
+                all_metrics.append(metrics)
+                stop = bool(callback(state, epoch_offset + done, metrics, res))
+                if wall_target and done < n_epochs:
+                    per_epoch = max((time.monotonic() - t0) / seg, 1e-9)
+                    ideal = max(1, int(wall_target / per_epoch))
+                    seg = min(callback_every, 1 << (ideal.bit_length() - 1))
+                if stop:
+                    break
+        if stop:
+            break
+
+    if not all_metrics:
+        raise ValueError(
+            f"nothing to train: start_epoch={start_epoch} >= epochs={task_cfg.epochs} "
+            "(the resume checkpoint already completed this task; raise EPOCHS to "
+            "continue it)"
+        )
     merged = {
         f"{task_cfg.task.lower()}_{k}": np.concatenate([m[k] for m in all_metrics])
         for k in all_metrics[0]

@@ -250,6 +250,25 @@ def test_transform_builder_and_inverses_match_jax():
         tt.get_transform("nope", None)
 
 
+@pytest.mark.parametrize("layout", ["channel_last", "channel_first"])
+def test_unnormalise_takes_tensors_with_gradients(layout):
+    """UnNormalise on a tensor that requires grad (FIT_INVERSE unnormalises
+    the decoder's output of an LDR config): JAX's values, float64 kept, and
+    the gradient std per channel."""
+    mean, std = [0.4, 0.5, 0.6], [0.2, 0.3, 0.4]
+    y = np.random.default_rng(0).normal(size=(2, 5, 7, 3))
+    if layout == "channel_first":
+        y = np.ascontiguousarray(np.transpose(y, (0, 3, 1, 2)))
+    x = torch.from_numpy(y).requires_grad_(True)
+    out = tt.UnNormalise(mean, std)(x)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.detach().numpy(), jt.UnNormalise(mean, std)(y), rtol=1e-15)
+    out.sum().backward()
+    want = np.asarray(std, np.float32).astype(np.float64)
+    want = want.reshape(1, 3, 1, 1) if layout == "channel_first" else want
+    np.testing.assert_array_equal(x.grad.numpy(), np.broadcast_to(want, y.shape))
+
+
 @pytest.mark.parametrize("size", [(64, 128), (32, 64), (16, 32)])
 def test_resize_matches_opencv(size):
     """The port's bilinear resize of a 64 x 128 HDR map against OpenCV's

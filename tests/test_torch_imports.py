@@ -35,7 +35,9 @@ def test_the_module_list_covers_this_slice():
     names = set(_modules())
     assert {"reni_tpu_torch.render.mesh", "reni_tpu_torch.render.rasterizer",
             "reni_tpu_torch.render.shading", "reni_tpu_torch.render.inverse",
-            "reni_tpu_torch.eval", "reni_tpu_torch.cli.evaluate"} <= names
+            "reni_tpu_torch.eval", "reni_tpu_torch.cli.evaluate",
+            "reni_tpu_torch.cli.run", "reni_tpu_torch.train.logging_utils",
+            "reni_tpu_torch.train.visualize", "reni_tpu_torch.utils.profiling"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -78,9 +80,16 @@ def test_importing_the_port_leaves_float32_matmuls_full_precision():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_turn_no_tf32_on(path):
     """No source of the port sets a TF32 flag or the float32 matmul
-    precision, except chip_smoke.py, which turns TF32 off for its own run."""
+    precision, except chip_smoke.py, which turns TF32 off for its own run,
+    and the trainer's ``_apply_precision``, which sets the precision a
+    config's TPU.PRECISION asks for: "highest" unless it asks for
+    tensorfloat32 (tests/test_torch_cli.py::test_precision_knob)."""
     src = path.read_text()
     sets = re.findall(r"(allow_tf32\s*=\s*\w+|set_float32_matmul_precision\([^)]*\))", src)
+    if path == ROOT / "reni_tpu_torch" / "cli" / "run.py":
+        assert sets == ['set_float32_matmul_precision("high" if precision == "tensorfloat32" '
+                        'else "highest")'], sets
+        return
     assert all(s.replace(" ", "").endswith("=False") for s in sets), sets
 
 
@@ -138,6 +147,12 @@ def test_entry_points_need_the_card_by_default(monkeypatch, tmp_path):
         cli_serve.main(["--decoder", ck, "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params.from_numpy({"w": [1.0]})
+    from reni_tpu_torch.cli import run as cli_run
+    from reni_tpu_torch.utils.config import get_cfg_defaults
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_run.main(get_cfg_defaults(), log_dir=str(tmp_path / "run"))
+    assert not (tmp_path / "run").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

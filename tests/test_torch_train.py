@@ -370,16 +370,30 @@ def test_fit_latent_masked_region_ignored():
     np.testing.assert_allclose(run(images), run(garbage), atol=1e-6)
 
 
-def test_fit_task_rejects_later_slices():
+@pytest.mark.parametrize("name, value", [
+    ("mesh", object()), ("shard_latents", True), ("stream", True), ("stream_chunk", 2),
+    ("stream_dtype", "bfloat16"), ("precompile", True)])
+def test_fit_task_rejects_later_slices(name, value):
+    """The arguments of slices still to come (ROADMAP Queue A-9, A-11, A-13)
+    raise, naming the queue item; the callbacks, resume and re-staging of
+    A-4 are held in tests/test_torch_resume.py."""
+    assert sorted(ttasks._LATER) == sorted(
+        ["mesh", "shard_latents", "stream", "stream_chunk", "stream_dtype", "precompile"])
     cfg, jm, jp = _tiny_vad(3)
     tp = tparams.from_numpy(jp, "cpu")
     task = ttasks.TaskConfig(**dict(_latent_task(), optim=toptim.OptimConfig()))
     model = RENIModel(RENIConfig(**cfg))
-    for kw in (dict(stream=True), dict(start_epoch=3), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue A-"):
-            ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), **kw)
-    # FIT_INVERSE runs (render/inverse.py::fit_inverse passes the step
-    # builder); without a step builder it raises as JAX's fit_task does
+    with pytest.raises(NotImplementedError, match=r"Queue A-(9|11|13)"):
+        ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), **{name: value})
+
+
+def test_fit_task_needs_a_step_builder_for_fit_inverse():
+    """FIT_INVERSE runs (render/inverse.py::fit_inverse passes the step
+    builder); without a step builder it raises as JAX's fit_task does."""
+    cfg, jm, jp = _tiny_vad(3)
+    tp = tparams.from_numpy(jp, "cpu")
+    task = ttasks.TaskConfig(**dict(_latent_task(), optim=toptim.OptimConfig()))
+    model = RENIModel(RENIConfig(**cfg))
     with pytest.raises(ValueError, match="FIT_INVERSE"):
         ttasks.fit_task(model, tp, dataclasses.replace(task, task="FIT_INVERSE"),
                         lambda res: None, torch.Generator())
