@@ -54,6 +54,15 @@ Phases (any failure exits non-zero and prints no result line):
                  before and read just after: both kernels must have launched,
                  every decode through the fused kernel (its route counter),
                  none through the row-tile kernel
+   export      - cli/export.py traces the cbc and FiLM Zoo decoders on the
+                 card (torch.export of the plain decoder, symbolic B and P);
+                 a child process that imports torch alone loads each .pt2
+                 and decodes the 21 test latents at width 256; held to the
+                 plain decoder (max 5e-5) and to the fused kernel path
+                 (bf16 bars); the daemon started with --artifact, one
+                 /decode equal to the artifact's direct call; decode times
+                 of the artifact, the plain decoder and the kernel path. The
+                 artifact launches no kernel of the port
 5. fit_latent  - train.tasks.fit_task FIT_LATENT on each Zoo decoder at the
                  published hyperparameters (21 maps in one batch, Adam b1=0
                  b2=0.9, LR 1e-2 -> 1e-4, curriculum 16x32 -> 32x64 ->
@@ -77,7 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
                  ms a map (generate and write, decode, stage) and a digest
                  of the staged maps (not asserted: numpy's SIMD sin and exp
                  may differ between CPUs); the maps stay on disk for the
-                 evaluate phase
+                 evaluate phase. Then the 21 test skies as 8-bit PNGs
+                 (data/synthetic.py --ldr, the LDR Zoo entry's maps), read
+                 back without PIL: ms a map
    fit_inverse - render.inverse.fit_inverse on each Zoo decoder at the
                  published RENI.FIT_INVERSE (data/3D_Models/teapot.obj, a
                  64x64 render, KD_VALUE 1.0, one view, batch 1, 64x128 maps =
@@ -101,16 +112,32 @@ Phases (any failure exits non-zero and prints no result line):
                  backward alone at a step's shape, and a torch.profiler
                  split of five steps' device time (the decoder's kernels,
                  PyTorch's, idle)
-   evaluate    - cli/evaluate.main on five HDR Zoo entries' latents_test
-                 and the seed-1 test maps at 64x128 (Mask-3 in-painting on
-                 the cbc entry), through the kernels and through the plain
-                 decoder on the card: psnr_mean, rotated PSNR within 0.05
-                 dB and ssim_mean within 1e-3 between the runs, printed
-                 beside eval.json (a TPU's numbers), self_consistency_psnr
-                 >= 50 dB; every decode through the fused forward. The LDR
-                 entry is left out: its maps need the --ldr PNG generation
-                 (ROADMAP A-6b)
-   cli_run     - the trainer, python -m reni_tpu_torch.cli.run, on
+   evaluate    - cli/evaluate.main on the six Zoo entries' latents_test
+                 and the seed-1 test maps at 64x128 (the LDR entry on their
+                 PNGs, normalize(0.5, 0.5); Mask-3 in-painting on the cbc
+                 entry), through the kernels and through the plain decoder
+                 on the card: psnr_mean, rotated PSNR within 0.05 dB and
+                 ssim_mean within 1e-3 between the runs, printed beside
+                 eval.json (a TPU's numbers), self_consistency_psnr >= 50
+                 dB; every decode through the fused forward
+   baselines   - SH projection + reconstruction of two seed-1 test maps at
+                 order 6 (a 49-latent budget) in float64 on the card, within
+                 1e-10 relative of the CPU; an SG mixture of 12 lobes fitted
+                 for 2,000 Adam steps on the card, last loss < first / 20
+   convert     - the cbc entry to a reference-layout Lightning .ckpt and
+                 back (cli/convert.py): weights and a kernel-path decode of
+                 the 21 test latents bit for bit the entry's
+   fit_prior   - examples/fit_prior_torch.py --checkpoint zoo on a seed-1
+                 test map through Mask-3 (width 64, 400 steps) in a child on
+                 the card: the loss falls, one forward and one backward of
+                 the kernels a step; step time and launches printed. Then
+                 on the script's own inputs: the backward kernel against
+                 its plain version at 1 x 2,048 (a cotangent weighted by the
+                 masked sine weight), timed there beside its bound; the
+                 script's fit through the kernels and through the plain
+                 versions, step 0's loss within STEP_LOSS_BAR and the
+                 fitted decodes' PSNR within 0.1 dB between the runs
+   cli_run    - the trainer, python -m reni_tpu_torch.cli.run, on
                  configs/zoo_synthetic.yaml (written here as JSON: the card
                  has no PyYAML) with the chain FIT_DECODER -> FIT_LATENT ->
                  FIT_INVERSE (FIT_INVERSE as in the fit_inverse phase) on the
@@ -228,6 +255,9 @@ Phases (any failure exits non-zero and prints no result line):
                  paired with a time at the same shape
 12. report    - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
+
+The numbers of the export, evaluate, baselines, convert and fit_prior
+phases are printed with the card's name and power limit beside them.
 """
 
 from __future__ import annotations
@@ -235,11 +265,13 @@ from __future__ import annotations
 import base64
 import concurrent.futures
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
 import math
 import os
+import runpy
 import statistics
 import subprocess
 import sys
@@ -261,6 +293,7 @@ FILM = os.path.join(ZOO, "latent_dim_49_net_5_256_vad_film_tanh_hdr")
 WIDTH = 256  # 128 x 256 = 32,768 directions
 SERVE_WIDTHS = (128, 130, 256)
 DEVICE = "cuda"
+CARD = ""  # the card's name and power limit (nvidia-smi), printed beside the new phases' numbers
 # bars of the JAX package's test_fused_bf16_trunk_close
 MAX_ERR, MEAN_ERR = 0.05, 0.01
 # float32-trunk bars of test_fused_forward_matches_jnp (exact sine) and
@@ -321,14 +354,17 @@ INV_PROFILED = (100, 105)  # steps of the kernel run traced by torch.profiler
 # loss, Adam, the encodings)
 DECODER_KERNELS = ("fused_fwd", "trunk_fwd", "trunk_bwd", "trunk_step", "fwd_pass", "last_pass",
                    "bwd_pass", "reduce_slots", "wgrad")
-# evaluate: the five HDR Zoo entries with the transform of each one's
-# config.yaml (the exp entry trains on raw radiance; the LDR entry needs the
-# --ldr PNG maps, ROADMAP A-6b), kernel run vs plain run on the card
-EVAL_ENTRIES = (("latent_dim_49_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
-                ("latent_dim_49_net_5_256_vad_film_tanh_hdr", PUBLISHED_TRANSFORMS),
-                ("latent_dim_100_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
-                ("latent_dim_49_net_5_256_ad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS),
-                ("latent_dim_49_net_5_256_vad_cbc_exp_hdr", []))
+# evaluate: the six Zoo entries with the dataset and transform of each one's
+# config.yaml (the exp entry trains on raw radiance; the LDR entry on the
+# --ldr PNGs of the same skies with normalize(0.5, 0.5)), kernel run vs
+# plain run on the card
+LDR_TRANSFORMS = [["normalize", [[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]]]]
+EVAL_ENTRIES = (("latent_dim_49_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS, "RENI_HDR"),
+                ("latent_dim_49_net_5_256_vad_film_tanh_hdr", PUBLISHED_TRANSFORMS, "RENI_HDR"),
+                ("latent_dim_100_net_5_256_vad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS, "RENI_HDR"),
+                ("latent_dim_49_net_5_256_ad_cbc_tanh_hdr", PUBLISHED_TRANSFORMS, "RENI_HDR"),
+                ("latent_dim_49_net_5_256_vad_cbc_exp_hdr", [], "RENI_HDR"),
+                ("latent_dim_49_net_5_256_vad_cbc_tanh_ldr", LDR_TRANSFORMS, "RENI_LDR"))
 EVAL_DB, EVAL_SSIM, SELF_DB = 0.05, 1e-3, 50.0
 # cli_run: configs/zoo_synthetic.yaml's values (held equal to the file by
 # tests/test_torch_cli.py; JSON on the card, which has no PyYAML), the chain
@@ -371,6 +407,18 @@ CLI_CUTS = {"FIT_DECODER": (30, [10, 20]), "FIT_LATENT": (60, [20, 40]), "FIT_IN
 CLI_EVERY, CLI_IMAGES_EVERY = 5, 10
 CLI_PROBE_S = 600  # time limit of each process of the crash / relaunch probe
 CLI_INVERSE_BAR = 1e-6  # FIT_INVERSE's final latents, run B vs run A, relative, if not bitwise
+# export: the artifact (the plain decoder) against the plain decoder, float32
+# forward bar of ROADMAP's parity yardsticks
+EXPORT_F32_BAR = 5e-5
+# baselines: SH at the order a 49-latent budget buys, in float64 on the card
+# against the CPU; SG as tests/test_baselines.py fits it, at its loss bar
+SH_MAPS, SH_REL_BAR = 2, 1e-10
+SG_LOBES, SG_STEPS, SG_RATIO = 12, 2000, 20.0
+# fit_prior: examples/fit_prior_torch.py on the best Zoo prior, one seed-1
+# test map through Mask-3
+FIT_PRIOR_SCRIPT = os.path.join(ROOT, "examples", "fit_prior_torch.py")
+FIT_PRIOR_WIDTH, FIT_PRIOR_STEPS = 64, 400
+CHILD_S = 600  # time limit of each child process of the new phases
 
 
 class SmokeFailure(Exception):
@@ -686,17 +734,21 @@ def deeper(ops, film: bool, n_mm: int):
     return d, a, ws[idx], bs[layers], wf, bf, mod(fr), mod(ph)
 
 
-def compare_bwd(cfg, dec, Z, D, trunk, weight_grads, seed, n_mm=None) -> tuple[float, float]:
+def compare_bwd(cfg, dec, Z, D, trunk, weight_grads, seed, n_mm=None,
+                weight=None) -> tuple[float, float]:
     """Backward kernel vs plain version, every gradient (``n_mm``: on the
-    trunk deepened to that many products), and two kernel calls bit for
-    bit; returns the largest max |difference| and the largest max
-    |difference| / max |plain| (the quantity the bar holds: the gradients'
-    scales differ by orders of magnitude)."""
+    trunk deepened to that many products; ``weight``: (1, P, 1) pixel
+    weights of the cotangent), and two kernel calls bit for bit; returns the
+    largest max |difference| and the largest max |difference| / max |plain|
+    (the quantity the bar holds: the gradients' scales differ by orders of
+    magnitude)."""
     kernel, plain, kw = bwd_fns(cfg, trunk, weight_grads)
     ops = packed(cfg, dec, Z, D)
     if n_mm is not None:
         ops = deeper(ops, cfg.is_film, n_mm)
     g = cotangent(Z, D.shape[1], seed)
+    if weight is not None:
+        g = g * weight
     got, again, ref = kernel(*ops, g, **kw), kernel(*ops, g, **kw), plain(*ops, g, **kw)
     torch.cuda.synchronize()
     for i, (x, y) in enumerate(zip(got, again)):
@@ -916,8 +968,11 @@ def seed_maps(device, tmp: str):
     FIT_DECODER's resolutions. Prints the host stage (ms a map for generate
     and write, decode, stage) and a digest of the staged 64x128 training
     maps (numpy's SIMD sin and exp may differ between CPUs, so it is not
-    asserted). The maps stay in ``tmp`` for the evaluate phase. Returns
-    (training set, test set)."""
+    asserted). The maps stay in ``tmp`` for the evaluate phase. Then the 21
+    test skies of the same draw as 8-bit PNGs under ``tmp/ldr/Test`` (the
+    LDR Zoo entry's maps, ``--ldr``, written with the training skies under
+    ``tmp/ldr/Train``), read back with ``read_ldr`` (numpy + zlib, no PIL)
+    and timed a map. Returns (training set, test set)."""
     from reni_tpu_torch.data import datasets, synthetic
 
     n = SEED_MAPS["train"] + SEED_MAPS["test"]
@@ -948,6 +1003,19 @@ def seed_maps(device, tmp: str):
     print(f"host stage of the maps: generate and write {(t1 - t0) * 1e3 / n:.3f} ms a map, "
           f"decode {(t2 - t1) * 1e3 / n:.3f}, stage {len(stages)} resolutions on the card "
           f"{(t3 - t2) * 1e3 / SEED_MAPS['train']:.3f}; total {t3 - t0:.2f} s")
+    t0 = time.perf_counter()
+    ldr = synthetic.write_dataset(os.path.join(tmp, "ldr"), **SEED_MAPS, ldr=True)["Test"]
+    t1 = time.perf_counter()
+    names = sorted(os.listdir(ldr))
+    maps = [datasets.read_ldr(os.path.join(ldr, name)) for name in names]
+    t2 = time.perf_counter()
+    check(len(maps) == SEED_MAPS["test"]
+          and all(m.shape == (SEED_MAPS["width"] // 2, SEED_MAPS["width"], 3)
+                  and m.dtype == np.float32 and 0.0 <= m.min() <= m.max() <= 1.0 for m in maps),
+          "LDR test maps")
+    print(f"LDR maps (--ldr, PNG): {n} generated and written in {t1 - t0:.2f} s "
+          f"({(t1 - t0) * 1e3 / n:.3f} ms a map); read_ldr of the {len(maps)} test maps "
+          f"{(t2 - t1) * 1e3 / len(maps):.3f} ms a map (host)")
     return train, test
 
 
@@ -1208,9 +1276,10 @@ def fit_inverse_phase(device, test, entries) -> dict:
 
 
 def evaluate_phase(device, maps_root: str) -> dict:
-    """``cli/evaluate.py`` on the HDR Zoo entries' test latents and the
-    seed-1 test maps, through the kernels and the plain decoder on the card;
-    returns the forward kernels' launches of the kernel runs under
+    """``cli/evaluate.py`` on the six Zoo entries' test latents and the
+    seed-1 test maps (the LDR entry on their PNGs under ``maps_root/ldr``),
+    through the kernels and the plain decoder on the card; returns the
+    forward kernels' launches of the kernel runs under
     ``<kernel>@evaluate``."""
     from reni_tpu_torch.cli import evaluate
     from reni_tpu_torch.kernels import siren_fwd as tk
@@ -1218,12 +1287,14 @@ def evaluate_phase(device, maps_root: str) -> dict:
     t0 = time.perf_counter()
     keys = ("psnr_mean", "ssim_mean", "rotated_reconstruction_psnr", "self_consistency_psnr")
     launches = {"siren_fwd@evaluate": 0, "film_fwd@evaluate": 0}
-    for name, transforms in EVAL_ENTRIES:
+    for name, transforms, dataset in EVAL_ENTRIES:
         entry = os.path.join(ZOO, name)
         cfg_path = os.path.join(maps_root, f"{name}.json")
+        hdr = dataset == "RENI_HDR"
         with open(cfg_path, "w") as f:
-            json.dump({"DATASET": {"NAME": "RENI_HDR", "RENI_HDR": {
-                "PATH": maps_root, "TRANSFORMS": transforms, "IS_HDR": True}}}, f)
+            json.dump({"DATASET": {"NAME": dataset, dataset: {
+                "PATH": maps_root if hdr else os.path.join(maps_root, "ldr"),
+                "TRANSFORMS": transforms, "IS_HDR": hdr}}}, f)
         argv = ["--checkpoint", os.path.join(entry, "latents_test"), "--cfg_path", cfg_path,
                 "--device", "cuda"]
         if entry == CBC:
@@ -1249,7 +1320,7 @@ def evaluate_phase(device, maps_root: str) -> dict:
                 launches["siren_fwd@evaluate"] += n["cbc"]
                 launches["film_fwd@evaluate"] += n["film"]
         got, ref = reports[False], reports[True]
-        print(f"{name}: kernels / plain / eval.json " + "; ".join(
+        print(f"{name} [{CARD}]: kernels / plain / eval.json " + "; ".join(
             f"{k} {got[k]:.4f} / {ref[k]:.4f} / {card[k]:.4f}" for k in keys)
               + ("; in-painting (Mask-3) observed {:.3f} / {:.3f}, hallucinated {:.3f} / {:.3f} "
                  "dB".format(got["observed_psnr"], ref["observed_psnr"],
@@ -1262,10 +1333,359 @@ def evaluate_phase(device, maps_root: str) -> dict:
                 check(abs(got[k] - ref[k]) <= bar, f"{name}: {k} kernels {got[k]} plain {ref[k]}")
         check(got["self_consistency_psnr"] >= SELF_DB,
               f"{name}: self_consistency_psnr {got['self_consistency_psnr']}")
-    print(f"launches during evaluation (kernel runs): {launches}; the LDR entry is left out (its "
-          f"maps need the --ldr PNG generation, ROADMAP A-6b); evaluate phase wall "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"launches during evaluation (kernel runs): {launches}; evaluate phase wall "
+          f"{time.perf_counter() - t0:.1f} s [{CARD}]")
     return launches
+
+
+EXPORT_CHILD = """\
+import json, sys
+import numpy as np
+import torch
+
+device = sys.argv[1]
+d = torch.from_numpy(np.load("d.npy")).to(device)
+ms = []
+for i, path in enumerate(sys.argv[2:]):
+    f = torch.export.load(path).module().to(device)
+    z = torch.from_numpy(np.load(f"z{i}.npy")).to(device)
+    dz = d.expand(z.shape[0], -1, -1)
+    with torch.inference_mode():
+        out = f(z, dz)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                f(z, dz)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            ms.append(sorted(times)[2])
+    np.save(f"out{i}.npy", out.cpu().numpy())
+print(json.dumps({"ms": ms, "port_modules": sorted(m for m in sys.modules if m.startswith("reni_tpu"))}))
+"""
+
+
+def export_phase(device, entries) -> None:
+    """``cli/export.py`` on the card for the cbc and FiLM Zoo decoders; both
+    artifacts loaded in one child process that imports torch alone (it fails
+    if any module of the package is loaded), each called on its entry's 21
+    test latents at width 256; each output held to the plain decoder
+    (float32 bar) and to the fused kernel path (bf16 bars); the daemon
+    started with --artifact, one /decode equal to the artifact's direct
+    call. Decode times of the artifact (child and this process), the plain
+    decoder and the kernel path, CUDA events. The artifact launches none of
+    the port's kernels."""
+    from reni_tpu_torch.cli import export as cli_export
+    from reni_tpu_torch.cli.serve import make_server
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.serve import load_decoder, load_exported
+
+    D = sphere.get_directions(WIDTH, device=device)
+    names = (("siren_fwd", CBC), ("film_fwd", FILM))
+    with tempfile.TemporaryDirectory() as tmp:
+        arts, export_s = [], []
+        for i, (name, entry) in enumerate(names):
+            arts.append(os.path.join(tmp, f"{name}.pt2"))
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                rc = cli_export.main(["--checkpoint", os.path.join(entry, "checkpoint"),
+                                      "--out", arts[-1], "--device", DEVICE])
+            export_s.append(time.perf_counter() - t0)
+            check(rc == 0 and said.getvalue().startswith("exported "), f"{name}: export {rc}")
+            np.save(os.path.join(tmp, f"z{i}.npy"), entries[name][2].cpu().numpy())
+        np.save(os.path.join(tmp, "d.npy"), D.cpu().numpy())
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", EXPORT_CHILD, DEVICE, *arts], cwd=tmp,
+                             env=env, capture_output=True, text=True, timeout=CHILD_S)
+        child_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"the torch-only child failed:\n{res.stderr[-3000:]}")
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        check(child["port_modules"] == [], f"the child loaded {child['port_modules']}")
+        print(f"torch-only child: loaded and called both artifacts in {child_s:.2f} s [{CARD}]")
+
+        for i, (name, entry) in enumerate(names):
+            cfg, dec, Z = entries[name]
+            label = os.path.basename(entry)
+            art = arts[i]
+            out = torch.from_numpy(np.load(os.path.join(tmp, f"out{i}.npy"))).to(device)
+            check(tuple(out.shape) == (21, D.shape[1], 3) and bool(torch.isfinite(out).all()),
+                  f"{label}: artifact output {tuple(out.shape)}")
+            f = load_exported(art, device)
+            Db = D.expand(Z.shape[0], -1, -1)
+            plain = RENIModel(dataclasses.replace(cfg, use_pallas=False))
+            kernel = load_decoder(os.path.join(entry, "checkpoint"), device)
+            with torch.inference_mode():
+                ref = plain.apply({"decoder": dec}, Z, Db)
+                torch.cuda.synchronize()
+                counts = (tk.fused_apply.launches, tk.fused_film_apply.launches)
+                here = f(Z, Db)
+                torch.cuda.synchronize()
+                check((tk.fused_apply.launches, tk.fused_film_apply.launches) == counts,
+                      f"{label}: the artifact launched a kernel of the port")
+                fused = kernel(Z, Db)
+                torch.cuda.synchronize()
+                check((tk.fused_apply.launches, tk.fused_film_apply.launches) != counts,
+                      f"{label}: the kernel path launched no kernel")
+                art_ms = time_ms(lambda: f(Z, Db), runs=5, warmup=1)
+                plain_ms = time_ms(lambda: plain.apply({"decoder": dec}, Z, Db), runs=5, warmup=1)
+                kernel_ms = time_ms(lambda: kernel(Z, Db), runs=10)
+            check(torch.equal(here, out), f"{label}: the artifact's decode differs between processes")
+            err = (out - ref).abs().max().item()
+            check(err <= EXPORT_F32_BAR, f"{label}: artifact vs plain decoder {err}")
+            kerr = (out - fused).abs()
+            check(kerr.max().item() < MAX_ERR and kerr.mean().item() < MEAN_ERR,
+                  f"{label}: artifact vs kernel path {kerr.max().item()}, {kerr.mean().item()}")
+            child_ms = f"{child['ms'][i]:.3f} ms" if child["ms"] else "not timed"
+            print(f"{label} artifact: export {export_s[i]:.2f} s ({os.path.getsize(art) / 1e6:.2f} "
+                  f"MB); 21 x {D.shape[1]}: max |artifact - plain| {err:.3g}, |artifact - kernel "
+                  f"path| max {kerr.max().item():.3g} mean {kerr.mean().item():.3g}; decode on the "
+                  f"device: artifact {art_ms:.3f} ms (child {child_ms}), plain decoder "
+                  f"{plain_ms:.3f} ms, kernel path {kernel_ms:.3f} ms [{CARD}]")
+
+            httpd = make_server(None, os.path.join(entry, "latents_test"), port=0,
+                                device=DEVICE, artifact=art)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                code, health = http(base, "/healthz")
+                check(code == 200 and health["artifact"] == art and health["dataset_size"] == 21,
+                      f"{label}: healthz {health}")
+                z4 = Z[:4].cpu().numpy()
+                t0 = time.perf_counter()
+                code, body = http(base, "/decode", {"z": z4.tolist(), "width": WIDTH,
+                                                   "format": "base64"})
+                http_ms = (time.perf_counter() - t0) * 1e3
+                check(code == 200, f"{label}: /decode {code} {body.get('error')}")
+                direct = f(z4, D.expand(4, -1, -1)).cpu().numpy().reshape(body["shape"])
+                check(np.array_equal(decoded(body), direct),
+                      f"{label}: /decode differs from the artifact's direct call")
+                print(f"{label} --artifact daemon: /decode 4 x width {WIDTH} {http_ms:.1f} ms, "
+                      f"equal to the artifact's direct call [{CARD}]")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=60)
+
+
+def baselines_phase(device, test) -> None:
+    """The paper's analytic baselines on two seed-1 test maps (raw
+    radiance, 64 x 128): SH projection and reconstruction at the order a
+    49-latent budget buys, in float64 on the card, held to the CPU's host
+    path within SH_REL_BAR relative; then an SG mixture of 12 lobes fitted
+    for 2,000 Adam steps on the card, its last loss below its first over
+    SG_RATIO (tests/test_baselines.py's bar). Times by CUDA events (SH) and
+    the host clock around the synchronised fit (SG)."""
+    from reni_tpu_torch.baselines import spherical_gaussians as sg
+    from reni_tpu_torch.baselines import spherical_harmonics as sh
+    from reni_tpu_torch.data import datasets
+
+    lmax = sh.sh_order_from_budget(49)
+    maps = [datasets.read_hdr(os.path.join(test.dataset_path, n)) for n in test.img_names[:SH_MAPS]]
+    for i, img in enumerate(maps):
+        h, w, _ = img.shape
+        host = sh.project_environment(img.astype(np.float64), lmax)
+        host_rec = sh.reconstruct(host, w)
+        x = torch.tensor(img, dtype=torch.float64, device=device)
+        coeffs = sh.project_environment_torch(x, lmax)
+        rec = sh.reconstruct_torch(coeffs, w)
+        rel = max(np.abs(coeffs.cpu().numpy() - host).max() / np.abs(host).max(),
+                  np.abs(rec.cpu().numpy() - host_rec).max() / np.abs(host_rec).max())
+        check(tuple(rec.shape) == img.shape and rel <= SH_REL_BAR, f"SH map {i}: rel {rel}")
+        ms = time_ms(lambda: sh.reconstruct_torch(sh.project_environment_torch(x, lmax), w),
+                     runs=5, warmup=1)
+        print(f"SH lmax {lmax} ({sh.num_coeffs(lmax)} coefficients), seed-1 test map {i} at "
+              f"{h}x{w}, float64: card vs CPU max rel {rel:.3g}; project + reconstruct "
+              f"{ms:.3f} ms on the device [{CARD}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = sg.fit_environment(maps[0], SG_LOBES, SG_STEPS, device=device)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ratio = float(losses[0] / losses[-1])
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0] / SG_RATIO,
+          f"SG fit: loss {losses[0]} -> {losses[-1]}")
+    print(f"SG {SG_LOBES} lobes, {SG_STEPS} Adam steps on seed-1 test map 0: {fit_s:.2f} s "
+          f"({fit_s * 1e3 / SG_STEPS:.3f} ms a step), loss {losses[0]:.5g} -> {losses[-1]:.5g} "
+          f"(ratio {ratio:.1f}, bar {SG_RATIO}) [{CARD}]")
+
+
+def convert_phase(device, entries) -> dict:
+    """The cbc Zoo entry through ``cli/convert.py --to_torch`` (a
+    reference-layout Lightning .ckpt) and back with ``--from_torch``: the
+    decoder weights bit for bit the entry's, the embedded config the
+    entry's model (the reference's fields; fast sine and the trunk's dtype
+    are execution knobs it does not carry), and a kernel-path decode of the
+    21 test latents at width 256 with the converted weights bit for bit the
+    entry's own. Returns the forward kernel's launches there."""
+    from reni_tpu_torch.cli import convert as cli_convert
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.params import from_numpy, tree_items
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.utils import convert
+
+    cfg, dec, Z = entries["siren_fwd"]
+    ck = os.path.join(CBC, "checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_ckpt, back = os.path.join(tmp, "reference.ckpt"), os.path.join(tmp, "back")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli_convert.main(["--to_torch", ck, "--out", ref_ckpt]) == 0, "--to_torch")
+            t1 = time.perf_counter()
+            check(cli_convert.main(["--from_torch", ref_ckpt, "--out", back]) == 0, "--from_torch")
+        t2 = time.perf_counter()
+        saved, _ = ckpt.load_checkpoint(ck)
+        got, _ = ckpt.load_checkpoint(back)
+        ours, theirs = dict(tree_items(saved["decoder"])), dict(tree_items(got["decoder"]))
+        check(sorted(ours) == sorted(theirs) and all(
+            ours[k].dtype == theirs[k].dtype and np.array_equal(ours[k], theirs[k]) for k in ours),
+              "converted decoder weights differ from the entry's")
+        back_cfg = ckpt.load_model_config(back)
+        check(convert.reference_config(back_cfg) == convert.reference_config(cfg),
+              f"converted config {back_cfg} against {cfg}")
+        size = os.path.getsize(ref_ckpt)
+    model = RENIModel(dataclasses.replace(cfg, use_pallas=True))
+    D = sphere.get_directions(WIDTH, device=device)
+    torch.cuda.synchronize()
+    tk.fused_apply.launches = 0
+    with torch.inference_mode():
+        a = model.apply({"decoder": dec}, Z, D)
+        b = model.apply({"decoder": from_numpy(got["decoder"], device)}, Z, D)
+    torch.cuda.synchronize()
+    launches = tk.fused_apply.launches
+    check(launches == 2 and torch.equal(a, b),
+          f"kernel-path decode with the converted weights differs ({launches} launches)")
+    print(f"convert {os.path.basename(CBC)}: --to_torch {t1 - t0:.2f} s ({size / 1e6:.2f} MB "
+          f".ckpt), --from_torch {t2 - t1:.2f} s; decoder weights and the kernel-path decode of "
+          f"21 x {D.shape[1]} bit for bit the entry's [{CARD}]")
+    return {"siren_fwd@convert": launches}
+
+
+FIT_PRIOR_CHILD = """\
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+import torch
+from reni_tpu_torch.kernels import siren_bwd as tb, siren_fwd as tk, siren_step as ts
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+print(json.dumps({"fwd": tk.fused_apply.launches + tk.fused_film_apply.launches,
+                  "fwd_passes": ts.passes_forward.launches,
+                  "bwd": tb.siren_trunk_bwd_cuda.launches + tb.film_trunk_bwd_cuda.launches}))
+"""
+
+
+def fit_prior_phase(device, test) -> tuple[dict, dict]:
+    """``examples/fit_prior_torch.py --checkpoint zoo`` (the best eval card's
+    entry) on seed-1 test map 0 through Mask-3 at width 64 for 400 steps, in
+    a child process on the card: the loss falls; each step one forward and
+    one backward of the port's kernels (the two decodes after the fit one
+    forward each). Then, in this process on the script's own inputs
+    (``setup``): the backward kernel against its plain version at the fit's
+    shape (1 x 2,048, a random cotangent times the masked sine weight) and
+    timed there with its bound; the script's ``fit_latent`` through the
+    kernels and through their plain versions, held at step 0's loss
+    (STEP_LOSS_BAR) and at the fitted decodes' PSNR to the map (PSNR_BAR_DB,
+    as the fit_latent phase). Returns (the child's backward launches under
+    ``<kernel>@fit_prior``, {kernel: its 1 x 2,048 timings})."""
+    from reni_tpu_torch.core import encodings, sphere
+    from reni_tpu_torch.kernels import siren_bwd as tb
+
+    image = os.path.join(test.dataset_path, test.img_names[0])
+    argv = [FIT_PRIOR_SCRIPT, "--checkpoint", "zoo", "--image", image, "--mask", MASK,
+            "--width", str(FIT_PRIOR_WIDTH), "--steps", str(FIT_PRIOR_STEPS), "--device", DEVICE]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", FIT_PRIOR_CHILD, *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=CHILD_S)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"fit_prior child failed:\n{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    n = json.loads(lines[-1])
+    losses = [float(line.split("loss=")[1]) for line in lines if line.startswith("step ")]
+    summary = next(line for line in lines if f"{FIT_PRIOR_STEPS} steps on " in line)
+    entry = next(line for line in lines if line.startswith("using bundled zoo model"))
+    check(len(losses) >= 2 and losses[-1] < losses[0], f"fit_prior loss {losses}")
+    steps = FIT_PRIOR_STEPS
+    check(n["bwd"] == steps and n["fwd"] + n["fwd_passes"] == steps + 2,
+          f"fit_prior launches {n} in {steps} steps (a forward and a backward each, two decodes)")
+    print(f"fit_prior: {entry.split(':')[0]}; {summary}; logged losses {losses}; launches {n} "
+          f"(backward {n['bwd']}); child wall {wall:.1f} s [{CARD}]")
+
+    script = runpy.run_path(FIT_PRIOR_SCRIPT)  # its functions; main is not run
+    args = script["parse_args"](argv[1:])
+    model, params, target, D, weight = script["setup"](args, device)
+    cfg, dec = model.config, params["decoder"]
+    name = "film_bwd" if cfg.is_film else "siren_bwd"
+    Z = model.latents(params, [0]).detach()
+    B, P = Z.shape[0], D.shape[1]
+    with torch.no_grad():
+        print(f"{name} B={B} P={P} the fit's shape, masked sine-weighted cotangent, "
+              f"no weight gradients:")
+        w = weight[..., :1]  # the sine weight times the mask, equal over RGB
+        err, rel = compare_bwd(cfg, dec, Z, D, None, False, seed=4, weight=w)
+        kernel, plain, kw = bwd_fns(cfg, weight_grads=False)
+        ops = packed(cfg, dec, Z, D)
+        g = cotangent(Z, P, seed=4) * w
+        k = encodings.d_features(cfg.equivariance, D).shape[-1]
+        flops = B * P * bwd_flops(cfg, k, cfg.out_features, False)
+        nbytes = bwd_bytes(ops, k, cfg.out_features, cfg.is_film, cfg.pallas_trunk, False)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = time_ms(lambda: kernel(*ops, g, **kw))
+        plain_ms = time_ms(lambda: plain(*ops, g, **kw))
+    print(f"{name} B={B} P={P} without weight gradients: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP, "
+          f"{nbytes:.4g} B) [{CARD}]")
+    timing = {name: {"err": err, "rel": rel, "shape": {
+        f"{B}x{P}": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}}}}
+
+    fits = {}
+    mask = sphere.get_mask(FIT_PRIOR_WIDTH, MASK, device=device)[0, :, 0] > 0.5
+    counter = tb.film_trunk_bwd_cuda if cfg.is_film else tb.siren_trunk_bwd_cuda
+    for plain_run in (False, True):
+        model, params, target, D, weight = script["setup"](args, device)
+        before = counter.launches
+        with plain_trunks() if plain_run else contextlib.nullcontext():
+            fitted, curve, _, rest_s = script["fit_latent"](
+                model, params, target, D, weight, steps, torch.Generator().manual_seed(3),
+                log_every=0)
+        ran = counter.launches - before
+        check(ran == (0 if plain_run else steps),
+              f"fit_prior {'plain' if plain_run else 'kernel'} run: {ran} backward launches")
+        with torch.no_grad():
+            maps = model.apply(fitted, model.latents(fitted, [0]), D)
+        check(bool(np.isfinite(curve).all()) and curve[-1] < curve[0]
+              and bool(torch.isfinite(maps).all()),
+              f"fit_prior {'plain' if plain_run else 'kernels'}: loss {curve[0]} -> {curve[-1]}")
+        db = {"all": psnr(maps, target), "observed (mask 1)": psnr(maps, target, mask),
+              "hidden (mask 0)": psnr(maps, target, ~mask)}
+        fits[plain_run] = (curve, model.latents(fitted, [0]).detach(), db, rest_s)
+    (ck, zk, dbk, sk), (cp, zp, dbp, sp) = fits[False], fits[True]
+    step0 = abs(ck[0] - cp[0]) / abs(cp[0])
+    loss_rel = float(np.max(np.abs(ck - cp) / np.abs(cp)))
+    z_rel = ((zk - zp).abs().max() / zp.abs().max()).item()
+    check(step0 <= STEP_LOSS_BAR[cfg.pallas_trunk],
+          f"fit_prior step-0 loss kernels {ck[0]} vs plain {cp[0]} ({step0:.3g} relative)")
+    for key in dbk:
+        gap = abs(dbk[key] - dbp[key])
+        check(gap <= PSNR_BAR_DB, f"fit_prior PSNR {key} kernels vs plain differ by {gap:.3f} dB")
+    print(f"fit_prior kernels vs plain on the script's inputs, {steps} steps each: step-0 loss "
+          f"{ck[0]:.6g} / {cp[0]:.6g} ({step0:.3g} relative, bar "
+          f"{STEP_LOSS_BAR[cfg.pallas_trunk]}); final loss {ck[-1]:.6g} / {cp[-1]:.6g}; "
+          f"largest relative loss difference over the steps {loss_rel:.3g}; fitted latent max "
+          f"|diff| / max |plain| {z_rel:.3g}; PSNR (peak 1) of the fitted decode "
+          + ", ".join(f"{k} {dbk[k]:.3f} / {dbp[k]:.3f} dB" for k in dbk)
+          + f" (bar {PSNR_BAR_DB} dB); {sk * 1e3 / (steps - 1):.3f} / "
+          f"{sp * 1e3 / (steps - 1):.3f} ms a step [{CARD}]")
+    return {f"{name}@fit_prior": n["bwd"]}, timing
 
 
 def cli_config(maps_root: str, runs: str):
@@ -2769,6 +3189,8 @@ def main() -> int:
 
     phase("build")
     build_all()
+    global CARD
+    CARD = card_line()
 
     phase("compare at full width and at FIT_LATENT's shapes")
     D = sphere.get_directions(WIDTH, device=dev)
@@ -2877,6 +3299,9 @@ def main() -> int:
     check(routes == {"fused": sum(launches.values()), "tile": 0},
           "a served decode did not take the fused kernel")
 
+    phase("export")
+    export_phase(dev, entries)
+
     phase("fit_latent")
     launches.update(fit_latent_phase(dev))
     print(f"backward launches during FIT_LATENT (kernel runs): "
@@ -2893,13 +3318,29 @@ def main() -> int:
     phase("evaluate")
     launches.update(evaluate_phase(dev, maps_dir.name))
 
+    phase("baselines")
+    baselines_phase(dev, test)
+
+    phase("convert")
+    launches.update(convert_phase(dev, entries))
+
+    phase("fit_prior")
+    fit_prior_launches, fit_prior_bwd = fit_prior_phase(dev, test)
+    launches.update(fit_prior_launches)
+    for name, v in fit_prior_bwd.items():
+        errors[name].append(v["err"])
+        rel_errors[name].append(v["rel"])
+
     phase("cli_run")
     launches.update(cli_run_phase(dev, maps_dir.name))
     maps_dir.cleanup()
     for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
                       ("siren_fwd", "siren_fwd@evaluate"), ("film_fwd", "film_fwd@evaluate"),
-                      ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run")):
+                      ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run"),
+                      ("siren_fwd", "siren_fwd@convert")):
         launches[name] += launches[tag]
+    for tag in [k for k in launches if k.endswith("@fit_prior")]:
+        launches[tag.split("@")[0]] += launches[tag]
     print(f"launches by kernel, all paths so far: "
           f"{ {k: launches[k] for k in ('siren_fwd', 'film_fwd', 'siren_bwd', 'film_bwd')} }")
 
@@ -2999,6 +3440,9 @@ def main() -> int:
                             "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                         }
+            if name in fit_prior_bwd:  # fit_prior's 1 x 2,048, timed in its phase
+                shapes.update({f"{k}_fit_prior": v
+                               for k, v in fit_prior_bwd[name]["shape"].items()})
             row["shapes"] = shapes
             row.update(bwd_pass_timings(name, cfg, dec, Z, dev))
             fwd_passes = sum(v for k, v in row["passes_ms_21x8192_no_wgrad"].items()

@@ -60,6 +60,7 @@ from reni_tpu_torch.core import sphere
 from reni_tpu_torch.data.datasets import get_dataset
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel
 from reni_tpu_torch.params import from_numpy, map_tree
+from reni_tpu_torch.serve import PlainDecoder
 from reni_tpu_torch.train import checkpoint as ckpt
 from reni_tpu_torch.train import tasks
 from reni_tpu_torch.train.logging_utils import MetricLogger
@@ -374,17 +375,13 @@ def _dump_model_graph(model: RENIModel, params, log_dir: str, task: str) -> None
     """TB.LOG_GRAPH: the reference logs the model graph to TensorBoard
     (run.py:55); here ``{task}_graph.txt`` holds the ``torch.export`` graph
     of the plain decoder forward (``use_pallas`` off: PyTorch operations,
-    no kernel) at one latent x width 32, its weights inputs."""
-    plain = RENIModel(dataclasses.replace(model.config, use_pallas=False))
+    no kernel; the serving artifact's module, ``serve.PlainDecoder``) at one
+    latent x width 32, its weights buffers."""
     decoder = map_tree(lambda t: t.detach(), params["decoder"])
     Z = model.latents(params, [0]).detach()
     D = sphere.get_directions(32, device=Z.device)
-
-    class Decoder(torch.nn.Module):
-        def forward(self, decoder, Z, D):
-            return plain.apply({"decoder": decoder}, Z, D)
-
-    ep = torch.export.export(Decoder(), (decoder, Z, D))
+    with torch.no_grad():
+        ep = torch.export.export(PlainDecoder(model.config, decoder), (Z, D))
     with open(os.path.join(log_dir, f"{task.lower()}_graph.txt"), "w") as f:
         f.write(str(ep))
 

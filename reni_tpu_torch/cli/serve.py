@@ -1,12 +1,17 @@
-"""HTTP serving daemon for a checkpoint's decoder, on the card.
+"""HTTP serving daemon for a decoder, on the card.
 
     python -m reni_tpu_torch.cli.serve --decoder data/Zoo/<entry>/checkpoint \
         [--checkpoint data/Zoo/<entry>/latents_test]  # latents for /decode_idx
         [--device cuda] [--port 8742] [--warmup 128,256] [--batch_window_ms 20]
+    python -m reni_tpu_torch.cli.serve --artifact decoder.pt2 [--checkpoint ...]
 
 The counterpart of ``reni_tpu/cli/serve.py``: a stdlib HTTP front end over
-``reni_tpu_torch.serve.load_decoder``, which decodes through the fused CUDA
-kernels. ``--decoder`` takes the place of the JAX daemon's ``--artifact``.
+one of two decoders, exactly one of them given. ``--decoder`` takes a
+checkpoint and decodes through the fused CUDA kernels
+(``reni_tpu_torch.serve.load_decoder``): the fast path. ``--artifact``
+takes a ``torch.export`` artifact (``cli/export.py``), the plain decoder's
+PyTorch operations without the model code (``serve.load_exported``), as the
+JAX daemon's ``--artifact`` serves its ``jax.export`` one.
 
 Endpoints (JSON in, JSON out; radiance in the model's normalised space):
 
@@ -20,7 +25,9 @@ Endpoints (JSON in, JSON out; radiance in the model's normalised space):
 ``rotation_y`` rotates the illumination about the up axis by rotating the
 LATENTS (Z @ R); for SO2/SO3 decoders the output equals the unrotated
 decode shifted right by width * deg/360 columns. A decoder trained with
-EQUIVARIANCE None rejects it.
+EQUIVARIANCE None rejects it. With ``--decoder`` the equivariance is the
+decoder checkpoint's; with ``--artifact`` it is ``--checkpoint``'s, and
+unknown (rotation allowed) without one, as in the JAX daemon.
 
 ``--batch_window_ms W`` coalesces concurrent same-width decodes arriving
 within W ms into one batched decode; /healthz then reports
@@ -119,28 +126,43 @@ class _MicroBatcher:
 
 
 class DecoderService:
-    """Decoder + optional latent table; thread-safe decode calls."""
+    """Decoder (a checkpoint's, through the kernels, or an artifact) +
+    optional latent table; thread-safe decode calls."""
 
     def __init__(
         self,
-        decoder_path: str,
+        decoder_path: str | None,
         checkpoint_path: str | None = None,
         max_width: int = 2048,
         max_batch: int = 64,
         batch_window_ms: float = 0.0,
         device=None,
+        artifact_path: str | None = None,
     ):
         from reni_tpu_torch import serve as _serve
         from reni_tpu_torch.train import checkpoint as ckpt
 
-        self.fn = _serve.load_decoder(decoder_path, device)
-        self.device = self.fn.device
+        if (decoder_path is None) == (artifact_path is None):
+            raise ValueError("give exactly one of a decoder checkpoint and an artifact")
         self.decoder_path = decoder_path
+        self.artifact_path = artifact_path
         self.max_width = int(max_width)
         self.max_batch = int(max_batch)
         self.latents = None
-        # rotation_y relies on rotation equivariance: the decoder's config
-        self.equivariance = self.fn.config.equivariance
+        # rotation_y relies on rotation equivariance: the decoder's config,
+        # or for an artifact --checkpoint's (None = unknown)
+        if artifact_path is None:
+            self.fn = _serve.load_decoder(decoder_path, device)
+            self.equivariance = self.fn.config.equivariance
+        else:
+            self.fn = _serve.load_exported(artifact_path, device)
+            self.equivariance = None
+            if checkpoint_path is not None:
+                try:
+                    self.equivariance = ckpt.load_model_config(checkpoint_path).equivariance
+                except (OSError, KeyError, ValueError, TypeError):
+                    pass  # a checkpoint without a model config: unknown
+        self.device = self.fn.device
         if checkpoint_path is not None:
             params, _ = ckpt.load_checkpoint(checkpoint_path)
             lat = params.get("latents") or {}
@@ -232,6 +254,7 @@ def make_handler(service: DecoderService):
                 body = {
                     "ok": True,
                     "decoder": service.decoder_path,
+                    "artifact": service.artifact_path,
                     "device": str(service.device),
                     "has_latents": service.latents is not None,
                     "dataset_size": None
@@ -301,7 +324,7 @@ def make_handler(service: DecoderService):
 
 
 def make_server(
-    decoder: str,
+    decoder: str | None,
     checkpoint: str | None = None,
     host: str = "127.0.0.1",
     port: int = 0,
@@ -309,11 +332,13 @@ def make_server(
     max_batch: int = 64,
     batch_window_ms: float = 0.0,
     device=None,
+    artifact: str | None = None,
 ) -> ThreadingHTTPServer:
-    """Build (not run) the server; ``.server_address`` has the bound port."""
+    """Build (not run) the server over ``decoder`` (a checkpoint) or
+    ``artifact``; ``.server_address`` has the bound port."""
     service = DecoderService(
         decoder, checkpoint, max_width=max_width, max_batch=max_batch,
-        batch_window_ms=batch_window_ms, device=device,
+        batch_window_ms=batch_window_ms, device=device, artifact_path=artifact,
     )
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     httpd.reni_service = service  # for --warmup and tests
@@ -322,7 +347,9 @@ def make_server(
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--decoder", required=True, help="checkpoint with the decoder weights")
+    which = parser.add_mutually_exclusive_group(required=True)
+    which.add_argument("--decoder", help="checkpoint with the decoder weights (the CUDA kernels)")
+    which.add_argument("--artifact", help="decoder .pt2 from cli/export.py (the plain decoder)")
     parser.add_argument("--checkpoint", default=None, help="checkpoint with latents for /decode_idx")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--host", default="127.0.0.1")
@@ -349,13 +376,13 @@ def main(argv=None) -> int:
     httpd = make_server(
         args.decoder, args.checkpoint, args.host, args.port,
         max_width=args.max_width, max_batch=args.max_batch,
-        batch_window_ms=args.batch_window_ms, device=args.device,
+        batch_window_ms=args.batch_window_ms, device=args.device, artifact=args.artifact,
     )
     if args.warmup:
         widths = [int(w) for w in args.warmup.split(",") if w]
         httpd.reni_service.warmup(widths)
         print(f"warmed up widths {widths}")
-    print(f"serving {args.decoder} on http://{args.host}:{httpd.server_address[1]}")
+    print(f"serving {args.decoder or args.artifact} on http://{args.host}:{httpd.server_address[1]}")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

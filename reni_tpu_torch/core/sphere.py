@@ -91,9 +91,35 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
+def _unfilter_row(filt: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """One PNG scanline (uint8) with its filter undone, given the previous
+    unfiltered line. None, Sub and Up run as numpy operations (a sum modulo
+    256 along the row or down the column); Average and Paeth depend on the
+    pixel just undone, so they go byte by byte."""
+    if filt == 0:
+        return line
+    if filt == 2:
+        return line + prev  # uint8 arithmetic wraps modulo 256
+    if filt == 1:
+        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+    if filt not in (3, 4):
+        raise ValueError(f"bad PNG filter type {filt}")
+    out = bytearray(line.tobytes())
+    up = prev.tobytes()
+    for i in range(len(out)):
+        left = out[i - bpp] if i >= bpp else 0
+        if filt == 3:
+            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
+        else:
+            up_left = up[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + _paeth(left, up[i], up_left)) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
 def read_png(path: str) -> np.ndarray:
     """An 8-bit, non-interlaced PNG as uint8 (H, W) (grayscale) or
-    (H, W, C). Other bit depths, palettes and interlacing raise."""
+    (H, W, C): grey, grey + alpha, RGB or RGBA, any of the five filter
+    types. Other bit depths, palettes and interlacing raise."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -117,28 +143,16 @@ def read_png(path: str) -> np.ndarray:
         )
     bpp = _PNG_CHANNELS[colour]
     stride = width * bpp
-    raw = zlib.decompress(b"".join(idat))
-    out = bytearray(height * stride)
-    prev = bytearray(stride)
-    for y in range(height):
-        filt = raw[y * (stride + 1)]
-        line = bytearray(raw[y * (stride + 1) + 1 : (y + 1) * (stride + 1)])
-        for i in range(stride):
-            left = line[i - bpp] if i >= bpp else 0
-            up_left = prev[i - bpp] if i >= bpp else 0
-            if filt == 1:
-                line[i] = (line[i] + left) & 0xFF
-            elif filt == 2:
-                line[i] = (line[i] + prev[i]) & 0xFF
-            elif filt == 3:
-                line[i] = (line[i] + ((left + prev[i]) >> 1)) & 0xFF
-            elif filt == 4:
-                line[i] = (line[i] + _paeth(left, prev[i], up_left)) & 0xFF
-            elif filt != 0:
-                raise ValueError(f"{path}: bad PNG filter type {filt}")
-        out[y * stride : (y + 1) * stride] = line
-        prev = line
-    arr = np.frombuffer(bytes(out), np.uint8).reshape(height, width, bpp)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = raw[: height * (stride + 1)].reshape(height, stride + 1)
+    out = np.empty((height, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    try:
+        for y in range(height):
+            out[y] = prev = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    arr = out.reshape(height, width, bpp)
     return arr[..., 0] if bpp == 1 else arr
 
 

@@ -13,8 +13,9 @@ Behavioural parity with the reference:
   float32 RGB by the port's codec (``reni_tpu_torch.data.exr``: NONE, RLE,
   ZIPS, ZIP and PXR24, scanline, tiled and multi-part; the other codecs
   raise until ROADMAP A-6b);
-- `.hdr` files through OpenCV or imageio, LDR images through PIL, all
-  imported when such a file is read (alpha dropped, LDR scaled to [0, 1],
+- `.hdr` files through OpenCV or imageio, imported when such a file is
+  read; `.png` through the port's own numpy + zlib reader, other LDR images
+  through PIL, imported when read (alpha dropped, LDR scaled to [0, 1],
   datasets.py:141-146);
 - `nan_to_num` after transforms (datasets.py:73);
 - log-domain dataset min/max discovery when the minmax arg is empty
@@ -32,6 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from reni_tpu_torch.core import sphere
 from reni_tpu_torch.data import exr
 from reni_tpu_torch.data import transforms as T
 
@@ -79,11 +81,18 @@ def read_hdr(path: str) -> np.ndarray:
 
 
 def read_ldr(path: str) -> np.ndarray:
-    """Decode an LDR image to float32 RGB in [0, 1], dropping alpha (PIL,
-    imported here)."""
-    from PIL import Image
+    """Decode an LDR image to float32 RGB in [0, 1], dropping alpha, as the
+    JAX package's PIL reader does (a grey image repeated over RGB; divided
+    by 255 when its largest value is above 1). A PNG goes through the port's
+    numpy + zlib reader (``core.sphere.read_png``: 8-bit grey / RGB / RGBA,
+    every filter type, not interlaced), which needs no PIL; other formats
+    through PIL, imported here."""
+    if path.lower().endswith(".png"):
+        img = sphere.read_png(path).astype(np.float32)
+    else:
+        from PIL import Image
 
-    img = np.asarray(Image.open(path), dtype=np.float32)
+        img = np.asarray(Image.open(path), dtype=np.float32)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
     img = img[..., :3]

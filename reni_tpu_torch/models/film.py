@@ -130,8 +130,11 @@ def apply_film_decomposed(
     parts = encodings.z_parts(equivariance, Z)
     freqs, phases = apply_mapping_network(params["mapping"], parts["bias_feats"])
     freqs = freqs * 15.0 + 30.0
-    # features in D's dtype, then promoted to Z's, as jnp promotes them
-    d_feats = encodings.d_features(equivariance, D).to(Z.dtype)
+    # features in D's dtype, then promoted to Z's, as jnp promotes them (no
+    # cast where they agree: torch.export would pin the tracing device to it)
+    d_feats = encodings.d_features(equivariance, D)
+    if d_feats.dtype != Z.dtype:
+        d_feats = d_feats.to(Z.dtype)
 
     h = None
     for i, layer in enumerate(params["layers"]):

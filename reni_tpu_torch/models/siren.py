@@ -166,8 +166,11 @@ def apply_siren_decomposed(
     """Decoder forward on Z (B, N, 3) and D (B or 1, npix, 3) via the
     decomposed first layer. Returns (B, npix, out)."""
     sine, _ = sine_fns(fast_sine)
-    # features in D's dtype, then promoted to Z's, as jnp promotes them
-    d_feats = encodings.d_features(equivariance, D).to(Z.dtype)
+    # features in D's dtype, then promoted to Z's, as jnp promotes them (no
+    # cast where they agree: torch.export would pin the tracing device to it)
+    d_feats = encodings.d_features(equivariance, D)
+    if d_feats.dtype != Z.dtype:
+        d_feats = d_feats.to(Z.dtype)
     parts = encodings.z_parts(equivariance, Z)
     pre = first_layer_pre(params["layers"][0], equivariance, ndims, d_feats, parts)
     h = sine(first_omega_0 * pre)

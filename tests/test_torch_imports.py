@@ -1,10 +1,11 @@
 """Import hygiene of the port: reni_tpu_torch (every module, the kernels'
 anatomy probes, the config, data and codec modules, the renderer
-(render/), the evaluation harness (eval.py, cli/evaluate.py) included),
-chip_smoke.py and time_kernels.py import neither JAX nor the JAX package
-nor its benchmarks, nor at module level OpenCV, PIL or PyYAML (which the
-card's machine does not have), turn no TF32 on, and the entry points run on
-the card unless the CPU is asked for."""
+(render/), the evaluation harness (eval.py, cli/evaluate.py), the export,
+baselines, conversion and assets modules included), chip_smoke.py,
+time_kernels.py and examples/fit_prior_torch.py import neither JAX nor the
+JAX package nor its benchmarks, nor at module level OpenCV, PIL or PyYAML
+(which the card's machine does not have) or scipy, turn no TF32 on, and the
+entry points run on the card unless the CPU is asked for."""
 
 import json
 import os
@@ -17,8 +18,10 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SCRIPTS = ["chip_smoke", "time_kernels"]
-PORT_FILES = sorted((ROOT / "reni_tpu_torch").rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
+SCRIPTS = ["chip_smoke", "time_kernels", "examples.fit_prior_torch"]
+PORT_FILES = sorted((ROOT / "reni_tpu_torch").rglob("*.py")) + [
+    ROOT / f"{s.replace('.', '/')}.py" for s in SCRIPTS]
+OPTIONAL = ("cv2", "PIL", "yaml", "imageio", "scipy")
 
 
 def _modules():
@@ -37,7 +40,11 @@ def test_the_module_list_covers_this_slice():
             "reni_tpu_torch.render.shading", "reni_tpu_torch.render.inverse",
             "reni_tpu_torch.eval", "reni_tpu_torch.cli.evaluate",
             "reni_tpu_torch.cli.run", "reni_tpu_torch.train.logging_utils",
-            "reni_tpu_torch.train.visualize", "reni_tpu_torch.utils.profiling"} <= names
+            "reni_tpu_torch.train.visualize", "reni_tpu_torch.utils.profiling",
+            "reni_tpu_torch.cli.export", "reni_tpu_torch.cli.convert",
+            "reni_tpu_torch.baselines.spherical_harmonics",
+            "reni_tpu_torch.baselines.spherical_gaussians", "reni_tpu_torch.utils.convert",
+            "reni_tpu_torch.utils.assets"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -94,15 +101,16 @@ def test_port_sources_turn_no_tf32_on(path):
 
 
 def test_importing_the_port_loads_no_optional_image_or_yaml_library():
-    """Nothing on chip_smoke.py's path (every module of the port, the two
-    scripts) imports cv2, PIL or yaml when it is imported: they are imported
-    inside the functions that read such files (an .hdr or LDR image, a YAML
-    config), and the card's machine has none of them."""
+    """Nothing on chip_smoke.py's path (every module of the port, the
+    scripts) imports cv2, PIL, yaml or scipy when it is imported: the first
+    three are imported inside the functions that read such files (an .hdr
+    or a non-PNG LDR image, a YAML config), and the card's machine has none
+    of them; the port needs no scipy (the SH basis is its own recurrence)."""
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules() + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
-        "print(json.dumps(sorted(m for m in ('cv2', 'PIL', 'yaml', 'imageio') if m in sys.modules)))\n"
+        f"print(json.dumps(sorted(m for m in {OPTIONAL!r} if m in sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -114,9 +122,9 @@ def test_importing_the_port_loads_no_optional_image_or_yaml_library():
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_no_optional_library_at_module_level(path):
-    """No top-level import of cv2, PIL, yaml or imageio in a source of the
-    port (an indented import inside a function is the way)."""
-    bad = re.compile(r"^(import|from)\s+(cv2|PIL|yaml|imageio)(\.|\s|$)", re.M)
+    """No top-level import of cv2, PIL, yaml, imageio or scipy in a source
+    of the port (an indented import inside a function is the way)."""
+    bad = re.compile(rf"^(import|from)\s+({'|'.join(OPTIONAL)})(\.|\s|$)", re.M)
     src = path.read_text()
     assert not bad.search(src), bad.search(src).group(0)
 
@@ -147,6 +155,16 @@ def test_entry_points_need_the_card_by_default(monkeypatch, tmp_path):
         cli_serve.main(["--decoder", ck, "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params.from_numpy({"w": [1.0]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.export_from_checkpoint(ck, str(tmp_path / "a.pt2"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.load_exported(str(tmp_path / "a.pt2"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_serve.main(["--artifact", str(tmp_path / "a.pt2"), "--port", "0"])
+    from reni_tpu_torch.utils import assets
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        assets.select_device()
     from reni_tpu_torch.cli import run as cli_run
     from reni_tpu_torch.utils.config import get_cfg_defaults
 
