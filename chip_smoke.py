@@ -89,6 +89,32 @@ Phases (any failure exits non-zero and prints no result line):
                  evaluate phase. Then the 21 test skies as 8-bit PNGs
                  (data/synthetic.py --ldr, the LDR Zoo entry's maps), read
                  back without PIL: ms a map
+   codecs      - the remaining EXR codecs (ROADMAP A-6b): the 21 seed-1
+                 test skies re-written by the port's writer in PIZ, B44,
+                 B44A, DWAA and DWAB (half) and PIZ (float); every file
+                 decoded by the native decoder (data/csrc/exr_decode.cpp,
+                 built with g++ at first use) and by the Python decoder,
+                 bit for bit (DWA on its first 4 files); PIZ bit for bit the
+                 ZIP decode; B44's exact maps counted, DWA's largest error
+                 against the ZIP decode printed. Host ms a map for the
+                 write, the native and the Python decode
+   stream      - the streaming tiers (ROADMAP A-9): FIT_DECODER of the cbc
+                 Zoo configuration (batch 100, the 1,000 seed-1 maps) with
+                 the epochs cut to 9 (3 a stage), (a) resident, (b)
+                 stream=True from images_host_at, (c) from disk (lazy=True,
+                 row_source_at on the ZIP files), (d) (c) with
+                 stream_chunk=5, (e) stream_dtype=bfloat16: (b)-(d) end bit
+                 for bit at (a)'s params and per-epoch metrics, (e) at a
+                 resident run on bf16-rounded targets; the 64x128 steps of
+                 (b) and (c) under set_sync_debug_mode("error"); ms a step
+                 and start to start per tier and stage, DiskRowSource's
+                 decodes against the rows asked, the card's idle share in a
+                 torch.profiler stretch of (c), the H2D copy of a batch
+                 (float32, bf16), host ms a row of a lazy decode + stage on
+                 1 to 8 threads. Then FIT_LATENT on the cbc decoder from
+                 the 21 DWAB files streamed from disk (one batch an epoch,
+                 30 epochs), bit for bit a resident FIT_LATENT on the same
+                 files' eager decode
    fit_inverse - render.inverse.fit_inverse on each Zoo decoder at the
                  published RENI.FIT_INVERSE (data/3D_Models/teapot.obj, a
                  64x64 render, KD_VALUE 1.0, one view, batch 1, 64x128 maps =
@@ -154,7 +180,10 @@ Phases (any failure exits non-zero and prints no result line):
                  adopting", a relaunch_adopt event), its FIT_DECODER and
                  FIT_LATENT final checkpoints must be run A's bit for bit
                  (FIT_INVERSE's too, else within 1e-6 relative, printed), and
-                 its rows after the relaunch run A's rows of the same epochs
+                 its rows after the relaunch run A's rows of the same epochs.
+                 Run C: FIT_DECODER alone with TPU.STREAM_FROM_DISK (rows
+                 decoded a batch at a time, grids from a DiskRowSource) in
+                 this process: its fit_decoder_final run A's bit for bit
    compare_step - the train-step kernel against its plain version at full
                  width on the Cond-by-Concat Zoo decoder and 100 of its
                  training latents: the loss partials and every gradient at
@@ -419,6 +448,21 @@ SG_LOBES, SG_STEPS, SG_RATIO = 12, 2000, 20.0
 FIT_PRIOR_SCRIPT = os.path.join(ROOT, "examples", "fit_prior_torch.py")
 FIT_PRIOR_WIDTH, FIT_PRIOR_STEPS = 64, 400
 CHILD_S = 600  # time limit of each child process of the new phases
+# codecs: the 21 seed-1 test skies re-written in each remaining codec; the
+# Python decoder checked on every file but DWA's first CODEC_PYTHON_DWA
+CODEC_FILES = (("PIZ", "half"), ("B44", "half"), ("B44A", "half"), ("DWAA", "half"),
+               ("DWAB", "half"), ("PIZ", "float"))
+CODEC_PYTHON_DWA = 4
+# stream: FIT_DECODER (decoder_task_config) with the epochs cut from 2,400 to
+# 9 (3 a stage); chunk 5 divides the 10 batches an epoch; 64x128 steps
+# [10, 18) of the from-disk run traced; the host stage timed over 200 rows
+STREAM_EPOCHS, STREAM_CURRICULUM = 9, (3, 6)
+STREAM_CHUNK = 5
+STREAM_PROFILED = (10, 18)
+STREAM_THREADS, STREAM_RATE_ROWS = (1, 2, 4, 8), 200
+STREAM_COPY_RUNS = 11
+# FIT_LATENT from the DWAB files on disk: 21 maps in one batch, 30 epochs
+STREAM_LATENT_EPOCHS, STREAM_LATENT_CURRICULUM = 30, (10, 20)
 
 
 class SmokeFailure(Exception):
@@ -1017,6 +1061,357 @@ def seed_maps(device, tmp: str):
           f"({(t1 - t0) * 1e3 / n:.3f} ms a map); read_ldr of the {len(maps)} test maps "
           f"{(t2 - t1) * 1e3 / len(maps):.3f} ms a map (host)")
     return train, test
+
+
+def exr_codec_files(src_dir: str, out_root: str, codec: str, pixel_type: str):
+    """The ZIP test skies of ``src_dir`` re-written by the port's writer in
+    ``codec`` / ``pixel_type`` under ``out_root/<codec>_<pixel_type>/Test``;
+    returns (that directory, the ZIP decodes, host ms a map to write)."""
+    from reni_tpu_torch.data import exr
+
+    names = sorted(os.listdir(src_dir))
+    zips = [exr.read(os.path.join(src_dir, n)) for n in names]
+    out = os.path.join(out_root, f"{codec}_{pixel_type}", "Test")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, img in zip(names, zips):
+        exr.write(os.path.join(out, name), img, pixel_type=pixel_type, compression=codec)
+    return out, zips, (time.perf_counter() - t0) * 1e3 / len(names)
+
+
+def codecs_phase(maps_root: str) -> str:
+    """The remaining codecs (ROADMAP A-6b) on the 21 seed-1 test skies: each
+    re-written by the port's writer in CODEC_FILES; the native decoder
+    against the Python decoder bit for bit on every file (DWA on
+    CODEC_PYTHON_DWA files: Python takes about 0.5 s a DWA map); PIZ against
+    the ZIP decode bit for bit (lossless), B44 where a map survives it
+    exactly, DWA's largest relative error against the ZIP decode (printed,
+    no bar). Prints ms a map for the write, the native decode and the Python
+    decode (host, one thread), with the card's name and power limit.
+    Returns the DWAB half directory (the stream phase's FIT_LATENT)."""
+    from reni_tpu_torch.data import exr
+
+    src = os.path.join(maps_root, "Test")
+    dirs = {}
+    for codec, pixel_type in CODEC_FILES:
+        out, zips, write_ms = exr_codec_files(src, os.path.join(maps_root, "codecs"), codec,
+                                              pixel_type)
+        dirs[(codec, pixel_type)] = out
+        paths = [os.path.join(out, n) for n in sorted(os.listdir(out))]
+        t0 = time.perf_counter()
+        native = [exr.read(p) for p in paths]
+        native_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        n_py = CODEC_PYTHON_DWA if codec.startswith("DWA") else len(paths)
+        t0 = time.perf_counter()
+        with exr.force_python_decoder():
+            python = [exr.read(p) for p in paths[:n_py]]
+        python_ms = (time.perf_counter() - t0) * 1e3 / n_py
+        for i, (a, b) in enumerate(zip(native, python)):
+            check(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+                  f"{codec} {pixel_type} map {i}: native decode != Python decode")
+        exact = [np.array_equal(a.view(np.uint32), z.view(np.uint32))
+                 for a, z in zip(native, zips)]
+        if codec == "PIZ":
+            check(all(exact), f"PIZ {pixel_type}: {exact.count(False)} maps differ from ZIP")
+        rel = max(float(np.abs(a - z).max() / np.abs(z).max()) for a, z in zip(native, zips))
+        print(f"codec {codec} {pixel_type}: write {write_ms:.3f} ms a map, native decode "
+              f"{native_ms:.3f} ms a map, Python decode {python_ms:.3f} ms a map ({n_py} maps, "
+              f"native == Python bit for bit); {sum(exact)}/{len(exact)} maps bit for bit the ZIP "
+              f"decode, largest |diff| / max |ZIP| {rel:.3g} (host; card {CARD})")
+    return dirs[("DWAB", "half")]
+
+
+def stream_task_config():
+    """FIT_DECODER as decoder_task_config, the epochs cut to STREAM_EPOCHS."""
+    return dataclasses.replace(decoder_task_config(), epochs=STREAM_EPOCHS,
+                               curriculum=STREAM_CURRICULUM)
+
+
+def same_run(a, b) -> bool:
+    """Two fit_task results (params, metrics) bit for bit."""
+    from reni_tpu_torch.params import tree_items
+
+    (pa, ma), (pb, mb) = a, b
+    leaves_a, leaves_b = dict(tree_items(pa)), dict(tree_items(pb))
+    return (ma.keys() == mb.keys() and all(np.array_equal(ma[k], mb[k]) for k in ma)
+            and leaves_a.keys() == leaves_b.keys()
+            and all(torch.equal(leaves_a[k], leaves_b[k]) for k in leaves_a))
+
+
+def stream_run(device, images_at, *, sync_hits=None, profile=None, **stream_kw):
+    """FIT_DECODER of a fresh cbc student (fit_decoder's model and
+    generators) at stream_task_config; returns ((params, metrics), CUDA
+    events of each step by resolution, step-kernel launches). With
+    ``sync_hits`` the 64x128 steps after warm-up are sync_watched; with
+    ``profile`` (a dict) STREAM_PROFILED 64x128 steps are traced by
+    torch.profiler into profile["p"]."""
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint")))
+    params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+    task = stream_task_config()
+    events: dict = {}
+
+    def make_step(model, directions, sineweight, res):
+        step = tasks.make_fit_decoder_step(model, directions, sineweight,
+                                           kld_weighting=task.kld_weighting)
+        if sync_hits is not None and res == FIT_RES[1]:
+            step = sync_watched(step, sync_hits)
+        step = timed(step, events.setdefault(res, []))
+        if profile is None or res != FIT_RES[1]:
+            return step
+
+        def run(state, batch):
+            at = len(events[res])
+            if at == STREAM_PROFILED[0]:
+                torch.cuda.synchronize()
+                profile["p"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                profile["p"].__enter__()
+            out = step(state, batch)
+            if "p" in profile and at + 1 == STREAM_PROFILED[1]:
+                torch.cuda.synchronize()
+                profile["p"].__exit__(None, None, None)
+            return out
+
+        return run
+
+    torch.cuda.synchronize()
+    ts.siren_step_cuda.launches = 0
+    result = tasks.fit_task(model, params, task, images_at, torch.Generator().manual_seed(1),
+                            step_builder=make_step, **stream_kw)
+    torch.cuda.synchronize()
+    return result, events, ts.siren_step_cuda.launches
+
+
+def stage_ms(events: dict) -> dict:
+    """{res: (median ms of a step, median ms from a step's start to the
+    next's)}: the second includes whatever the card waited for between
+    steps (a copy, the host)."""
+    out = {}
+    for res, evs in events.items():
+        steps = [s.elapsed_time(e) for s, e in evs]
+        period = [a.elapsed_time(b) for (a, _), (b, _) in zip(evs, evs[1:])]
+        out[res] = (statistics.median(steps), statistics.median(period) if period else float("nan"))
+    return out
+
+
+def busy_share(prof) -> tuple[float, float, int]:
+    """(the share of the traced window in which the card ran anything,
+    host-to-device copy ms in the window, copies) from a torch.profiler
+    trace: the union of the kernels' and copies' intervals on every stream
+    over the span from the first to the last."""
+    from torch.autograd import DeviceType
+
+    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    if not work:
+        return float("nan"), float("nan"), 0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in work)
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = max(e for _, e in spans) - spans[0][0]
+    copies = [e for e in work if "HtoD" in e.name]
+    return (busy / window if window else float("nan"),
+            sum(e.time_range.elapsed_us() for e in copies) / 1e3, len(copies))
+
+
+def host_stage_rates(lazy) -> None:
+    """Host ms a row on thread pools of STREAM_THREADS threads over
+    STREAM_RATE_ROWS rows of a lazy dataset: the native decode alone
+    (``exr.read``), the staging alone (``_stage_img`` of a decoded map:
+    resize, normalise, nan_to_num), and both (``_stage_row``, what
+    DiskRowSource runs) at 64x128 and 16x32 (the files are 64x128 either
+    way): how far the pool scales."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from reni_tpu_torch.data import exr
+
+    rows = list(range(STREAM_RATE_ROWS))
+    maps = [exr.read(lazy._paths[i]) for i in rows]
+    (h0, w0), (h1, w1) = FIT_RES
+    cases = (("native decode alone", lambda i: exr.read(lazy._paths[i])),
+             (f"staging alone at {h1}x{w1}", lambda i: lazy._stage_img(maps[i], h1, w1, [])),
+             (f"decode + stage at {h1}x{w1}", lambda i: lazy._stage_row(i, FIT_RES[1])),
+             (f"decode + stage at {h0}x{w0}", lambda i: lazy._stage_row(i, FIT_RES[0])))
+    for label, fn in cases:
+        line = []
+        for n in STREAM_THREADS:
+            with ThreadPoolExecutor(n) as pool:
+                list(pool.map(fn, rows[:n]))  # warm-up
+                t0 = time.perf_counter()
+                list(pool.map(fn, rows))
+                line.append(f"{n} threads {(time.perf_counter() - t0) * 1e3 / len(rows):.3f}")
+        print(f"lazy rows, {label} (ZIP half files), host ms a row over {len(rows)} "
+              "rows: " + ", ".join(line) + f" (card {CARD})")
+
+
+def copy_ms(device) -> None:
+    """A FIT_DECODER batch (100 x 8,192 x 3) copied from pinned memory to the
+    card on a side stream with non_blocking=True, float32 and bf16: CUDA
+    event medians, bytes, GB/s."""
+    side = torch.cuda.Stream(device)
+    shape = (DEC_BATCH, FIT_RES[1][0] * FIT_RES[1][1], 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        host = torch.zeros(shape, dtype=dtype, pin_memory=True)
+        dev = torch.empty(shape, dtype=dtype, device=device)
+        times = []
+        for _ in range(STREAM_COPY_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(side):
+                start.record(side)
+                dev.copy_(host, non_blocking=True)
+                end.record(side)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms, nbytes = statistics.median(times[1:]), host.numel() * host.element_size()
+        print(f"H2D copy of a batch ({dtype}): {nbytes} B in {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.2f} GB/s; card {CARD})")
+
+
+def stream_phase(device, train, maps_root: str, dwab_test: str) -> dict:
+    """The streaming tiers (ROADMAP A-9) on FIT_DECODER of the cbc Zoo
+    configuration (stream_task_config) on the 1,000 seed-1 training skies:
+    (a) resident, (b) stream=True from images_host_at, (c) from disk (a
+    lazy dataset's row_source_at, the ZIP files), (d) (c) with
+    stream_chunk=STREAM_CHUNK, (e) stream_dtype=bfloat16 from the host.
+    (b)-(d) end bit for bit at (a)'s params and metrics, (e) at a resident
+    run on bf16-rounded targets; the 64x128 steps of (b) and (c) run
+    sync_watched; a torch.profiler stretch of (c) at 64x128 gives the
+    card's idle share. Then FIT_LATENT on the Zoo decoder from the 21 DWAB
+    test files, streamed from disk through the native decoder, bit for bit
+    a resident FIT_LATENT on the eager decode of the same files. Returns
+    the launches under ``<kernel>@stream``."""
+    import functools
+
+    from reni_tpu_torch.data import datasets
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    t_phase = time.perf_counter()
+    task = stream_task_config()
+    steps = STREAM_EPOCHS * (DEC_MAPS // DEC_BATCH)
+    print(f"stream runs: FIT_DECODER cbc, batch {DEC_BATCH} on the {DEC_MAPS} seed-1 maps, "
+          f"EPOCHS {STREAM_EPOCHS}, curriculum {STREAM_CURRICULUM} ({steps} steps a run)")
+    lazy = datasets.get_dataset("RENI_HDR", os.path.join(maps_root, "Train"),
+                                PUBLISHED_TRANSFORMS, True, lazy=True)
+    sources = []
+
+    def from_disk(res):
+        src = lazy.row_source_at(res)
+        sources.append(src)
+        return src
+
+    rounded = {}
+
+    def bf16_targets(res):
+        if res not in rounded:
+            rounded[res] = train.images_at(res, device=device).to(torch.bfloat16).float()
+        return rounded[res]
+
+    resident = functools.partial(train.images_at, device=device)
+    tiers = (("a resident", resident, {}, None),
+             ("b host", train.images_host_at, dict(stream=True), []),
+             ("c disk", from_disk, dict(stream=True), []),
+             (f"d disk chunk {STREAM_CHUNK}", from_disk,
+              dict(stream=True, stream_chunk=STREAM_CHUNK), None),
+             ("e host bf16", train.images_host_at,
+              dict(stream=True, stream_dtype=torch.bfloat16), None),
+             ("e' resident on bf16-rounded targets", bf16_targets, {}, None))
+    results, launched, prof = {}, 0, {}
+    for label, images_at, kw, hits in tiers:
+        t0 = time.perf_counter()
+        asked0 = len(sources)
+        try:
+            result, events, n = stream_run(device, images_at, sync_hits=hits,
+                                           profile=prof if label == "c disk" else None, **kw)
+        except RuntimeError:
+            if not hits:
+                raise
+            msg, frames = hits[0]
+            raise SmokeFailure(f"stream {label}: a 64x128 step synchronised the host with the "
+                               f"card: {msg!r} at {' <- '.join(reversed(frames))}")
+        wall = time.perf_counter() - t0
+        check(n == steps, f"stream {label}: {n} step-kernel launches in {steps} steps")
+        launched += n
+        results[label] = result
+        loss = result[1]["fit_decoder_loss"]
+        check(bool(np.isfinite(loss).all()), f"stream {label}: non-finite loss")
+        ms = stage_ms(events)
+        extra = ""
+        if len(sources) > asked0:
+            rows = STREAM_EPOCHS * -(-DEC_MAPS // DEC_BATCH) * DEC_BATCH
+            extra = (f"; DiskRowSource decodes {sum(s.decodes for s in sources[asked0:])} rows "
+                     f"for {rows} rows asked")
+        if hits is not None:
+            extra += (f"; sync check of the {FIT_RES[1][0]}x{FIT_RES[1][1]} steps after "
+                      f"{SYNC_WARMUP} of warm-up: no synchronising call")
+        print(f"stream {label}: {wall:.2f} s, launches {n}; " + "; ".join(
+            f"{r[0]}x{r[1]} step {s:.3f} ms, start to start {p:.3f} ms"
+            for r, (s, p) in sorted(ms.items())) + extra + f" (card {CARD})")
+    base = results["a resident"]
+    for label in ("b host", "c disk", f"d disk chunk {STREAM_CHUNK}"):
+        check(same_run(results[label], base), f"stream {label}: not bit for bit the resident run")
+    check(same_run(results["e host bf16"], results["e' resident on bf16-rounded targets"]),
+          "stream e: not bit for bit the resident run on bf16-rounded targets")
+    print("stream b, c, d bit for bit the resident run a (params and per-epoch metrics); "
+          "e bit for bit the resident run on bf16-rounded targets")
+    if "p" in prof:
+        busy, h2d_ms, copies = busy_share(prof["p"])
+        n_prof = STREAM_PROFILED[1] - STREAM_PROFILED[0]
+        print(f"stream c disk at {FIT_RES[1][0]}x{FIT_RES[1][1]}, {n_prof} steps under "
+              f"torch.profiler: the card busy {busy:.1%} of the window (idle {1 - busy:.1%}), "
+              f"{copies} H2D copies, {h2d_ms / max(copies, 1):.4f} ms a copy (card {CARD})")
+    copy_ms(device)
+    host_stage_rates(lazy)
+
+    # FIT_LATENT from disk on the DWAB test files
+    lat_task = dataclasses.replace(fit_task_config(False), epochs=STREAM_LATENT_EPOCHS,
+                                   curriculum=STREAM_LATENT_CURRICULUM)
+    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint")))
+    eager = datasets.get_dataset("RENI_HDR", dwab_test, PUBLISHED_TRANSFORMS, True)
+    lazy_dwab = datasets.get_dataset("RENI_HDR", dwab_test, PUBLISHED_TRANSFORMS, True,
+                                     lazy=True)
+    latent = {}
+    for label, images_at, kw in (
+            ("resident", functools.partial(eager.images_at, device=device), {}),
+            ("disk", lazy_dwab.row_source_at, dict(stream=True))):
+        params = ckpt.load_decoder_only(os.path.join(CBC, "checkpoint"), model, len(eager),
+                                        torch.Generator().manual_seed(0), device)
+        torch.cuda.synchronize()
+        tb.siren_trunk_bwd_cuda.launches = ts.passes_forward.launches = 0
+        t0 = time.perf_counter()
+        latent[label] = tasks.fit_task(model, params, lat_task, images_at,
+                                       torch.Generator().manual_seed(1), **kw)
+        torch.cuda.synchronize()
+        n = {"siren_bwd": tb.siren_trunk_bwd_cuda.launches,
+             "fwd_passes": ts.passes_forward.launches}
+        check(n == {"siren_bwd": STREAM_LATENT_EPOCHS, "fwd_passes": STREAM_LATENT_EPOCHS},
+              f"FIT_LATENT {label} on the DWAB maps: launches {n}")
+        loss = latent[label][1]["fit_latent_loss"]
+        print(f"FIT_LATENT {label} on the 21 DWAB test maps: {STREAM_LATENT_EPOCHS} steps in "
+              f"{time.perf_counter() - t0:.2f} s, loss {loss[0]:.6g} -> {loss[-1]:.6g}, "
+              f"launches {n}")
+    check(same_run(latent["disk"], latent["resident"]),
+          "FIT_LATENT from the DWAB files on disk is not bit for bit the resident run")
+    lazy.close()
+    lazy_dwab.close()
+    print(f"FIT_LATENT streamed from disk (DWAB, native decoder, one batch an epoch) bit for "
+          f"bit the resident run; stream phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"siren_step@stream": launched, "siren_bwd@stream": 2 * STREAM_LATENT_EPOCHS}
 
 
 def inverse_task_config():
@@ -1954,10 +2349,56 @@ def cli_run_phase(device, maps_root: str) -> dict:
         for k in r:
             check(abs(r[k] - a[k]) <= CLI_INVERSE_BAR * max(abs(a[k]), 1e-30),
                   f"run B row {r} vs run A's {a}")
+    t2 = time.perf_counter()
+    n_c = disk_trainer_run(device, cfg, work, fa["FIT_DECODER"])
     print(f"cli_run phase wall {time.perf_counter() - t0:.1f} s: run A {wall_a:.1f} s, "
-          f"run B (both processes) {wall_b:.1f} s")
+          f"run B (both processes) {wall_b:.1f} s, run C {time.perf_counter() - t2:.1f} s")
     return {"siren_step@cli_run": n["siren_step"], "siren_bwd@cli_run": n["siren_bwd"],
-            "siren_bwd_fwd_passes@cli_run": n["fwd_passes"], "siren_fwd@cli_run": n["siren_fwd"]}
+            "siren_bwd_fwd_passes@cli_run": n["fwd_passes"], "siren_fwd@cli_run": n["siren_fwd"],
+            "siren_step@cli_run_disk": n_c["siren_step"], "siren_fwd@cli_run_disk": n_c["fused"]}
+
+
+def disk_trainer_run(device, cfg, work: str, final_a: dict) -> dict:
+    """Run C: the trainer (cli.run.cli, in this process) on FIT_DECODER alone
+    with TPU.STREAM_FROM_DISK at the cli_run cut: the files decode a batch
+    at a time (the grids from a DiskRowSource); its fit_decoder_final must
+    be run A's bit for bit. Returns its launches."""
+    from reni_tpu_torch.cli import run as cli_run
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    cfg = cfg.clone()
+    cfg.RENI.TASKS = ["FIT_DECODER"]
+    cfg.TPU.STREAM_FROM_DISK = True
+    cfg.TRAINER.LOGGER.TB.SAVE_DIR = os.path.join(work, "runs_disk")
+    cfg_path = os.path.join(work, "zoo_synthetic_disk.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    argv = ["--cfg_path", cfg_path] + ([] if device.type == "cuda" else ["--device", "cpu"])
+    torch.cuda.synchronize()
+    ts.siren_step_cuda.launches = 0
+    tk.fused_fwd_launches = tk.tile_fwd_launches = 0
+    t0 = time.perf_counter()
+    check(cli_run.cli(argv) == 0, "run C: cli returned non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {"siren_step": ts.siren_step_cuda.launches, "fused": tk.fused_fwd_launches,
+         "tile": tk.tile_fwd_launches}
+    log_c = cli_run._experiment_runs(cfg)[0]
+    with np.load(os.path.join(log_c, "checkpoints", "fit_decoder_final.npz")) as z:
+        final_c = {k: z[k] for k in z.files}
+    steps = CLI_CUTS["FIT_DECODER"][0] * (SEED_MAPS["train"] // cfg.RENI.FIT_DECODER.BATCH_SIZE)
+    grids = len(os.listdir(os.path.join(log_c, "images")))
+    print(f"run C (TPU.STREAM_FROM_DISK, FIT_DECODER alone): {steps} steps in {wall:.1f} s "
+          f"({wall * 1e3 / steps:.2f} ms a step, host clock; card {CARD}), {grids} grids, "
+          f"launches {n}")
+    check(n["siren_step"] == steps and n["fused"] == grids and n["tile"] == 0,
+          f"run C launches {n}: {steps} steps, {grids} grids")
+    check(final_c.keys() == final_a.keys()
+          and all(np.array_equal(final_c[k], final_a[k]) for k in final_a),
+          "run C's fit_decoder_final is not run A's bit for bit")
+    print("run C's fit_decoder_final bit for bit run A's")
+    return n
 
 
 def training_maps(device, train, entry: str = CBC) -> tuple[torch.Tensor, dict]:
@@ -3312,6 +3753,12 @@ def main() -> int:
     maps_dir = tempfile.TemporaryDirectory()
     train, test = seed_maps(dev, maps_dir.name)
 
+    phase("codecs")
+    dwab_test = codecs_phase(maps_dir.name)
+
+    phase("stream")
+    launches.update(stream_phase(dev, train, maps_dir.name, dwab_test))
+
     phase("fit_inverse")
     launches.update(fit_inverse_phase(dev, test, {k: entries[k] for k in ("siren_fwd", "film_fwd")}))
 
@@ -3337,7 +3784,8 @@ def main() -> int:
     for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
                       ("siren_fwd", "siren_fwd@evaluate"), ("film_fwd", "film_fwd@evaluate"),
                       ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run"),
-                      ("siren_fwd", "siren_fwd@convert")):
+                      ("siren_fwd", "siren_fwd@convert"), ("siren_bwd", "siren_bwd@stream"),
+                      ("siren_fwd", "siren_fwd@cli_run_disk")):
         launches[name] += launches[tag]
     for tag in [k for k in launches if k.endswith("@fit_prior")]:
         launches[tag.split("@")[0]] += launches[tag]
@@ -3356,7 +3804,8 @@ def main() -> int:
     phase("fit_decoder")
     launches["siren_step"] = fit_decoder_phase(dev, train)
     print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
-    launches["siren_step"] += launches["siren_step@cli_run"]
+    launches["siren_step"] += (launches["siren_step@cli_run"] + launches["siren_step@stream"]
+                               + launches["siren_step@cli_run_disk"])
 
     phase("compare_film_step at full width and at FIT_DECODER's shapes")
     cfg_film, dec_film, _ = entries["film_fwd"]

@@ -18,11 +18,18 @@ of the reference's run.py:29-138, as the JAX package has it:
 - ``--resume`` (params, optimizer state, generator state: bit for bit the
   uncut run) and ``--retries`` (in-process retries, and adoption of the
   newest incomplete run of the same config by a relaunched process);
-- ``TRAINER.MAX_RUNTIME`` (hours), image grids, ``--profile``.
+- ``TRAINER.MAX_RUNTIME`` (hours), image grids, ``--profile``;
+- the streaming tiers: ``TPU.STREAM_DATA`` keeps the staged dataset in host
+  memory and copies a batch a step (``train/tasks.py::
+  streaming_stage_runner``), ``TPU.STREAM_FROM_DISK`` keeps only the file
+  list (``lazy=True``; rows decode from disk a batch at a time) and implies
+  STREAM_DATA, ``TPU.STREAM_CHUNK`` copies K batches at a time and
+  ``TPU.STREAM_DTYPE: bfloat16`` copies bf16; FIT_INVERSE ignores
+  STREAM_DATA with a note, as in JAX.
 
 Left out, raised by name when a config or the environment asks for them:
 more than one device, ``TPU.SHARD_LATENTS`` and multi-process runs
-(ROADMAP Queue A-11); ``TPU.STREAM_*`` (A-9); the hang watchdog
+(ROADMAP Queue A-11); the hang watchdog
 (``RENI_TPU_HANG_EXIT_S``), the chip lock and its stop file
 (``RENI_TPU_CHIP_LOCK``, ``RENI_TPU_STOP_FILE``) and ``RENI_TPU_RSS_EXIT_GB``
 (A-13). ``TPU.PRECOMPILE``, a TPU compile knob, is ignored with a note.
@@ -168,6 +175,32 @@ def _deadline_reached(deadline: float | None) -> bool:
     return deadline is not None and time.time() > deadline
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamSettings:
+    """The ``TPU.STREAM_*`` keys, validated (``stream_settings``)."""
+
+    stream: bool = False  # STREAM_DATA, or implied by STREAM_FROM_DISK
+    from_disk: bool = False  # STREAM_FROM_DISK
+    chunk: int = 1  # STREAM_CHUNK
+    dtype: torch.dtype | None = None  # STREAM_DTYPE: None (float32) or bfloat16
+
+
+def stream_settings(config) -> StreamSettings:
+    """Read and validate ``TPU.STREAM_*`` as the JAX trainer does (its
+    messages): STREAM_FROM_DISK implies STREAM_DATA; STREAM_CHUNK >= 1;
+    STREAM_DTYPE float32 or bfloat16."""
+    tpu = config.TPU
+    from_disk = bool(tpu.get("STREAM_FROM_DISK", False))
+    stream = bool(tpu.get("STREAM_DATA", False)) or from_disk
+    chunk = int(tpu.get("STREAM_CHUNK", 1))
+    if chunk < 1:
+        raise SystemExit(f"TPU.STREAM_CHUNK must be >= 1, got {chunk}")
+    sd = str(tpu.get("STREAM_DTYPE", "float32")).lower()
+    if sd not in ("float32", "bfloat16"):
+        raise SystemExit(f"TPU.STREAM_DTYPE must be float32 or bfloat16, got {sd!r}")
+    return StreamSettings(stream, from_disk, chunk, torch.bfloat16 if sd == "bfloat16" else None)
+
+
 def run_task(
     config,
     task: str,
@@ -181,6 +214,11 @@ def run_task(
     """Train one task of the chain; returns (params, metrics, the path of
     the checkpoint a later task should load: the best kept one, else the
     final one)."""
+    st = stream_settings(config)
+    if st.dtype is not None and not st.stream:
+        print("[reni_tpu_torch] TPU.STREAM_DTYPE ignored without TPU.STREAM_DATA", flush=True)
+    if st.chunk > 1 and not st.stream:
+        print("[reni_tpu_torch] TPU.STREAM_CHUNK ignored without TPU.STREAM_DATA", flush=True)
     model_cfg = RENIConfig.from_reni_cfg(config.RENI, task, tpu_cfg=config.get("TPU"))
     model = RENIModel(model_cfg)
     g_init, g_fit, img_seed = _generators(int(config.TRAINER.SEED))
@@ -220,6 +258,15 @@ def run_task(
     cb_every = min(every, img_every) if log_images else every
     is_hdr = bool(config.DATASET[config.DATASET.NAME].IS_HDR)
     images_at = functools.partial(dataset.images_at, device=device)
+    # what fit_task and the grids read: the staged dataset on the device,
+    # in host memory (STREAM_DATA), or rows decoded from disk
+    # (STREAM_FROM_DISK; a grid decodes its handful of files)
+    if st.from_disk:
+        stage_images_at = lambda res, epoch=None: dataset.row_source_at(res)  # noqa: E731
+    elif st.stream:
+        stage_images_at = dataset.images_host_at
+    else:
+        stage_images_at = images_at
 
     # beyond every N epochs, a save at each curriculum stage's end and once
     # RENI_TPU_CKPT_WALL_S seconds passed since the last one (0/unset: off)
@@ -256,7 +303,7 @@ def run_task(
                 model, state_now.params, res,
                 mode=config.TRAINER.LOGGER.IMAGES_TO_SHOW, n_images=n_images,
                 generator=torch.Generator().manual_seed(img_seed),
-                dataset_images=images_at(res), unnormalise=dataset.unnormalise,
+                dataset_images=stage_images_at(res), unnormalise=dataset.unnormalise,
                 is_hdr=is_hdr,
             )
             logger.log_image(f"{task.lower()}_images", grid, epoch)
@@ -265,6 +312,11 @@ def run_task(
     fit_kw = dict(start_epoch=start_epoch, initial_opt_state=opt_loader)
     if task == "FIT_INVERSE":
         from reni_tpu_torch.render.inverse import InverseRenderSetup, fit_inverse
+
+        if st.stream:
+            # inverse fits run on small test splits; their memory is the
+            # render targets, not the maps: streaming buys nothing
+            print("[reni_tpu_torch] TPU.STREAM_DATA ignored for FIT_INVERSE", flush=True)
 
         def inverse_callback(state_now, epoch, metrics_chunk, res):
             # renders are logged at the task's end; scalars and resumable
@@ -301,9 +353,10 @@ def run_task(
         dcfg = config.DATASET[config.DATASET.NAME]
         reaugment = bool(dcfg.get("REAUGMENT_PER_EPOCH", False)) and dataset.has_random_transforms
         params, metrics = tasks.fit_task(
-            model, params, task_cfg, images_at, g_fit,
+            model, params, task_cfg, stage_images_at, g_fit,
             mask_path=task_cfg.mask_path if task_cfg.apply_mask else None,
-            callback_every=cb_every, callback=callback, reaugment=reaugment, **fit_kw,
+            callback_every=cb_every, callback=callback, reaugment=reaugment,
+            stream=st.stream, stream_chunk=st.chunk, stream_dtype=st.dtype, **fit_kw,
         )
 
     final = os.path.join(save_dir, f"{task.lower()}_final")
@@ -352,10 +405,6 @@ def _refuse_unported(config, mesh: str | None, device: torch.device) -> None:
         asked.append(("TPU.SHARD_LATENTS", "A-11"))
     if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
         asked.append(("a multi-process run (WORLD_SIZE > 1)", "A-11"))
-    for key, off in (("STREAM_DATA", False), ("STREAM_FROM_DISK", False),
-                     ("STREAM_CHUNK", 1), ("STREAM_DTYPE", "float32")):
-        if tpu.get(key, off) != off:
-            asked.append((f"TPU.{key}", "A-9"))
     for var in ("RENI_TPU_HANG_EXIT_S", "RENI_TPU_RSS_EXIT_GB"):
         if float(os.environ.get(var, "0") or 0) > 0:
             asked.append((var, "A-13"))
@@ -412,6 +461,7 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
     log_dir). ``device`` defaults to the card (raises without one)."""
     device = resolve_device(device)
     _refuse_unported(config, mesh, device)
+    from_disk = stream_settings(config).from_disk  # validates TPU.STREAM_* before any work
     _apply_precision(config)
     if log_dir is None:
         log_dir = _experiment_runs(config)[1]
@@ -473,11 +523,17 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
             split_path = os.path.join(dcfg.PATH, split)
             if not os.path.isdir(split_path):
                 split_path = dcfg.PATH  # flat dataset layout
-            dataset = get_dataset(config.DATASET.NAME, split_path, dcfg.TRANSFORMS, dcfg.IS_HDR)
-            params, metrics, best = run_task(
-                config, task, dataset, logger, chkpt_path, device, deadline=deadline,
-                resume_path=resume if i == 0 else None,
-            )
+            # STREAM_FROM_DISK: only the file list in host memory; rows decode
+            # on demand (prefetched) through the native EXR decoder
+            dataset = get_dataset(config.DATASET.NAME, split_path, dcfg.TRANSFORMS, dcfg.IS_HDR,
+                                  lazy=from_disk)
+            try:
+                params, metrics, best = run_task(
+                    config, task, dataset, logger, chkpt_path, device, deadline=deadline,
+                    resume_path=resume if i == 0 else None,
+                )
+            finally:
+                dataset.close()
             results[task] = (params, metrics)
             if task == "FIT_DECODER":
                 chkpt_path = best

@@ -1,14 +1,32 @@
-"""OpenEXR reader and writer in numpy and zlib: the port's own copy of the
-codec of ``reni_tpu/data/exr.py`` (the port imports nothing of the JAX
-package), which replaces the reference's native OpenEXR dependency
-(reference: src/data/datasets.py:80).
+"""OpenEXR reader and writer: the port's own copy of the codec of
+``reni_tpu/data/exr.py`` (the port imports nothing of the JAX package),
+which replaces the reference's native OpenEXR dependency (reference:
+src/data/datasets.py:80).
 
 The reader and writer give the JAX package's results bit for bit: a file
 either package writes decodes to the same float32 image in both, and both
-writers give the same bytes for the same image (tests/test_torch_data.py).
-There is no native decoder here: the JAX package's ``native/exr_decode.cpp``
-is an optional speed-up that the port does not need (a 64x128 map decodes in
-about a millisecond).
+writers give the same bytes for the same image (tests/test_torch_data.py,
+tests/test_torch_codecs.py).
+
+The header is parsed here in Python; the chunks are decoded by the native
+decoder ``csrc/exr_decode.cpp`` (the port's copy of the JAX package's
+``native/exr_decode.cpp``: zlib inflate, RLE, PIZ, PXR24, B44 and DWA,
+HALF to float, the scatter into the image, chunks on a few threads, the GIL
+released by ``ctypes``, so the datasets' thread pool over files scales). It
+is built with ``g++ -O3 -shared -fPIC -ffp-contract=off ... -lz`` at first
+use into ``build/reni_tpu_torch/exr_decode-<hash>.so`` at the repository
+root, keyed by a hash of the source and the flags, and loaded with
+``ctypes``. ``-ffp-contract=off`` keeps the DWA inverse DCT bit for bit the
+numpy float32 code of ``data/dwa.py``. A failed build raises, with the
+compiler's output: nothing falls back to Python. The Python decoder runs
+only when asked, by ``force_python_decoder()`` or ``RENI_TPU_EXR_NATIVE=0``
+(the JAX package's names); it is the tests' oracle.
+
+Where the native decoder refuses a chunk's framing (its errors 1 and 2) the
+Python decoder is run for its precise message, and if it reads the file
+after all, an ``ExrError`` says that the two disagree: the JAX package
+returns the Python decode there instead (a difference kept on purpose). A
+corrupt payload (errors 3-9) raises ``ExrError`` naming the file at once.
 
 Supported:
 - single-part scanline images, version 2
@@ -18,13 +36,13 @@ Supported:
   scanline/tiled image part (what OpenEXR-based readers return),
   ``read_part``/``write_multipart`` expose the rest; deep parts rejected
 - pixel types HALF, FLOAT and UINT; channels R, G, B (A and Y read too)
-- compression: NONE, RLE (1 line/chunk), ZIPS (1), ZIP (16), PXR24 (16;
-  lossless for HALF/UINT, 24-bit-rounded for FLOAT by design)
+- compression: NONE, RLE (1 line/chunk), ZIPS (1), ZIP (16), PIZ (32,
+  ``data/piz.py``), PXR24 (16; lossless for HALF/UINT, 24-bit-rounded for
+  FLOAT by design), B44 and B44A (32; lossy 4x4-block HALF packing,
+  ``data/b44.py``), DWAA (32) and DWAB (256; lossy DCT, ``data/dwa.py``)
 - both line orders (every chunk carries its own y)
 
-Not ported yet (ROADMAP A-6b): PIZ, B44, B44A, DWAA and DWAB. A file that
-uses one of them raises ``ExrError`` naming the codec; there is no fall
-back. Unsupported (raises): deep data, RIPMAP tiling.
+Unsupported (raises): deep data, RIPMAP tiling.
 
 Format reference: the public OpenEXR file-format documentation
 (openexr.com/en/latest/OpenEXRFileLayout.html).
@@ -32,8 +50,15 @@ Format reference: the public OpenEXR file-format documentation
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import hashlib
+import os
 import struct
+import subprocess
+import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -45,14 +70,175 @@ _COMPRESSION_NAMES = {
     0: "NONE", 1: "RLE", 2: "ZIPS", 3: "ZIP", 4: "PIZ", 5: "PXR24",
     6: "B44", 7: "B44A", 8: "DWAA", 9: "DWAB",
 }
-# the codecs of the format that the port does not decode or encode yet
-NOT_PORTED = frozenset({4, 6, 7, 8, 9})
+
+# -- the native decoder ----------------------------------------------------
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "exr_decode.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reni_tpu_torch"
+# -ffp-contract=off: the DWA inverse DCT must round exactly as the numpy
+# float32 operations it is pinned to (no FMA contraction)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
+GXX_LIBS = ("-lz",)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_python_only = False  # force_python_decoder()
+
+# the native decoder's errors 3-9: a chunk PAYLOAD failed to decompress
+_NATIVE_PAYLOAD_ERRORS = {
+    3: "chunk stored raw but shorter than its scanlines",
+    4: "zlib inflate failed",
+    5: "RLE decode failed",
+    6: "PIZ decode failed",
+    7: "PXR24 decode failed",
+    8: "B44 decode failed",
+    9: "DWA decode failed",
+}
 
 
-def _not_ported(what: str, compression: int) -> "ExrError":
-    return ExrError(
-        f"{what}{_COMPRESSION_NAMES[compression]} compression is not ported yet (ROADMAP A-6b)"
-    )
+def library_path() -> Path:
+    """Where ``csrc/exr_decode.cpp`` builds to (the hash covers the source and
+    the flags)."""
+    key = SOURCE.read_bytes() + " ".join(GXX_FLAGS + GXX_LIBS).encode()
+    return BUILD_DIR / f"exr_decode-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the native decoder unless its library is already built;
+    raises RuntimeError with the compiler's output when ``g++`` fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp), *GXX_LIBS]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"the native EXR decoder needs g++: {e}") from e
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent reader never sees half a file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded native decoder, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            common = [
+                ctypes.c_int,  # compression
+                ctypes.c_int,  # width
+                ctypes.c_int,  # height
+            ]
+            channels = [
+                ctypes.c_int,  # n_file_channels
+                ctypes.POINTER(ctypes.c_int32),  # ch_ptypes
+                ctypes.POINTER(ctypes.c_int32),  # ch_out
+                ctypes.c_int,  # out_channels
+                ctypes.POINTER(ctypes.c_float),  # out
+                ctypes.c_int,  # n_threads (0: the host's cores)
+                ctypes.c_char_p,  # ch_names (NUL-separated, file order)
+                ctypes.POINTER(ctypes.c_uint16),  # DWA toLinear table (or None)
+            ]
+            lib.exr_decode_chunks.argtypes = [
+                ctypes.c_char_p,  # data
+                ctypes.c_longlong,  # data_size
+                ctypes.c_longlong,  # pos (first chunk offset)
+                ctypes.c_int,  # n_chunks
+                ctypes.c_int,  # lines_per_chunk
+                *common,
+                ctypes.c_int,  # ymin
+                *channels,
+            ]
+            lib.exr_decode_chunks.restype = ctypes.c_int
+            lib.exr_decode_tiles.argtypes = [
+                ctypes.c_char_p,  # data
+                ctypes.c_longlong,  # data_size
+                ctypes.POINTER(ctypes.c_longlong),  # tile-chunk offsets
+                ctypes.c_int,  # n_offsets
+                ctypes.c_int,  # tile x size
+                ctypes.c_int,  # tile y size
+                *common,
+                *channels,
+            ]
+            lib.exr_decode_tiles.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+@contextlib.contextmanager
+def force_python_decoder():
+    """Decode with the Python decoder inside the block (the tests' oracle).
+    Not thread-safe with reads on other threads."""
+    global _python_only
+    saved = _python_only
+    _python_only = True
+    try:
+        yield
+    finally:
+        _python_only = saved
+
+
+def _native() -> ctypes.CDLL | None:
+    """The native decoder, or None where the Python decoder was asked for."""
+    if _python_only or os.environ.get("RENI_TPU_EXR_NATIVE", "1") == "0":
+        return None
+    return library()
+
+
+class _NativeArgs:
+    """The channel and output marshalling of both native entry points. Holds
+    the numpy arrays so that their buffers outlive the ctypes call; for DWA
+    it carries the toLinear table of ``data/dwa.py``, so that both decoders
+    index the same table."""
+
+    def __init__(self, channels, compression, width, height):
+        ch_names = [c[0] for c in channels]
+        self.out_names, self.replicate_y = _select_channels(ch_names)
+        out_index = {n: i for i, n in enumerate(self.out_names)}
+        # zeros: a malformed file whose chunks do not cover every row must
+        # never expose uninitialised memory
+        self.out = np.zeros((height, width, len(self.out_names)), dtype=np.float32)
+        self._ptypes = np.asarray([pt for _, pt, _, _ in channels], dtype=np.int32)
+        self._chout = np.asarray([out_index.get(n, -1) for n in ch_names], dtype=np.int32)
+        self.names_blob = b"".join(n.encode("latin-1") + b"\0" for n in ch_names)
+        self.table_ptr = None
+        if compression in (8, 9):
+            from reni_tpu_torch.data import dwa
+
+            self._to_linear = np.ascontiguousarray(dwa._tables()[0])
+            self.table_ptr = self._to_linear.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+
+    def channel_args(self, n_channels: int) -> tuple:
+        return (
+            n_channels,
+            self._ptypes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            self._chout.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(self.out_names),
+            self.out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            0,
+            self.names_blob,
+            self.table_ptr,
+        )
+
+    def result(self) -> np.ndarray:
+        return np.repeat(self.out, 3, axis=-1) if self.replicate_y else self.out
+
+
+def _native_refused(path: str, rc: int, python_decode) -> None:
+    """Raise for a native decoder error ``rc``: a corrupt payload at once;
+    otherwise the Python decoder's precise message, or, where the Python
+    decoder reads the file after all, the disagreement."""
+    if rc in _NATIVE_PAYLOAD_ERRORS:
+        raise ExrError(f"{path}: corrupt EXR — {_NATIVE_PAYLOAD_ERRORS[rc]} "
+                       f"(native decoder error {rc})")
+    python_decode()
+    raise ExrError(f"{path}: the native decoder refused the file (error {rc}) that the Python "
+                   "decoder reads")
 
 # -- PXR24 (compression id 5): per-row byte-planed deltas + deflate --------
 #
@@ -237,12 +423,9 @@ def _predict_interleave(data: np.ndarray) -> bytes:
     return d.astype(np.uint8).tobytes()
 
 
-def _decode_payload(path, payload, compression, channels, width, nrows):
+def _decode_payload(payload, compression, channels, width, nrows):
     """One compressed chunk/tile payload -> scanline-interleaved raw bytes
-    (per row, each channel's run in file order). A codec that is not ported
-    raises ``ExrError``."""
-    if compression in NOT_PORTED:
-        raise _not_ported(f"{path}: ", compression)  # no fall back to anything
+    (per row, each channel's run in file order)."""
     raw_size = nrows * width * sum(
         np.dtype(_PIXEL_DTYPES[pt]).itemsize for _, pt, _, _ in channels
     )
@@ -254,10 +437,25 @@ def _decode_payload(path, payload, compression, channels, width, nrows):
         return np.frombuffer(payload, dtype=np.uint8)[:raw_size]
     if compression == 1:
         return _unpredict_deinterleave(_rle_uncompress(payload))
+    if compression == 4:
+        from reni_tpu_torch.data import piz
+
+        ptypes = [pt for _, pt, _, _ in channels]
+        return np.frombuffer(piz.decompress(payload, ptypes, width, nrows), dtype=np.uint8)
     if compression == 5:
         return np.frombuffer(
             _pxr24_uncompress(payload, channels, width, nrows), dtype=np.uint8
         )
+    if compression in (6, 7):
+        from reni_tpu_torch.data import b44
+
+        ptypes = [pt for _, pt, _, _ in channels]
+        return np.frombuffer(b44.decompress(payload, ptypes, width, nrows), dtype=np.uint8)
+    if compression in (8, 9):
+        from reni_tpu_torch.data import dwa
+
+        named = [(n, pt) for n, pt, _, _ in channels]
+        return np.frombuffer(dwa.decompress(payload, named, width, nrows), dtype=np.uint8)
     return _unpredict_deinterleave(zlib.decompress(payload))
 
 
@@ -390,7 +588,26 @@ def _decode_scanlines(
     path, data, pos, n_chunks, channels, compression, width, height, ymin
 ) -> np.ndarray:
     """Decode n_chunks scanline chunks ((y, size, payload) framing starting
-    at ``pos``) into the output image."""
+    at ``pos``) into the output image: the native decoder unless the Python
+    decoder was asked for."""
+    args = (path, data, pos, n_chunks, channels, compression, width, height, ymin)
+    lib = _native()
+    if lib is None:
+        return _decode_scanlines_python(*args)
+    na = _NativeArgs(channels, compression, width, height)
+    rc = lib.exr_decode_chunks(
+        data, len(data), pos, n_chunks, _COMPRESSION_LINES[compression], compression,
+        width, height, ymin, *na.channel_args(len(channels)),
+    )
+    if rc:
+        _native_refused(path, rc, lambda: _decode_scanlines_python(*args))
+    return na.result()
+
+
+def _decode_scanlines_python(
+    path, data, pos, n_chunks, channels, compression, width, height, ymin
+) -> np.ndarray:
+    """The Python decoder of ``_decode_scanlines``."""
     lines_per_chunk = _COMPRESSION_LINES[compression]
     ch_dtypes = [np.dtype(_PIXEL_DTYPES[pt]).newbyteorder("<") for _, pt, _, _ in channels]
     ch_names = [c[0] for c in channels]
@@ -419,7 +636,7 @@ def _decode_scanlines(
                 f"[{ymin}, {ymin + height - 1}]"
             )
         nrows = min(lines_per_chunk, height - row0)
-        raw = _decode_payload(path, payload, compression, channels, width, nrows)
+        raw = _decode_payload(payload, compression, channels, width, nrows)
         if raw.size != nrows * bytes_per_row:
             raise ExrError(
                 f"{path}: corrupt EXR — chunk {k + 1}/{n_chunks} (y={y}, "
@@ -476,7 +693,27 @@ def _decode_tiles(
     path, data, offsets, txs, tys, channels, compression, width, height
 ) -> np.ndarray:
     """Decode tile chunks ((dx, dy, lx, ly, size, payload) framing at the
-    given ``offsets``; non-level-0 tiles skipped) into the output image."""
+    given ``offsets``; non-level-0 tiles skipped) into the output image: the
+    native decoder unless the Python decoder was asked for."""
+    args = (path, data, offsets, txs, tys, channels, compression, width, height)
+    lib = _native()
+    if lib is None:
+        return _decode_tiles_python(*args)
+    na = _NativeArgs(channels, compression, width, height)
+    offs = np.asarray(offsets, dtype=np.int64)
+    rc = lib.exr_decode_tiles(
+        data, len(data), offs.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(offs),
+        txs, tys, compression, width, height, *na.channel_args(len(channels)),
+    )
+    if rc:
+        _native_refused(path, rc, lambda: _decode_tiles_python(*args))
+    return na.result()
+
+
+def _decode_tiles_python(
+    path, data, offsets, txs, tys, channels, compression, width, height
+) -> np.ndarray:
+    """The Python decoder of ``_decode_tiles``."""
     ch_names = [c[0] for c in channels]
     ch_dtypes = [
         np.dtype(_PIXEL_DTYPES[pt]).newbyteorder("<") for _, pt, _, _ in channels
@@ -503,7 +740,7 @@ def _decode_tiles(
         th = min(tys, height - y0)
         if dx < 0 or dy < 0 or tw <= 0 or th <= 0:
             raise ExrError(f"{path}: tile ({dx},{dy}) outside the data window")
-        raw = _decode_payload(path, payload, compression, channels, tw, th)
+        raw = _decode_payload(payload, compression, channels, tw, th)
         if raw.size != th * tw * itembytes:
             raise ExrError(
                 f"{path}: corrupt EXR — tile ({dx},{dy}) "
@@ -663,10 +900,22 @@ def _compress_payload(
         return raw
     if comp == 1:
         z = _rle_compress(_predict_interleave(np.frombuffer(raw, np.uint8)))
+    elif comp == 4:
+        from reni_tpu_torch.data import piz
+
+        z = piz.compress(raw, [ptype] * len(names), width, nrows)
     elif comp == 5:
         z = _pxr24_compress(
             raw, [(n, ptype, 1, 1) for n in names], width, nrows
         )
+    elif comp in (6, 7):
+        from reni_tpu_torch.data import b44
+
+        z = b44.compress(raw, [ptype] * len(names), width, nrows, comp == 7)
+    elif comp in (8, 9):
+        from reni_tpu_torch.data import dwa
+
+        z = dwa.compress(raw, [(n, ptype) for n in names], width, nrows)
     else:
         z = zlib.compress(_predict_interleave(np.frombuffer(raw, np.uint8)))
     return z if len(z) < len(raw) else raw
@@ -712,14 +961,6 @@ def _common_header_attrs(ch_names, ptype, comp, width, height) -> bytes:
     )
 
 
-def _comp_id(compression: str) -> int:
-    """The id of a writer-side compression name; an unported codec raises."""
-    comp = _COMP_IDS[compression]
-    if comp in NOT_PORTED:
-        raise _not_ported("writing ", comp)
-    return comp
-
-
 def _raw_rows(img, dt) -> bytes:
     """(rows, W, C) -> scanline-interleaved raw bytes: per row, each
     channel's run."""
@@ -743,11 +984,11 @@ def _encode_scanline_chunks(img, ch_names, ptype, comp):
 
 def write(path: str, img: np.ndarray, *, pixel_type: str = "half", compression: str = "ZIP"):
     """Write (H, W, 3|1) float array as a scanline EXR (RGB or Y).
-    Compressions: NONE, RLE, ZIPS, ZIP, PXR24 (the others: ROADMAP A-6b)."""
+    Compressions: NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44, B44A, DWAA, DWAB."""
     img, names = _prep_image(img, "write")
     height, width = img.shape[:2]
     ptype = 1 if pixel_type == "half" else 2
-    comp = _comp_id(compression)
+    comp = _COMP_IDS[compression]
 
     header = struct.pack("<ii", _MAGIC, 2)
     header += _common_header_attrs(names, ptype, comp, width, height)
@@ -802,7 +1043,7 @@ def write_multipart(
     for img, comp_name, pname in zip(imgs, compressions, names):
         img, ch_names = _prep_image(img, "write_multipart")
         height, width = img.shape[:2]
-        comp = _comp_id(comp_name)
+        comp = _COMP_IDS[comp_name]
         chunks = _encode_scanline_chunks(img, ch_names, ptype, comp)
 
         h = _common_header_attrs(ch_names, ptype, comp, width, height)
@@ -846,7 +1087,7 @@ def write_tiled(
     height, width = img.shape[:2]
     ptype = 1 if pixel_type == "half" else 2
     dt = np.dtype(_PIXEL_DTYPES[ptype]).newbyteorder("<")
-    comp = _comp_id(compression)
+    comp = _COMP_IDS[compression]
     txs, tys = int(tile[1]), int(tile[0])  # tile=(rows, cols) -> x, y sizes
 
     header = struct.pack("<ii", _MAGIC, 2 | 0x200)

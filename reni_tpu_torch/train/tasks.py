@@ -26,9 +26,13 @@ passes ``fit_task`` the step builder.
 
 ``fit_task`` runs each stage in segments between callbacks (checkpoints,
 images, the deadline) and resumes a task mid-way from a checkpoint's epoch,
-optimizer state and generator state, bit for bit the uncut run. The mesh
-and streaming arrive with later slices (ROADMAP.md Queue A); their
-arguments raise here.
+optimizer state and generator state, bit for bit the uncut run. With
+``stream`` the dataset stays on the host (an array, or a ``DiskRowSource``
+that decodes from disk) and ``streaming_stage_runner`` copies it to the
+card a batch (or ``stream_chunk`` batches) at a time, overlapped with the
+steps: the same steps on the same values as the resident tier. The mesh
+arrives with a later slice (ROADMAP.md Queue A-11); its arguments raise
+here.
 """
 
 from __future__ import annotations
@@ -373,14 +377,209 @@ def run_stage(
     return state, metrics
 
 
-# fit_task arguments of the JAX package that later slices bring, with the
+def _largest_divisor_leq(n: int, k: int) -> int:
+    """Largest divisor of ``n`` that is <= ``k`` (>= 1)."""
+    for d in range(min(n, max(1, k)), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+_NUMPY_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+class _CastRows:
+    """ndarray-like view casting rows to a narrower dtype at fetch time
+    (``TPU.STREAM_DTYPE: bfloat16``): half the bytes a streamed batch copies.
+    The cast rounds to nearest even, as the JAX package's ml_dtypes cast
+    does. Wraps a host ndarray or a ``DiskRowSource`` (``prefetch`` passes
+    through); rows come back as a CPU tensor of ``dtype``."""
+
+    def __init__(self, source, dtype: torch.dtype):
+        self._src = source
+        self.shape = source.shape
+        self.dtype = dtype
+        pre = getattr(source, "prefetch", None)
+        if pre is not None:
+            self.prefetch = pre
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, rows) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(self._src[rows])).to(self.dtype)
+
+
+def _gather_into(source, rows: np.ndarray, out: torch.Tensor) -> None:
+    """``source[rows]`` into the CPU tensor ``out`` (pinned on the card's
+    path), cast to its dtype."""
+    if isinstance(source, np.ndarray) and out.dtype == _NUMPY_TO_TORCH.get(source.dtype):
+        np.take(source, rows, axis=0, out=out.numpy())
+        return
+    got = source[rows]
+    out.copy_(got if isinstance(got, torch.Tensor) else torch.from_numpy(np.asarray(got)))
+
+
+class _Stager:
+    """The streaming runner's two staging slots. On the card each slot is a
+    pinned host buffer and a device buffer: ``put`` gathers rows into the
+    pinned buffer, once its previous copy has finished, and copies it to the
+    device buffer with ``non_blocking=True`` on a side stream, which first
+    waits for the step that last read that device buffer; ``get`` makes the
+    compute stream wait on the copy's event (the host does not wait) and
+    widens to the staging dtype; ``release`` records the event after the
+    steps that read the slot. Off the card (a CPU device) a slot is a plain
+    tensor, gathered and cast the same way."""
+
+    def __init__(self, shape, copy_dtype: torch.dtype, stage_dtype: torch.dtype,
+                 device: torch.device):
+        self.stage_dtype = stage_dtype
+        self.on_card = device.type == "cuda"
+        self._next = 0
+        # pin_memory raises where pinning fails: no pageable fallback
+        self.host = [torch.empty(shape, dtype=copy_dtype, pin_memory=self.on_card)
+                     for _ in range(2)]
+        if self.on_card:
+            self.dev = [torch.empty(shape, dtype=copy_dtype, device=device) for _ in range(2)]
+            self.copied = [torch.cuda.Event() for _ in range(2)]
+            self.freed = [torch.cuda.Event() for _ in range(2)]
+            self.compute = torch.cuda.current_stream(device)
+            self.side = torch.cuda.Stream(device)
+
+    def put(self, source, rows: np.ndarray) -> int:
+        slot, self._next = self._next, self._next ^ 1
+        if not self.on_card:
+            _gather_into(source, rows, self.host[slot])
+            return slot
+        self.copied[slot].synchronize()  # the pinned buffer's last copy is done
+        _gather_into(source, rows, self.host[slot])
+        with torch.cuda.stream(self.side):
+            self.side.wait_event(self.freed[slot])
+            self.dev[slot].copy_(self.host[slot], non_blocking=True)
+            self.copied[slot].record(self.side)
+        return slot
+
+    def get(self, slot: int) -> torch.Tensor:
+        if self.on_card:
+            self.compute.wait_event(self.copied[slot])
+            buf = self.dev[slot]
+        else:
+            buf = self.host[slot]
+        return buf if buf.dtype == self.stage_dtype else buf.to(self.stage_dtype)
+
+    def release(self, slot: int) -> None:
+        if self.on_card:
+            self.freed[slot].record(self.compute)
+
+    def close(self) -> None:
+        if self.on_card:  # the buffers are freed only after the side stream's work
+            self.compute.wait_stream(self.side)
+
+
+def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None) -> Callable:
+    """A drop-in for ``run_stage`` that keeps the dataset on the HOST (an
+    ndarray from ``images_host_at``, or a ``DiskRowSource``) and copies a
+    batch a step to ``device``, for datasets larger than the card's memory
+    (``TPU.STREAM_DATA``, ``TPU.STREAM_FROM_DISK``). Semantics are those of
+    ``run_stage``: the step function gets the same ``(images[rows], idx,
+    bmask)`` in the same dtype (the host source's, in which the resident
+    tier stages) on the same device, with the same zero-masked ragged tail
+    and the same metrics; only the residency of the images differs.
+
+    Each batch is gathered into a pinned buffer, copied to the card with
+    ``non_blocking=True`` on a side CUDA stream, and the compute stream waits
+    on the copy's event (``_Stager``: two pinned and two device buffers).
+    As in the JAX package, the host prefetches batch b+2 (a disk source
+    starts its decodes) and stages batch b+1 while step b runs; with one
+    batch an epoch the single staged batch is reused.
+
+    ``chunk`` (``TPU.STREAM_CHUNK``) K > 1 stages K batches a copy, K the
+    largest divisor of the batches an epoch that is <= ``chunk`` (chunks
+    stay epoch-aligned); the K steps then take slices of the staged chunk.
+    The JAX package runs those K steps as one compiled ``lax.scan`` to save
+    dispatches; torch has no scan to compile, so here K only sets how many
+    batches one copy moves. ``stream_dtype=torch.bfloat16``
+    (``TPU.STREAM_DTYPE``) rounds the rows to bf16 on the host, copies bf16
+    and widens on the card to the staging dtype. One device only: a mesh is
+    ROADMAP Queue A-11."""
+    device = torch.device(device)
+    notes: set = set()
+
+    def note(msg: str) -> None:
+        if msg not in notes:  # the runner re-enters every callback segment
+            notes.add(msg)
+            print(msg)
+
+    def run(step_fn, state, images, n_epochs, batch_size):
+        if isinstance(images, torch.Tensor):
+            images = images.cpu().numpy()
+        elif getattr(images, "prefetch", None) is None:
+            images = np.asarray(images)
+        stage_dtype = _NUMPY_TO_TORCH[np.dtype(images.dtype)]
+        if stream_dtype is not None and stream_dtype != stage_dtype:
+            images = _CastRows(images, stream_dtype)
+        copy_dtype = images.dtype if isinstance(images.dtype, torch.dtype) else stage_dtype
+        pre = getattr(images, "prefetch", None) or (lambda rows: None)
+        idx, bmask = make_batches(images.shape[0], batch_size)
+        nb = idx.shape[0]
+        K = _largest_divisor_leq(nb, chunk) if nb > 1 else 1
+        if chunk > 1 and K == 1 and nb > 1:
+            note(f"[reni_tpu_torch] TPU.STREAM_CHUNK={chunk}: no divisor of the {nb} "
+                 "batches/epoch in range — unchunked streaming (one copy per optimizer step)")
+        elif K > 1 and K != chunk:
+            note(f"[reni_tpu_torch] TPU.STREAM_CHUNK={chunk}: using {K} (largest divisor of "
+                 f"the {nb} batches/epoch — epoch-aligned chunks, one copy a chunk)")
+        n_chunks = nb // K
+        rows = [idx[c * K : (c + 1) * K].reshape(-1) for c in range(n_chunks)]
+        idx_d = torch.as_tensor(idx, dtype=torch.long, device=device)
+        bmask_d = torch.as_tensor(bmask, dtype=stage_dtype, device=device)
+        stager = _Stager((K * batch_size,) + tuple(images.shape[1:]), copy_dtype, stage_dtype,
+                         device)
+        pre(rows[0])
+        slot = stager.put(images, rows[0])
+        if n_chunks > 1:
+            pre(rows[1])
+        epochs = []
+        try:
+            for e in range(n_epochs):
+                ms = []
+                for c in range(n_chunks):
+                    buf = stager.get(slot)
+                    for k in range(K):
+                        b = c * K + k
+                        imgs = buf if K == 1 else buf[k * batch_size : (k + 1) * batch_size]
+                        state, m = step_fn(state, (imgs, idx_d[b], bmask_d[b]))
+                        ms.append(m)
+                    stager.release(slot)
+                    if n_chunks > 1 and not (e == n_epochs - 1 and c == n_chunks - 1):
+                        # the steps above are in flight on the card: start the
+                        # decodes of the chunk after next, then stage the next
+                        pre(rows[(c + 2) % n_chunks])
+                        slot = stager.put(images, rows[(c + 1) % n_chunks])
+                epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
+        finally:
+            stager.close()
+        metrics = {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
+        return state, metrics
+
+    return run
+
+
+def _stream_dtype(value) -> torch.dtype | None:
+    """``fit_task(stream_dtype=)``: None or torch.float32 (no cast), or
+    torch.bfloat16."""
+    if value is None or value == torch.float32:
+        return None
+    if value == torch.bfloat16:
+        return torch.bfloat16
+    raise ValueError(f"stream_dtype must be float32 or bfloat16, got {value!r}")
+
+
+# fit_task arguments of the JAX package that a later slice brings, with the
 # value that leaves them off
 _LATER = {
     "mesh": (None, "Queue A-11 (parallel/mesh.py)"),
     "shard_latents": (False, "Queue A-11 (parallel/mesh.py)"),
-    "stream": (False, "Queue A-9 (streaming tiers)"),
-    "stream_chunk": (1, "Queue A-9 (streaming tiers)"),
-    "stream_dtype": (None, "Queue A-9 (streaming tiers)"),
     "precompile": (False, "Queue A-13 (left out until the card needs it)"),
 }
 
@@ -407,12 +606,15 @@ def fit_task(
     stream_dtype=None,
     precompile: bool = False,
 ) -> tuple[Params, dict]:
-    """Run a whole task with its multi-resolution curriculum (the resident
-    single-device path of the JAX ``fit_task``).
+    """Run a whole task with its multi-resolution curriculum (the
+    single-device paths of the JAX ``fit_task``).
 
     images_at(res) -> (S, H*W, 3) normalised images at that resolution, on
     the training device and in the training dtype (that of the latents);
-    with ``reaugment`` it is called as images_at(res, epoch) every epoch
+    with ``stream`` a host source instead (``images_host_at`` or
+    ``row_source_at``), which ``streaming_stage_runner`` copies to the
+    latents' device a batch at a time (``stream_chunk`` batches a copy,
+    ``stream_dtype`` bfloat16 to halve the bytes); with ``reaugment`` it is called as images_at(res, epoch) every epoch
     (the reference's per-item random augmentation). Directions, sineweights
     and the mask are built in float32, as the JAX package builds them; the
     sineweight is then cast to that dtype. ``step_builder(model, directions,
@@ -433,19 +635,19 @@ def fit_task(
     ``TrainState`` (``checkpoint.load_train_state``: the optimizer state
     into its optimizer, the generator state into its generator). The
     optimizer's step count keeps
-    the LR schedule exact. The mesh and streaming arguments raise
-    NotImplementedError unless left at their defaults.
+    the LR schedule exact. ``mesh``, ``shard_latents`` (ROADMAP A-11) and
+    ``precompile`` (A-13) raise NotImplementedError unless left at their
+    defaults; ``stream=True`` with a mesh names A-11.
 
     Returns (params, metrics dict of (epochs run,) arrays under the
     reference's keys ``{task}_{name}``)."""
-    given = dict(
-        mesh=mesh, shard_latents=shard_latents, stream=stream, stream_chunk=stream_chunk,
-        stream_dtype=stream_dtype, precompile=precompile,
-    )
+    given = dict(mesh=mesh, shard_latents=shard_latents, precompile=precompile)
     for name, value in given.items():
         off, where = _LATER[name]
         if value != off:
-            raise NotImplementedError(f"fit_task({name}=...) is not ported yet: {where}")
+            what = "stream=True with a mesh" if stream and name == "mesh" else f"{name}=..."
+            raise NotImplementedError(f"fit_task({what}) is not ported yet: {where}")
+    stream_dtype = _stream_dtype(stream_dtype)
     task_cfg.validate()
     if step_builder is None and task_cfg.task not in ("FIT_DECODER", "FIT_LATENT"):
         raise ValueError(
@@ -466,6 +668,9 @@ def fit_task(
             set_opt_state(state.optimizer, initial_opt_state)
     table = model.latents(state.params)
     dev, dtype = table.device, table.dtype
+    stage_runner = run_stage
+    if stream:
+        stage_runner = streaming_stage_runner(dev, chunk=stream_chunk, stream_dtype=stream_dtype)
 
     def make_step(res):
         width = res[1]
@@ -505,7 +710,7 @@ def fit_task(
         if reaugment:
             for done in range(1, n_epochs + 1):
                 images = images_at(res, epoch_offset + done - 1)
-                state, metrics = run_stage(step_fn, state, images, 1, batch_size)
+                state, metrics = stage_runner(step_fn, state, images, 1, batch_size)
                 all_metrics.append(metrics)
                 if callback is not None and callback_every and (
                     done % callback_every == 0 or done == n_epochs
@@ -514,7 +719,7 @@ def fit_task(
                     if stop:
                         break
         elif callback is None or not callback_every:
-            state, metrics = run_stage(step_fn, state, images_at(res), n_epochs, batch_size)
+            state, metrics = stage_runner(step_fn, state, images_at(res), n_epochs, batch_size)
             all_metrics.append(metrics)
         else:
             images = images_at(res)
@@ -524,7 +729,7 @@ def fit_task(
             while done < n_epochs:
                 seg = min(seg, n_epochs - done)
                 t0 = time.monotonic()
-                state, metrics = run_stage(step_fn, state, images, seg, batch_size)
+                state, metrics = stage_runner(step_fn, state, images, seg, batch_size)
                 done += seg
                 all_metrics.append(metrics)
                 stop = bool(callback(state, epoch_offset + done, metrics, res))

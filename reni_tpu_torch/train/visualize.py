@@ -57,8 +57,9 @@ def example_images(
     render_fn=None,
     gt_renders=None,
 ) -> np.ndarray:
-    """-> (H', W', 3) grid in [0, 1]. ``dataset_images`` (S, H*W, 3) and
-    ``gt_renders`` (S, H, W, 3) on the decoder's device; ``render_fn``
+    """-> (H', W', 3) grid in [0, 1]. ``dataset_images`` (S, H*W, 3) on the
+    decoder's device, or a host array or ``DiskRowSource`` whose rows are
+    copied there; ``gt_renders`` (S, H, W, 3) on the decoder's device; ``render_fn``
     (FIT_INVERSE) shows renders of the decodes instead of the maps."""
     width = res[1]
     table = model.latents(params)
@@ -91,7 +92,10 @@ def example_images(
         gt = gt_renders[torch.as_tensor(idx, device=gt_renders.device)]
         return _render_grid(torch.cat((gt, renders), dim=0), nrow=len(idx))
 
-    gt = dataset_images[torch.as_tensor(idx, device=dataset_images.device)]
+    if isinstance(dataset_images, torch.Tensor):
+        gt = dataset_images[torch.as_tensor(idx, device=dataset_images.device)]
+    else:  # a host array or a DiskRowSource (the streaming tiers)
+        gt = torch.as_tensor(np.asarray(dataset_images[idx]), device=dev)
     if mask is not None:
         gt = gt * mask
     gt_imgs = _postprocess(gt, res, unnormalise, is_hdr)

@@ -473,17 +473,16 @@ def test_precision_knob(precision, mixed, want):
 @pytest.mark.parametrize("ask, item", [
     (dict(mesh="2x1"), "A-11"), (dict(MESH=dict(DATA=2)), "A-11"),
     (dict(MESH=dict(PIXEL=2)), "A-11"), (dict(SHARD_LATENTS=True), "A-11"),
-    (dict(env=("WORLD_SIZE", "2")), "A-11"), (dict(STREAM_DATA=True), "A-9"),
-    (dict(STREAM_FROM_DISK=True), "A-9"), (dict(STREAM_CHUNK=4), "A-9"),
-    (dict(STREAM_DTYPE="bfloat16"), "A-9"), (dict(env=("RENI_TPU_HANG_EXIT_S", "60")), "A-13"),
+    (dict(env=("WORLD_SIZE", "2")), "A-11"), (dict(env=("RENI_TPU_HANG_EXIT_S", "60")), "A-13"),
     (dict(env=("RENI_TPU_RSS_EXIT_GB", "40")), "A-13"),
     (dict(env=("RENI_TPU_STOP_FILE", "/nonexistent/stop")), "A-13"),
     (dict(env=("RENI_TPU_CHIP_LOCK", "/nonexistent/lock")), "A-13")],
     ids=lambda v: str(v).replace(" ", ""))
 def test_later_slices_raise_by_name(tmp_path, tiny_dataset, monkeypatch, ask, item):
-    """A mesh or more than one device, sharded latents, a multi-process run,
-    streaming and the TPU host's fault machinery raise NotImplementedError
-    naming the ROADMAP queue item, before any training."""
+    """A mesh or more than one device, sharded latents, a multi-process run
+    and the TPU host's fault machinery raise NotImplementedError naming the
+    ROADMAP queue item, before any training (the streaming keys run:
+    tests/test_torch_streaming.py)."""
     cfg = _tiny_config(tmp_path, tiny_dataset)
     ask = dict(ask)
     mesh = ask.pop("mesh", None)

@@ -38,7 +38,9 @@ RESIZE_RTOL = 1e-6
 RESIZE_NORM_ATOL = 1e-6
 PUBLISHED_MINMAX = [-18.0536, 11.4633]  # configs/zoo_synthetic.yaml
 COMPRESSIONS = ["NONE", "RLE", "ZIPS", "ZIP", "PXR24"]
-UNPORTED = ["PIZ", "B44", "B44A", "DWAA", "DWAB"]
+# the codecs of their own modules (data/piz.py, b44.py, dwa.py); all the
+# cases of each are in tests/test_torch_codecs.py
+CODEC_MODULES = ["PIZ", "B44", "B44A", "DWAA", "DWAB"]
 
 
 def _hdr_image(seed=0, shape=(37, 53, 3)):
@@ -155,17 +157,22 @@ def test_exr_multipart_and_grayscale_match_jax(tmp_path):
         te.read_part(single, 1)
 
 
-@pytest.mark.parametrize("compression", UNPORTED)
-def test_exr_unported_codecs_raise(tmp_path, compression):
-    """A file in a codec the port does not decode yet raises ExrError naming
-    the codec and ROADMAP A-6b, from the reader and the writer alike."""
-    path = str(tmp_path / "x.exr")
-    je.write(path, _hdr_image(5), compression=compression)
-    with pytest.raises(te.ExrError, match=f"{compression} compression is not ported yet "
-                                          r"\(ROADMAP A-6b\)"):
-        te.read(path)
-    with pytest.raises(te.ExrError, match=r"A-6b"):
-        te.write(str(tmp_path / "y.exr"), _hdr_image(5), compression=compression)
+@pytest.mark.parametrize("compression", CODEC_MODULES)
+def test_exr_codec_modules_read_and_write(tmp_path, compression):
+    """PIZ, B44, B44A, DWAA and DWAB through read and write: the JAX
+    writer's half file reads bitwise equal through the port (its native
+    decoder) and through both JAX decoders, and the port's writer gives the
+    JAX writer's bytes."""
+    img = _hdr_image(5)
+    theirs, ours = str(tmp_path / "jax.exr"), str(tmp_path / "port.exr")
+    je.write(theirs, img, compression=compression)
+    te.write(ours, img, compression=compression)
+    got = te.read(theirs)
+    assert got.shape == img.shape and np.isfinite(got).all()
+    for ref in _jax_reads(theirs):
+        assert np.array_equal(got, ref)
+    with open(theirs, "rb") as f, open(ours, "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_exr_corrupt_file_names_the_path(tmp_path):
@@ -379,12 +386,18 @@ def test_read_hdr_and_ldr_match_jax(tmp_path):
 
 
 def test_dataset_refuses_lazy_and_empty_folders(tmp_path, synthetic_sets):
-    """lazy=True names ROADMAP A-9; an empty folder raises as in JAX; the
-    natural sort is JAX's."""
-    with pytest.raises(NotImplementedError, match="A-9"):
-        td.get_dataset("RENI_HDR", os.path.join(synthetic_sets[0], "Train"), [], True, lazy=True)
-    with pytest.raises(FileNotFoundError, match="no HDR images"):
-        td.get_dataset("RENI_HDR", str(tmp_path), [], True)
+    """lazy=True lists the files and stages the eager rows bit for bit (the
+    lazy dataset's own cases are in tests/test_torch_streaming.py); an empty
+    folder raises as in JAX, lazy or not; the natural sort is JAX's."""
+    path = os.path.join(synthetic_sets[0], "Train")
+    lazy = td.get_dataset("RENI_HDR", path, [], True, lazy=True)
+    eager = td.get_dataset("RENI_HDR", path, [], True)
+    assert lazy.lazy and lazy._native is None and lazy.img_names == eager.img_names
+    assert np.array_equal(lazy.row_source_at((8, 16))[:], eager.images_host_at((8, 16)))
+    lazy.close()
+    for flag in (False, True):
+        with pytest.raises(FileNotFoundError, match="no HDR images"):
+            td.get_dataset("RENI_HDR", str(tmp_path), [], True, lazy=flag)
     names = ["img10.exr", "img2.exr", "Img1.exr", "img2a.exr"]
     assert td.natsorted(names) == jd.natsorted(names)
 

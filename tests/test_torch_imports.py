@@ -44,7 +44,8 @@ def test_the_module_list_covers_this_slice():
             "reni_tpu_torch.cli.export", "reni_tpu_torch.cli.convert",
             "reni_tpu_torch.baselines.spherical_harmonics",
             "reni_tpu_torch.baselines.spherical_gaussians", "reni_tpu_torch.utils.convert",
-            "reni_tpu_torch.utils.assets"} <= names
+            "reni_tpu_torch.utils.assets", "reni_tpu_torch.data.piz", "reni_tpu_torch.data.b44",
+            "reni_tpu_torch.data.dwa"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -371,19 +371,18 @@ def test_fit_latent_masked_region_ignored():
 
 
 @pytest.mark.parametrize("name, value", [
-    ("mesh", object()), ("shard_latents", True), ("stream", True), ("stream_chunk", 2),
-    ("stream_dtype", "bfloat16"), ("precompile", True)])
+    ("mesh", object()), ("shard_latents", True), ("precompile", True)])
 def test_fit_task_rejects_later_slices(name, value):
-    """The arguments of slices still to come (ROADMAP Queue A-9, A-11, A-13)
+    """The arguments of slices still to come (ROADMAP Queue A-11, A-13)
     raise, naming the queue item; the callbacks, resume and re-staging of
-    A-4 are held in tests/test_torch_resume.py."""
-    assert sorted(ttasks._LATER) == sorted(
-        ["mesh", "shard_latents", "stream", "stream_chunk", "stream_dtype", "precompile"])
+    A-4 are held in tests/test_torch_resume.py, the streaming tiers of A-9
+    in tests/test_torch_streaming.py."""
+    assert sorted(ttasks._LATER) == sorted(["mesh", "shard_latents", "precompile"])
     cfg, jm, jp = _tiny_vad(3)
     tp = tparams.from_numpy(jp, "cpu")
     task = ttasks.TaskConfig(**dict(_latent_task(), optim=toptim.OptimConfig()))
     model = RENIModel(RENIConfig(**cfg))
-    with pytest.raises(NotImplementedError, match=r"Queue A-(9|11|13)"):
+    with pytest.raises(NotImplementedError, match=r"Queue A-(11|13)"):
         ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), **{name: value})
 
 
