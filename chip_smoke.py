@@ -282,7 +282,24 @@ Phases (any failure exits non-zero and prints no result line):
                  port never calls. Launch counts are also kept per
                  FIT_LATENT and FIT_DECODER stage, so that a count can be
                  paired with a time at the same shape
-12. report    - one JSON line of kernels, the card's name and power limit,
+12. mesh      - (after cli_run) the data x pixel mesh (ROADMAP A-11): ranks
+                 as processes on the one card, their collectives over gloo
+                 (NCCL takes one rank a card), built once here and each
+                 launching the kernels on its block: (a) 4 ranks, 2 x 2,
+                 one FIT_DECODER step of each conditioning at 100 x 8,192
+                 against the single-device kernel step (loss 1e-4 relative,
+                 every gradient within the bf16 step bar), the same bits
+                 twice and on every rank; (b) 2 x 2, FIT_DECODER cbc at the
+                 stream phase's cut, resident and from disk in chunks of 5,
+                 PSNR within 0.1 dB of the single-device resident run, each
+                 rank decoding only its rows; (d) decode_sharded over the 4
+                 ranks against the single-device decode; (c) 2 x 1
+                 FIT_LATENT with sharded latents (21 maps padded to 22) and
+                 (e) the trainer's chain on 2 x 1 through run_with_retries
+                 (rank 0 alone writes), each within 0.1 dB of its
+                 single-device run; (f) an NCCL group of one rank. Times
+                 here are not scaling numbers: the ranks share one card
+13. report    - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 
 The numbers of the export, evaluate, baselines, convert and fit_prior
@@ -463,6 +480,11 @@ STREAM_THREADS, STREAM_RATE_ROWS = (1, 2, 4, 8), 200
 STREAM_COPY_RUNS = 11
 # FIT_LATENT from the DWAB files on disk: 21 maps in one batch, 30 epochs
 STREAM_LATENT_EPOCHS, STREAM_LATENT_CURRICULUM = 30, (10, 20)
+# mesh: each rank's time limit; the single-device runs the phase is held
+# against (the stream phase's resident run, cli_run's run A finals)
+MESH_CHILD_S = 300
+MESH_CHILD = [sys.executable, os.path.abspath(__file__), "--mesh-rank"]  # a rank's command
+MESH_REFS: dict = {}
 
 
 class SmokeFailure(Exception):
@@ -1363,6 +1385,7 @@ def stream_phase(device, train, maps_root: str, dwab_test: str) -> dict:
             f"{r[0]}x{r[1]} step {s:.3f} ms, start to start {p:.3f} ms"
             for r, (s, p) in sorted(ms.items())) + extra + f" (card {CARD})")
     base = results["a resident"]
+    MESH_REFS["fit_decoder"] = base[0]
     for label in ("b host", "c disk", f"d disk chunk {STREAM_CHUNK}"):
         check(same_run(results[label], base), f"stream {label}: not bit for bit the resident run")
     check(same_run(results["e host bf16"], results["e' resident on bf16-rounded targets"]),
@@ -2123,9 +2146,9 @@ def _cli_rows(log_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def _cli_finals(log_dir: str) -> dict:
+def _cli_finals(log_dir: str, tasks=CLI_TASKS) -> dict:
     out = {}
-    for task in CLI_TASKS:
+    for task in tasks:
         with np.load(os.path.join(log_dir, "checkpoints", f"{task.lower()}_final.npz")) as z:
             out[task] = {k: z[k] for k in z.files}
     return out
@@ -2317,6 +2340,7 @@ def cli_run_phase(device, maps_root: str) -> dict:
     events = [i for i, r in enumerate(rows_b) if r.get("event") == "relaunch_adopt"]
     check(len(events) == 1, f"run B's relaunch_adopt events: {events}")
     fa, fb = _cli_finals(log_a), _cli_finals(log_b)
+    MESH_REFS["cli_finals"] = fa
     bitwise = {t: fa[t].keys() == fb[t].keys() and all(np.array_equal(fa[t][k], fb[t][k])
                                                          for k in fa[t]) for t in CLI_TASKS}
     print(f"run B's final checkpoints bit for bit run A's: {bitwise}")
@@ -3614,6 +3638,556 @@ def guard_phase(device, cases, mu_maps) -> dict:
             "guard_step_ms": wall * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# mesh: the data x pixel mesh and multi-process runs (ROADMAP A-11)
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_ranks(work: str, job: dict, n: int) -> subprocess.Popen:
+    """Start ``n`` ranks of ``job`` (``mesh_rank``) as processes on the one
+    card (``cuda:0`` each, ``LOCAL_RANK=0``), their rendezvous on a free
+    localhost port; returns a handle for ``mesh_wait``."""
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "job.json"), "w") as f:
+        json.dump(job, f)
+    port = str(_free_port())
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        log = open(os.path.join(work, f"rank_{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            MESH_CHILD + [work], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True), log))
+    return procs
+
+
+def mesh_wait(work: str, procs) -> list[tuple[dict, dict]]:
+    """Wait for every rank (MESH_CHILD_S each; all are killed when one does
+    not end) and return each rank's (results, arrays); a rank that fails
+    fails the phase with the end of its log."""
+    import signal
+
+    limit = time.monotonic() + MESH_CHILD_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, limit - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=60)
+            log.close()
+    out = []
+    for r, (p, _) in enumerate(procs):
+        with open(os.path.join(work, f"rank_{r}.log")) as f:
+            text = f.read()
+        check(p.returncode == 0, f"mesh rank {r} of {work} exited {p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(work, f"rank_{r}.npz")) as z:
+            out.append((res, {k: z[k] for k in z.files}))
+    return out
+
+
+def _mesh_model(entry: str, device):
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    return RENIModel(ckpt.load_model_config(os.path.join(entry, "checkpoint")))
+
+
+def _step_grads(model, params, images, device, mesh=None) -> tuple[dict, dict, dict]:
+    """One FIT_DECODER step (decoder_task_config's optimizer, the fresh
+    student of fit_decoder) on ``images`` (the whole batch, or on ``mesh``
+    this rank's block of it): (loss metrics, the gradients that reached the
+    optimizer, the updated trainable leaves), all as numpy."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.parallel import mesh as pmesh
+    from reni_tpu_torch.params import tree_items
+    from reni_tpu_torch.train import tasks
+
+    task = decoder_task_config()
+    optim = dataclasses.replace(task.optim, epochs=task.epochs, steps_per_epoch=10)
+    state = tasks.init_train_state(model, params, optim, torch.Generator().manual_seed(1))
+    step = tasks.make_fit_decoder_step(model, sphere.get_directions(FIT_RES[1][1], device=device),
+                                       sphere.get_sineweight(FIT_RES[1][1], device=device),
+                                       kld_weighting=task.kld_weighting)
+    names, leaves = zip(*tree_items(state.trainable))
+    grads = {}
+    real = state.optimizer.step
+
+    def recorded():
+        grads.update({n: p.grad.detach().cpu().numpy() for n, p in zip(names, leaves)})
+        real()
+
+    state.optimizer.step = recorded
+    B, P = DEC_BATCH, images.shape[1] if mesh is None else FIT_RES[1][0] * FIT_RES[1][1]
+    idx = torch.arange(B, device=device)
+    bmask = torch.ones(B, device=device)
+    with pmesh.kernel_mesh(mesh, P):
+        state, m = step(state, (images, idx, bmask))
+    torch.cuda.synchronize()
+    return ({k: v.item() for k, v in m.items()}, grads,
+            {n: t.detach().cpu().numpy() for n, t in tree_items(state.trainable)})
+
+
+def _mesh_part_step(part, device, mesh, res, arrays) -> None:
+    """(a) one FIT_DECODER step of each conditioning on this rank's block of
+    the 100 x 8,192 batch, twice from the same state."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    batch = torch.from_numpy(np.load(part["batch"])).to(device)
+    P = batch.shape[1]
+    block = batch[mesh.rows(DEC_BATCH)][:, mesh.pixels(P)]
+    for conf, entry in (("cbc", CBC), ("film", FILM)):
+        model = _mesh_model(entry, device)
+        counter = ts.film_step_cuda if model.config.is_film else ts.siren_step_cuda
+        counter.launches = 0
+        runs = []
+        for _ in range(2):
+            params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+            runs.append(_step_grads(model, params, block, device, mesh))
+        res[f"step_{conf}_launches"] = counter.launches
+        res[f"step_{conf}_metrics"] = runs[0][0]
+        res[f"step_{conf}_same_bits"] = runs[0][0] == runs[1][0] and all(
+            np.array_equal(runs[0][i][k], runs[1][i][k]) for i in (1, 2) for k in runs[0][i])
+        for i, what in ((1, "grad"), (2, "param")):
+            arrays.update({f"step_{conf}/{what}/{k}": v for k, v in runs[0][i].items()})
+
+
+def _mesh_part_fit(part, device, mesh, res, arrays) -> None:
+    """(b) FIT_DECODER of the cbc configuration at stream_task_config on the
+    1,000 seed-1 maps, resident and from disk in chunks of STREAM_CHUNK."""
+    import functools
+
+    from reni_tpu_torch.data import datasets
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    train_dir = os.path.join(part["maps"], "Train")
+    eager = datasets.get_dataset("RENI_HDR", train_dir, PUBLISHED_TRANSFORMS, True)
+    lazy = datasets.get_dataset("RENI_HDR", train_dir, PUBLISHED_TRANSFORMS, True, lazy=True)
+    decoded: list = []
+    lock = threading.Lock()
+    stage_row = lazy._stage_row
+
+    def recorded(i, r):
+        with lock:
+            decoded.append(int(i))
+        return stage_row(i, r)
+
+    lazy._stage_row = recorded
+    model = _mesh_model(CBC, device)
+    task = stream_task_config()
+    for label, images_at, kw in (
+            ("resident", functools.partial(eager.images_at, device=device), {}),
+            ("disk", lazy.row_source_at, dict(stream=True, stream_chunk=STREAM_CHUNK))):
+        events: dict = {}
+
+        def make_step(model, directions, sineweight, r):
+            step = tasks.make_fit_decoder_step(model, directions, sineweight,
+                                               kld_weighting=task.kld_weighting)
+            return timed(step, events.setdefault(r, []))
+
+        params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+        decoded.clear()
+        torch.cuda.synchronize()
+        ts.siren_step_cuda.launches = 0
+        t0 = time.perf_counter()
+        trained, metrics = tasks.fit_task(model, params, task, images_at,
+                                          torch.Generator().manual_seed(1), mesh=mesh,
+                                          step_builder=make_step, **kw)
+        torch.cuda.synchronize()
+        res[f"fit_{label}"] = {
+            "wall_s": time.perf_counter() - t0, "launches": ts.siren_step_cuda.launches,
+            "ms": {f"{r[0]}x{r[1]}": v for r, v in stage_ms(events).items()},
+            "loss": [float(x) for x in metrics["fit_decoder_loss"]],
+            "decoded": sorted(decoded)}
+        arrays.update({f"fit_{label}/{k}": v
+                       for k, v in ckpt._flatten(ckpt.fetch_tree(trained)).items()})
+    eager.close()
+    lazy.close()
+
+
+def _mesh_part_decode(part, device, mesh, res, arrays) -> None:
+    """(d) decode_sharded of the cbc entry's 21 test latents at WIDTH."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.parallel import mesh as pmesh
+
+    cfg, dec, Z = load_entry(CBC, device)
+    model = _mesh_model(CBC, device)
+    D = sphere.get_directions(WIDTH, device=device)
+    tk.fused_apply.launches = 0
+    out = pmesh.decode_sharded(model, {"decoder": dec}, Z, D, mesh)
+    torch.cuda.synchronize()
+    res["decode_launches"] = tk.fused_apply.launches
+    arrays["decode"] = out.cpu().numpy()
+
+
+def _mesh_part_latent(part, device, mesh, res, arrays) -> None:
+    """(c) FIT_LATENT with shard_latents on the cbc decoder, the 21 test maps."""
+    from reni_tpu_torch.data import datasets
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    test = datasets.get_dataset("RENI_HDR", os.path.join(part["maps"], "Test"),
+                                PUBLISHED_TRANSFORMS, True)
+    tb.siren_trunk_bwd_cuda.launches = ts.passes_forward.launches = 0
+    params, metrics = mesh_fit_latent(device, test, mesh=mesh, shard_latents=True)
+    res["latent_launches"] = {"siren_bwd": tb.siren_trunk_bwd_cuda.launches,
+                              "fwd_passes": ts.passes_forward.launches}
+    res["latent_loss"] = [float(x) for x in metrics["fit_latent_loss"]]
+    arrays["latent/mu"] = params["latents"]["mu"].cpu().numpy()
+    test.close()
+
+
+def _mesh_part_trainer(part, device, mesh, res, arrays) -> None:
+    """(e) the trainer's chain through run_with_retries on the 2 x 1 mesh."""
+    from reni_tpu_torch.cli import run as cli_run
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.utils.config import get_cfg_defaults
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_file(part["cfg"])
+    counters = {"siren_step": ts.siren_step_cuda, "siren_bwd": tb.siren_trunk_bwd_cuda,
+                "siren_fwd": tk.fused_apply, "fwd_passes": ts.passes_forward}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, log_dir = cli_run.run_with_retries(cfg, mesh=part["mesh"], backend="gloo", device=DEVICE)
+    torch.cuda.synchronize()
+    res["trainer"] = {"wall_s": time.perf_counter() - t0, "log_dir": log_dir,
+                      "launches": {k: fn.launches for k, fn in counters.items()}}
+
+
+MESH_PARTS = {"step": _mesh_part_step, "fit": _mesh_part_fit, "decode": _mesh_part_decode,
+              "latent": _mesh_part_latent, "trainer": _mesh_part_trainer}
+
+
+def mesh_rank(work: str) -> None:
+    """A rank of the mesh phase (``python chip_smoke.py --mesh-rank WORK``
+    under torchrun's variables): joins the gloo group on the card, runs
+    WORK/job.json's parts on its mesh and writes WORK/rank_<r>.json and
+    .npz."""
+    from reni_tpu_torch.parallel import mesh as pmesh
+    from reni_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "job.json")) as f:
+        job = json.load(f)
+    multihost.initialize(backend="gloo", device=DEVICE)
+    device = multihost.rank_device(DEVICE)
+    mesh = pmesh.make_mesh(*job["mesh"], device=device)
+    res, arrays = {"coords": [mesh.data_index, mesh.pixel_index]}, {}
+    for part in job["parts"]:
+        if part["kind"] == "trainer":
+            MESH_PARTS["trainer"](part, device, mesh, res, arrays)
+        else:
+            t0 = time.perf_counter()
+            MESH_PARTS[part["kind"]](part, device, mesh, res, arrays)
+            res[f"{part['kind']}_s"] = time.perf_counter() - t0
+    np.savez(os.path.join(work, f"rank_{mesh.rank}.npz"), **arrays)
+    with open(os.path.join(work, f"rank_{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.barrier("done")
+
+
+def mesh_fit_latent(device, test, **kw):
+    """FIT_LATENT of the cbc Zoo decoder on the 21 seed-1 test maps at
+    STREAM_LATENT_EPOCHS (batch 21; on a data axis of 2 padded to 22)."""
+    import functools
+
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    task = dataclasses.replace(fit_task_config(False), epochs=STREAM_LATENT_EPOCHS,
+                               curriculum=STREAM_LATENT_CURRICULUM)
+    model = RENIModel(ckpt.load_model_config(os.path.join(CBC, "checkpoint"), fixed_decoder=True))
+    params = ckpt.load_decoder_only(os.path.join(CBC, "checkpoint"), model, len(test),
+                                    torch.Generator().manual_seed(0), device)
+    return tasks.fit_task(model, params, task, functools.partial(test.images_at, device=device),
+                          torch.Generator().manual_seed(1), **kw)
+
+
+def decoder_psnr(model, params: dict, maps: torch.Tensor, device) -> float:
+    """PSNR of a decoder's decodes of its latent table (mu, or Z) at the
+    maps' grid (FIT_RES[1]) against the maps."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.params import map_tree
+
+    params = map_tree(lambda t: torch.as_tensor(np.asarray(t) if not isinstance(t, torch.Tensor)
+                                                else t, device=device), params)
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    with torch.no_grad():
+        lat = model.latents(params)
+        out = torch.cat([model.apply(params, z, D) for z in lat.split(DEC_BATCH)])
+    check(bool(torch.isfinite(out).all()), "non-finite decodes")
+    return psnr(out, maps)
+
+
+def mesh_step_check(device, work: str, batch: np.ndarray, n_data: int, n_pixel: int,
+                    parts: tuple = (), meanwhile=None) -> tuple[dict, dict, list, object]:
+    """(a): ranks on an n_data x n_pixel mesh each run one FIT_DECODER step
+    of both conditionings on their block of ``batch`` (100 x P) through the
+    step kernel, then the job's further ``parts``; held against the
+    single-device kernel step, run here meanwhile: the loss to
+    STEP_LOSS_BAR relative, every gradient within BWD_BAR x max |single|
+    (the bf16 step bar). Two calls give the same bits and the replicated
+    leaves are bitwise equal on every rank after the optimizer's step (not
+    held to the single-device step's leaves: Adam's first step is about lr x
+    sign(g), which a gradient near zero flips). ``meanwhile()`` runs here
+    too, before the wait. Returns the ranks' launches by conditioning, the
+    single-device Cond-by-Concat step's gradients, every rank's (results,
+    arrays) and what ``meanwhile`` returned."""
+    path = os.path.join(work, "batch.npy")
+    os.makedirs(work, exist_ok=True)
+    np.save(path, batch)
+    ranks = mesh_ranks(work, {"mesh": [n_data, n_pixel],
+                              "parts": [{"kind": "step", "batch": path}, *parts]},
+                       n_data * n_pixel)
+    images = torch.from_numpy(batch).to(device)
+    singles = {}
+    for conf, entry in (("cbc", CBC), ("film", FILM)):
+        model = _mesh_model(entry, device)
+        params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+        singles[conf] = _step_grads(model, params, images, device)
+    extra = meanwhile() if meanwhile is not None else None
+    outs = mesh_wait(work, ranks)
+    launches = {}
+    bar = STEP_LOSS_BAR["bfloat16"]
+    for conf in ("cbc", "film"):
+        metrics, grads, _ = singles[conf]
+        res0, arr0 = outs[0]
+        rel = abs(res0[f"step_{conf}_metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"])
+        worst = 0.0
+        for k, v in grads.items():
+            scale = max(float(np.abs(v).max()), 1e-30)
+            err = float(np.abs(arr0[f"step_{conf}/grad/{k}"] - v).max()) / scale
+            worst = max(worst, err)
+            check(err <= BWD_BAR["bfloat16"],
+                  f"mesh step {conf} gradient {k}: {err:.3g} x max |single| > the bf16 bar")
+        check(rel <= bar, f"mesh step {conf}: loss off the single-device step by {rel:.3g}")
+        equal = all(np.array_equal(arr[k], arr0[k]) for _, arr in outs for k in arr0
+                    if k.startswith(f"step_{conf}/"))
+        check(equal, f"mesh step {conf}: the ranks' gradients or leaves differ")
+        check(all(r[f"step_{conf}_same_bits"] for r, _ in outs),
+              f"mesh step {conf}: two calls did not give the same bits")
+        launches[conf] = sum(r[f"step_{conf}_launches"] for r, _ in outs)
+        check(launches[conf] == 2 * len(outs), f"mesh step {conf}: launches {launches[conf]}")
+        print(f"mesh (a) {conf} step on {n_data} x {n_pixel} ranks, each "
+              f"{DEC_BATCH // n_data} x {batch.shape[1] // n_pixel:,}: loss "
+              f"{res0[f'step_{conf}_metrics']['loss']:.8g} vs single {metrics['loss']:.8g} "
+              f"(rel {rel:.3g}); worst gradient {worst:.3g} x max |single|; two calls the same "
+              f"bits; every rank's gradients and updated leaves the same bits")
+    return launches, singles["cbc"][1], outs, extra
+
+
+def mesh_phase(device, train, test, maps_root: str) -> dict:
+    """The data x pixel mesh on the one card (ROADMAP A-11): ranks as
+    processes on cuda:0, their collectives over gloo (NCCL refuses two ranks
+    on one card); each rank launches the kernels on its own block. (a) a
+    step of each conditioning on a 2 x 2 mesh; (b) FIT_DECODER on 2 x 2,
+    resident and from disk in chunks; (d) decode_sharded on 4 ranks; then
+    (c) FIT_LATENT with sharded latents on 2 x 1 and (e) the trainer's chain
+    on 2 x 1 side by side; (f) an NCCL group of one rank in this process.
+    Returns the ranks' launches under ``<kernel>@mesh``."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.parallel import mesh as pmesh
+    from reni_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    work = os.path.join(maps_root, "mesh")
+    print(f"mesh: every rank is a process on cuda:0 ({CARD}); the ranks share the one card and "
+          f"their collectives go over gloo (NCCL takes one rank a card): the times below are "
+          f"not scaling numbers")
+    maps64 = train.images_at(FIT_RES[1], device=device)
+    launches = {}
+    cfg, dec, Z = load_entry(CBC, device)
+    model = _mesh_model(CBC, device)
+    maps_test = test.images_at(FIT_RES[1], device=device)
+
+    def references():
+        # the single-device runs of (c) and (d), while the ranks run
+        with torch.no_grad():
+            decode = model.apply({"decoder": dec}, Z, sphere.get_directions(WIDTH, device=device))
+        torch.cuda.synchronize()
+        latent, _ = mesh_fit_latent(device, test)
+        return decode, decoder_psnr(model, latent, maps_test, device)
+
+    # (a), (b) and (d) in one set of four ranks
+    step_n, grads, outs, (plain_decode, psnr_latent_single) = mesh_step_check(
+        device, os.path.join(work, "abd"), maps64[:DEC_BATCH].cpu().numpy(), 2, 2,
+        parts=({"kind": "fit", "maps": maps_root}, {"kind": "decode"}), meanwhile=references)
+    print("mesh (a), (b), (d) ranks' wall seconds by part: " + "; ".join(
+        f"rank {r} " + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in res.items() if k.endswith("_s"))
+        for r, (res, _) in enumerate(outs)))
+
+    # (b)
+    psnr_single = decoder_psnr(model, MESH_REFS["fit_decoder"], maps64, device)
+    steps = STREAM_EPOCHS * (DEC_MAPS // DEC_BATCH)
+    fit_n = 0
+    for label in ("resident", "disk"):
+        per_rank = [r[f"fit_{label}"] for r, _ in outs]
+        trained = ckpt_unflatten({k[len(f"fit_{label}/"):]: v for k, v in outs[0][1].items()
+                                  if k.startswith(f"fit_{label}/")})
+        got = decoder_psnr(model, trained, maps64, device)
+        n = [r["launches"] for r in per_rank]
+        check(n == [steps] * 4, f"mesh (b) {label}: step-kernel launches {n}, {steps} a rank")
+        fit_n += sum(n)
+        for r, (res, arr) in enumerate(outs[1:], 1):
+            check(all(np.array_equal(arr[k], outs[0][1][k]) for k in arr
+                      if k.startswith(f"fit_{label}/")),
+                  f"mesh (b) {label}: rank {r}'s trained params are not rank 0's")
+        print(f"mesh (b) FIT_DECODER cbc {label} on 2 x 2 ({steps} steps, batch {DEC_BATCH}: "
+              f"{DEC_BATCH // 2} rows x half the pixels a rank): PSNR at "
+              f"{FIT_RES[1][0]}x{FIT_RES[1][1]} {got:.3f} dB vs the single-device resident run "
+              f"{psnr_single:.3f} dB ({got - psnr_single:+.3f}); wall "
+              f"{max(p['wall_s'] for p in per_rank):.1f} s; ms a step (median, start to start) "
+              + "; ".join(f"{k} {v[0]:.3f}, {v[1]:.3f}" for k, v in per_rank[0]["ms"].items())
+              + f" (card {CARD})")
+        check(abs(got - psnr_single) <= PSNR_BAR_DB,
+              f"mesh (b) {label}: PSNR {got:.3f} vs {psnr_single:.3f} dB")
+        if label == "disk":
+            asked = STREAM_EPOCHS * DEC_MAPS // 2
+            for r, (res, _) in enumerate(outs):
+                d = res["coords"][0]
+                mine = {b * DEC_BATCH + d * DEC_BATCH // 2 + i for b in range(DEC_MAPS // DEC_BATCH)
+                        for i in range(DEC_BATCH // 2)}
+                rows = res["fit_disk"]["decoded"]
+                print(f"mesh (b) rank {r} (data {d}, pixel {res['coords'][1]}): DiskRowSource "
+                      f"decoded {len(rows)} rows for the {asked} rows it was asked for, "
+                      f"{len(set(rows))} distinct, all of its own data rank")
+                check(set(rows) == mine, f"mesh (b) rank {r} decoded rows not its own")
+    same = all(np.array_equal(outs[0][1][f"fit_disk/{k[len('fit_resident/'):]}"], v)
+               for k, v in outs[0][1].items() if k.startswith("fit_resident/"))
+    print(f"mesh (b) the disk run bit for bit the resident run: {same}")
+
+    # (d)
+    got = outs[0][1]["decode"]
+    ref = plain_decode.cpu().numpy()
+    for r, (_, arr) in enumerate(outs):
+        check(np.array_equal(arr["decode"], got), f"mesh (d) rank {r}'s decode is not rank 0's")
+    dec_n = sum(r["decode_launches"] for r, _ in outs)
+    check(dec_n == 4, f"mesh (d) forward-kernel launches {dec_n}")
+    if np.array_equal(got, ref):
+        print(f"mesh (d) decode_sharded of the 21 test latents x {ref.shape[1]:,} directions on 4 "
+              f"ranks ({ref.shape[1] // 4:,} each): bit for bit the single-device kernel decode")
+    else:
+        err = np.abs(got - ref)
+        print(f"mesh (d) decode_sharded: not the single-device bits (max {err.max():.3g}, mean "
+              f"{err.mean():.3g}): held to the forward bars")
+        check(err.max() < MAX_ERR and err.mean() < MEAN_ERR, "mesh (d) off the forward bars")
+
+    # (c) and (e) side by side, two ranks each
+    cfg_path = os.path.join(work, "chain.json")
+    chain = cli_config(maps_root, os.path.join(work, "runs"))
+    chain.RENI.TASKS = ["FIT_DECODER", "FIT_LATENT"]
+    with open(cfg_path, "w") as f:
+        json.dump(chain.to_dict(), f)
+    ranks_c = mesh_ranks(os.path.join(work, "c"), {"mesh": [2, 1], "parts": [
+        {"kind": "latent", "maps": maps_root}]}, 2)
+    ranks_e = mesh_ranks(os.path.join(work, "e"), {"mesh": [2, 1], "parts": [
+        {"kind": "trainer", "cfg": cfg_path, "mesh": "2x1"}]}, 2)
+    outs_c = mesh_wait(os.path.join(work, "c"), ranks_c)
+    outs_e = mesh_wait(os.path.join(work, "e"), ranks_e)
+    mu = outs_c[0][1]["latent/mu"]
+    check(mu.shape == (SEED_MAPS["test"], 49, 3), f"mesh (c) latent table {mu.shape}")
+    check(np.array_equal(outs_c[1][1]["latent/mu"], mu), "mesh (c) ranks' latents differ")
+    got = decoder_psnr(model, {"decoder": dec, "latents": {"mu": mu}}, maps_test, device)
+    lat_n = {k: sum(r["latent_launches"][k] for r, _ in outs_c)
+             for k in ("siren_bwd", "fwd_passes")}
+    check(lat_n == {"siren_bwd": 2 * STREAM_LATENT_EPOCHS, "fwd_passes": 2 * STREAM_LATENT_EPOCHS},
+          f"mesh (c) launches {lat_n}")
+    print(f"mesh (c) FIT_LATENT on 2 x 1 with sharded latents (21 maps, batch padded to 22, "
+          f"{STREAM_LATENT_EPOCHS} epochs): PSNR {got:.3f} dB vs single-device "
+          f"{psnr_latent_single:.3f} dB ({got - psnr_latent_single:+.3f}); loss "
+          f"{outs_c[0][0]['latent_loss'][0]:.6g} -> {outs_c[0][0]['latent_loss'][-1]:.6g}; "
+          f"launches {lat_n}")
+    check(abs(got - psnr_latent_single) <= PSNR_BAR_DB, f"mesh (c) PSNR {got:.3f}")
+
+    # (e)
+    log_dir = outs_e[0][0]["trainer"]["log_dir"]
+    check(outs_e[1][0]["trainer"]["log_dir"] == log_dir, "mesh (e) ranks ran in two run dirs")
+    runs = sorted(os.listdir(os.path.dirname(log_dir)))
+    check(runs == ["version_0"], f"mesh (e) run dirs {runs}")
+    rows = _cli_rows(log_dir)
+    epochs = [r["step"] for r in rows if "fit_decoder_loss" in r]
+    check(epochs == list(range(CLI_EVERY, CLI_CUTS["FIT_DECODER"][0] + 1, CLI_EVERY)),
+          f"mesh (e) FIT_DECODER rows {epochs}: rank 0 alone writes one a segment")
+    finals = _cli_finals(log_dir, ("FIT_DECODER", "FIT_LATENT"))
+    ref = MESH_REFS["cli_finals"]
+    dec_model = _mesh_model(CBC, device)
+    for task, maps in (("FIT_DECODER", maps64), ("FIT_LATENT", maps_test)):
+        a = decoder_psnr(dec_model, ckpt_unflatten(ref[task]), maps, device)
+        b = decoder_psnr(dec_model, ckpt_unflatten(finals[task]), maps, device)
+        print(f"mesh (e) the trainer's {task} final on 2 x 1: PSNR {b:.3f} dB vs cli_run's run A "
+              f"{a:.3f} dB ({b - a:+.3f})")
+        check(abs(b - a) <= PSNR_BAR_DB, f"mesh (e) {task} PSNR {b:.3f} vs {a:.3f}")
+    trainer_n = [r["trainer"]["launches"] for r, _ in outs_e]
+    print(f"mesh (e) chain wall {max(r['trainer']['wall_s'] for r, _ in outs_e):.1f} s; launches "
+          f"by rank {trainer_n}")
+    dsteps = CLI_CUTS["FIT_DECODER"][0] * DEC_MAPS // DEC_BATCH
+    check(all(n["siren_step"] == dsteps for n in trainer_n), f"mesh (e) step launches {trainer_n}")
+
+    # (f) NCCL with one rank, in this process
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        multihost.initialize(device="cuda")
+        check(torch.distributed.get_backend() == "nccl", "multihost chose another backend")
+        grads = [torch.from_numpy(v).to(device) for v in grads.values()]
+        bucket = [g.clone() for g in grads]
+        pmesh.all_reduce_sum(bucket, torch.distributed.group.WORLD)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(bucket, grads)),
+              "mesh (f) an NCCL all_reduce over one rank changed the bits")
+        print(f"mesh (f) NCCL group of one rank through multihost.initialize: the "
+              f"single-device step's gradients ({sum(g.numel() for g in grads):,} values, "
+              f"{sum(g.numel() for g in grads) * 4 / 1e6:.2f} MB) through all_reduce unchanged")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    total = time.perf_counter() - t0
+    print(f"mesh phase wall {total:.1f} s")
+    trainer = {k: sum(n[k] for n in trainer_n) for k in trainer_n[0]}
+    return {"siren_step@mesh": step_n["cbc"] + fit_n + trainer["siren_step"],
+            "film_step@mesh": step_n["film"],
+            "siren_fwd@mesh": dec_n + trainer["siren_fwd"],
+            "siren_bwd@mesh": lat_n["siren_bwd"] + trainer["siren_bwd"]}
+
+
+def ckpt_unflatten(flat: dict) -> dict:
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    return ckpt._unflatten(flat)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3780,12 +4354,16 @@ def main() -> int:
 
     phase("cli_run")
     launches.update(cli_run_phase(dev, maps_dir.name))
+
+    phase("mesh")
+    launches.update(mesh_phase(dev, train, test, maps_dir.name))
     maps_dir.cleanup()
     for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
                       ("siren_fwd", "siren_fwd@evaluate"), ("film_fwd", "film_fwd@evaluate"),
                       ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run"),
                       ("siren_fwd", "siren_fwd@convert"), ("siren_bwd", "siren_bwd@stream"),
-                      ("siren_fwd", "siren_fwd@cli_run_disk")):
+                      ("siren_fwd", "siren_fwd@cli_run_disk"), ("siren_fwd", "siren_fwd@mesh"),
+                      ("siren_bwd", "siren_bwd@mesh")):
         launches[name] += launches[tag]
     for tag in [k for k in launches if k.endswith("@fit_prior")]:
         launches[tag.split("@")[0]] += launches[tag]
@@ -3805,7 +4383,7 @@ def main() -> int:
     launches["siren_step"] = fit_decoder_phase(dev, train)
     print(f"step-kernel launches during FIT_DECODER (kernel run): {launches['siren_step']}")
     launches["siren_step"] += (launches["siren_step@cli_run"] + launches["siren_step@stream"]
-                               + launches["siren_step@cli_run_disk"])
+                               + launches["siren_step@cli_run_disk"] + launches["siren_step@mesh"])
 
     phase("compare_film_step at full width and at FIT_DECODER's shapes")
     cfg_film, dec_film, _ = entries["film_fwd"]
@@ -3817,7 +4395,7 @@ def main() -> int:
     rel_errors["film_step"] += rel
 
     phase("fit_decoder_film")
-    launches["film_step"] = fit_decoder_phase(dev, train, FILM)
+    launches["film_step"] = fit_decoder_phase(dev, train, FILM) + launches["film_step@mesh"]
     print(f"FiLM step-kernel launches during FIT_DECODER (kernel run): {launches['film_step']}")
 
     phase("guard")
@@ -3935,6 +4513,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -25,14 +25,22 @@ of the reference's run.py:29-138, as the JAX package has it:
   list (``lazy=True``; rows decode from disk a batch at a time) and implies
   STREAM_DATA, ``TPU.STREAM_CHUNK`` copies K batches at a time and
   ``TPU.STREAM_DTYPE: bfloat16`` copies bf16; FIT_INVERSE ignores
-  STREAM_DATA with a note, as in JAX.
+  STREAM_DATA with a note, as in JAX;
+- multi-process runs: one process a rank, started by torchrun or with its
+  variables (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+  ``MASTER_PORT``; ``parallel/multihost.py``), on ``--mesh DATAxPIXEL`` or
+  ``TPU.MESH`` (DATA -1: ``WORLD_SIZE / PIXEL``) and ``TPU.SHARD_LATENTS``:
+  each rank on ``cuda:LOCAL_RANK``, rank 0 alone writing metrics, images and
+  checkpoints, a barrier between tasks, the chained checkpoint's bytes sent
+  to every rank, and rank 0's ``version_N``, MAX_RUNTIME verdict,
+  ``RENI_TPU_CKPT_WALL_S`` and retry plan adopted by all.
 
 Left out, raised by name when a config or the environment asks for them:
-more than one device, ``TPU.SHARD_LATENTS`` and multi-process runs
-(ROADMAP Queue A-11); the hang watchdog
-(``RENI_TPU_HANG_EXIT_S``), the chip lock and its stop file
-(``RENI_TPU_CHIP_LOCK``, ``RENI_TPU_STOP_FILE``) and ``RENI_TPU_RSS_EXIT_GB``
-(A-13). ``TPU.PRECOMPILE``, a TPU compile knob, is ignored with a note.
+a tensor-parallel model axis (``--mesh DxPxM`` with M > 1, ROADMAP Queue
+A-11b); the hang watchdog (``RENI_TPU_HANG_EXIT_S``), the chip lock and its
+stop file (``RENI_TPU_CHIP_LOCK``, ``RENI_TPU_STOP_FILE``) and
+``RENI_TPU_RSS_EXIT_GB`` (A-13). ``TPU.PRECOMPILE``, a TPU compile knob, is
+ignored with a note.
 
 Differences from the JAX trainer: ``TB.LOG_GRAPH`` writes
 ``{task}_graph.txt`` (the ``torch.export`` graph of the plain decoder
@@ -66,6 +74,8 @@ import torch
 from reni_tpu_torch.core import sphere
 from reni_tpu_torch.data.datasets import get_dataset
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+from reni_tpu_torch.parallel import multihost
+from reni_tpu_torch.parallel.mesh import make_mesh
 from reni_tpu_torch.params import from_numpy, map_tree
 from reni_tpu_torch.serve import PlainDecoder
 from reni_tpu_torch.train import checkpoint as ckpt
@@ -75,12 +85,14 @@ from reni_tpu_torch.train.optim import build_schedule
 from reni_tpu_torch.train.visualize import example_images
 from reni_tpu_torch.utils import profiling
 from reni_tpu_torch.utils.config import experiment_name, get_cfg_defaults
-from reni_tpu_torch.utils.device import resolve_device
 
 
 def _log_event(log_dir: str, event: str, **fields) -> None:
     """Append a fault-history record (retries, relaunch adoptions) to the
-    run's ``metrics.jsonl``, so that a chain's log says what it survived."""
+    run's ``metrics.jsonl`` (rank 0's), so that a chain's log says what it
+    survived."""
+    if not multihost.is_primary():
+        return
     rec = {"event": event,
            "time": datetime.now(timezone.utc).isoformat(timespec="seconds")}
     rec.update(fields)
@@ -115,13 +127,17 @@ class _BestTracker:
     """save_top_k=2 checkpointing by monitored loss (reference run.py:79-84),
     plus a ``{task}_latest`` checkpoint overwritten at every save (the
     analog of Lightning's ``last.ckpt``): a crash loses at most the epochs
-    since the last save."""
+    since the last save. ``write=False`` (ranks other than 0) keeps the
+    bookkeeping, which the all-reduced losses make the same on every rank,
+    and joins the collective fetch, but writes no file."""
 
-    def __init__(self, save_dir: str, task: str, model_config, keep: int = 2):
+    def __init__(self, save_dir: str, task: str, model_config, keep: int = 2,
+                 write: bool = True):
         self.save_dir = save_dir
         self.task = task
         self.model_config = model_config
         self.keep = keep
+        self.write = write
         self.saved: list[tuple[float, str]] = []
 
     def _path(self, epoch: int) -> str:
@@ -136,22 +152,24 @@ class _BestTracker:
 
     def maybe_save(self, params, epoch: int, loss: float, opt_state=None, generator=None):
         path = self._path(epoch)
-        ckpt.save_checkpoint(
-            path,
-            params,
-            model_config=self.model_config,
-            metadata={"task": self.task, "epoch": epoch, "loss": float(loss)},
-            opt_state=opt_state,
-            generator=generator,
-        )
-        latest = os.path.join(self.save_dir, f"{self.task.lower()}_latest")
-        _copy_into(path + ".npz", latest + ".npz")
-        _copy_into(path + ".json", latest + ".json")
+        params = ckpt.fetch_tree(params)  # collective: every rank fetches
+        if self.write:
+            ckpt.save_checkpoint(
+                path,
+                params,
+                model_config=self.model_config,
+                metadata={"task": self.task, "epoch": epoch, "loss": float(loss)},
+                opt_state=opt_state,
+                generator=generator,
+            )
+            latest = os.path.join(self.save_dir, f"{self.task.lower()}_latest")
+            _copy_into(path + ".npz", latest + ".npz")
+            _copy_into(path + ".json", latest + ".json")
         self.saved.append((float(loss), path))
         self.saved.sort(key=lambda t: t[0])
         while len(self.saved) > self.keep:
             _, worst = self.saved.pop()
-            for ext in (".npz", ".json"):
+            for ext in (".npz", ".json") if self.write else ():
                 try:
                     os.remove(worst + ext)
                 except OSError:
@@ -172,7 +190,25 @@ def _generators(seed: int) -> tuple[torch.Generator, torch.Generator, int]:
 
 
 def _deadline_reached(deadline: float | None) -> bool:
-    return deadline is not None and time.time() > deadline
+    """Rank 0's verdict on every rank (collective in a multi-process run):
+    a rank that stopped alone would leave the others in a collective."""
+    return multihost.agree_on_flag(deadline is not None and time.time() > deadline)
+
+
+class _NoLogger:
+    """The logger of ranks other than 0: the run directory, no files."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+
+    def log_scalars(self, step: int, scalars: dict) -> None:
+        pass
+
+    def log_image(self, tag: str, image_hwc, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,10 +246,12 @@ def run_task(
     device: torch.device,
     deadline: float | None = None,
     resume_path: str | None = None,
+    mesh=None,
 ):
     """Train one task of the chain; returns (params, metrics, the path of
     the checkpoint a later task should load: the best kept one, else the
-    final one)."""
+    final one). With a ``mesh`` every rank calls it; rank 0 alone writes."""
+    primary = multihost.is_primary()
     st = stream_settings(config)
     if st.dtype is not None and not st.stream:
         print("[reni_tpu_torch] TPU.STREAM_DTYPE ignored without TPU.STREAM_DATA", flush=True)
@@ -243,11 +281,12 @@ def run_task(
         dataclasses.replace(task_cfg.optim, epochs=task_cfg.epochs, steps_per_epoch=1)
     )
 
-    if bool(config.TRAINER.LOGGER.TB.get("LOG_GRAPH", False)):
+    if primary and bool(config.TRAINER.LOGGER.TB.get("LOG_GRAPH", False)):
         _dump_model_graph(model, params, logger.log_dir, task)
 
     save_dir = os.path.join(logger.log_dir, config.TRAINER.CHKPTS.SAVE_DIR)
-    tracker = _BestTracker(save_dir, task, model_cfg)
+    tracker = _BestTracker(save_dir, task, model_cfg, write=primary)
+    shard_latents = mesh is not None and bool(config.TPU.get("SHARD_LATENTS", False))
     if resume_path is not None:
         tracker.adopt(start_epoch)
     every = int(config.TRAINER.CHKPTS.EVERY_N_EPOCHS)
@@ -269,8 +308,10 @@ def run_task(
         stage_images_at = images_at
 
     # beyond every N epochs, a save at each curriculum stage's end and once
-    # RENI_TPU_CKPT_WALL_S seconds passed since the last one (0/unset: off)
-    wall_save_s = float(os.environ.get("RENI_TPU_CKPT_WALL_S", "0") or 0)
+    # RENI_TPU_CKPT_WALL_S seconds passed since the last one (0/unset: off);
+    # rank 0's value and rank 0's clock decide for every rank
+    wall_save_s = float(multihost.agree_on_str(os.environ.get("RENI_TPU_CKPT_WALL_S", "0"))
+                        or 0)
     last_save_t = [time.monotonic()]
     stage_ends, off = set(), 0
     for _, n in task_cfg.resolution_stages():
@@ -292,13 +333,13 @@ def run_task(
 
     def callback(state_now, epoch, metrics_chunk, res):
         loss = log_epoch(epoch, metrics_chunk)
-        if save_on and (epoch % every == 0 or epoch in stage_ends or (
+        if save_on and multihost.agree_on_flag(epoch % every == 0 or epoch in stage_ends or (
                 wall_save_s > 0 and time.monotonic() - last_save_t[0] > wall_save_s)):
             save(state_now, epoch, loss)
         if _deadline_reached(deadline):
             # TRAINER.MAX_RUNTIME exceeded: stop after this segment
             return True
-        if log_images and epoch % img_every == 0:
+        if primary and log_images and epoch % img_every == 0:
             grid = example_images(
                 model, state_now.params, res,
                 mode=config.TRAINER.LOGGER.IMAGES_TO_SHOW, n_images=n_images,
@@ -309,7 +350,8 @@ def run_task(
             logger.log_image(f"{task.lower()}_images", grid, epoch)
         return False
 
-    fit_kw = dict(start_epoch=start_epoch, initial_opt_state=opt_loader)
+    fit_kw = dict(start_epoch=start_epoch, initial_opt_state=opt_loader, mesh=mesh,
+                  shard_latents=shard_latents)
     if task == "FIT_INVERSE":
         from reni_tpu_torch.render.inverse import InverseRenderSetup, fit_inverse
 
@@ -338,7 +380,7 @@ def run_task(
             model, params, task_cfg, images_at, dataset.unnormalise, g_fit,
             setup=inv_setup, callback_every=every, callback=inverse_callback, **fit_kw,
         )
-        if log_images:
+        if primary and log_images:
             # the ground-truth renders above the recovered ones
             res = task_cfg.resolution_stages()[-1][0]
             gt = inv_setup.generate_gt_renders(images_at(res), dataset.unnormalise, res[1])
@@ -360,11 +402,12 @@ def run_task(
         )
 
     final = os.path.join(save_dir, f"{task.lower()}_final")
-    ckpt.save_checkpoint(
-        final, params, model_config=model_cfg,
-        metadata={"task": task, "epoch": task_cfg.epochs,
-                  "loss": float(metrics[f"{task.lower()}_loss"][-1])},
-    )
+    if primary:
+        ckpt.save_checkpoint(
+            final, params, model_config=model_cfg,
+            metadata={"task": task, "epoch": task_cfg.epochs,
+                      "loss": float(metrics[f"{task.lower()}_loss"][-1])},
+        )
     return params, metrics, tracker.best_path or final
 
 
@@ -381,30 +424,24 @@ def _apply_precision(config) -> None:
     torch.set_float32_matmul_precision("high" if precision == "tensorfloat32" else "highest")
 
 
-def _devices_asked(config, mesh: str | None, device: torch.device) -> int:
-    """Devices a ``--mesh`` spec (DATAxPIXEL[xMODEL]) or TPU.MESH asks for;
-    DATA -1 takes every device of the run's kind."""
+def _mesh_dims(config, mesh: str | None) -> tuple[int, int, int]:
+    """(DATA, PIXEL, MODEL) of a ``--mesh`` spec (DATAxPIXEL[xMODEL]) or,
+    without one, of TPU.MESH; DATA -1 stands for ``WORLD_SIZE / PIXEL``."""
     if mesh:
-        return int(np.prod([int(x) for x in mesh.lower().split("x")]))
-    nd, npix = int(config.TPU.MESH.DATA), int(config.TPU.MESH.PIXEL)
-    nm = int(config.TPU.MESH.get("MODEL", 1))
-    if nd == -1:
-        nd = torch.cuda.device_count() if device.type == "cuda" else 1
-    return nd * npix * nm
+        dims = [int(x) for x in mesh.lower().split("x")]
+        return dims[0], dims[1] if len(dims) > 1 else 1, dims[2] if len(dims) > 2 else 1
+    return (int(config.TPU.MESH.DATA), int(config.TPU.MESH.PIXEL),
+            int(config.TPU.MESH.get("MODEL", 1)))
 
 
-def _refuse_unported(config, mesh: str | None, device: torch.device) -> None:
+def _refuse_unported(config, mesh: str | None) -> None:
     """Raise NotImplementedError, naming the ROADMAP queue item, for what a
     config or the environment asks of a later slice; note an ignored
     PRECOMPILE."""
     tpu = config.TPU
     asked = []
-    if _devices_asked(config, mesh, device) > 1:
-        asked.append(("more than one device (--mesh / TPU.MESH)", "A-11"))
-    if bool(tpu.get("SHARD_LATENTS", False)):
-        asked.append(("TPU.SHARD_LATENTS", "A-11"))
-    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-        asked.append(("a multi-process run (WORLD_SIZE > 1)", "A-11"))
+    if _mesh_dims(config, mesh)[2] > 1:
+        asked.append(("a tensor-parallel model axis (--mesh DxPxM / TPU.MESH.MODEL)", "A-11b"))
     for var in ("RENI_TPU_HANG_EXIT_S", "RENI_TPU_RSS_EXIT_GB"):
         if float(os.environ.get(var, "0") or 0) > 0:
             asked.append((var, "A-13"))
@@ -418,6 +455,20 @@ def _refuse_unported(config, mesh: str | None, device: torch.device) -> None:
     if bool(tpu.get("PRECOMPILE", False)):
         print("[reni_tpu_torch] TPU.PRECOMPILE ignored (a TPU compile knob; "
               "ROADMAP Queue A-13)", flush=True)
+
+
+def _resolve_mesh(config, mesh: str | None, device: torch.device):
+    """The run's mesh (``parallel.mesh.make_mesh``: ``--mesh`` or TPU.MESH,
+    DATA -1 meaning ``WORLD_SIZE / PIXEL``; a 1x1 mesh of several ranks puts
+    them all on 'data', as JAX's ``global_mesh``), or None for one rank. A
+    mesh of another size than ``WORLD_SIZE`` raises, naming both."""
+    nd, npix, _ = _mesh_dims(config, mesh)
+    if nd * npix == 1:
+        if multihost.process_count() == 1:
+            return None
+        nd = -1  # several ranks and no mesh asked for: every rank on 'data'
+    m = make_mesh(n_data=nd, n_pixel=npix, device=device)
+    return m if m.size > 1 else None
 
 
 def _dump_model_graph(model: RENIModel, params, log_dir: str, task: str) -> None:
@@ -456,15 +507,22 @@ def _config_fingerprint(config) -> str:
     return json.dumps(config.to_dict(), sort_keys=True, default=str)
 
 
-def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=None):
+def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=None,
+         backend=None):
     """Run ``config.RENI.TASKS`` in order; returns ({task: (params, metrics)},
-    log_dir). ``device`` defaults to the card (raises without one)."""
-    device = resolve_device(device)
-    _refuse_unported(config, mesh, device)
+    log_dir). ``device`` defaults to the card (raises without one). Under
+    torchrun's variables every rank runs ``main`` (``multihost.initialize``,
+    with ``backend``: NCCL on the card and gloo on the CPU unless given) on
+    the mesh ``mesh`` ("DxP", or TPU.MESH)."""
+    _refuse_unported(config, mesh)
+    multihost.initialize(backend=backend, device=device)
+    device = multihost.rank_device(device)
+    primary = multihost.is_primary()
     from_disk = stream_settings(config).from_disk  # validates TPU.STREAM_* before any work
+    run_mesh = _resolve_mesh(config, mesh, device)
     _apply_precision(config)
     if log_dir is None:
-        log_dir = _experiment_runs(config)[1]
+        log_dir = multihost.agree_on_path(_experiment_runs(config)[1])
     wandb_cfg = None
     if config.TRAINER.LOGGER_TYPE == "wandb":
         wandb_cfg = dict(config.TRAINER.LOGGER.WANDB)
@@ -473,7 +531,7 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
     # adoption (_find_resumable_run); the first writer wins: retries re-enter
     # with a trimmed TASKS list that must not overwrite it
     fingerprint = os.path.join(log_dir, "config.json")
-    if not os.path.exists(fingerprint):
+    if primary and not os.path.exists(fingerprint):
         os.makedirs(log_dir, exist_ok=True)
         with open(fingerprint, "w") as f:
             f.write(_config_fingerprint(config))
@@ -504,10 +562,13 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
         deadline = time.time() + max_hours * 3600.0
 
     # TRAINER.LOGGER_TYPE: tensorboard, or wandb (TensorBoard when wandb does
-    # not import); any other value keeps metrics.jsonl alone
-    logger = MetricLogger(
-        log_dir, use_tensorboard=config.TRAINER.LOGGER_TYPE in ("tensorboard", "wandb"),
-        wandb_config=wandb_cfg)
+    # not import); any other value keeps metrics.jsonl alone. Rank 0 logs.
+    if primary:
+        logger = MetricLogger(
+            log_dir, use_tensorboard=config.TRAINER.LOGGER_TYPE in ("tensorboard", "wandb"),
+            wandb_config=wandb_cfg)
+    else:
+        logger = _NoLogger(log_dir)
     trace_stack = contextlib.ExitStack()
     chkpt_path = load_path
     results = {}
@@ -530,16 +591,22 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
             try:
                 params, metrics, best = run_task(
                     config, task, dataset, logger, chkpt_path, device, deadline=deadline,
-                    resume_path=resume if i == 0 else None,
+                    resume_path=resume if i == 0 else None, mesh=run_mesh,
                 )
             finally:
                 dataset.close()
+            # no rank reads the chained checkpoint before rank 0 has written it
+            multihost.barrier(f"task_end_{i}_{task}")
             results[task] = (params, metrics)
             if task == "FIT_DECODER":
-                chkpt_path = best
+                chkpt_path = multihost.agree_on_str(best)
+                if i + 1 < len(tasks_list):
+                    # ranks without rank 0's run directory get its bytes
+                    multihost.ensure_checkpoint(chkpt_path)
             loss = metrics[f"{task.lower()}_loss"]
-            print(f"[reni_tpu_torch] {task}: {len(loss)} epochs, last loss {loss[-1]:.6g}, "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if primary:
+                print(f"[reni_tpu_torch] {task}: {len(loss)} epochs, last loss {loss[-1]:.6g}, "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         # also on the exception path: a profiler left running would fail
         # every --retries attempt and lose the crashed run's trace
@@ -615,20 +682,29 @@ def _find_resumable_run(config):
 
 
 def run_with_retries(config, resume=None, retries: int = 0, profile_dir=None, device=None,
-                     mesh=None):
+                     mesh=None, backend=None):
     """Drive ``main`` with crash retries: after an exception, resume from the
     newest checkpoint in the same run dir (at most EVERY_N_EPOCHS epochs are
     repeated). With ``retries > 0`` and no ``resume``, a fresh process first
     adopts the newest incomplete run of the same config
     (``_find_resumable_run``), so an outer relaunch loop recovers a killed
     process like an in-process retry. Retries and adoptions are logged as
-    events in the run's ``metrics.jsonl``."""
+    events in the run's ``metrics.jsonl``.
+
+    In a multi-process run (``backend`` as for ``main``) rank 0 decides the
+    adoption and the resume plan for every rank, whose files it sends them;
+    a retry waits at most 300 s for every rank at its rendezvous and raises
+    if one does not come (the failure was local: the run is split)."""
+    multihost.initialize(backend=backend, device=device)
     log_dir = None
     if retries > 0 and resume is None:
-        found, plan = _find_resumable_run(config)
-        if found:
-            log_dir = found
-            tasks_list, resume, load_path = plan
+        found = _find_resumable_run(config) if multihost.is_primary() else (None, None)
+        blob = multihost.agree_on_str(json.dumps(found) if found[0] else "")
+        if blob:
+            log_dir, (tasks_list, resume, load_path) = json.loads(blob)
+            for path in (resume, load_path):
+                if path:
+                    multihost.ensure_checkpoint(path)
             config = config.clone()
             config.RENI.TASKS = tasks_list
             config.TRAINER.CHKPTS.LOAD_PATH = load_path
@@ -636,18 +712,28 @@ def run_with_retries(config, resume=None, retries: int = 0, profile_dir=None, de
                   f"load_path={load_path}", flush=True)
             _log_event(log_dir, "relaunch_adopt", tasks=tasks_list, resume=resume)
     if log_dir is None:
-        log_dir = _experiment_runs(config)[1]
+        log_dir = multihost.agree_on_path(_experiment_runs(config)[1])
     attempt = 0
     while True:
         try:
             return main(config, resume=resume, log_dir=log_dir, profile_dir=profile_dir,
-                        device=device, mesh=mesh)
+                        device=device, mesh=mesh, backend=backend)
         except Exception:
             if attempt >= retries:
                 raise
             attempt += 1
             traceback.print_exc()
-            tasks_list, resume, load_path = _auto_resume_plan(config, log_dir)
+            plan = _auto_resume_plan(config, log_dir)
+            if multihost.process_count() > 1:
+                if not multihost.barrier_timeout("retry_rendezvous", 300.0):
+                    print("[retry] run split: not every rank reached the retry point within "
+                          "300 s; aborting", flush=True)
+                    raise
+                plan = tuple(json.loads(multihost.agree_on_str(json.dumps(list(plan)))))
+            tasks_list, resume, load_path = plan
+            for path in (resume, load_path):
+                if path:
+                    multihost.ensure_checkpoint(path)
             if not tasks_list:
                 raise  # everything already completed; surface the error
             config = config.clone()
@@ -667,8 +753,9 @@ def cli(argv=None) -> int:
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card; cpu to run without one)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh as DATAxPIXEL[xMODEL]: one device only until "
-                             "ROADMAP Queue A-11")
+                        help="device mesh as DATAxPIXEL (one rank a device, WORLD_SIZE "
+                             "ranks; DATA -1: WORLD_SIZE / PIXEL); a MODEL axis is ROADMAP "
+                             "Queue A-11b")
     parser.add_argument("--profile", type=str, default=None,
                         help="write a torch.profiler Chrome trace of the run into this dir")
     parser.add_argument("--resume", type=str, default=None,

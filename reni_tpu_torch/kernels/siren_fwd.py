@@ -89,13 +89,26 @@ def tile_rows(hidden: int, trunk: str) -> int | None:
 
 def unsupported_reason(
     npix: int, hidden_features: int, batch: int | None = None,
-    trunk: str = "bfloat16",
+    trunk: str = "bfloat16", mesh=None,
 ) -> str | None:
     """Why the CUDA kernels cannot take this shape (None = they can): the
     wmma tiles need a hidden width that is a multiple of 16, a CTA's two
     activation buffers must fit in shared memory at one of the row tiles
     (64, 32 or 16 rows), and the batch is the grid's y. Any pixel count
-    works: a ragged tail tile is masked."""
+    works: a ragged tail tile is masked.
+
+    Mesh-aware: with a ``mesh`` (``parallel.mesh``) ``npix`` and ``batch``
+    are the whole batch's, each rank launches the kernel on its block, so
+    they must divide the pixel and data axes and the kernel's limits apply
+    to the local extents."""
+    if mesh is not None:
+        n_px, n_dt = mesh.shape["pixel"], mesh.shape["data"]
+        if npix % n_px:
+            return f"npix={npix} not divisible by the pixel axis ({n_px})"
+        if batch is not None and batch % n_dt:
+            return f"batch={batch} not divisible by the data axis ({n_dt})"
+        npix //= n_px
+        batch = None if batch is None else batch // n_dt
     if npix < 1:
         return f"no pixels to decode (npix={npix})"
     if hidden_features < 16 or hidden_features % 16:

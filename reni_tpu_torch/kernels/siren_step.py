@@ -1194,9 +1194,17 @@ def _loss_operands(targets, sineweight, bmask):
     return _pad_last(targets, C_PAD), _pad_last(sineweight, C_PAD), bm
 
 
+def _gscale(d_feats, out_features: int, pixels: int | None) -> float:
+    """``losses.weighted_mse``'s 1 / (pixels x channels), with the real
+    channel count (padded lanes carry zero weight) and, on a mesh whose
+    pixel axis splits the directions, the whole batch's pixel count: the
+    ranks' partial losses then sum to the loss."""
+    return 1.0 / float((pixels or d_feats.shape[1]) * out_features)
+
+
 def _step_mse(params, equivariance, ndims, Z, D, targets, sineweight, bmask, *,
               hidden_layers, hidden_features, out_features, first_omega_0, hidden_omega_0,
-              output_activation, trunk, fast_sine, kernel):
+              output_activation, trunk, fast_sine, kernel, pixels=None):
     d_feats = _d_features(equivariance, Z, D, hidden_features, trunk, "siren step")
     reason = step_unsupported_reason(hidden_features, hidden_layers, trunk)
     if reason:
@@ -1206,11 +1214,8 @@ def _step_mse(params, equivariance, ndims, Z, D, targets, sineweight, bmask, *,
         raise ValueError(
             f"params have {ops[3].shape[0]} hidden layers, config says {hidden_layers}"
         )
-    # weighted_mse = sum(se * sw) / (pixels * channels per sample), with the
-    # real channel count (padded lanes carry zero weight)
     kw = dict(omega0=first_omega_0, omega_h=hidden_omega_0, out_act=output_activation,
-              gscale=1.0 / float(d_feats.shape[1] * out_features), trunk=trunk,
-              fast_sine=fast_sine)
+              gscale=_gscale(d_feats, out_features, pixels), trunk=trunk, fast_sine=fast_sine)
     return StepMSE.apply(False, kernel, kw, *ops, *_loss_operands(targets, sineweight, bmask))
 
 
@@ -1218,7 +1223,7 @@ def fused_step_mse(
     params, equivariance: str, ndims: int, Z, D, targets, sineweight, bmask, *,
     hidden_layers: int, hidden_features: int, out_features: int, first_omega_0: float,
     hidden_omega_0: float, output_activation: str | None, trunk: str = "bfloat16",
-    fast_sine: bool = False,
+    fast_sine: bool = False, pixels: int | None = None,
 ):
     """The FIT_DECODER objective's weighted MSE through the train-step
     kernel: ``losses.weighted_mse(act(decode(Z, D)), targets, sineweight *
@@ -1226,13 +1231,15 @@ def fused_step_mse(
 
     targets (B, P, C), sineweight (1, P, C), bmask (B,); D as for
     ``fused_apply``. CUDA tensors launch the kernel; CPU tensors take
-    ``siren_step_reference``."""
+    ``siren_step_reference``. On a mesh (``parallel.mesh``) the tensors are
+    this rank's block and ``pixels`` the whole batch's pixel count, so that
+    the ranks' partial losses and gradients sum to the whole."""
     return _step_mse(
         params, equivariance, ndims, Z, D, targets, sineweight, bmask,
         hidden_layers=hidden_layers, hidden_features=hidden_features,
         out_features=out_features, first_omega_0=first_omega_0,
         hidden_omega_0=hidden_omega_0, output_activation=output_activation, trunk=trunk,
-        fast_sine=fast_sine, kernel=Z.is_cuda,
+        fast_sine=fast_sine, kernel=Z.is_cuda, pixels=pixels,
     )
 
 
@@ -1240,7 +1247,7 @@ def fused_step_mse_reference(
     params, equivariance: str, ndims: int, Z, D, targets, sineweight, bmask, *,
     hidden_layers: int, hidden_features: int, out_features: int, first_omega_0: float,
     hidden_omega_0: float, output_activation: str | None, trunk: str = "bfloat16",
-    fast_sine: bool = False,
+    fast_sine: bool = False, pixels: int | None = None,
 ):
     """``fused_step_mse`` through the plain PyTorch step, on any device."""
     return _step_mse(
@@ -1248,12 +1255,13 @@ def fused_step_mse_reference(
         hidden_layers=hidden_layers, hidden_features=hidden_features,
         out_features=out_features, first_omega_0=first_omega_0,
         hidden_omega_0=hidden_omega_0, output_activation=output_activation, trunk=trunk,
-        fast_sine=fast_sine, kernel=False,
+        fast_sine=fast_sine, kernel=False, pixels=pixels,
     )
 
 
 def _film_step_mse(params, equivariance, Z, D, targets, sineweight, bmask, *, hidden_layers,
-                   hidden_features, out_features, output_activation, trunk, fast_sine, kernel):
+                   hidden_features, out_features, output_activation, trunk, fast_sine, kernel,
+                   pixels=None):
     d_feats = _d_features(equivariance, Z, D, hidden_features, trunk, "film step")
     reason = step_unsupported_reason(hidden_features, hidden_layers, trunk, film=True)
     if reason:
@@ -1263,7 +1271,7 @@ def _film_step_mse(params, equivariance, Z, D, targets, sineweight, bmask, *, hi
         raise ValueError(
             f"params have {ops[3].shape[0]} trunk layers, config says {hidden_layers}"
         )
-    kw = dict(out_act=output_activation, gscale=1.0 / float(d_feats.shape[1] * out_features),
+    kw = dict(out_act=output_activation, gscale=_gscale(d_feats, out_features, pixels),
               trunk=trunk, fast_sine=fast_sine)
     return StepMSE.apply(True, kernel, kw, *ops, *_loss_operands(targets, sineweight, bmask))
 
@@ -1271,7 +1279,7 @@ def _film_step_mse(params, equivariance, Z, D, targets, sineweight, bmask, *, hi
 def fused_film_step_mse(
     params, equivariance: str, Z, D, targets, sineweight, bmask, *, hidden_layers: int,
     hidden_features: int, out_features: int, output_activation: str | None,
-    trunk: str = "bfloat16", fast_sine: bool = False,
+    trunk: str = "bfloat16", fast_sine: bool = False, pixels: int | None = None,
 ):
     """The FiLM counterpart of ``fused_step_mse``: the FIT_DECODER weighted
     MSE through the FiLM train-step kernel, differentiable w.r.t. Z and every
@@ -1282,18 +1290,19 @@ def fused_film_step_mse(
         params, equivariance, Z, D, targets, sineweight, bmask, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine,
-        kernel=Z.is_cuda,
+        kernel=Z.is_cuda, pixels=pixels,
     )
 
 
 def fused_film_step_mse_reference(
     params, equivariance: str, Z, D, targets, sineweight, bmask, *, hidden_layers: int,
     hidden_features: int, out_features: int, output_activation: str | None,
-    trunk: str = "bfloat16", fast_sine: bool = False,
+    trunk: str = "bfloat16", fast_sine: bool = False, pixels: int | None = None,
 ):
     """``fused_film_step_mse`` through the plain PyTorch step, on any device."""
     return _film_step_mse(
         params, equivariance, Z, D, targets, sineweight, bmask, hidden_layers=hidden_layers,
         hidden_features=hidden_features, out_features=out_features,
         output_activation=output_activation, trunk=trunk, fast_sine=fast_sine, kernel=False,
+        pixels=pixels,
     )

@@ -42,6 +42,7 @@ from reni_tpu_torch.kernels.siren_step import (
     step_unsupported_reason,
 )
 from reni_tpu_torch.models import film, siren
+from reni_tpu_torch.parallel.mesh import active_kernel_mesh
 from reni_tpu_torch.params import map_tree, tree_leaves
 from reni_tpu_torch.utils.device import resolve_device
 
@@ -56,6 +57,14 @@ def _note_trunk_path(msg: str) -> None:
     if msg not in _noted_paths:
         _noted_paths.add(msg)
         print(f"[reni_tpu] {msg}", file=sys.stderr, flush=True)
+
+
+def _mesh_suffix() -> str:
+    """The active mesh (``parallel.mesh.kernel_mesh``) for a path note."""
+    mesh = active_kernel_mesh()
+    if mesh is None or mesh.size == 1:
+        return ""
+    return f" (each rank its block of data={mesh.n_data} x pixel={mesh.n_pixel})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,12 +223,9 @@ class RENIModel:
         self, params: Params, idx, generator: torch.Generator | None = None, *, noise=None
     ):
         """Reparameterised sample (VAD): (Z = mu + eps * exp(log_var / 2), mu,
-        log_var) for the rows ``idx``. ``eps`` ~ N(0, 1) is drawn on the CPU
-        from ``generator`` (the same numbers on any device), or is ``noise``
-        when given (the tests feed the noise JAX drew). On the card the draw
-        lands in pinned host memory and reaches the device by a copy that
-        does not block the host (the caching host allocator keeps the buffer
-        until the copy's stream is past it). An AD returns (Z, Z, zeros)."""
+        log_var) for the rows ``idx``. ``eps`` ~ N(0, 1) comes from
+        ``generator`` (``draw_noise``), or is ``noise`` when given (the tests
+        feed the noise JAX drew). An AD returns (Z, Z, zeros)."""
         if not self.config.is_variational:
             table = params["latents"]["Z"]
             z = table[self._as_index(idx, table.device)]
@@ -227,12 +233,9 @@ class RENIModel:
         table = params["latents"]["mu"]
         idx = self._as_index(idx, table.device)
         mu, log_var = table[idx], params["latents"]["log_var"][idx]
-        std = torch.exp(0.5 * log_var)
         if noise is None:
-            noise = torch.empty(std.shape, dtype=std.dtype,
-                                pin_memory=std.device.type == "cuda")
-            noise.normal_(generator=generator)
-        return mu + noise.to(std.device, std.dtype, non_blocking=True) * std, mu, log_var
+            noise = draw_noise(mu.shape, mu.dtype, mu.device, generator)
+        return reparameterise(mu, log_var, noise), mu, log_var
 
     def apply(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
         """Decode radiance at directions D given latent codes Z.
@@ -241,7 +244,10 @@ class RENIModel:
         batch. Returns (B, npix, out_features).
 
         With ``use_pallas`` a shape the fused kernel cannot take raises on
-        the card; on the CPU it takes the plain decoder, with a note."""
+        the card; on the CPU it takes the plain decoder, with a note. Under
+        a kernel mesh (``parallel.mesh.kernel_mesh``) Z and D are this rank's
+        block, so the guard checks those local extents and the note names
+        the mesh."""
         cfg = self.config
         use_pallas = cfg.use_pallas
         if use_pallas:
@@ -264,7 +270,7 @@ class RENIModel:
                     )
             if reason is None:
                 _note_trunk_path(
-                    f"fused trunk on {Z.device.type} for B={B}, npix={npix}"
+                    f"fused trunk{_mesh_suffix()} on {Z.device.type} for B={B}, npix={npix}"
                 )
             elif Z.is_cuda:
                 raise ValueError(
@@ -336,7 +342,9 @@ class RENIModel:
         batch ``d_batch``: None means it can. Every guard of ``apply`` holds
         here too (``last_layer_linear`` matters only for Cond-by-Concat:
         FiLM's final layer is always linear), then the step kernel's own
-        limits."""
+        limits. Under a kernel mesh ``batch`` and ``npix`` are the whole
+        batch's: they must divide the data and pixel axes, and the kernel's
+        limits hold at each rank's block."""
         cfg = self.config
         if not cfg.use_pallas:
             return "use_pallas off"
@@ -345,16 +353,18 @@ class RENIModel:
         if d_batch not in (1, batch):
             return f"direction grid batch {d_batch} matches neither 1 nor Z batch {batch}"
         return unsupported_reason(
-            npix, cfg.hidden_features, batch=batch, trunk=cfg.pallas_trunk
+            npix, cfg.hidden_features, batch=batch, trunk=cfg.pallas_trunk,
+            mesh=active_kernel_mesh(),
         ) or step_unsupported_reason(
             cfg.hidden_features, cfg.hidden_layers, cfg.pallas_trunk, film=cfg.is_film
         )
 
-    def fused_train_mse(self, params: Params, Z, D, targets, sineweight, bmask):
+    def fused_train_mse(self, params: Params, Z, D, targets, sineweight, bmask, pixels=None):
         """``losses.weighted_mse(self.apply(params, Z, D), targets, sineweight
         * bmask)`` through the train-step kernel (value and every gradient
         in one call). Callers must have checked ``fused_step_reason`` is
-        None."""
+        None. On a mesh the tensors are this rank's block and ``pixels`` is
+        the whole batch's pixel count (the partial losses sum to the loss)."""
         cfg = self.config
         if cfg.is_film:
             return fused_film_step_mse(
@@ -371,6 +381,7 @@ class RENIModel:
                 output_activation=cfg.output_activation,
                 trunk=cfg.pallas_trunk,
                 fast_sine=cfg.fast_sine,
+                pixels=pixels,
             )
         return fused_step_mse(
             params["decoder"],
@@ -389,6 +400,7 @@ class RENIModel:
             output_activation=cfg.output_activation,
             trunk=cfg.pallas_trunk,
             fast_sine=cfg.fast_sine,
+            pixels=pixels,
         )
 
     def apply_concat(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
@@ -438,6 +450,23 @@ class RENIModel:
 
 def build_model(config: RENIConfig) -> RENIModel:
     return RENIModel(config)
+
+
+def draw_noise(shape, dtype: torch.dtype, device: torch.device,
+               generator: torch.Generator | None) -> torch.Tensor:
+    """N(0, 1) noise of ``shape`` drawn on the CPU from ``generator`` (the
+    same numbers on any device). For the card it lands in pinned host memory
+    and reaches the device by a copy that does not block the host (the
+    caching host allocator keeps the buffer until the copy's stream is past
+    it)."""
+    noise = torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+    return noise.normal_(generator=generator)
+
+
+def reparameterise(mu: torch.Tensor, log_var: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Z = mu + noise * exp(log_var / 2), ``noise`` moved to mu's device."""
+    std = torch.exp(0.5 * log_var)
+    return mu + noise.to(std.device, std.dtype, non_blocking=True) * std
 
 
 def _needs_grad(params: Params, Z: torch.Tensor) -> bool:

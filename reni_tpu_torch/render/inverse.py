@@ -91,13 +91,19 @@ class InverseRenderSetup:
             ))
 
     def render_fn(self, width: int) -> Callable:
-        """render(envmaps (B, P, 3) unnormalised, sineweight (B, P, 3)) ->
-        (B, V*H, W, 3) for env maps of equirect width ``width``: the V static
-        views stacked along the height axis (V = 1: plain (B, H, W, 3))."""
+        """render(envmaps (B, P, 3) unnormalised, sineweight (B, P, 3),
+        rows=None) -> (B, V*H, W, 3) for env maps of equirect width
+        ``width``: the V static views stacked along the height axis (V = 1:
+        plain (B, H, W, 3)); with ``rows`` (a slice of V*H, a mesh rank's)
+        only those rows, each view rendering its part of them."""
         light_dirs = sphere.get_directions(width, device=self.device)[0]
+        h = self.render_resolution
 
-        def render(envmaps, sineweight):
-            views = [r(envmaps, sineweight, light_dirs) for r in self._renders]
+        def render(envmaps, sineweight, rows: slice = slice(None)):
+            lo, hi, _ = rows.indices(h * len(self._renders))
+            views = [r(envmaps, sineweight, light_dirs,
+                       slice(max(lo - v * h, 0), min(hi - v * h, h)))
+                     for v, r in enumerate(self._renders) if lo < (v + 1) * h and hi > v * h]
             return views[0] if len(views) == 1 else torch.cat(views, dim=1)
 
         return render
@@ -137,7 +143,10 @@ def fit_inverse(
     ``setup`` the scene comes from ``task_cfg`` (OBJECT_PATH,
     RENDER_RESOLUTION, KD_VALUE, AZIMUTHS, ELEVATIONS) on the device of the
     latents. ``wrap_step(step, res)`` may wrap each stage's step (timing,
-    counting); the other keywords go to ``fit_task``."""
+    counting); the other keywords go to ``fit_task``. With ``mesh=`` the
+    task runs data-sharded: each rank decodes the whole light set of its
+    rows of the batch and renders, where the render's rows divide the pixel
+    axis, its slice of them (``fit_task`` shards the targets' axis 1)."""
     if setup is None:
         setup = InverseRenderSetup(
             task_cfg.object_path,

@@ -191,15 +191,17 @@ def make_render_fn(
 ):
     """Bind the static scene on ``device`` (default: the card); return
     render(envmaps (B, P, 3) *unnormalised*, sineweight (B, P, 3), light_dirs
-    (P, 3)) -> (B, H, W, 3)."""
+    (P, 3), rows=None) -> (B, H, W, 3), or with ``rows`` (a slice of H)
+    those rows of it: a mesh rank renders its slice of the image."""
     positions, normals = pixel_geometry(fragments, face_verts, face_normals, device)
     cam = torch.as_tensor(np.asarray(camera_pos, dtype=np.float32), device=positions.device)
     ks = 1.0 - kd
 
-    def render(envmaps: torch.Tensor, sineweight: torch.Tensor, light_dirs: torch.Tensor):
+    def render(envmaps: torch.Tensor, sineweight: torch.Tensor, light_dirs: torch.Tensor,
+               rows: slice = slice(None)):
         colors = envmaps * sineweight  # EnvironmentMap pre-scaling
         return blinn_phong_env_shading(
-            normals, positions, cam, light_dirs, colors,
+            normals[rows], positions[rows], cam, light_dirs, colors,
             kd=kd, ks=ks, shininess=shininess, chunk=chunk,
         )
 

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel
-from reni_tpu_torch.params import from_numpy, to_numpy
+from reni_tpu_torch.params import from_numpy, map_tree, to_numpy
 from reni_tpu_torch.train.optim import Adagrad, ScheduledOptimizer
 
 Params = dict[str, Any]
@@ -225,6 +225,23 @@ def load_opt_state(path: str, optimizer: ScheduledOptimizer) -> bool:
 # ---------------------------------------------------------------------------
 # files
 # ---------------------------------------------------------------------------
+
+
+def fetch_tree(tree):
+    """Host (numpy) copies of a tree's leaves. A latent table that is
+    row-sharded over a mesh's data axis (``parallel.mesh.
+    shard_latent_tables``, inside a stage) is collected first, by an
+    all-reduce over that axis: the call is collective, so every rank makes
+    it at the same point and rank 0 alone writes what it returns."""
+    from reni_tpu_torch.parallel.mesh import collect_rows
+
+    def fetch(t):
+        if isinstance(t, torch.Tensor):
+            shard = getattr(t, "row_shard", None)
+            t = t.detach() if shard is None else collect_rows(t.detach(), *shard)
+        return to_numpy(t)
+
+    return map_tree(fetch, tree)
 
 
 def save_checkpoint(

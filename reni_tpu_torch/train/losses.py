@@ -24,8 +24,14 @@ import torch
 _EPS = 1e-20
 
 
-def weighted_mse(model_output, ground_truth, sineweight) -> torch.Tensor:
+def weighted_mse(model_output, ground_truth, sineweight, pixels: int | None = None
+                 ) -> torch.Tensor:
+    """``pixels``: the whole sample's pixel count where the inputs hold a
+    slice of it (a mesh's pixel axis): the slices' values then sum to the
+    whole's."""
     se = ((model_output - ground_truth) ** 2) * sineweight
+    if pixels is not None:
+        return (se.reshape(se.shape[0], -1).sum(dim=1) / (pixels * se.shape[-1])).sum()
     return se.reshape(se.shape[0], -1).mean(dim=1).sum()
 
 
@@ -34,12 +40,16 @@ def kld(mu, log_var, z_dims: int = 1) -> torch.Tensor:
     return (k / z_dims).sum()
 
 
-def _cosine_axis1(a, b) -> torch.Tensor:
+def _cosine_axis1(a, b, pixel_sum=None) -> torch.Tensor:
     """torch.nn.functional.cosine_similarity(a, b, dim=1, eps=1e-20), with
-    the JAX package's operation order."""
-    dot = (a * b).sum(dim=1)
-    na = torch.sqrt((a * a).sum(dim=1))
-    nb = torch.sqrt((b * b).sum(dim=1))
+    the JAX package's operation order. Where a and b hold a slice of axis 1
+    (a mesh's pixel axis), ``pixel_sum`` sums the three partial sums over
+    the slices (``parallel.mesh.ShardView.pixel_sum``)."""
+    dot, aa, bb = (a * b).sum(dim=1), (a * a).sum(dim=1), (b * b).sum(dim=1)
+    if pixel_sum is not None:
+        dot, aa, bb = pixel_sum(torch.stack([dot, aa, bb])).unbind(0)
+    na = torch.sqrt(aa)
+    nb = torch.sqrt(bb)
     return dot / (torch.clamp(na, min=_EPS) * torch.clamp(nb, min=_EPS))
 
 
@@ -87,27 +97,38 @@ def reni_test_loss_inverse(inputs, targets, Z, *, alpha, beta):
 #    an all-ones bmask they are the criteria above) ---------------------------
 
 
-def reni_test_loss_masked(inputs, targets, sineweight, Z, bmask, *, alpha, beta):
+def reni_test_loss_masked(inputs, targets, sineweight, Z, bmask, *, alpha, beta,
+                          pixels: int | None = None, pixel_sum=None):
     """FIT_LATENT loss over a zero-padded batch. ``sineweight`` must already
     include the batch mask (and any in-painting mask); ``Z`` rows of padded
     samples must be zeroed by the caller. The cosine term leaves padded rows
-    out (each would add a constant 1)."""
-    mse_loss = weighted_mse(inputs, targets, sineweight)
+    out (each would add a constant 1). ``pixels`` and ``pixel_sum``: for
+    inputs that hold a slice of the pixel axis (``weighted_mse``,
+    ``_cosine_axis1``). The cosine's weight is then the first pixel's of the
+    slice: the term is counted on the rank whose slice starts at pixel 0."""
+    mse_loss = weighted_mse(inputs, targets, sineweight, pixels)
     prior_loss = alpha * torch.sum(Z**2)
-    cos_per = 1.0 - (_cosine_axis1(inputs, targets) * sineweight[:, 0]).mean(dim=1)
+    cos_per = 1.0 - (_cosine_axis1(inputs, targets, pixel_sum) * sineweight[:, 0]).mean(dim=1)
     cosine_loss = beta * (cos_per * bmask).sum()
     return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss
 
 
-def reni_test_loss_inverse_masked(inputs, targets, Z, bmask, *, alpha, beta):
+def reni_test_loss_inverse_masked(inputs, targets, Z, bmask, *, alpha, beta,
+                                  n_valid=None, per_sample: int | None = None,
+                                  pixel_sum=None):
     """FIT_INVERSE loss over a zero-padded batch of (B, H, W, 3) renders;
-    ``reni_test_loss_inverse`` when bmask is all ones."""
+    ``reni_test_loss_inverse`` when bmask is all ones. For a rank's block of
+    a mesh: ``n_valid``, the whole batch's count of real rows, ``per_sample``,
+    a whole render's values, and ``pixel_sum`` for the cosine over the
+    render's rows (``_cosine_axis1``)."""
     bm = bmask[:, None, None, None]
-    n_valid = torch.clamp(torch.sum(bmask), min=1.0)
-    per_sample = math.prod(inputs.shape[1:])
+    if n_valid is None:
+        n_valid = torch.clamp(torch.sum(bmask), min=1.0)
+    if per_sample is None:
+        per_sample = math.prod(inputs.shape[1:])
     mse_loss = torch.sum(bm * (inputs - targets) ** 2) / (n_valid * per_sample)
     prior_loss = alpha * torch.sum(Z**2)
-    cos_flat = _cosine_axis1(inputs * bm, targets * bm)
+    cos_flat = _cosine_axis1(inputs * bm, targets * bm, pixel_sum)
     cos_per = 1.0 - cos_flat.reshape(cos_flat.shape[0], -1).mean(dim=1)
     cosine_loss = beta * (cos_per * bmask).sum() / n_valid
     return mse_loss + prior_loss + cosine_loss, mse_loss, prior_loss, cosine_loss

@@ -30,9 +30,9 @@ optimizer state and generator state, bit for bit the uncut run. With
 ``stream`` the dataset stays on the host (an array, or a ``DiskRowSource``
 that decodes from disk) and ``streaming_stage_runner`` copies it to the
 card a batch (or ``stream_chunk`` batches) at a time, overlapped with the
-steps: the same steps on the same values as the resident tier. The mesh
-arrives with a later slice (ROADMAP.md Queue A-11); its arguments raise
-here.
+steps: the same steps on the same values as the resident tier. With a
+``mesh`` (``parallel/mesh.py``) every rank runs these steps on its block of
+each batch and the ranks sum their gradients (ROADMAP Queue A-11).
 """
 
 from __future__ import annotations
@@ -47,8 +47,26 @@ import numpy as np
 import torch
 
 from reni_tpu_torch.core import sphere
-from reni_tpu_torch.params import map_tree, tree_items
-from reni_tpu_torch.models.reni import RENIModel, _note_trunk_path
+from reni_tpu_torch.models.reni import (
+    RENIModel,
+    _mesh_suffix,
+    _note_trunk_path,
+    draw_noise,
+    reparameterise,
+)
+from reni_tpu_torch.parallel import multihost
+from reni_tpu_torch.parallel.mesh import (
+    PixelSlice,
+    active_view,
+    batch_local_positions,
+    chunk_gather,
+    kernel_mesh,
+    pad_batch_to,
+    shard_latent_tables,
+    sharded_stage_runner,
+    stream_chunk_layout,
+)
+from reni_tpu_torch.params import map_tree, tree_items, tree_leaves
 from reni_tpu_torch.train import losses
 from reni_tpu_torch.train.checkpoint import set_opt_state
 from reni_tpu_torch.train.optim import (
@@ -218,6 +236,50 @@ def make_batches(dataset_size: int, batch_size: int) -> tuple[np.ndarray, np.nda
 # ---------------------------------------------------------------------------
 
 
+def _block(view, B: int, directions: torch.Tensor, sineweight: torch.Tensor):
+    """(rows, directions, sineweight) of this rank's block of a batch of
+    ``B`` on a mesh (``view``: ``parallel.mesh.active_view()``): its rows
+    and its slice of the pixel axis; everything without one."""
+    if view is None:
+        return slice(None), directions, sineweight
+    rows = view.rows(B)
+    d = directions[rows] if directions.shape[0] == B and B > 1 else directions
+    return rows, d[:, view.pix], sineweight[:, view.pix]
+
+
+def _latent_rows(model: RENIModel, params: Params, idx, view, names) -> list[torch.Tensor]:
+    """The latent tables ``names`` at this rank's rows of the batch ``idx``
+    (a row-sharded table's through ``ShardView.latent_rows``)."""
+    tables = [params["latents"][n] for n in names]
+    if view is None:
+        idx = model._as_index(idx, tables[0].device)
+        return [t[idx] for t in tables]
+    return view.latent_rows(tables, idx)
+
+
+def _counted(view, metrics: dict, pixels: tuple, images: tuple) -> dict:
+    """On a mesh, the terms this rank does not count zeroed: ``pixels``
+    (pixel partials) on a replica of a pixel axis that does not divide,
+    ``images`` (per-image terms) off pixel coordinate 0."""
+    if view is None:
+        return metrics
+    for names, counts in ((pixels, view.counts_pixels), (images, view.counts_images)):
+        if not counts:
+            metrics.update({k: metrics[k] * 0.0 for k in names if k in metrics})
+    return metrics
+
+
+def _update(state: TrainState, loss: torch.Tensor, metrics: dict, view) -> dict:
+    """Backward, on a mesh the one all-reduce of the gradient bucket and the
+    metric partials (``ShardView.reduce``), then the optimizer's step."""
+    state.optimizer.zero_grad()
+    loss.backward()
+    if view is not None:
+        metrics = view.reduce(tree_leaves(state.trainable), metrics)
+    state.optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def make_fit_decoder_step(
     model: RENIModel,
     directions: torch.Tensor,
@@ -236,46 +298,59 @@ def make_fit_decoder_step(
     term and all its gradients come from the train-step kernel
     (Cond-by-Concat or FiLM, ``RENIModel.fused_train_mse``); otherwise
     from ``model.apply`` and autograd (on the card, with ``use_pallas``, the
-    forward and backward kernels). Both routes compute the same loss."""
+    forward and backward kernels). Both routes compute the same loss.
+
+    On a mesh (a stage runner's ``parallel.mesh.kernel_mesh``) imgs is this
+    rank's block (its rows, its pixels) and idx, bmask are the whole
+    batch's: the step decodes its block through the kernels, draws the whole
+    batch's noise in the single-device order and keeps its rows, counts the
+    KLD on pixel coordinate 0, and sums the gradients over the mesh."""
     cfg = model.config
     z_dims = 3 * cfg.latent_dim
 
     def step(state: TrainState, batch):
         imgs, idx, bmask = batch
-        B, npix = imgs.shape[0], directions.shape[1]
+        view = active_view()
+        B, npix = idx.shape[0], directions.shape[1]
         reason = model.fused_step_reason(B, npix, directions.shape[0])
         where = f"on {imgs.device.type} for B={B}, npix={npix}"
         if reason is None:
-            _note_trunk_path(f"fused train step {where}")
+            _note_trunk_path(f"fused train step{_mesh_suffix()} {where}")
         elif cfg.use_pallas:
             _note_trunk_path(
                 f"FIT_DECODER through RENIModel.apply and autograd (train-step kernel "
                 f"declined: {reason}) {where}"
             )
+        rows, d, sw = _block(view, B, directions, sineweight)
+        pixels = None if view is None else npix
+        bm = bmask[rows]
         params = state.params
-        metrics = {}
         if cfg.is_variational:
-            noise = None if latent_noise is None else latent_noise((B, cfg.latent_dim, 3))
-            Z, mu, log_var = model.sample_latent(params, idx, state.generator, noise=noise)
-            mu = mu * bmask[:, None, None]
-            log_var = log_var * bmask[:, None, None]
+            shape = (B, cfg.latent_dim, 3)
+            mu, log_var = _latent_rows(model, params, idx, view, ("mu", "log_var"))
+            noise = (draw_noise(shape, mu.dtype, mu.device, state.generator)
+                     if latent_noise is None else latent_noise(shape))
+            Z = reparameterise(mu, log_var, noise[rows])
+            mu = mu * bm[:, None, None]
+            log_var = log_var * bm[:, None, None]
         else:
-            Z = model.latents(params, idx)
+            (Z,) = _latent_rows(model, params, idx, view, ("Z",))
         if reason is None:
-            mse = model.fused_train_mse(params, Z, directions, imgs, sineweight, bmask)
+            mse = model.fused_train_mse(params, Z, d, imgs, sw, bm, pixels=pixels)
         else:
-            out = model.apply(params, Z, directions)
-            mse = losses.weighted_mse(out, imgs, sineweight * bmask[:, None, None])
-        loss = mse
+            out = model.apply(params, Z, d)
+            mse = losses.weighted_mse(out, imgs, sw * bm[:, None, None], pixels)
+        terms = {"mse_loss": mse}
         if cfg.is_variational:
-            kl = kld_weighting * losses.kld(mu, log_var, z_dims)
-            loss = mse + kl
-            metrics = {"mse_loss": mse, "kld_loss": kl}
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        metrics = {"loss": loss, **metrics}
-        return state, {k: v.detach() for k, v in metrics.items()}
+            terms["kld_loss"] = kld_weighting * losses.kld(mu, log_var, z_dims)
+        terms = _counted(view, terms, ("mse_loss",), ("kld_loss",))
+        if cfg.is_variational:
+            loss = terms["mse_loss"] + terms["kld_loss"]
+            metrics = {"loss": loss, **terms}
+        else:
+            loss = terms["mse_loss"]
+            metrics = {"loss": loss}
+        return state, _update(state, loss, metrics, view)
 
     return step
 
@@ -291,22 +366,30 @@ def make_fit_latent_step(
     """One FIT_LATENT update (frozen decoder; deterministic mu/Z latents).
     Batch = (imgs (B, P, 3), idx (B,), bmask (B,)); returns (state, metrics
     of 0-d tensors). ``sineweight`` should already include the in-painting
-    mask if any (RENI_module.py:92-94)."""
+    mask if any (RENI_module.py:92-94). On a mesh as FIT_DECODER's step:
+    the cosine term's pixel sums go over the pixel axis, and the prior and
+    the cosine count on pixel coordinate 0."""
+    names = ("Z",) if not model.config.is_variational else ("mu",)
 
     def step(state: TrainState, batch):
         imgs, idx, bmask = batch
-        sw = sineweight * bmask[:, None, None]
+        view = active_view()
+        rows, d, sw = _block(view, idx.shape[0], directions, sineweight)
+        bm = bmask[rows]
+        sw = sw * bm[:, None, None]
         params = state.params
-        Z = model.latents(params, idx) * bmask[:, None, None]
-        out = model.apply(params, Z, directions)
-        loss, mse, prior, cos = losses.reni_test_loss_masked(
-            out, imgs, sw, Z, bmask, alpha=alpha, beta=beta
+        (Z,) = _latent_rows(model, params, idx, view, names)
+        Z = Z * bm[:, None, None]
+        out = model.apply(params, Z, d)
+        _, mse, prior, cos = losses.reni_test_loss_masked(
+            out, imgs, sw, Z, bm, alpha=alpha, beta=beta,
+            pixels=None if view is None else directions.shape[1],
+            pixel_sum=None if view is None else view.pixel_sum,
         )
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        metrics = {"loss": loss, "mse_loss": mse, "prior_loss": prior, "cosine_loss": cos}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = _counted(view, {"mse_loss": mse, "prior_loss": prior, "cosine_loss": cos},
+                           ("mse_loss",), ("prior_loss", "cosine_loss"))
+        loss = metrics["mse_loss"] + metrics["prior_loss"] + metrics["cosine_loss"]
+        return state, _update(state, loss, {"loss": loss, **metrics}, view)
 
     return step
 
@@ -325,25 +408,41 @@ def make_fit_inverse_step(
     -> loss against the ground-truth renders (RENI_module.py:107-112,
     386-396); the optimizer moves only the trainable latents.
 
-    render_fn: (envmaps (B, P, 3), sineweight (B, P, 3)) -> (B, H, W, 3).
+    render_fn: (envmaps (B, P, 3), sineweight (B, P, 3)) -> (B, H, W, 3),
+    and with ``rows=`` a slice of H (``InverseRenderSetup.render_fn``).
     Batch = (gt_renders (B, H, W, 3), idx (B,), bmask (B,)); returns (state,
-    metrics of 0-d tensors)."""
+    metrics of 0-d tensors). On a mesh gt_renders is this rank's block: its
+    rows of the batch and, where H divides the pixel axis, its slice of H,
+    which it renders from the whole decoded light set of its rows."""
+
+    names = ("Z",) if not model.config.is_variational else ("mu",)
 
     def step(state: TrainState, batch):
         gt_renders, idx, bmask = batch
-        sw = sineweight * bmask[:, None, None]
+        view = active_view()
+        rows = slice(None) if view is None else view.rows(idx.shape[0])
+        bm = bmask[rows]
+        sw = sineweight * bm[:, None, None]
         params = state.params
-        Z = model.latents(params, idx) * bmask[:, None, None]
+        (Z,) = _latent_rows(model, params, idx, view, names)
+        Z = Z * bm[:, None, None]
         out = model.apply(params, Z, directions)
-        render = render_fn(unnormalise(out), sw)
-        loss, mse, prior, cos = losses.reni_test_loss_inverse_masked(
-            render, gt_renders, Z, bmask, alpha=alpha, beta=beta
+        kw = {}
+        if view is not None:
+            kw = dict(n_valid=torch.clamp(torch.sum(bmask), min=1.0),
+                      per_sample=view.extent * math.prod(gt_renders.shape[2:]),
+                      pixel_sum=view.pixel_sum)
+        if view is not None and view.split:
+            render = render_fn(unnormalise(out), sw, rows=view.pix)
+        else:
+            render = render_fn(unnormalise(out), sw)
+        _, mse, prior, cos = losses.reni_test_loss_inverse_masked(
+            render, gt_renders, Z, bm, alpha=alpha, beta=beta, **kw
         )
-        state.optimizer.zero_grad()
-        loss.backward()
-        state.optimizer.step()
-        metrics = {"loss": loss, "mse_loss": mse, "prior_loss": prior, "cosine_loss": cos}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = _counted(view, {"mse_loss": mse, "prior_loss": prior, "cosine_loss": cos},
+                           ("mse_loss",), ("prior_loss", "cosine_loss"))
+        loss = metrics["mse_loss"] + metrics["prior_loss"] + metrics["cosine_loss"]
+        return state, _update(state, loss, {"loss": loss, **metrics}, view)
 
     return step
 
@@ -446,13 +545,22 @@ class _Stager:
             self.compute = torch.cuda.current_stream(device)
             self.side = torch.cuda.Stream(device)
 
-    def put(self, source, rows: np.ndarray) -> int:
+    def put(self, source, rows: np.ndarray, n_valid: int | None = None) -> int:
+        """Stage ``source[rows]``; with ``n_valid``, only the first
+        ``n_valid`` rows are fetched and the rest (a mesh rank's padded
+        rows, which the step masks) are zeros."""
         slot, self._next = self._next, self._next ^ 1
+        if self.on_card:
+            self.copied[slot].synchronize()  # the pinned buffer's last copy is done
+        host = self.host[slot]
+        if n_valid is None or n_valid == len(rows):
+            _gather_into(source, rows, host)
+        else:
+            host[n_valid:].zero_()
+            if n_valid:
+                _gather_into(source, rows[:n_valid], host[:n_valid])
         if not self.on_card:
-            _gather_into(source, rows, self.host[slot])
             return slot
-        self.copied[slot].synchronize()  # the pinned buffer's last copy is done
-        _gather_into(source, rows, self.host[slot])
         with torch.cuda.stream(self.side):
             self.side.wait_event(self.freed[slot])
             self.dev[slot].copy_(self.host[slot], non_blocking=True)
@@ -476,7 +584,8 @@ class _Stager:
             self.compute.wait_stream(self.side)
 
 
-def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None) -> Callable:
+def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None, mesh=None,
+                           shard_latents: bool = False) -> Callable:
     """A drop-in for ``run_stage`` that keeps the dataset on the HOST (an
     ndarray from ``images_host_at``, or a ``DiskRowSource``) and copies a
     batch a step to ``device``, for datasets larger than the card's memory
@@ -500,8 +609,15 @@ def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None) -> Callabl
     dispatches; torch has no scan to compile, so here K only sets how many
     batches one copy moves. ``stream_dtype=torch.bfloat16``
     (``TPU.STREAM_DTYPE``) rounds the rows to bf16 on the host, copies bf16
-    and widens on the card to the staging dtype. One device only: a mesh is
-    ROADMAP Queue A-11."""
+    and widens on the card to the staging dtype.
+
+    With a ``mesh`` (``parallel.mesh``) the batch is padded to the data axis
+    and each rank stages, and from a ``DiskRowSource`` decodes, only its own
+    rows of each batch or chunk (``batch_local_positions``; a chunk laid out
+    data-shard-major by ``stream_chunk_layout``) and its pixels where they
+    divide the pixel axis; a rank's padded rows are zeros, not decodes. The
+    steps run under ``kernel_mesh`` as the resident sharded runner's do, and
+    ``shard_latents`` row-shards the latent tables for the stage."""
     device = torch.device(device)
     notes: set = set()
 
@@ -515,7 +631,12 @@ def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None) -> Callabl
             images = images.cpu().numpy()
         elif getattr(images, "prefetch", None) is None:
             images = np.asarray(images)
+        npix = images.shape[1]
         stage_dtype = _NUMPY_TO_TORCH[np.dtype(images.dtype)]
+        if mesh is not None:
+            batch_size = pad_batch_to(batch_size, mesh.n_data)
+            if mesh.pixels(npix) != slice(None):
+                images = PixelSlice(images, mesh.pixels(npix))
         if stream_dtype is not None and stream_dtype != stage_dtype:
             images = _CastRows(images, stream_dtype)
         copy_dtype = images.dtype if isinstance(images.dtype, torch.dtype) else stage_dtype
@@ -530,35 +651,63 @@ def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None) -> Callabl
             note(f"[reni_tpu_torch] TPU.STREAM_CHUNK={chunk}: using {K} (largest divisor of "
                  f"the {nb} batches/epoch — epoch-aligned chunks, one copy a chunk)")
         n_chunks = nb // K
-        rows = [idx[c * K : (c + 1) * K].reshape(-1) for c in range(n_chunks)]
+        # each chunk's rows in staging order, and how many lead real rows
+        rows, valid = [], []
+        for c in range(n_chunks):
+            r, m = idx[c * K : (c + 1) * K], bmask[c * K : (c + 1) * K]
+            if mesh is None:
+                rows.append(r.reshape(-1))
+                valid.append(None)
+                continue
+            perm = stream_chunk_layout(mesh, r)[0]
+            mperm = stream_chunk_layout(mesh, m)[0]
+            pos = batch_local_positions(mesh, K * batch_size)
+            local = perm if pos is None else perm[pos]
+            rows.append(local)
+            # padded rows sit at the end of an epoch's last batch, so at the
+            # end of a rank's block
+            valid.append(int((mperm if pos is None else mperm[pos]).sum()))
+        per_rank = batch_size if mesh is None else batch_size // mesh.n_data
         idx_d = torch.as_tensor(idx, dtype=torch.long, device=device)
         bmask_d = torch.as_tensor(bmask, dtype=stage_dtype, device=device)
-        stager = _Stager((K * batch_size,) + tuple(images.shape[1:]), copy_dtype, stage_dtype,
+        stager = _Stager((K * per_rank,) + tuple(images.shape[1:]), copy_dtype, stage_dtype,
                          device)
-        pre(rows[0])
-        slot = stager.put(images, rows[0])
+
+        def put(c: int) -> int:
+            return stager.put(images, rows[c], valid[c])
+
+        def prefetch(c: int) -> None:
+            pre(rows[c] if valid[c] is None else rows[c][: valid[c]])
+
+        gather = shard_latent_tables(state, mesh) if mesh is not None and shard_latents else None
+        prefetch(0)
+        slot = put(0)
         if n_chunks > 1:
-            pre(rows[1])
+            prefetch(1)
         epochs = []
         try:
-            for e in range(n_epochs):
-                ms = []
-                for c in range(n_chunks):
-                    buf = stager.get(slot)
-                    for k in range(K):
-                        b = c * K + k
-                        imgs = buf if K == 1 else buf[k * batch_size : (k + 1) * batch_size]
-                        state, m = step_fn(state, (imgs, idx_d[b], bmask_d[b]))
-                        ms.append(m)
-                    stager.release(slot)
-                    if n_chunks > 1 and not (e == n_epochs - 1 and c == n_chunks - 1):
-                        # the steps above are in flight on the card: start the
-                        # decodes of the chunk after next, then stage the next
-                        pre(rows[(c + 2) % n_chunks])
-                        slot = stager.put(images, rows[(c + 1) % n_chunks])
-                epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
+            with kernel_mesh(mesh, npix, getattr(gather, "sharded", ())):
+                for e in range(n_epochs):
+                    ms = []
+                    for c in range(n_chunks):
+                        buf = stager.get(slot)
+                        for k in range(K):
+                            b = c * K + k
+                            imgs = buf if K == 1 else chunk_gather(
+                                buf, slice(k * per_rank, (k + 1) * per_rank))
+                            state, m = step_fn(state, (imgs, idx_d[b], bmask_d[b]))
+                            ms.append(m)
+                        stager.release(slot)
+                        if n_chunks > 1 and not (e == n_epochs - 1 and c == n_chunks - 1):
+                            # the steps above are in flight on the card: start the
+                            # decodes of the chunk after next, then stage the next
+                            prefetch((c + 2) % n_chunks)
+                            slot = put((c + 1) % n_chunks)
+                    epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
         finally:
             stager.close()
+        if gather is not None:
+            gather()
         metrics = {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
         return state, metrics
 
@@ -578,8 +727,6 @@ def _stream_dtype(value) -> torch.dtype | None:
 # fit_task arguments of the JAX package that a later slice brings, with the
 # value that leaves them off
 _LATER = {
-    "mesh": (None, "Queue A-11 (parallel/mesh.py)"),
-    "shard_latents": (False, "Queue A-11 (parallel/mesh.py)"),
     "precompile": (False, "Queue A-13 (left out until the card needs it)"),
 }
 
@@ -606,16 +753,17 @@ def fit_task(
     stream_dtype=None,
     precompile: bool = False,
 ) -> tuple[Params, dict]:
-    """Run a whole task with its multi-resolution curriculum (the
-    single-device paths of the JAX ``fit_task``).
+    """Run a whole task with its multi-resolution curriculum (the JAX
+    ``fit_task``).
 
     images_at(res) -> (S, H*W, 3) normalised images at that resolution, on
     the training device and in the training dtype (that of the latents);
     with ``stream`` a host source instead (``images_host_at`` or
     ``row_source_at``), which ``streaming_stage_runner`` copies to the
     latents' device a batch at a time (``stream_chunk`` batches a copy,
-    ``stream_dtype`` bfloat16 to halve the bytes); with ``reaugment`` it is called as images_at(res, epoch) every epoch
-    (the reference's per-item random augmentation). Directions, sineweights
+    ``stream_dtype`` bfloat16 to halve the bytes); with ``reaugment`` it is
+    called as images_at(res, epoch) every epoch (the reference's per-item
+    random augmentation). Directions, sineweights
     and the mask are built in float32, as the JAX package builds them; the
     sineweight is then cast to that dtype. ``step_builder(model, directions,
     sineweight, res)`` replaces the task's step function.
@@ -634,20 +782,28 @@ def fit_task(
     (``checkpoint.read_opt_state``) or a loader called with the fresh
     ``TrainState`` (``checkpoint.load_train_state``: the optimizer state
     into its optimizer, the generator state into its generator). The
-    optimizer's step count keeps
-    the LR schedule exact. ``mesh``, ``shard_latents`` (ROADMAP A-11) and
-    ``precompile`` (A-13) raise NotImplementedError unless left at their
-    defaults; ``stream=True`` with a mesh names A-11.
+    optimizer's step count keeps the LR schedule exact. ``precompile``
+    (ROADMAP A-13) raises NotImplementedError unless left off.
+
+    With a ``mesh`` of more than one rank (``parallel.mesh.make_mesh``; every
+    rank calls ``fit_task`` with the same arguments) the batch is padded to
+    the data axis and each rank trains on its block
+    (``parallel.mesh.sharded_stage_runner``, or the streaming runner's mesh
+    half); ``shard_latents`` row-shards the latent tables over the data axis
+    for each stage. The returned params are whole on every rank.
+    ``RENI_TPU_CKPT_WALL_S`` is read on rank 0 and broadcast, and each
+    adapted segment length is rank 0's, so that every rank makes the same
+    segments (and the same collectives).
 
     Returns (params, metrics dict of (epochs run,) arrays under the
     reference's keys ``{task}_{name}``)."""
-    given = dict(mesh=mesh, shard_latents=shard_latents, precompile=precompile)
-    for name, value in given.items():
+    for name, value in dict(precompile=precompile).items():
         off, where = _LATER[name]
         if value != off:
-            what = "stream=True with a mesh" if stream and name == "mesh" else f"{name}=..."
-            raise NotImplementedError(f"fit_task({what}) is not ported yet: {where}")
+            raise NotImplementedError(f"fit_task({name}=...) is not ported yet: {where}")
     stream_dtype = _stream_dtype(stream_dtype)
+    if mesh is not None and mesh.size == 1:
+        mesh = None  # one rank: the single-device runners
     task_cfg.validate()
     if step_builder is None and task_cfg.task not in ("FIT_DECODER", "FIT_LATENT"):
         raise ValueError(
@@ -655,6 +811,8 @@ def fit_task(
             "reni_tpu_torch.render.inverse.fit_inverse)"
         )
     batch_size = task_cfg.batch_size
+    if mesh is not None:
+        batch_size = pad_batch_to(batch_size, mesh.n_data)
     stages = task_cfg.resolution_stages()
     n_images = images_at(tuple(stages[0][0])).shape[0]
     optim_cfg = dataclasses.replace(
@@ -670,7 +828,10 @@ def fit_task(
     dev, dtype = table.device, table.dtype
     stage_runner = run_stage
     if stream:
-        stage_runner = streaming_stage_runner(dev, chunk=stream_chunk, stream_dtype=stream_dtype)
+        stage_runner = streaming_stage_runner(dev, chunk=stream_chunk, stream_dtype=stream_dtype,
+                                              mesh=mesh, shard_latents=shard_latents)
+    elif mesh is not None:
+        stage_runner = sharded_stage_runner(mesh, shard_latents=shard_latents)
 
     def make_step(res):
         width = res[1]
@@ -700,7 +861,10 @@ def fit_task(
         plan.append((tuple(res), n - skip, off + skip))
         off += n
 
-    wall_target = float(os.environ.get("RENI_TPU_CKPT_WALL_S", "0") or 0)
+    # rank 0's value on every rank, before any branch on it (a rank that
+    # read its own could segment differently and mispair the collectives)
+    wall_target = float(multihost.agree_on_str(os.environ.get("RENI_TPU_CKPT_WALL_S", "0"))
+                        or 0)
     all_metrics = []
     stop = False
     for res, n_epochs, epoch_offset in plan:
@@ -737,6 +901,7 @@ def fit_task(
                     per_epoch = max((time.monotonic() - t0) / seg, 1e-9)
                     ideal = max(1, int(wall_target / per_epoch))
                     seg = min(callback_every, 1 << (ideal.bit_length() - 1))
+                    seg = int(multihost.agree_on_str(str(seg)))
                 if stop:
                     break
         if stop:

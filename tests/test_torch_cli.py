@@ -476,16 +476,24 @@ def test_precision_knob(precision, mixed, want):
     (dict(env=("WORLD_SIZE", "2")), "A-11"), (dict(env=("RENI_TPU_HANG_EXIT_S", "60")), "A-13"),
     (dict(env=("RENI_TPU_RSS_EXIT_GB", "40")), "A-13"),
     (dict(env=("RENI_TPU_STOP_FILE", "/nonexistent/stop")), "A-13"),
-    (dict(env=("RENI_TPU_CHIP_LOCK", "/nonexistent/lock")), "A-13")],
+    (dict(env=("RENI_TPU_CHIP_LOCK", "/nonexistent/lock")), "A-13"),
+    (dict(mesh="1x1x2"), "A-11b"), (dict(MESH=dict(MODEL=2)), "A-11b")],
     ids=lambda v: str(v).replace(" ", ""))
 def test_later_slices_raise_by_name(tmp_path, tiny_dataset, monkeypatch, ask, item):
-    """A mesh or more than one device, sharded latents, a multi-process run
-    and the TPU host's fault machinery raise NotImplementedError naming the
-    ROADMAP queue item, before any training (the streaming keys run:
+    """A tensor-parallel model axis (A-11b) and the TPU host's fault
+    machinery (A-13) raise NotImplementedError naming the ROADMAP queue
+    item, before any training. The mesh, sharded latents and multi-process
+    runs (A-11) are ported (tests/test_torch_multihost.py runs the ranks): in
+    one process without torchrun's variables a mesh of two ranks raises
+    ValueError naming WORLD_SIZE, WORLD_SIZE=2 without MASTER_ADDR raises in
+    the rendezvous, both before any training, and SHARD_LATENTS on one rank
+    trains as without it (the streaming keys run:
     tests/test_torch_streaming.py)."""
     cfg = _tiny_config(tmp_path, tiny_dataset)
     ask = dict(ask)
     mesh = ask.pop("mesh", None)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     if "env" in ask:
         monkeypatch.setenv(*ask.pop("env"))
     for key, value in ask.items():
@@ -493,9 +501,21 @@ def test_later_slices_raise_by_name(tmp_path, tiny_dataset, monkeypatch, ask, it
             cfg.TPU[key].update(value)
         else:
             cfg.TPU[key] = value
-    with pytest.raises(NotImplementedError, match=f"Queue {item}"):
-        trun.main(cfg, device="cpu", mesh=mesh)
+    if item == "A-11" and cfg.TPU.SHARD_LATENTS:
+        cfg.RENI.TASKS = ["FIT_DECODER"]
+        cfg.RENI.FIT_DECODER.EPOCHS = 2
+        cfg.RENI.FIT_DECODER.MULTI_RES_TRAINING = False
+        results, _ = trun.main(cfg, device="cpu", mesh=mesh)
+        assert results["FIT_DECODER"][1]["fit_decoder_loss"].shape == (2,)
+        return
+    if item == "A-11":
+        with pytest.raises(ValueError, match="WORLD_SIZE|MASTER_ADDR"):
+            trun.main(cfg, device="cpu", mesh=mesh)
+    else:
+        with pytest.raises(NotImplementedError, match=f"Queue {item}$"):
+            trun.main(cfg, device="cpu", mesh=mesh)
     assert not os.path.exists(cfg.TRAINER.LOGGER.TB.SAVE_DIR)
+    assert not torch.distributed.is_initialized()
 
 
 def test_precompile_is_ignored_with_a_note(tmp_path, tiny_dataset, capsys):

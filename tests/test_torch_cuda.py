@@ -1329,3 +1329,18 @@ def test_batch_of_one_decode_takes_the_passes(cuda, film):
     ref = grad(True)
     assert after == (before[0] + 1, before[1] + 1, before[2])
     assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+def test_sharded_step_kernel_plan_on_the_card(cuda, tmp_path):
+    """The sharded kernel plan on the card: two ranks on the one card (gloo;
+    NCCL takes one rank a card) on a 1 x 2 data x pixel mesh each launch the
+    train-step kernel of either conditioning on their half of a 100 x 8,192
+    batch; ``chip_smoke.mesh_step_check`` holds the loss (1e-4 relative) and
+    every gradient (the bf16 step bar) against the single-device kernel
+    step, two calls to the same bits and the ranks to each other's bits."""
+    import chip_smoke
+
+    batch = np.random.default_rng(0).uniform(-1, 1, (100, 8192, 3)).astype(np.float32)
+    launches, grads, outs, _ = chip_smoke.mesh_step_check(cuda, str(tmp_path), batch, 1, 2)
+    assert launches == {"cbc": 4, "film": 4}
+    assert "decoder/final/w" in grads and [r["coords"] for r, _ in outs] == [[0, 0], [0, 1]]

@@ -45,7 +45,8 @@ def test_the_module_list_covers_this_slice():
             "reni_tpu_torch.baselines.spherical_harmonics",
             "reni_tpu_torch.baselines.spherical_gaussians", "reni_tpu_torch.utils.convert",
             "reni_tpu_torch.utils.assets", "reni_tpu_torch.data.piz", "reni_tpu_torch.data.b44",
-            "reni_tpu_torch.data.dwa"} <= names
+            "reni_tpu_torch.data.dwa", "reni_tpu_torch.parallel", "reni_tpu_torch.parallel.mesh",
+            "reni_tpu_torch.parallel.multihost"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -32,6 +32,7 @@ from reni_tpu_torch.data import datasets as td
 from reni_tpu_torch.data import exr as te
 from reni_tpu_torch.data import synthetic
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+from reni_tpu_torch.parallel import mesh as pmesh
 from reni_tpu_torch.train import checkpoint as tck
 from reni_tpu_torch.train import optim as toptim
 from reni_tpu_torch.train import tasks as ttasks
@@ -332,10 +333,18 @@ def test_stream_cut_and_resumed_is_the_uncut_run(skies, tmp_path, source):
 
 
 def test_stream_with_a_mesh_names_a11(skies):
-    """A streamed run on a mesh raises, naming ROADMAP A-11."""
+    """A streamed run on a mesh (ROADMAP A-11, ported: the mesh half of the
+    runner is held on four ranks in tests/test_torch_parallel.py) runs; on
+    the one-rank mesh of a single process it is the unsharded streamed run
+    bit for bit. A stream_dtype other than float32 or bfloat16 raises."""
     ds = td.get_dataset("RENI_HDR", _train(skies), PUBLISHED, True)
-    with pytest.raises(NotImplementedError, match=r"stream=True with a mesh.*Queue A-11"):
-        _fit("FIT_LATENT", ds.images_host_at, stream=True, mesh=object())
+    plain = _fit("FIT_LATENT", ds.images_host_at, stream=True)
+    on_mesh = _fit("FIT_LATENT", ds.images_host_at, stream=True, mesh=pmesh.make_mesh(device="cpu"),
+                   shard_latents=True)
+    assert plain[1].keys() == on_mesh[1].keys()
+    for k in plain[1]:
+        np.testing.assert_array_equal(plain[1][k], on_mesh[1][k])
+    assert torch.equal(plain[0]["latents"]["mu"], on_mesh[0]["latents"]["mu"])
     with pytest.raises(ValueError, match="stream_dtype must be float32 or bfloat16"):
         _fit("FIT_LATENT", ds.images_host_at, stream=True, stream_dtype="float16")
 

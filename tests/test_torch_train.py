@@ -24,6 +24,7 @@ from reni_tpu.train import tasks as jtasks
 from reni_tpu_torch import params as tparams
 from reni_tpu_torch.core import sphere as tsph
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel, replace_latents
+from reni_tpu_torch.parallel import mesh as pmesh
 from reni_tpu_torch.train import checkpoint as tck
 from reni_tpu_torch.train import losses as tlosses
 from reni_tpu_torch.train import optim as toptim
@@ -371,19 +372,35 @@ def test_fit_latent_masked_region_ignored():
 
 
 @pytest.mark.parametrize("name, value", [
-    ("mesh", object()), ("shard_latents", True), ("precompile", True)])
+    ("mesh", lambda: pmesh.Mesh(n_model=2)), ("shard_latents", True), ("precompile", True)])
 def test_fit_task_rejects_later_slices(name, value):
-    """The arguments of slices still to come (ROADMAP Queue A-11, A-13)
-    raise, naming the queue item; the callbacks, resume and re-staging of
-    A-4 are held in tests/test_torch_resume.py, the streaming tiers of A-9
-    in tests/test_torch_streaming.py."""
-    assert sorted(ttasks._LATER) == sorted(["mesh", "shard_latents", "precompile"])
+    """The arguments of slices still to come raise, naming the queue item:
+    ``precompile`` (ROADMAP Queue A-13) and a mesh with a tensor-parallel
+    model axis (A-11b). The data x pixel mesh and ``shard_latents`` (A-11)
+    are ported (tests/test_torch_parallel.py); without a mesh
+    ``shard_latents`` leaves the run as it is, as in JAX. The callbacks,
+    resume and re-staging of A-4 are held in tests/test_torch_resume.py,
+    the streaming tiers of A-9 in tests/test_torch_streaming.py."""
+    assert sorted(ttasks._LATER) == ["precompile"]
     cfg, jm, jp = _tiny_vad(3)
     tp = tparams.from_numpy(jp, "cpu")
     task = ttasks.TaskConfig(**dict(_latent_task(), optim=toptim.OptimConfig()))
     model = RENIModel(RENIConfig(**cfg))
-    with pytest.raises(NotImplementedError, match=r"Queue A-(11|13)"):
-        ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), **{name: value})
+    if name == "mesh":
+        with pytest.raises(NotImplementedError, match=r"Queue A-11b"):
+            ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), mesh=value())
+        return
+    if name == "precompile":
+        with pytest.raises(NotImplementedError, match=r"Queue A-13"):
+            ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), precompile=value)
+        return
+    imgs = {(4, 8): torch.from_numpy(_targets(8, 5, 1, np.float32)),
+            (8, 16): torch.from_numpy(_targets(16, 5, 2, np.float32))}
+    runs = [ttasks.fit_task(model, tp, task, lambda res: imgs[res], torch.Generator(), **kw)
+            for kw in ({}, {name: value})]
+    for k in runs[0][1]:
+        np.testing.assert_array_equal(runs[0][1][k], runs[1][1][k])
+    assert torch.equal(runs[0][0]["latents"]["mu"], runs[1][0]["latents"]["mu"])
 
 
 def test_fit_task_needs_a_step_builder_for_fit_inverse():
