@@ -299,7 +299,35 @@ Phases (any failure exits non-zero and prints no result line):
                  (rank 0 alone writes), each within 0.1 dB of its
                  single-device run; (f) an NCCL group of one rank. Times
                  here are not scaling numbers: the ranks share one card
-13. report    - one JSON line of kernels, the card's name and power limit,
+13. tp        - (after mesh) the tensor-parallel model axis (ROADMAP
+                 A-11b): ranks as processes on the one card over gloo, the
+                 decoder parallel/tp.py's sharded plain decoder (the kernels
+                 declined, as in JAX: none launches). (a) one FIT_DECODER
+                 step of the cbc (5x256) and FiLM (mapping 3x256) Zoo
+                 configurations at 100 x 8,192 on 1 x 1 x 2 and 1 x 1 x 4
+                 against the single-device plain step (loss 1e-5 relative,
+                 every gradient within 1e-4 x max |single|), the same bits
+                 twice (1 x 1 x 2; one call on 1 x 1 x 4), the replicated
+                 leaves and the gathered slices the same bits on every rank;
+                 (c) FIT_LATENT with the frozen decoder sharded on 1 x 1 x 2;
+                 (b) FIT_DECODER cbc on 2 x 1 x 2, resident and from disk in
+                 chunks of 5; (d) the trainer's three-task chain on --mesh
+                 1x1x2, killed mid-FIT_DECODER and relaunched with --retries
+                 1 (bit for bit the uncut chain); cut to two epochs: (b) and
+                 (d)'s FIT_DECODER at 16x32, (c) and (d)'s FIT_LATENT one at
+                 16x32 and one at 32x64, (d)'s FIT_INVERSE at its own
+                 resolution; each within 0.1 dB of its single-device plain
+                 run
+14. faults    - the trainer's fault machinery (ROADMAP A-13) on cli_run's
+                 FIT_DECODER, each run a trainer process, in two waves: a
+                 stop file (exit 115 after a checkpoint), an RSS bound below
+                 the RSS (exit 114) and a run holding the chip lock under
+                 RENI_TPU_HANG_EXIT_S=30 (no hang exit), side by side; a
+                 second launch with TPU.PRECOMPILE that waits for the lock,
+                 beside the two relaunches; the holder, the second launch and
+                 each relaunch bit for bit cli_run's run A, with what the
+                 precompiler built
+15. report    - one JSON line of kernels, the card's name and power limit,
                  then {"ok": true, "device": {...}} as the last line
 
 The numbers of the export, evaluate, baselines, convert and fit_prior
@@ -485,6 +513,15 @@ STREAM_LATENT_EPOCHS, STREAM_LATENT_CURRICULUM = 30, (10, 20)
 MESH_CHILD_S = 300
 MESH_CHILD = [sys.executable, os.path.abspath(__file__), "--mesh-rank"]  # a rank's command
 MESH_REFS: dict = {}
+# tp: the sharded step against the single-device plain step (float32 bars:
+# the loss relative, each gradient over max |single|); (b) cut to two epochs
+# at 16x32, (c) to one epoch at 16x32 and one at 32x64; (d) the chain cut to
+# (EPOCHS, CURRICULUM, FINAL_RESOLUTION), FIT_DECODER one stage of two epochs
+# (killed mid-stage)
+TP_LOSS_BAR, TP_GRAD_BAR = 1e-5, 1e-4
+TP_FIT_EPOCHS, TP_FIT_CURRICULUM, TP_FIT_RES = 2, (1,), (32, 64)
+TP_CHAIN_CUTS = {"FIT_DECODER": (2, None, [16, 32]), "FIT_LATENT": (2, [1], [32, 64]),
+                 "FIT_INVERSE": (2, None, None)}
 
 
 class SmokeFailure(Exception):
@@ -3707,11 +3744,16 @@ def _mesh_model(entry: str, device):
     return RENIModel(ckpt.load_model_config(os.path.join(entry, "checkpoint")))
 
 
-def _step_grads(model, params, images, device, mesh=None) -> tuple[dict, dict, dict]:
+def _step_grads(model, params, images, device, mesh=None, held=None) -> tuple[dict, dict, dict]:
     """One FIT_DECODER step (decoder_task_config's optimizer, the fresh
     student of fit_decoder) on ``images`` (the whole batch, or on ``mesh``
     this rank's block of it): (loss metrics, the gradients that reached the
-    optimizer, the updated trainable leaves), all as numpy."""
+    optimizer, the updated trainable leaves), all as numpy. On a model axis
+    the decoder is cut to the rank's slices for the step
+    (``shard_for_stage``): the gradients are the slices', the leaves
+    gathered whole after it, and ``held`` receives the slices the rank
+    updated. ``held["ms"]`` is the step's time (host clock, the card
+    synchronised around it)."""
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.parallel import mesh as pmesh
     from reni_tpu_torch.params import tree_items
@@ -3735,9 +3777,17 @@ def _step_grads(model, params, images, device, mesh=None) -> tuple[dict, dict, d
     B, P = DEC_BATCH, images.shape[1] if mesh is None else FIT_RES[1][0] * FIT_RES[1][1]
     idx = torch.arange(B, device=device)
     bmask = torch.ones(B, device=device)
+    gather = pmesh.shard_for_stage(state, mesh) if mesh is not None and mesh.n_model > 1 else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with pmesh.kernel_mesh(mesh, P):
         state, m = step(state, (images, idx, bmask))
     torch.cuda.synchronize()
+    if held is not None:
+        held["ms"] = (time.perf_counter() - t0) * 1e3
+        held.update({n: t.detach().cpu().numpy() for n, t in tree_items(state.trainable)})
+    if gather is not None:
+        gather()
     return ({k: v.item() for k, v in m.items()}, grads,
             {n: t.detach().cpu().numpy() for n, t in tree_items(state.trainable)})
 
@@ -3755,7 +3805,7 @@ def _mesh_part_step(part, device, mesh, res, arrays) -> None:
         counter = ts.film_step_cuda if model.config.is_film else ts.siren_step_cuda
         counter.launches = 0
         runs = []
-        for _ in range(2):
+        for _ in range(1 if part.get("once") else 2):
             params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
             runs.append(_step_grads(model, params, block, device, mesh))
         res[f"step_{conf}_launches"] = counter.launches
@@ -3870,14 +3920,15 @@ def _mesh_part_trainer(part, device, mesh, res, arrays) -> None:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    _, log_dir = cli_run.run_with_retries(cfg, mesh=part["mesh"], backend="gloo", device=DEVICE)
+    _, log_dir = cli_run.run_with_retries(cfg, mesh=part["mesh"], backend="gloo", device=DEVICE,
+                                          retries=part.get("retries", 0))
     torch.cuda.synchronize()
     res["trainer"] = {"wall_s": time.perf_counter() - t0, "log_dir": log_dir,
                       "launches": {k: fn.launches for k, fn in counters.items()}}
 
 
 MESH_PARTS = {"step": _mesh_part_step, "fit": _mesh_part_fit, "decode": _mesh_part_decode,
-              "latent": _mesh_part_latent, "trainer": _mesh_part_trainer}
+              "latent": _mesh_part_latent, "trainer": _mesh_part_trainer}  # + the tp phase's
 
 
 def mesh_rank(work: str) -> None:
@@ -3895,7 +3946,7 @@ def mesh_rank(work: str) -> None:
     multihost.initialize(backend="gloo", device=DEVICE)
     device = multihost.rank_device(DEVICE)
     mesh = pmesh.make_mesh(*job["mesh"], device=device)
-    res, arrays = {"coords": [mesh.data_index, mesh.pixel_index]}, {}
+    res, arrays = {"coords": [mesh.data_index, mesh.pixel_index, mesh.model_index]}, {}
     for part in job["parts"]:
         if part["kind"] == "trainer":
             MESH_PARTS["trainer"](part, device, mesh, res, arrays)
@@ -4182,6 +4233,593 @@ def mesh_phase(device, train, test, maps_root: str) -> dict:
             "siren_bwd@mesh": lat_n["siren_bwd"] + trainer["siren_bwd"]}
 
 
+# ---------------------------------------------------------------------------
+# tp: the tensor-parallel model axis (ROADMAP A-11b)
+# ---------------------------------------------------------------------------
+
+
+def _tp_model(entry: str, device, **over):
+    """A Zoo entry's model config as the trainer runs it on a model axis:
+    use_pallas off (the kernels take whole weights, as JAX's do)."""
+    from reni_tpu_torch.models.reni import RENIModel
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    return RENIModel(ckpt.load_model_config(os.path.join(entry, "checkpoint"), use_pallas=False,
+                                            **over))
+
+
+def _kernel_launches() -> int:
+    """Every kernel wrapper's count, summed (none may launch on a model axis)."""
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    return sum(fn.launches for fn in (tk.fused_apply, tk.fused_film_apply, tb.siren_trunk_bwd_cuda,
+                                      tb.film_trunk_bwd_cuda, ts.siren_step_cuda,
+                                      ts.film_step_cuda, ts.passes_forward))
+
+
+def _mesh_part_tp_step(part, device, mesh, res, arrays) -> None:
+    """tp (a): one FIT_DECODER step of each conditioning through the sharded
+    plain decoder on the whole 100 x 8,192 batch, twice from the same state
+    (once with ``part["once"]``)."""
+    batch = torch.from_numpy(np.load(part["batch"])).to(device)
+    before = _kernel_launches()
+    for conf, entry in (("cbc", CBC), ("film", FILM)):
+        model = _tp_model(entry, device)
+        runs, held = [], []
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(1 if part.get("once") else 2):
+            params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+            held.append({})
+            runs.append(_step_grads(model, params, batch, device, mesh, held[-1]))
+        res[f"tp_{conf}_metrics"] = runs[0][0]
+        res[f"tp_{conf}_ms"] = [h.pop("ms") for h in held]
+        res[f"tp_{conf}_peak_gb"] = (torch.cuda.max_memory_allocated(device) / 1e9
+                                     if device.type == "cuda" else 0.0)
+        res[f"tp_{conf}_same_bits"] = None if len(runs) == 1 else runs[0][0] == runs[1][0] and all(
+            np.array_equal(runs[0][i][k], runs[1][i][k]) for i in (1, 2) for k in runs[0][i])
+        for what, tree in (("grad", runs[0][1]), ("param", runs[0][2]), ("held", held[0])):
+            arrays.update({f"tp_{conf}/{what}/{k}": v for k, v in tree.items()})
+    res["tp_step_launches"] = _kernel_launches() - before
+
+
+def tp_task_config():
+    """tp (b): FIT_DECODER as decoder_task_config, cut to TP_FIT_EPOCHS at
+    16x32 (a 32x64 step through gloo takes 0.9-1.3 s on 2 x 1 x 2)."""
+    return dataclasses.replace(decoder_task_config(), epochs=TP_FIT_EPOCHS,
+                               multi_res_training=False, final_resolution=FIT_RES[0])
+
+
+def _mesh_part_tp_fit(part, device, mesh, res, arrays) -> None:
+    """tp (b): FIT_DECODER cbc on 2 x 1 x 2, resident and from disk in
+    chunks of STREAM_CHUNK."""
+    import functools
+
+    from reni_tpu_torch.data import datasets
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    train_dir = os.path.join(part["maps"], "Train")
+    eager = datasets.get_dataset("RENI_HDR", train_dir, PUBLISHED_TRANSFORMS, True)
+    lazy = datasets.get_dataset("RENI_HDR", train_dir, PUBLISHED_TRANSFORMS, True, lazy=True)
+    model = _tp_model(CBC, device)
+    task = tp_task_config()
+    before = _kernel_launches()
+    for label, images_at, kw in (
+            ("resident", functools.partial(eager.images_at, device=device), {}),
+            ("disk", lazy.row_source_at, dict(stream=True, stream_chunk=STREAM_CHUNK))):
+        events: dict = {}
+
+        def make_step(model, directions, sineweight, r):
+            step = tasks.make_fit_decoder_step(model, directions, sineweight,
+                                               kld_weighting=task.kld_weighting)
+            return timed(step, events.setdefault(r, []))
+
+        params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained, metrics = tasks.fit_task(model, params, task, images_at,
+                                          torch.Generator().manual_seed(1), mesh=mesh,
+                                          step_builder=make_step, **kw)
+        torch.cuda.synchronize()
+        res[f"tp_fit_{label}"] = {
+            "wall_s": time.perf_counter() - t0,
+            "ms": {f"{r[0]}x{r[1]}": v for r, v in stage_ms(events).items()},
+            "loss": [float(x) for x in metrics["fit_decoder_loss"]]}
+        arrays.update({f"tp_fit_{label}/{k}": v
+                       for k, v in ckpt._flatten(ckpt.fetch_tree(trained)).items()})
+    res["tp_fit_launches"] = _kernel_launches() - before
+    eager.close()
+    lazy.close()
+
+
+def tp_latent_task_config():
+    """tp (c): FIT_LATENT as fit_task_config, cut to one epoch at 16x32 and
+    one at 32x64."""
+    return dataclasses.replace(fit_task_config(False), epochs=TP_FIT_EPOCHS,
+                               curriculum=TP_FIT_CURRICULUM, final_resolution=TP_FIT_RES)
+
+
+def tp_fit_latent(device, test, **kw):
+    """FIT_LATENT of the cbc Zoo decoder (plain) on the 21 test maps at
+    tp_latent_task_config."""
+    import functools
+
+    from reni_tpu_torch.train import checkpoint as ckpt
+    from reni_tpu_torch.train import tasks
+
+    model = _tp_model(CBC, device, fixed_decoder=True)
+    params = ckpt.load_decoder_only(os.path.join(CBC, "checkpoint"), model, len(test),
+                                    torch.Generator().manual_seed(0), device)
+    return tasks.fit_task(model, params, tp_latent_task_config(),
+                          functools.partial(test.images_at, device=device),
+                          torch.Generator().manual_seed(1), **kw)
+
+
+def _mesh_part_tp_latent(part, device, mesh, res, arrays) -> None:
+    """tp (c): FIT_LATENT on 1 x 1 x 2 with the frozen decoder sharded."""
+    from reni_tpu_torch.data import datasets
+
+    test = datasets.get_dataset("RENI_HDR", os.path.join(part["maps"], "Test"),
+                                PUBLISHED_TRANSFORMS, True)
+    before = _kernel_launches()
+    t0 = time.perf_counter()
+    params, metrics = tp_fit_latent(device, test, mesh=mesh)
+    torch.cuda.synchronize()
+    res["tp_latent"] = {"wall_s": time.perf_counter() - t0,
+                        "loss": [float(x) for x in metrics["fit_latent_loss"]],
+                        "launches": _kernel_launches() - before}
+    arrays["tp_latent/mu"] = params["latents"]["mu"].cpu().numpy()
+    test.close()
+
+
+MESH_PARTS.update(tp_step=_mesh_part_tp_step, tp_fit=_mesh_part_tp_fit,
+                  tp_latent=_mesh_part_tp_latent)
+
+
+def _whole_grads(outs, conf: str, n_model: int) -> tuple[dict, dict]:
+    """Rank slices' gradients of tp (a) put together along each leaf's
+    model dim (``state_sharding``'s spec), by model coordinate."""
+    from reni_tpu_torch.parallel import mesh as pmesh
+
+    arr0 = outs[0][1]
+    names = [k[len(f"tp_{conf}/grad/"):] for k in arr0 if k.startswith(f"tp_{conf}/grad/")]
+    whole_params = {k: arr0[f"tp_{conf}/param/{k}"] for k in names}
+    specs = pmesh.state_sharding(pmesh.Mesh(1, 1, n_model), ckpt_unflatten(whole_params),
+                                 shard_model=True)
+    by_m = sorted(outs, key=lambda o: o[0]["coords"][2])
+    out = {}
+    for k in names:
+        spec = specs[k]
+        parts = [arr[f"tp_{conf}/grad/{k}"] for _, arr in by_m]
+        out[k] = np.concatenate(parts, axis=spec.index("model")) if "model" in spec else parts[0]
+    return out, specs
+
+
+def tp_step_check(device, work: str, n_model: int, singles: dict, batch_path: str,
+                  parts: tuple = (), once: bool = False) -> list:
+    """tp (a) on a 1 x 1 x n_model mesh: each rank's step against the
+    single-device plain step (``singles``): the loss to TP_LOSS_BAR
+    relative, every gradient put together from the ranks' slices within
+    TP_GRAD_BAR x max |single|; two calls the same bits (one call with
+    ``once``); the replicated leaves' gradients and every updated leaf the
+    same bits on every rank, and each rank's updated slice the same bits as
+    its part of the gathered leaf. Then the job's further ``parts``.
+    Returns every rank's (results, arrays)."""
+    ranks = mesh_ranks(work, {"mesh": [1, 1, n_model], "parts": [
+        {"kind": "tp_step", "batch": batch_path, "once": once}, *parts]}, n_model)
+    outs = mesh_wait(work, ranks)
+    for conf in ("cbc", "film"):
+        metrics, grads, _, single_ms = singles[conf]
+        res0, arr0 = outs[0]
+        rel = abs(res0[f"tp_{conf}_metrics"]["loss"] - metrics["loss"]) / abs(metrics["loss"])
+        whole, specs = _whole_grads(outs, conf, n_model)
+        worst = 0.0
+        for k, v in grads.items():
+            err = float(np.abs(whole[k] - v).max()) / max(float(np.abs(v).max()), 1e-30)
+            worst = max(worst, err)
+            check(err <= TP_GRAD_BAR, f"tp (a) {conf} on 1x1x{n_model}: gradient {k} off by "
+                                      f"{err:.3g} x max |single|")
+        check(rel <= TP_LOSS_BAR, f"tp (a) {conf} on 1x1x{n_model}: loss off by {rel:.3g}")
+        check(once or all(r[f"tp_{conf}_same_bits"] for r, _ in outs),
+              f"tp (a) {conf}: two calls did not give the same bits")
+        for r, (res, arr) in enumerate(outs):
+            m = res["coords"][2]
+            for k, spec in specs.items():
+                g = arr[f"tp_{conf}/grad/{k}"]
+                if "model" not in spec:
+                    check(np.array_equal(g, arr0[f"tp_{conf}/grad/{k}"]),
+                          f"tp (a) {conf}: rank {r}'s gradient of the replicated {k} differs")
+                p = arr[f"tp_{conf}/param/{k}"]
+                check(np.array_equal(p, arr0[f"tp_{conf}/param/{k}"]),
+                      f"tp (a) {conf}: rank {r}'s gathered {k} is not rank 0's")
+                mine = arr[f"tp_{conf}/held/{k}"]
+                if "model" in spec:
+                    d = spec.index("model")
+                    n = p.shape[d] // n_model
+                    p = np.take(p, range(m * n, (m + 1) * n), axis=d)
+                check(np.array_equal(mine, p),
+                      f"tp (a) {conf}: rank {r}'s updated slice of {k} is not its part of the "
+                      "gathered leaf")
+        H = 256
+        mb = DEC_BATCH * batch_pixels(batch_path) * H * 4 / 1e6
+        ms = [r[f"tp_{conf}_ms"] for r, _ in outs]
+        print(f"tp (a) {conf} step on 1 x 1 x {n_model} ranks ({DEC_BATCH} x "
+              f"{batch_pixels(batch_path):,}, H {H // n_model} columns a rank): loss "
+              f"{res0[f'tp_{conf}_metrics']['loss']:.8g} vs the single-device plain step "
+              f"{metrics['loss']:.8g} (rel {rel:.3g}); worst gradient {worst:.3g} x max |single|; "
+              + ("one call" if once else "two calls the same bits")
+              + f"; replicated gradients and every gathered leaf the same bits on every rank; "
+              f"a model reduction moves {mb:.1f} MB; ms a step by rank "
+              + "; ".join(f"{r}: " + ", ".join(f"{x:.1f}" for x in v) for r, v in enumerate(ms))
+              + f" (single plain {single_ms:.1f}; gloo through the host, card {CARD}); peak "
+              + f"{max(r[f'tp_{conf}_peak_gb'] for r, _ in outs):.1f} GB allocated a rank")
+    n = sum(r["tp_step_launches"] for r, _ in outs)
+    check(n == 0, f"tp (a): {n} kernel launches under the model axis")
+    return outs
+
+
+def batch_pixels(path: str) -> int:
+    """Pixels of the saved tp (a) batch (100, P, 3)."""
+    return int(np.load(path, mmap_mode="r").shape[1])
+
+
+def tp_chain_config(maps_root: str, runs: str):
+    """tp (d): cli_config's chain cut to TP_CHAIN_CUTS, TPU.USE_PALLAS as
+    published (the trainer turns it off on the model axis), a checkpoint
+    every epoch."""
+    cfg = cli_config(maps_root, runs)
+    for task, (epochs, curriculum, final) in TP_CHAIN_CUTS.items():
+        t = cfg.RENI[task]
+        t.EPOCHS = epochs
+        if curriculum is None:
+            t.MULTI_RES_TRAINING = False
+        else:
+            t.CURRICULUM = curriculum
+        if final is not None:
+            t.FINAL_RESOLUTION = final
+    cfg.TRAINER.CHKPTS.EVERY_N_EPOCHS = 1
+    cfg.TRAINER.LOGGER.LOG_IMAGES = False
+    cfg.TRAINER.LOGGER.TB.LOG_GRAPH = False  # cli_run covers the graph; 4-12 s a process
+    return cfg
+
+
+def _write_config(cfg, path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    return path
+
+
+def _kill_at(procs, latest: str, limit_s: float) -> int:
+    """SIGKILL every rank of ``procs`` once ``latest`` (a checkpoint's
+    .json) reports an epoch; returns it."""
+    import signal
+
+    limit = time.monotonic() + limit_s
+    epoch = None
+    while epoch is None and time.monotonic() < limit:
+        try:
+            with open(latest) as f:
+                epoch = int(json.load(f)["epoch"])
+        except (OSError, ValueError, KeyError):
+            time.sleep(0.005)
+    for p, log in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait(timeout=60)
+        log.close()
+    check(epoch is not None, f"tp (d): {latest} never reported an epoch")
+    return epoch
+
+
+def tp_phase(device, train, test, maps_root: str) -> None:
+    """The tensor-parallel model axis on the one card (ROADMAP A-11b): ranks
+    as processes on cuda:0, their collectives over gloo; the decoder is the
+    sharded plain decoder (parallel/tp.py), the kernels declined as in JAX.
+    (b) FIT_DECODER cbc on 2 x 1 x 2, resident and from disk in chunks, and
+    (d) the trainer's chain on --mesh 1x1x2 uncut and killed then
+    relaunched, side by side; beside them (a) one FIT_DECODER step of the
+    cbc (5x256) and FiLM (mapping 3x256) Zoo configurations at 100 x 8,192
+    on 1 x 1 x 2 against the single-device plain step, and (c) FIT_LATENT
+    with the frozen decoder sharded on 1 x 1 x 2 (in (a)'s ranks); then (a)
+    on 1 x 1 x 4, alone, one call. Each
+    trained run within PSNR_BAR_DB of its single-device plain run; the
+    relaunched chain bit for bit the uncut one. Times are not scaling
+    numbers."""
+    import functools
+
+    from reni_tpu_torch.cli import run as cli_run
+    from reni_tpu_torch.train import tasks
+
+    t0 = time.perf_counter()
+    work = os.path.join(maps_root, "tp")
+    os.makedirs(work, exist_ok=True)
+    print(f"tp: every rank is a process on cuda:0 ({CARD}); the model axis' reductions go "
+          f"through gloo and the host: the times below are not scaling numbers")
+    maps64 = train.images_at(FIT_RES[1], device=device)
+    maps_test = test.images_at(FIT_RES[1], device=device)
+    batch_path = os.path.join(work, "batch.npy")
+    np.save(batch_path, maps64[:DEC_BATCH].cpu().numpy())
+
+    # (a)'s single-device plain steps, then the plain references of (b)-(d)
+    singles = {}
+    for conf, entry in (("cbc", CBC), ("film", FILM)):
+        model = _tp_model(entry, device)
+        params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
+        held: dict = {}
+        singles[conf] = _step_grads(model, params, maps64[:DEC_BATCH], device, held=held) + (
+            held["ms"],)
+    torch.cuda.empty_cache()
+    model = _tp_model(CBC, device)
+    plain_b, _ = tasks.fit_task(model, model.init(torch.Generator().manual_seed(0), DEC_MAPS,
+                                                  device=device), tp_task_config(),
+                                functools.partial(train.images_at, device=device),
+                                torch.Generator().manual_seed(1))
+    psnr_b = decoder_psnr(model, plain_b, maps64, device)
+    plain_c, _ = tp_fit_latent(device, test)
+    psnr_c = decoder_psnr(model, plain_c, maps_test, device)
+    chain = tp_chain_config(maps_root, os.path.join(work, "plain"))
+    chain.TPU.USE_PALLAS = False
+    plain_path = _write_config(chain, os.path.join(work, "plain.json"))
+    torch.cuda.empty_cache()
+
+    # (b), (d) uncut and (d) killed first, side by side; the killed chain's relaunch
+    # and (a) with (c) on 1 x 1 x 2 run beside them, the plain chain here meanwhile
+    cfg_uncut = _write_config(tp_chain_config(maps_root, os.path.join(work, "uncut")),
+                              os.path.join(work, "uncut.json"))
+    killed_cfg = tp_chain_config(maps_root, os.path.join(work, "killed"))
+    cfg_killed = _write_config(killed_cfg, os.path.join(work, "killed.json"))
+    killed_dir = cli_run._experiment_runs(killed_cfg)[1]  # its version_0, before it starts
+    ranks_b = mesh_ranks(os.path.join(work, "b"), {"mesh": [2, 1, 2], "parts": [
+        {"kind": "tp_fit", "maps": maps_root}]}, 4)
+    trainer = {"kind": "trainer", "mesh": "1x1x2", "retries": 1}
+    ranks_u = mesh_ranks(os.path.join(work, "d_uncut"), {"mesh": [1, 1, 2], "parts": [
+        dict(trainer, cfg=cfg_uncut)]}, 2)
+    ranks_k = mesh_ranks(os.path.join(work, "d_killed"), {"mesh": [1, 1, 2], "parts": [
+        dict(trainer, cfg=cfg_killed)]}, 2)
+    killed = _kill_at(ranks_k, os.path.join(killed_dir, "checkpoints", "fit_decoder_latest.json"),
+                      MESH_CHILD_S)
+    ranks_r = mesh_ranks(os.path.join(work, "d_relaunched"), {"mesh": [1, 1, 2], "parts": [
+        dict(trainer, cfg=cfg_killed)]}, 2)
+    t_plain = time.perf_counter()
+    check(cli_run.cli(["--cfg_path", plain_path] + ([] if device.type == "cuda" else [
+        "--device", "cpu"])) == 0, "tp (d): the plain chain failed")
+    plain_s = time.perf_counter() - t_plain
+    plain_log = cli_run._experiment_runs(chain)[0]
+
+    # (a) and (c) on 1 x 1 x 2
+    outs2 = tp_step_check(device, os.path.join(work, "a2"), 2, singles, batch_path,
+                          parts=({"kind": "tp_latent", "maps": maps_root},))
+    mu = outs2[0][1]["tp_latent/mu"]
+    check(np.array_equal(outs2[1][1]["tp_latent/mu"], mu), "tp (c): the ranks' latents differ")
+    got = decoder_psnr(model, {"decoder": plain_c["decoder"], "latents": {"mu": torch.from_numpy(
+        mu).to(device)}}, maps_test, device)
+    lat = outs2[0][0]["tp_latent"]
+    print(f"tp (c) FIT_LATENT on 1 x 1 x 2, the frozen decoder sharded ({TP_FIT_EPOCHS} epochs, "
+          f"{FIT_RES[0][0]}x{FIT_RES[0][1]} and {TP_FIT_RES[0]}x{TP_FIT_RES[1]}): PSNR "
+          f"{got:.3f} dB vs the single-device plain run {psnr_c:.3f} dB ({got - psnr_c:+.3f}); "
+          f"loss {lat['loss'][0]:.6g} -> {lat['loss'][-1]:.6g}; wall {lat['wall_s']:.1f} s")
+    check(abs(got - psnr_c) <= PSNR_BAR_DB, f"tp (c) PSNR {got:.3f} vs {psnr_c:.3f}")
+    check(all(r["tp_latent"]["launches"] == 0 for r, _ in outs2), "tp (c) launched a kernel")
+
+    outs_b = mesh_wait(os.path.join(work, "b"), ranks_b)
+    outs_u = mesh_wait(os.path.join(work, "d_uncut"), ranks_u)
+    outs_r = mesh_wait(os.path.join(work, "d_relaunched"), ranks_r)
+
+    # (a) on 1 x 1 x 4, alone on the card (four ranks of the 100 x 8,192 step),
+    # one call: 1 x 1 x 2 checked that two calls give the same bits
+    tp_step_check(device, os.path.join(work, "a4"), 4, singles, batch_path, once=True)
+
+    # (b)
+    fit = {}
+    for label in ("resident", "disk"):
+        trained = ckpt_unflatten({k[len(f"tp_fit_{label}/"):]: v for k, v in outs_b[0][1].items()
+                                  if k.startswith(f"tp_fit_{label}/")})
+        for r, (_, arr) in enumerate(outs_b[1:], 1):
+            check(all(np.array_equal(arr[k], outs_b[0][1][k]) for k in arr
+                      if k.startswith(f"tp_fit_{label}/")),
+                  f"tp (b) {label}: rank {r}'s trained params are not rank 0's")
+        fit[label] = decoder_psnr(model, trained, maps64, device)
+        per_rank = [r[f"tp_fit_{label}"] for r, _ in outs_b]
+        print(f"tp (b) FIT_DECODER cbc {label} on 2 x 1 x 2 ({TP_FIT_EPOCHS} epochs of "
+              f"{DEC_MAPS // DEC_BATCH} steps at {FIT_RES[0][0]}x{FIT_RES[0][1]}, "
+              f"{DEC_BATCH // 2} rows and 128 columns a rank; a model reduction moves "
+              f"{DEC_BATCH // 2 * FIT_RES[0][0] * FIT_RES[0][1] * 256 * 4 / 1e6:.1f} MB): PSNR at "
+              f"{FIT_RES[1][0]}x{FIT_RES[1][1]} {fit[label]:.3f} dB vs the single-device plain "
+              f"run {psnr_b:.3f} dB ({fit[label] - psnr_b:+.3f}); wall "
+              f"{max(p['wall_s'] for p in per_rank):.1f} s; ms a step (median) "
+              + "; ".join(f"{k} {v[0]:.1f}" for k, v in per_rank[0]["ms"].items())
+              + f" (card {CARD})")
+        check(abs(fit[label] - psnr_b) <= PSNR_BAR_DB, f"tp (b) {label} PSNR {fit[label]:.3f}")
+    same = all(np.array_equal(outs_b[0][1][f"tp_fit_disk/{k[len('tp_fit_resident/'):]}"], v)
+               for k, v in outs_b[0][1].items() if k.startswith("tp_fit_resident/"))
+    print(f"tp (b) the disk run bit for bit the resident run: {same}")
+    check(same, "tp (b): the disk run is not the resident run bit for bit")
+    check(all(r["tp_fit_launches"] == 0 for r, _ in outs_b), "tp (b) launched a kernel")
+
+    # (d)
+    log_u = outs_u[0][0]["trainer"]["log_dir"]
+    log_r = outs_r[0][0]["trainer"]["log_dir"]
+    check(log_r == killed_dir and os.listdir(os.path.dirname(log_r)) == ["version_0"],
+          f"tp (d): the relaunch ran in {log_r}, not the killed run's {killed_dir}")
+    with open(os.path.join(work, "d_relaunched", "rank_0.log")) as f:
+        text = f.read()
+    check("[relaunch] adopting" in text, "tp (d): the relaunch did not adopt the killed run")
+    with open(os.path.join(work, "d_uncut", "rank_0.log")) as f:
+        check("TPU.USE_PALLAS off on the model axis" in f.read(),
+              "tp (d): no line says USE_PALLAS is off on the model axis")
+    fu, fr, fp = (_cli_finals(d) for d in (log_u, log_r, plain_log))
+    bitwise = {t: fu[t].keys() == fr[t].keys() and all(np.array_equal(fu[t][k], fr[t][k])
+                                                         for k in fu[t]) for t in CLI_TASKS}
+    print(f"tp (d) the chain on --mesh 1x1x2, killed at FIT_DECODER epoch {killed} and "
+          f"relaunched with --retries 1: finals bit for bit the uncut chain's: {bitwise}")
+    for task in ("FIT_DECODER", "FIT_LATENT"):
+        check(bitwise[task], f"tp (d) {task}: the relaunch's final is not the uncut chain's")
+    if not bitwise["FIT_INVERSE"]:
+        a, b = fu["FIT_INVERSE"]["latents/mu"], fr["FIT_INVERSE"]["latents/mu"]
+        rel = float(np.abs(b - a).max() / np.abs(a).max())
+        print(f"tp (d) FIT_INVERSE final latents, relaunch vs uncut: {rel:.3g} of max |uncut|")
+        check(rel <= CLI_INVERSE_BAR, f"tp (d) FIT_INVERSE finals differ by {rel:.3g}")
+    for task, maps in (("FIT_DECODER", maps64), ("FIT_LATENT", maps_test),
+                       ("FIT_INVERSE", maps_test)):
+        a = decoder_psnr(model, ckpt_unflatten(fp[task]), maps, device)
+        b = decoder_psnr(model, ckpt_unflatten(fu[task]), maps, device)
+        print(f"tp (d) {task} final on 1 x 1 x 2: PSNR {b:.3f} dB vs the single-device plain "
+              f"chain {a:.3f} dB ({b - a:+.3f})")
+        check(abs(b - a) <= PSNR_BAR_DB, f"tp (d) {task} PSNR {b:.3f} vs {a:.3f}")
+    n = [r["trainer"]["launches"] for r, _ in outs_u + outs_r]
+    check(all(sum(x.values()) == 0 for x in n), f"tp (d) kernel launches {n}")
+    print(f"tp (d) chain walls: uncut {max(r['trainer']['wall_s'] for r, _ in outs_u):.1f} s, "
+          f"relaunch {max(r['trainer']['wall_s'] for r, _ in outs_r):.1f} s, the plain chain "
+          f"here {plain_s:.1f} s")
+    print(f"tp phase wall {time.perf_counter() - t0:.1f} s; kernel launches under the model "
+          f"axis: 0 (declined, as in JAX)")
+
+
+# ---------------------------------------------------------------------------
+# faults: the chip lock, the yield, the RSS exit, the watchdog, the
+# precompiler (ROADMAP A-13)
+# ---------------------------------------------------------------------------
+
+
+def _trainer_proc(device, cfg_path: str, log: str, env: dict) -> subprocess.Popen:
+    """``python -m reni_tpu_torch.cli.run --cfg_path CFG --retries 1`` with
+    ``env`` added, its output in ``log``."""
+    cmd = [sys.executable, "-m", "reni_tpu_torch.cli.run", "--cfg_path", cfg_path,
+           "--retries", "1"] + ([] if device.type == "cuda" else ["--device", "cpu"])
+    out = open(log, "w")
+    p = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, **env), stdout=out,
+                         stderr=subprocess.STDOUT, start_new_session=True)
+    p.log = out
+    return p
+
+
+def _trainer_wait(p: subprocess.Popen) -> tuple[int, str]:
+    import signal
+
+    try:
+        rc = p.wait(timeout=CLI_PROBE_S)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait(timeout=60)
+        p.log.close()
+    with open(p.log.name) as f:
+        return rc, f.read()
+
+
+def _events(log_dir: str) -> list:
+    return [r for r in _cli_rows(log_dir) if "event" in r]
+
+
+def _config_written(runs: str) -> bool:
+    """Has a trainer made its run dir under ``runs`` (main writes its
+    config.json once run_with_retries holds the chip lock)?"""
+    return any("config.json" in files for _, _, files in os.walk(runs))
+
+
+def faults_phase(device, maps_root: str) -> None:
+    """The trainer's fault machinery (utils/chiplock.py, the hang watchdog,
+    RENI_TPU_RSS_EXIT_GB, TPU.PRECOMPILE) single-process on the card, on
+    cli_run's configuration and its FIT_DECODER at that cut, each run a
+    ``python -m reni_tpu_torch.cli.run --retries 1`` process, in two waves.
+    First, side by side: a stop file makes one run checkpoint and exit 115,
+    an RSS bound below its RSS makes another exit 114 (the lock off for
+    both), and a third run holds the chip lock under
+    RENI_TPU_HANG_EXIT_S=30 (no hang exit) while a fourth, with
+    TPU.PRECOMPILE, is launched once the lock is held and waits for it.
+    Then, beside that fourth run, the first two's relaunches. The holder,
+    the waiter and each relaunch end bit for bit at cli_run's run A."""
+    t0 = time.perf_counter()
+    work = os.path.join(maps_root, "faults")
+    os.makedirs(work, exist_ok=True)
+    ref = MESH_REFS["cli_finals"]["FIT_DECODER"]
+    runs = {}
+    for name in ("stop", "rss", "holder", "second"):
+        cfg = cli_config(maps_root, os.path.join(work, name))
+        cfg.RENI.TASKS = ["FIT_DECODER"]
+        cfg.TRAINER.LOGGER.LOG_IMAGES = False
+        cfg.TRAINER.LOGGER.TB.LOG_GRAPH = False  # cli_run covers the graph; 4-12 s a process
+        cfg.TPU.PRECOMPILE = name == "second"
+        runs[name] = (cfg, _write_config(cfg, os.path.join(work, f"{name}.json")))
+
+    def final(cfg) -> bool:
+        log_dir = _cli_finals_dir(cfg)
+        with np.load(os.path.join(log_dir, "checkpoints", "fit_decoder_final.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        return got.keys() == ref.keys() and all(np.array_equal(got[k], ref[k]) for k in ref)
+
+    def launch(name: str, log: str, env: dict) -> subprocess.Popen:
+        return _trainer_proc(device, runs[name][1], os.path.join(work, log), env)
+
+    stop = os.path.join(work, "stop_file")
+    open(stop, "w").close()
+    off = {"RENI_TPU_CHIP_LOCK": ""}
+    lock = os.path.join(work, "chip.lock")
+    first = {"stop": launch("stop", "stop_1.log", dict(off, RENI_TPU_STOP_FILE=stop)),
+             "rss": launch("rss", "rss_1.log", dict(off, RENI_TPU_RSS_EXIT_GB="0.001")),
+             "holder": launch("holder", "holder.log", {"RENI_TPU_CHIP_LOCK": lock,
+                                                       "RENI_TPU_HANG_EXIT_S": "30"})}
+    limit = time.monotonic() + CLI_PROBE_S
+    holder_runs = runs["holder"][0].TRAINER.LOGGER.TB.SAVE_DIR
+    while (first["holder"].poll() is None and not _config_written(holder_runs)
+           and time.monotonic() < limit):
+        time.sleep(0.05)
+    second = launch("second", "second.log", {"RENI_TPU_CHIP_LOCK": lock})
+    got = {k: _trainer_wait(p) for k, p in first.items()}
+    check(got["stop"][0] == 115, f"faults: the stop-file run exited {got['stop'][0]}:\n"
+                                 f"{got['stop'][1][-2000:]}")
+    check(not os.path.exists(stop), "faults: the yield did not consume the stop file")
+    check(got["rss"][0] == 114, f"faults: the RSS run exited {got['rss'][0]}:\n"
+                                f"{got['rss'][1][-2000:]}")
+    check(got["holder"][0] == 0, f"faults: the lock's holder exited {got['holder'][0]}:\n"
+                                 f"{got['holder'][1][-2000:]}")
+    for name, event in (("stop", "chip_yield"), ("rss", "rss_exit")):
+        ev = _events(_cli_finals_dir(runs[name][0]))
+        check([e["event"] for e in ev] == [event], f"faults: {name} events {ev}")
+        print(f"faults: {name} run exited {got[name][0]} at FIT_DECODER epoch {ev[0]['epoch']} "
+              f"after its checkpoint ({event}"
+              + (f", RSS {ev[0]['rss_gb']} GB" if name == "rss" else "") + ")")
+    relaunch = {k: launch(k, f"{k}_2.log", off) for k in ("stop", "rss")}
+    done = {k: _trainer_wait(p) for k, p in relaunch.items()}
+    rc2, text2 = _trainer_wait(second)
+    for k, (rc, text) in done.items():
+        check(rc == 0 and "[relaunch] adopting" in text, f"faults: {k}'s relaunch exited {rc} "
+                                                          f"or did not adopt:\n{text[-2000:]}")
+        check(final(runs[k][0]), f"faults: {k}'s relaunch is not cli_run's run A bit for bit")
+    events = [e["event"] for e in _events(_cli_finals_dir(runs["stop"][0]))]
+    check(events == ["chip_yield", "relaunch_adopt"], f"faults: the stop run's events {events}")
+    check(_events(_cli_finals_dir(runs["holder"][0])) == [],
+          "faults: the lock's holder logged an event (a hang exit?)")
+    check(final(runs["holder"][0]), "faults: the lock's holder is not run A bit for bit")
+    check(rc2 == 0 and "waiting for chip lock" in text2,
+          f"faults: the second launch exited {rc2} or did not wait for the lock:\n{text2[-2000:]}")
+    # the lock's holder releases it after its last write, its final checkpoint
+    t_end = os.path.getmtime(os.path.join(_cli_finals_dir(runs["holder"][0]), "checkpoints",
+                                          "fit_decoder_final.json"))
+    began = os.path.getmtime(os.path.join(_cli_finals_dir(runs["second"][0]), "config.json"))
+    check(began >= t_end, "faults: the second launch started before the lock was free")
+    check(final(runs["second"][0]), "faults: the second launch is not run A bit for bit")
+    report = [line for line in text2.splitlines() if "TPU.PRECOMPILE: built" in line]
+    check(len(report) == 1, f"faults: no precompile report in {text2[-1000:]}")
+    print("faults: both relaunches adopted their runs and ended bit for bit at run A's "
+          "fit_decoder_final; the lock's holder, under RENI_TPU_HANG_EXIT_S=30, logged no hang "
+          "exit and ended at run A's bits; the second launch waited for the lock, started "
+          f"{began - t_end:.1f} s after the holder's last write, and with TPU.PRECOMPILE ended "
+          f"at run A's bits. {report[0].strip()} (build_all built every library before this "
+          "phase)")
+    print(f"faults phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def _cli_finals_dir(cfg) -> str:
+    """The newest run dir of ``cfg``'s experiment."""
+    from reni_tpu_torch.cli import run as cli_run
+
+    return cli_run._experiment_runs(cfg)[0]
+
+
 def ckpt_unflatten(flat: dict) -> dict:
     from reni_tpu_torch.train import checkpoint as ckpt
 
@@ -4201,6 +4839,12 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
+    # the chip lock and stop file of the trainers this script starts, in its
+    # own temporary directory (their defaults are shared by every job that
+    # runs with the same TMPDIR)
+    arbitration = tempfile.TemporaryDirectory()
+    os.environ.setdefault("RENI_TPU_CHIP_LOCK", os.path.join(arbitration.name, "chip.lock"))
+    os.environ.setdefault("RENI_TPU_STOP_FILE", os.path.join(arbitration.name, "stop"))
 
     phase("build")
     build_all()
@@ -4357,7 +5001,15 @@ def main() -> int:
 
     phase("mesh")
     launches.update(mesh_phase(dev, train, test, maps_dir.name))
+
+    phase("tp")
+    torch.cuda.empty_cache()
+    tp_phase(dev, train, test, maps_dir.name)
+
+    phase("faults")
+    faults_phase(dev, maps_dir.name)
     maps_dir.cleanup()
+    arbitration.cleanup()
     for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
                       ("siren_fwd", "siren_fwd@evaluate"), ("film_fwd", "film_fwd@evaluate"),
                       ("siren_bwd", "siren_bwd@cli_run"), ("siren_fwd", "siren_fwd@cli_run"),

@@ -9,9 +9,9 @@ under the same keys. Test-set reconstruction PSNR and SSIM, the rotation
 equivariance eval (latent rotation against the rolled ground truth), with a
 mask the in-painting observed / hallucinated PSNR, and for a FIT_INVERSE
 checkpoint the recovery through the renderer of the config's FIT_INVERSE
-scene. It runs on the card unless ``--device cpu`` is given. It takes no
-chip lock (the JAX CLI serialises against other jobs on a shared chip with
-``utils/chiplock.py``, which the port leaves out: ROADMAP A-13).
+scene. It runs on the card unless ``--device cpu`` is given. On the card it
+holds the chip lock (``utils/chiplock.py``), as the JAX CLI does: its
+decodes must not timeshare the card with a timed run.
 
 ``--cfg_path`` is a YAML file (read with PyYAML) or a JSON one (read with
 the standard library); its DATASET block names the maps.
@@ -29,6 +29,7 @@ from reni_tpu_torch.data.datasets import get_dataset
 from reni_tpu_torch.models.reni import RENIModel
 from reni_tpu_torch.params import from_numpy
 from reni_tpu_torch.train import checkpoint as ckpt
+from reni_tpu_torch.utils import chiplock
 from reni_tpu_torch.utils.config import get_cfg_defaults
 from reni_tpu_torch.utils.device import resolve_device
 
@@ -44,7 +45,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    with chiplock.hold_chip_lock(chiplock.trainer_lock_path(dev), what="cli.evaluate"):
+        return _main(args, dev)
 
+
+def _main(args, dev) -> dict:
     cfg = get_cfg_defaults()
     if args.cfg_path:
         cfg.merge_from_file(args.cfg_path)

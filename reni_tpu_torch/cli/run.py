@@ -28,19 +28,25 @@ of the reference's run.py:29-138, as the JAX package has it:
   STREAM_DATA with a note, as in JAX;
 - multi-process runs: one process a rank, started by torchrun or with its
   variables (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-  ``MASTER_PORT``; ``parallel/multihost.py``), on ``--mesh DATAxPIXEL`` or
-  ``TPU.MESH`` (DATA -1: ``WORLD_SIZE / PIXEL``) and ``TPU.SHARD_LATENTS``:
-  each rank on ``cuda:LOCAL_RANK``, rank 0 alone writing metrics, images and
-  checkpoints, a barrier between tasks, the chained checkpoint's bytes sent
-  to every rank, and rank 0's ``version_N``, MAX_RUNTIME verdict,
-  ``RENI_TPU_CKPT_WALL_S`` and retry plan adopted by all.
-
-Left out, raised by name when a config or the environment asks for them:
-a tensor-parallel model axis (``--mesh DxPxM`` with M > 1, ROADMAP Queue
-A-11b); the hang watchdog (``RENI_TPU_HANG_EXIT_S``), the chip lock and its
-stop file (``RENI_TPU_CHIP_LOCK``, ``RENI_TPU_STOP_FILE``) and
-``RENI_TPU_RSS_EXIT_GB`` (A-13). ``TPU.PRECOMPILE``, a TPU compile knob, is
-ignored with a note.
+  ``MASTER_PORT``; ``parallel/multihost.py``), on ``--mesh
+  DATAxPIXEL[xMODEL]`` or ``TPU.MESH`` (DATA -1: ``WORLD_SIZE / (PIXEL x
+  MODEL)``) and ``TPU.SHARD_LATENTS``: each rank on ``cuda:LOCAL_RANK``,
+  rank 0 alone writing metrics, images and checkpoints, a barrier between
+  tasks, the chained checkpoint's bytes sent to every rank, and rank 0's
+  ``version_N``, MAX_RUNTIME verdict, ``RENI_TPU_CKPT_WALL_S`` and retry plan
+  adopted by all. A MODEL axis shards the decoder tensor-parallel
+  (``parallel/tp.py``) and turns ``TPU.USE_PALLAS`` off, with a line: the
+  kernels take whole weights, as JAX's do;
+- the fault machinery of ``utils/chiplock.py``: the chip lock, held across
+  every retry (a lock not acquired forbids relaunch adoption), and the stop
+  file, honoured at each segment (force-save, exit 115); the hang watchdog
+  (``RENI_TPU_HANG_EXIT_S``: no progress for that long exits 114); the
+  planned restart ``RENI_TPU_RSS_EXIT_GB`` (the largest RSS over the ranks
+  above it: checkpoint, exit 114). An outer loop reruns the command with
+  ``--retries``, which adopts the run (README);
+- ``TPU.PRECOMPILE``: the native libraries of the chain's later tasks, and
+  of each task's stages, build in background threads
+  (``train/precompile.py``).
 
 Differences from the JAX trainer: ``TB.LOG_GRAPH`` writes
 ``{task}_graph.txt`` (the ``torch.export`` graph of the plain decoder
@@ -50,8 +56,11 @@ FIT_INVERSE continues at its checkpoint's epoch with its optimizer state
 resumes a task finds the task's kept checkpoints, so best-2 retention and
 the chained best FIT_DECODER checkpoint are those of the uncut run; fault
 events go to the run's own ``metrics.jsonl`` by path, not through a
-module-level log; ``TRAINER.LOGGER_TYPE`` other than tensorboard or wandb
-writes no TensorBoard file (JAX writes one whatever it says).
+module-level log (the watchdog's thread reads the run dir main noted);
+``TRAINER.LOGGER_TYPE`` other than tensorboard or wandb writes no
+TensorBoard file (JAX writes one whatever it says); ``TPU.PRECOMPILE``
+builds libraries where JAX compiles XLA programs, on a mesh and while
+streaming too.
 """
 
 from __future__ import annotations
@@ -64,6 +73,8 @@ import json
 import os
 import re
 import shutil
+import sys
+import threading
 import time
 import traceback
 from datetime import datetime, timezone
@@ -82,9 +93,56 @@ from reni_tpu_torch.train import checkpoint as ckpt
 from reni_tpu_torch.train import tasks
 from reni_tpu_torch.train.logging_utils import MetricLogger
 from reni_tpu_torch.train.optim import build_schedule
+from reni_tpu_torch.train import precompile as pc
 from reni_tpu_torch.train.visualize import example_images
-from reni_tpu_torch.utils import profiling
+from reni_tpu_torch.utils import chiplock, profiling, progress
 from reni_tpu_torch.utils.config import experiment_name, get_cfg_defaults
+
+# -- hang watchdog -----------------------------------------------------------
+#
+# A rank stuck in a collective whose peer died, or a launch that never
+# returns, raises nothing that --retries could catch. The recovery is at the
+# process level: a daemon thread watches the trainer's progress notes
+# (utils/progress.py: task set-up, each segment, the lock wait, every native
+# build) and, when RENI_TPU_HANG_EXIT_S seconds pass without one, logs a
+# hang_exit event and exits 114; an outer loop reruns the command, which
+# resumes from the newest checkpoint as after a crash. Off unless set.
+
+_note_progress = progress.note
+_WATCH = {"log_dir": None}  # the run dir main() noted, for the watchdog's event
+
+
+def _arm_hang_watchdog() -> None:
+    hang_s = float(os.environ.get("RENI_TPU_HANG_EXIT_S", "0") or 0)
+    if hang_s <= 0:
+        return
+    _note_progress("startup")
+
+    def watch():
+        while True:
+            time.sleep(min(hang_s / 4, 60.0))
+            idle = progress.idle_s()
+            if idle > hang_s:
+                what = progress.PROGRESS["what"]
+                if _WATCH["log_dir"]:
+                    _log_event(_WATCH["log_dir"], "hang_exit", idle_s=round(idle), last=what)
+                print(f"[reni_tpu_torch] HANG: no trainer progress for {idle:.0f} s "
+                      f"(> RENI_TPU_HANG_EXIT_S={hang_s:.0f}); last progress: {what!r}. "
+                      "Exiting 114; rerun with --retries (or let a supervisor rerun) to "
+                      "continue from the newest checkpoint.", file=sys.stderr, flush=True)
+                os._exit(114)
+
+    threading.Thread(target=watch, daemon=True, name="hang-watchdog").start()
+
+
+def _rss_gb() -> float:
+    """This process's resident memory in GB (0 where /proc is missing)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+    except OSError:
+        return 0.0
 
 
 def _log_event(log_dir: str, event: str, **fields) -> None:
@@ -195,6 +253,23 @@ def _deadline_reached(deadline: float | None) -> bool:
     return multihost.agree_on_flag(deadline is not None and time.time() > deadline)
 
 
+def _segment_checks(deadline: float | None, stop_file: str | None,
+                    rss: bool = False) -> tuple[bool, float, bool]:
+    """The checks at a segment's end in one collective (an all-reduce MAX):
+    rank 0's TRAINER.MAX_RUNTIME verdict, the largest RSS over the ranks in
+    GB (0 unless ``rss``) and rank 0's chip-preemption verdict
+    (``utils/chiplock.py``). Every rank adopts rank 0's verdicts (the other
+    ranks send 0): a rank that stopped alone would leave the others in a
+    collective. Called at the same points on every rank whatever its own
+    RENI_TPU_STOP_FILE says, so the all-reduces stay paired."""
+    primary = multihost.is_primary()
+    late, largest, stop = multihost.max_over_ranks([
+        primary and deadline is not None and time.time() > deadline,
+        _rss_gb() if rss else 0.0,
+        primary and chiplock.yield_requested(stop_file)])
+    return late > 0, largest, stop > 0
+
+
 class _NoLogger:
     """The logger of ranks other than 0: the run directory, no files."""
 
@@ -247,17 +322,25 @@ def run_task(
     deadline: float | None = None,
     resume_path: str | None = None,
     mesh=None,
+    precompile=False,
 ):
     """Train one task of the chain; returns (params, metrics, the path of
     the checkpoint a later task should load: the best kept one, else the
-    final one). With a ``mesh`` every rank calls it; rank 0 alone writes."""
+    final one). With a ``mesh`` every rank calls it; rank 0 alone writes.
+    ``precompile``: a ``train.precompile.Precompiler`` building the task's
+    libraries in the background (``TPU.PRECOMPILE``), or False."""
+    _note_progress(f"{task} setup")
     primary = multihost.is_primary()
     st = stream_settings(config)
     if st.dtype is not None and not st.stream:
         print("[reni_tpu_torch] TPU.STREAM_DTYPE ignored without TPU.STREAM_DATA", flush=True)
     if st.chunk > 1 and not st.stream:
         print("[reni_tpu_torch] TPU.STREAM_CHUNK ignored without TPU.STREAM_DATA", flush=True)
-    model_cfg = RENIConfig.from_reni_cfg(config.RENI, task, tpu_cfg=config.get("TPU"))
+    model_cfg = _model_config(config, task, mesh)
+    if mesh is not None and mesh.n_model > 1 and bool(config.TPU.USE_PALLAS) and primary:
+        print(f"[reni_tpu_torch] {task}: TPU.USE_PALLAS off on the model axis "
+              f"(model={mesh.n_model}): the kernels take whole weights; the tensor-parallel "
+              "plain decoder (parallel/tp.py) trains", flush=True)
     model = RENIModel(model_cfg)
     g_init, g_fit, img_seed = _generators(int(config.TRAINER.SEED))
 
@@ -307,6 +390,15 @@ def run_task(
     else:
         stage_images_at = images_at
 
+    # chip preemption, honoured at segment boundaries (force-save, exit 115,
+    # a supervisor loop resumes once the preemptor releases the chip lock)
+    stop_file = chiplock.trainer_stop_path(device)
+    # RENI_TPU_RSS_EXIT_GB: a planned restart once the largest RSS over the
+    # ranks passes the bound (checkpoint, exit 114, the relaunch resumes
+    # with fresh processes); 0/unset = off. Rank 0's bound for every rank
+    rss_exit_gb = float(multihost.agree_on_str(os.environ.get("RENI_TPU_RSS_EXIT_GB", "0"))
+                        or 0)
+
     # beyond every N epochs, a save at each curriculum stage's end and once
     # RENI_TPU_CKPT_WALL_S seconds passed since the last one (0/unset: off);
     # rank 0's value and rank 0's clock decide for every rank
@@ -332,13 +424,30 @@ def run_task(
         last_save_t[0] = time.monotonic()
 
     def callback(state_now, epoch, metrics_chunk, res):
+        _note_progress(f"{task} epoch {epoch} @ {res}")
         loss = log_epoch(epoch, metrics_chunk)
-        if save_on and multihost.agree_on_flag(epoch % every == 0 or epoch in stage_ends or (
-                wall_save_s > 0 and time.monotonic() - last_save_t[0] > wall_save_s)):
+        saved = save_on and multihost.agree_on_flag(epoch % every == 0 or epoch in stage_ends or (
+            wall_save_s > 0 and time.monotonic() - last_save_t[0] > wall_save_s))
+        if saved:
             save(state_now, epoch, loss)
-        if _deadline_reached(deadline):
+        late, rss, stop = _segment_checks(deadline, stop_file, rss=rss_exit_gb > 0)
+        if late:
             # TRAINER.MAX_RUNTIME exceeded: stop after this segment
             return True
+        if rss > rss_exit_gb > 0:
+            if save_on and not saved:
+                save(state_now, epoch, loss)
+            _log_event(logger.log_dir, "rss_exit", rss_gb=round(rss, 1), epoch=epoch)
+            if primary:
+                print(f"[reni_tpu_torch] RSS {rss:.1f} GB (the largest over the ranks above "
+                      f"RENI_TPU_RSS_EXIT_GB={rss_exit_gb:g}): checkpointed, exiting 114 for a "
+                      "fresh-process resume", flush=True)
+            os._exit(114)
+        if stop:
+            if save_on and not saved:
+                save(state_now, epoch, loss)  # off-schedule: the yield loses no epoch
+            _log_event(logger.log_dir, "chip_yield", task=task, epoch=epoch)
+            chiplock.honor_yield(stop_file, primary=primary, what=f"{task} trainer")
         if primary and log_images and epoch % img_every == 0:
             grid = example_images(
                 model, state_now.params, res,
@@ -351,7 +460,7 @@ def run_task(
         return False
 
     fit_kw = dict(start_epoch=start_epoch, initial_opt_state=opt_loader, mesh=mesh,
-                  shard_latents=shard_latents)
+                  shard_latents=shard_latents, precompile=precompile)
     if task == "FIT_INVERSE":
         from reni_tpu_torch.render.inverse import InverseRenderSetup, fit_inverse
 
@@ -363,10 +472,19 @@ def run_task(
         def inverse_callback(state_now, epoch, metrics_chunk, res):
             # renders are logged at the task's end; scalars and resumable
             # checkpoints as in the other tasks
+            _note_progress(f"{task} epoch {epoch}")
             loss = log_epoch(epoch, metrics_chunk)
             if save_on and epoch % every == 0:
                 save(state_now, epoch, loss)
-            return _deadline_reached(deadline)
+            late, _, stop = _segment_checks(deadline, stop_file)
+            if late:
+                return True
+            if stop:
+                if save_on and epoch % every != 0:
+                    save(state_now, epoch, loss)
+                _log_event(logger.log_dir, "chip_yield", task=task, epoch=epoch)
+                chiplock.honor_yield(stop_file, primary=primary, what=f"{task} trainer")
+            return False
 
         inv_setup = InverseRenderSetup(
             task_cfg.object_path,
@@ -426,7 +544,8 @@ def _apply_precision(config) -> None:
 
 def _mesh_dims(config, mesh: str | None) -> tuple[int, int, int]:
     """(DATA, PIXEL, MODEL) of a ``--mesh`` spec (DATAxPIXEL[xMODEL]) or,
-    without one, of TPU.MESH; DATA -1 stands for ``WORLD_SIZE / PIXEL``."""
+    without one, of TPU.MESH; DATA -1 stands for ``WORLD_SIZE / (PIXEL x
+    MODEL)``."""
     if mesh:
         dims = [int(x) for x in mesh.lower().split("x")]
         return dims[0], dims[1] if len(dims) > 1 else 1, dims[2] if len(dims) > 2 else 1
@@ -434,40 +553,27 @@ def _mesh_dims(config, mesh: str | None) -> tuple[int, int, int]:
             int(config.TPU.MESH.get("MODEL", 1)))
 
 
-def _refuse_unported(config, mesh: str | None) -> None:
-    """Raise NotImplementedError, naming the ROADMAP queue item, for what a
-    config or the environment asks of a later slice; note an ignored
-    PRECOMPILE."""
-    tpu = config.TPU
-    asked = []
-    if _mesh_dims(config, mesh)[2] > 1:
-        asked.append(("a tensor-parallel model axis (--mesh DxPxM / TPU.MESH.MODEL)", "A-11b"))
-    for var in ("RENI_TPU_HANG_EXIT_S", "RENI_TPU_RSS_EXIT_GB"):
-        if float(os.environ.get(var, "0") or 0) > 0:
-            asked.append((var, "A-13"))
-    for var in ("RENI_TPU_CHIP_LOCK", "RENI_TPU_STOP_FILE"):
-        if os.environ.get(var):
-            asked.append((var, "A-13"))
-    if asked:
-        what, item = asked[0]
-        raise NotImplementedError(
-            f"{what} is not ported to reni_tpu_torch yet: ROADMAP Queue {item}")
-    if bool(tpu.get("PRECOMPILE", False)):
-        print("[reni_tpu_torch] TPU.PRECOMPILE ignored (a TPU compile knob; "
-              "ROADMAP Queue A-13)", flush=True)
+def _model_config(config, task: str, mesh=None) -> RENIConfig:
+    """The task's model config; on a model axis without ``use_pallas``, as
+    JAX's run_task makes it (the kernels take whole weights)."""
+    cfg = RENIConfig.from_reni_cfg(config.RENI, task, tpu_cfg=config.get("TPU"))
+    if mesh is not None and mesh.n_model > 1 and cfg.use_pallas:
+        cfg = dataclasses.replace(cfg, use_pallas=False)
+    return cfg
 
 
 def _resolve_mesh(config, mesh: str | None, device: torch.device):
     """The run's mesh (``parallel.mesh.make_mesh``: ``--mesh`` or TPU.MESH,
-    DATA -1 meaning ``WORLD_SIZE / PIXEL``; a 1x1 mesh of several ranks puts
-    them all on 'data', as JAX's ``global_mesh``), or None for one rank. A
-    mesh of another size than ``WORLD_SIZE`` raises, naming both."""
-    nd, npix, _ = _mesh_dims(config, mesh)
-    if nd * npix == 1:
+    DATA -1 meaning ``WORLD_SIZE / (PIXEL x MODEL)``; a 1x1x1 mesh of
+    several ranks puts them all on 'data', as JAX's ``global_mesh``), or
+    None for one rank. A mesh of another size than ``WORLD_SIZE`` raises,
+    naming both."""
+    nd, npix, nm = _mesh_dims(config, mesh)
+    if nd * npix * nm == 1:
         if multihost.process_count() == 1:
             return None
         nd = -1  # several ranks and no mesh asked for: every rank on 'data'
-    m = make_mesh(n_data=nd, n_pixel=npix, device=device)
+    m = make_mesh(n_data=nd, n_pixel=npix, n_model=nm, device=device)
     return m if m.size > 1 else None
 
 
@@ -513,8 +619,7 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
     log_dir). ``device`` defaults to the card (raises without one). Under
     torchrun's variables every rank runs ``main`` (``multihost.initialize``,
     with ``backend``: NCCL on the card and gloo on the CPU unless given) on
-    the mesh ``mesh`` ("DxP", or TPU.MESH)."""
-    _refuse_unported(config, mesh)
+    the mesh ``mesh`` ("DxP[xM]", or TPU.MESH)."""
     multihost.initialize(backend=backend, device=device)
     device = multihost.rank_device(device)
     primary = multihost.is_primary()
@@ -523,6 +628,7 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
     _apply_precision(config)
     if log_dir is None:
         log_dir = multihost.agree_on_path(_experiment_runs(config)[1])
+    _WATCH["log_dir"] = log_dir
     wandb_cfg = None
     if config.TRAINER.LOGGER_TYPE == "wandb":
         wandb_cfg = dict(config.TRAINER.LOGGER.WANDB)
@@ -569,6 +675,12 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
             wandb_config=wandb_cfg)
     else:
         logger = _NoLogger(log_dir)
+    # TPU.PRECOMPILE: the libraries of the chain's later tasks build in the
+    # background from the start (each task's own: fit_task)
+    pool = pc.Precompiler() if bool(config.TPU.get("PRECOMPILE", False)) else False
+    if pool and primary:
+        print("[reni_tpu_torch] TPU.PRECOMPILE: later tasks' libraries build in background",
+              flush=True)
     trace_stack = contextlib.ExitStack()
     chkpt_path = load_path
     results = {}
@@ -578,6 +690,10 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
         for i, task in enumerate(tasks_list):
             if _deadline_reached(deadline):
                 break
+            if pool:
+                for later in tasks_list[i + 1:]:
+                    pool.launch(pc.task_builds(_model_config(config, later, run_mesh),
+                                               later, device, from_disk=from_disk))
             t0 = time.perf_counter()
             dcfg = config.DATASET[config.DATASET.NAME]
             split = "Train" if task == "FIT_DECODER" else "Test"
@@ -591,7 +707,7 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
             try:
                 params, metrics, best = run_task(
                     config, task, dataset, logger, chkpt_path, device, deadline=deadline,
-                    resume_path=resume if i == 0 else None, mesh=run_mesh,
+                    resume_path=resume if i == 0 else None, mesh=run_mesh, precompile=pool,
                 )
             finally:
                 dataset.close()
@@ -612,6 +728,10 @@ def main(config, resume=None, log_dir=None, profile_dir=None, device=None, mesh=
         # every --retries attempt and lose the crashed run's trace
         trace_stack.close()
         logger.close()
+    if pool and primary:
+        rep = pool.report()
+        print(f"[reni_tpu_torch] TPU.PRECOMPILE: built {rep['built']}, already built "
+              f"{rep['present']}, failed {rep['failed']}", flush=True)
     return results, log_dir
 
 
@@ -694,10 +814,27 @@ def run_with_retries(config, resume=None, retries: int = 0, profile_dir=None, de
     In a multi-process run (``backend`` as for ``main``) rank 0 decides the
     adoption and the resume plan for every rank, whose files it sends them;
     a retry waits at most 300 s for every rank at its rendezvous and raises
-    if one does not come (the failure was local: the run is split)."""
+    if one does not come (the failure was local: the run is split).
+
+    The chip lock (``utils/chiplock.py``) is held across every retry: a
+    preemptor the run yielded to blocks its relaunched successor until it
+    is done. A lock that is engaged but not acquired (its wait timed out)
+    forbids adoption: its holder may be training the very run."""
     multihost.initialize(backend=backend, device=device)
+    lock_path = chiplock.trainer_lock_path(multihost.rank_device(device))
+    with chiplock.hold_chip_lock(lock_path, what="cli.run", progress_cb=_note_progress) as got:
+        return _run_with_retries_locked(
+            config, resume=resume, retries=retries, profile_dir=profile_dir, device=device,
+            mesh=mesh, backend=backend, allow_adopt=lock_path is None or got)
+
+
+def _run_with_retries_locked(config, resume=None, retries: int = 0, profile_dir=None,
+                             device=None, mesh=None, backend=None, allow_adopt: bool = True):
     log_dir = None
-    if retries > 0 and resume is None:
+    if retries > 0 and resume is None and not allow_adopt:
+        print("[relaunch] chip lock is held by another live job: not adopting its run "
+              "directory; starting fresh", flush=True)
+    if retries > 0 and resume is None and allow_adopt:
         found = _find_resumable_run(config) if multihost.is_primary() else (None, None)
         blob = multihost.agree_on_str(json.dumps(found) if found[0] else "")
         if blob:
@@ -753,9 +890,9 @@ def cli(argv=None) -> int:
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card; cpu to run without one)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh as DATAxPIXEL (one rank a device, WORLD_SIZE "
-                             "ranks; DATA -1: WORLD_SIZE / PIXEL); a MODEL axis is ROADMAP "
-                             "Queue A-11b")
+                        help="device mesh as DATAxPIXEL[xMODEL], e.g. 4x2 or 2x1x2 (one rank "
+                             "a device, WORLD_SIZE ranks; DATA -1: WORLD_SIZE / (PIXEL x "
+                             "MODEL)); MODEL shards the decoder tensor-parallel")
     parser.add_argument("--profile", type=str, default=None,
                         help="write a torch.profiler Chrome trace of the run into this dir")
     parser.add_argument("--resume", type=str, default=None,
@@ -769,6 +906,7 @@ def cli(argv=None) -> int:
     args = parser.parse_args(argv)
     cfg = get_cfg_defaults()
     cfg.merge_from_file(args.cfg_path)
+    _arm_hang_watchdog()
     run_with_retries(cfg, resume=args.resume, retries=args.retries, profile_dir=args.profile,
                      device=args.device, mesh=args.mesh)
     return 0

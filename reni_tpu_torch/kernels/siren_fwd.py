@@ -87,6 +87,17 @@ def tile_rows(hidden: int, trunk: str) -> int | None:
                 None)
 
 
+def model_axis_reason(mesh) -> str | None:
+    """JAX's reason for declining the fused kernels on a mesh with a model
+    (tensor-parallel) axis: they take whole weights on each rank (the port
+    runs ``parallel/tp.py``'s plain decoder where JAX runs XLA)."""
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if n > 1:
+        return (f"mesh has a model (tensor-parallel) axis of size {n}; the fused kernel needs "
+                "chip-resident weights — the plain decoder with Megatron sharding instead")
+    return None
+
+
 def unsupported_reason(
     npix: int, hidden_features: int, batch: int | None = None,
     trunk: str = "bfloat16", mesh=None,
@@ -100,8 +111,12 @@ def unsupported_reason(
     Mesh-aware: with a ``mesh`` (``parallel.mesh``) ``npix`` and ``batch``
     are the whole batch's, each rank launches the kernel on its block, so
     they must divide the pixel and data axes and the kernel's limits apply
-    to the local extents."""
+    to the local extents; a model (tensor-parallel) axis declines the
+    kernels outright, as in JAX (``model_axis_reason``)."""
     if mesh is not None:
+        reason = model_axis_reason(mesh)
+        if reason is not None:
+            return reason
         n_px, n_dt = mesh.shape["pixel"], mesh.shape["data"]
         if npix % n_px:
             return f"npix={npix} not divisible by the pixel axis ({n_px})"

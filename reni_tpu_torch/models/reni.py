@@ -34,6 +34,7 @@ from reni_tpu_torch.core import encodings
 from reni_tpu_torch.kernels.siren_fwd import (
     fused_apply,
     fused_film_apply,
+    model_axis_reason,
     unsupported_reason,
 )
 from reni_tpu_torch.kernels.siren_step import (
@@ -42,6 +43,7 @@ from reni_tpu_torch.kernels.siren_step import (
     step_unsupported_reason,
 )
 from reni_tpu_torch.models import film, siren
+from reni_tpu_torch.parallel import tp
 from reni_tpu_torch.parallel.mesh import active_kernel_mesh
 from reni_tpu_torch.params import map_tree, tree_leaves
 from reni_tpu_torch.utils.device import resolve_device
@@ -64,7 +66,8 @@ def _mesh_suffix() -> str:
     mesh = active_kernel_mesh()
     if mesh is None or mesh.size == 1:
         return ""
-    return f" (each rank its block of data={mesh.n_data} x pixel={mesh.n_pixel})"
+    model = f", its slice of model={mesh.n_model}" if mesh.n_model > 1 else ""
+    return f" (each rank its block of data={mesh.n_data} x pixel={mesh.n_pixel}{model})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,12 +250,18 @@ class RENIModel:
         the card; on the CPU it takes the plain decoder, with a note. Under
         a kernel mesh (``parallel.mesh.kernel_mesh``) Z and D are this rank's
         block, so the guard checks those local extents and the note names
-        the mesh."""
+        the mesh. A mesh with a model axis declines the kernel (JAX's
+        reason), and the decoder is ``parallel.tp``'s on the rank's slices
+        of the weights."""
         cfg = self.config
         use_pallas = cfg.use_pallas
+        mesh = active_kernel_mesh()
+        tp_mesh = mesh if mesh is not None and mesh.n_model > 1 else None
         if use_pallas:
             B, npix = Z.shape[0], D.shape[1]
-            if D.shape[0] not in (1, B):
+            if tp_mesh is not None:
+                reason = model_axis_reason(tp_mesh)
+            elif D.shape[0] not in (1, B):
                 reason = (
                     f"direction grid batch {D.shape[0]} matches neither 1 "
                     f"nor Z batch {B}"
@@ -312,6 +321,8 @@ class RENIModel:
                 trunk=cfg.pallas_trunk,
                 fast_sine=cfg.fast_sine,
             )
+        if tp_mesh is not None:
+            return tp.apply(params, cfg, Z, D, tp_mesh)
         if cfg.is_film:
             return film.apply_film_decomposed(
                 params["decoder"],

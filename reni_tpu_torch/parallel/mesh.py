@@ -1,21 +1,26 @@
-"""The data x pixel mesh (counterpart of ``reni_tpu/parallel/mesh.py``).
+"""The data x pixel x model mesh (counterpart of ``reni_tpu/parallel/mesh.py``).
 
-One rank is one device, so a mesh of ``n_data x n_pixel`` is that many ranks
-(``WORLD_SIZE``). Rank ``r`` sits at ``(data, pixel) = divmod(r, n_pixel)``,
-the row-major order of JAX's ``make_mesh``. Its block of a batch is its
-``B / n_data`` rows (its data coordinate) and, where the pixel axis divides,
-its ``P / n_pixel`` pixels; a pixel axis that does not divide is replicated,
-and its partial sums then count on pixel coordinate 0 alone.
+One rank is one device, so a mesh of ``n_data x n_pixel x n_model`` is that
+many ranks (``WORLD_SIZE``). Rank ``r`` sits at ``(data, pixel, model)``
+with ``r = (data * n_pixel + pixel) * n_model + model``, the row-major order
+of JAX's ``make_mesh`` with the model axis minor. Its block of a batch is
+its ``B / n_data`` rows (its data coordinate) and, where the pixel axis
+divides, its ``P / n_pixel`` pixels; a pixel axis that does not divide is
+replicated, and its partial sums then count on pixel coordinate 0 alone.
+The model ranks of one (data, pixel) coordinate hold the same rows and
+pixels.
 
 The JAX package's GSPMD program inserts the psums; here the stage runners
 hand each step its block (``ShardView``, entered with ``kernel_mesh``) and
 the step sums over the mesh itself, DDP-style:
 
-- after the backward, one flat bucket of every replicated leaf's gradient
-  and the step's loss partials is all-reduced over ``data x pixel``
-  (``ShardView.reduce``). That gives JAX's sums: weight gradients reduce
-  over both axes, and the replicated latent table's rows get their
-  per-image gradients, which only the ranks holding the image's pixels have;
+- after the backward, one flat bucket of every trainable leaf's gradient
+  (a model-sharded leaf's slice included) and the step's loss partials is
+  all-reduced over ``dp``, the data x pixel ranks of the rank's model
+  coordinate (``ShardView.reduce``). That gives JAX's sums: weight
+  gradients reduce over both axes, and the replicated latent table's rows
+  get their per-image gradients, which only the ranks holding the image's
+  pixels have;
 - a per-image term that is not linear in its pixels (the cosine over the
   pixel axis of FIT_LATENT and FIT_INVERSE) all-reduces its pixel sums over
   ``pixel`` in the forward and their gradients in the backward
@@ -25,14 +30,18 @@ the step sums over the mesh itself, DDP-style:
   padded to the data axis and row-sharded over it for the stage
   (``shard_latent_tables``); a batch's rows come from their owners through
   one all-reduce over ``data`` and their gradients go back through one over
-  ``data x pixel`` (``ShardView.latent_rows``).
+  ``dp`` (``ShardView.latent_rows``);
+- on a ``model`` axis (tensor parallelism, ``state_sharding(shard_model=)``)
+  each decoder leaf and its optimizer moments hold the rank's slice for the
+  stage (``shard_model_leaves``; Megatron's alternating column- and
+  row-parallel layout of ``_tp_spec``) and the decoder runs as
+  ``parallel/tp.py``'s sharded plain decoder, whose only collectives cross
+  the model axis.
 
-A step makes at most four all-reduces, always in the same order, with no
-float atomics, so two runs give the same bits and replicated parameters stay
+A step makes its all-reduces always in the same order, with no float
+atomics, so two runs give the same bits and replicated parameters stay
 bitwise equal on every rank. Device tensors cross ranks through
-``all_reduce`` and ``broadcast`` only. The tensor-parallel ``model`` axis
-(``_tp_spec``, ``shard_model`` in JAX) is ROADMAP Queue A-11b: a mesh with
-``n_model > 1`` raises.
+``all_reduce`` and ``broadcast`` only.
 """
 
 from __future__ import annotations
@@ -48,18 +57,18 @@ import torch.distributed as dist
 from reni_tpu_torch.params import tree_items
 
 AXES = ("data", "pixel", "model")
-_A11B = ("the tensor-parallel 'model' axis is not ported to reni_tpu_torch yet: "
-         "ROADMAP Queue A-11b")
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """A ('data', 'pixel', 'model') mesh seen from one rank: the axis sizes,
     this rank's coordinates, its device and the process groups of its
-    ``data`` axis (the ranks of its pixel coordinate), its ``pixel`` axis
-    (the ranks of its data coordinate) and of ``data x pixel``. Without
-    groups (``Mesh(2, 2)``) it is a layout: it answers shape questions and
-    takes part in no collective."""
+    ``data`` axis (the ranks of its pixel and model coordinate), its
+    ``pixel`` axis (of its data and model coordinate), its ``model`` axis
+    (of its data and pixel coordinate), of ``dp`` (data x pixel at its
+    model coordinate) and of ``all`` (every rank). Without groups
+    (``Mesh(2, 2)``) it is a layout: it answers shape questions and takes
+    part in no collective."""
 
     n_data: int = 1
     n_pixel: int = 1
@@ -69,9 +78,8 @@ class Mesh:
     groups: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        if self.n_model > 1:
-            raise NotImplementedError(f"a mesh with model={self.n_model}: {_A11B}")
-        self.data_index, self.pixel_index = divmod(self.rank, self.n_pixel)
+        self.data_index, rest = divmod(self.rank, self.n_pixel * self.n_model)
+        self.pixel_index, self.model_index = divmod(rest, self.n_model)
 
     axis_names = AXES
 
@@ -81,13 +89,21 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return self.n_data * self.n_pixel
+        return self.n_data * self.n_pixel * self.n_model
 
     def group(self, axis: str):
-        """The process group of ``axis`` ('data', 'pixel' or 'all'), or None
-        where no collective is needed (one rank on it, or a layout)."""
-        n = {"data": self.n_data, "pixel": self.n_pixel, "all": self.size}[axis]
+        """The process group of ``axis`` ('data', 'pixel', 'model', 'dp' or
+        'all'), or None where no collective is needed (one rank on it, or a
+        layout)."""
+        n = {"data": self.n_data, "pixel": self.n_pixel, "model": self.n_model,
+             "dp": self.n_data * self.n_pixel, "all": self.size}[axis]
         return self.groups.get(axis) if n > 1 else None
+
+    def cols(self, n: int) -> slice:
+        """This rank's slice of a feature axis of ``n`` sharded over 'model'
+        (``n`` a multiple of the model axis)."""
+        k = n // self.n_model
+        return slice(self.model_index * k, (self.model_index + 1) * k)
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a batch of ``n`` (a multiple of the data axis)."""
@@ -106,37 +122,55 @@ class Mesh:
 
 
 def make_mesh(n_data: int = -1, n_pixel: int = 1, n_model: int = 1, device=None) -> Mesh:
-    """The mesh of this run's ranks: ``n_data x n_pixel`` must be the world
-    size (``n_data=-1``: the world size over ``n_pixel``). Every rank calls
-    it, in the same order as the other collectives: it makes the process
-    groups. ``device`` is this rank's (``multihost.rank_device``)."""
+    """The mesh of this run's ranks: ``n_data x n_pixel x n_model`` must be
+    the world size (``n_data=-1``: the world size over ``n_pixel x
+    n_model``). Every rank calls it, in the same order as the other
+    collectives: it makes the process groups. ``device`` is this rank's
+    (``multihost.rank_device``)."""
     from reni_tpu_torch.parallel import multihost
 
-    if n_model > 1:
-        raise NotImplementedError(f"--mesh with model={n_model}: {_A11B}")
     world = multihost.process_count()
+    model = f" x model={n_model}" if n_model > 1 else ""
     if n_data == -1:
-        if world % n_pixel:
-            raise ValueError(f"WORLD_SIZE {world} does not divide over pixel={n_pixel}")
-        n_data = world // n_pixel
-    if n_data * n_pixel != world:
-        raise ValueError(f"a mesh of data={n_data} x pixel={n_pixel} = {n_data * n_pixel} "
-                         f"ranks, but WORLD_SIZE is {world}: one rank is one device")
+        if world % (n_pixel * n_model):
+            raise ValueError(f"WORLD_SIZE {world} does not divide over pixel={n_pixel}{model}")
+        n_data = world // (n_pixel * n_model)
+    if n_data * n_pixel * n_model != world:
+        raise ValueError(f"a mesh of data={n_data} x pixel={n_pixel}{model} = "
+                         f"{n_data * n_pixel * n_model} ranks, but WORLD_SIZE is {world}: one "
+                         "rank is one device")
     rank = multihost.process_index()
     groups = {}
     if dist.is_initialized():
+        def at(d, p, m):
+            return (d * n_pixel + p) * n_model + m
+
         # new_group is collective over the world: every rank makes every
         # group, in this order, and keeps its own
-        for p in range(n_pixel):
-            g = dist.new_group([d * n_pixel + p for d in range(n_data)])
-            if rank % n_pixel == p:
-                groups["data"] = g
-        for d in range(n_data):
-            g = dist.new_group([d * n_pixel + p for p in range(n_pixel)])
-            if rank // n_pixel == d:
-                groups["pixel"] = g
+        for axis, members in (
+                ("model", [[at(d, p, m) for m in range(n_model)]
+                           for d in range(n_data) for p in range(n_pixel)]),
+                ("data", [[at(d, p, m) for d in range(n_data)]
+                          for p in range(n_pixel) for m in range(n_model)]),
+                ("pixel", [[at(d, p, m) for p in range(n_pixel)]
+                           for d in range(n_data) for m in range(n_model)])):
+            for ranks in members:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axis] = g
+        if n_model == 1:
+            groups["dp"] = dist.group.WORLD
+        else:
+            for m in range(n_model):
+                g = dist.new_group([at(d, p, m) for d in range(n_data) for p in range(n_pixel)])
+                if m == rank % n_model:
+                    groups["dp"] = g
         groups["all"] = dist.group.WORLD
-    return Mesh(n_data, n_pixel, 1, rank, multihost.rank_device(device), groups)
+    return Mesh(n_data, n_pixel, n_model, rank, multihost.rank_device(device), groups)
+
+
+def model_axis_size(mesh: Mesh | None) -> int:
+    return 1 if mesh is None else mesh.n_model
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +257,7 @@ class ShardView:
         table holds rows ``[d * R, (d + 1) * R)`` on data coordinate ``d``:
         each owner writes its rows of the whole batch into a zero buffer,
         one all-reduce over ``data`` fills it, and its backward sums the
-        rows' gradients over ``data x pixel`` back to the owners."""
+        rows' gradients over ``dp`` back to the owners."""
         rows = self.rows(idx.shape[0])
         if not any(self.is_sharded(t) for t in tables):
             return [t[idx[rows]] for t in tables]
@@ -232,18 +266,20 @@ class ShardView:
         own = (idx >= lo) & (idx < lo + R)
         local = torch.clamp(idx - lo, 0, R - 1)
         buf = torch.cat([t[local] * own[:, None, None].to(t.dtype) for t in tables], dim=-1)
-        full = _AllReduce.apply(buf, self.mesh.group("data"), self.mesh.group("all"))[rows]
+        full = _AllReduce.apply(buf, self.mesh.group("data"), self.mesh.group("dp"))[rows]
         k = tables[0].shape[-1]
         return [full[..., i * k : (i + 1) * k] for i in range(len(tables))]
 
     def reduce(self, params: list[torch.Tensor], metrics: dict) -> dict:
         """The step's one bucket: the gradients of ``params`` that are not
-        row-sharded and the metric partials, summed over ``data x pixel``.
-        Returns the summed metrics."""
+        row-sharded and the metric partials, summed over ``dp`` (a
+        model-sharded leaf's slice sums with the same slice of the other
+        data x pixel ranks; ``parallel/tp.py`` leaves every replicated leaf
+        the same gradient on each model rank). Returns the summed metrics."""
         grads = [p.grad for p in params if p.grad is not None and not self.is_sharded(p)]
         names = list(metrics)
         vals = torch.stack([metrics[k].detach() for k in names])
-        all_reduce_sum(grads + [vals], self.mesh.group("all"))
+        all_reduce_sum(grads + [vals], self.mesh.group("dp"))
         return {k: vals[i] for i, k in enumerate(names)}
 
 
@@ -306,6 +342,8 @@ def _block(mesh: Mesh, shape: tuple, spec: tuple) -> tuple:
             out.append(mesh.rows(n))
         elif axis == "pixel":
             out.append(mesh.pixels(n))
+        elif axis == "model":
+            out.append(mesh.cols(n))
         else:
             out.append(slice(None))
     return tuple(out)
@@ -402,24 +440,89 @@ def _is_latent_table(path: str, leaf) -> bool:
             and "latents" in path.split("/"))
 
 
+def _decoder_leaf_role(path: str):
+    """A decoder leaf's role from its tree path: ('layers', i, 'w'|'b'),
+    ('final', 'w'|'b'), ('mapping',) or None (not a decoder leaf)."""
+    keys = path.split("/")
+    if "decoder" not in keys:
+        return None
+    tail = keys[keys.index("decoder") + 1:]
+    if len(tail) == 3 and tail[0] == "layers" and tail[1].isdigit():
+        return ("layers", int(tail[1]), tail[2])
+    if len(tail) == 2 and tail[0] == "final":
+        return ("final", tail[1])
+    if tail and tail[0] == "mapping":
+        return ("mapping",)
+    return None
+
+
+def _n_trunk_layers(tree) -> int:
+    """Entries of the decoder's ``layers`` list, from the leaf paths."""
+    roles = [_decoder_leaf_role(path) for path, _ in tree_items(tree)]
+    return max((r[1] + 1 for r in roles if r is not None and r[0] == "layers"), default=0)
+
+
+def _tp_spec(path: str, leaf, n_model: int, n_trunk: int) -> tuple | None:
+    """Megatron's alternating spec of one decoder leaf (JAX's ``_tp_spec``):
+    even trunk layers column-parallel (``w`` as ``(None, "model")``, ``b``
+    as ``("model",)``), odd ones row-parallel (``w`` as ``("model", None)``,
+    ``b`` whole, added after the reduction); ``final.w`` row-parallel when
+    the last trunk layer is even (its activations arrive sharded); the FiLM
+    mapping network whole (its modulations are per image). None for a leaf
+    that is not the decoder's. A feature width the model axis does not
+    divide raises."""
+    role = _decoder_leaf_role(path)
+    if role is None:
+        return None
+
+    def check(dim: int) -> None:
+        if dim % n_model:
+            raise ValueError(
+                f"decoder leaf {path} has feature dim {dim}, not divisible by the model axis "
+                f"({n_model}); pick a model-axis size dividing HIDDEN_FEATURES")
+
+    if role[0] == "layers":
+        _, i, wb = role
+        col = i % 2 == 0
+        if wb == "w":
+            check(leaf.shape[1] if col else leaf.shape[0])
+            return (None, "model") if col else ("model", None)
+        if col:
+            check(leaf.shape[0])
+            return ("model",)
+        return ()
+    if role[0] == "final" and role[1] == "w" and (n_trunk - 1) % 2 == 0:
+        check(leaf.shape[0])
+        return ("model", None)
+    return ()
+
+
 def state_sharding(mesh: Mesh, tree, shard_latents: bool = False,
                    shard_model: bool | None = None) -> dict:
     """{path: spec} of a parameter tree: every leaf replicated (``()``),
     except, with ``shard_latents``, the latent tables, row-sharded over
-    'data' (``("data", None, None)``). A table whose rows do not divide the
-    data axis raises: pad it first (``pad_latent_rows``; the runners do).
-    ``shard_model`` (the 'model' axis) is ROADMAP Queue A-11b."""
-    if shard_model:
-        raise NotImplementedError(f"state_sharding(shard_model=True): {_A11B}")
+    'data' (``("data", None, None)``), and, with ``shard_model`` (default:
+    on iff the mesh has a model axis > 1), the decoder's leaves in the
+    tensor-parallel layout of ``_tp_spec``. A table whose rows do not divide
+    the data axis raises: pad it first (``pad_latent_rows``; the runners
+    do). Optimizer moments take their parameter's spec
+    (``shard_model_leaves``)."""
+    n_model = model_axis_size(mesh)
+    if shard_model is None:
+        shard_model = n_model > 1
+    shard_model = shard_model and n_model > 1
+    n_trunk = _n_trunk_layers(tree) if shard_model else 0
     out = {}
     for path, leaf in tree_items(tree):
-        spec = ()
-        if shard_latents and _is_latent_table(path, leaf):
-            if leaf.shape[0] % mesh.n_data:
-                raise ValueError(
-                    f"latent table {path} has {leaf.shape[0]} rows, not divisible by the "
-                    f"data axis ({mesh.n_data}); pad with pad_latent_rows() first")
-            spec = ("data", None, None)
+        spec = _tp_spec(path, leaf, n_model, n_trunk) if shard_model else None
+        if spec is None:
+            spec = ()
+            if shard_latents and _is_latent_table(path, leaf):
+                if leaf.shape[0] % mesh.n_data:
+                    raise ValueError(
+                        f"latent table {path} has {leaf.shape[0]} rows, not divisible by the "
+                        f"data axis ({mesh.n_data}); pad with pad_latent_rows() first")
+                spec = ("data", None, None)
         out[path] = spec
     return out
 
@@ -539,6 +642,87 @@ def shard_latent_tables(state, mesh: Mesh) -> Callable[[], None]:
     return gather
 
 
+def _narrow(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    return t.narrow(dim, mesh.cols(t.shape[dim]).start, t.shape[dim] // mesh.n_model)
+
+
+def _zero_filled_cols(shard: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    shape = list(shard.shape)
+    shape[dim] *= mesh.n_model
+    full = shard.new_zeros(shape)
+    _narrow(full, dim, mesh).copy_(shard)
+    return full
+
+
+def collect_cols(shard: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``shard`` is this rank's slice along
+    ``dim`` over 'model' (``shard_model_leaves``): an all-reduce over
+    'model' of zero buffers into which each rank writes its slice.
+    Collective."""
+    full = _zero_filled_cols(shard, dim, mesh)
+    all_reduce_sum([full], mesh.group("model"))
+    return full
+
+
+def shard_model_leaves(state, mesh: Mesh) -> Callable[[], None]:
+    """Cut the state's decoder leaves, trainable or frozen, and their
+    optimizer moments to this rank's slice of ``_tp_spec`` over the model
+    axis, in place (the tensors stay the optimizer's, their ``.data``
+    swapped, so moments made at the stage's first step are born in the
+    slice's shape; ``model_shard`` marks them for
+    ``checkpoint.fetch_tree``). Returns the collective that undoes it: one
+    all-reduce over 'model' of the slices in zero buffers."""
+    specs = state_sharding(mesh, state.params, shard_model=True)
+    undo = []
+    for path, t in tree_items(state.params):
+        spec = specs[path]
+        if "model" not in spec:
+            continue
+        dim = spec.index("model")
+        moments = _moments(state, t)
+        t.data = _narrow(t.data, dim, mesh).clone()
+        t.model_shard = (dim, mesh)
+        for k, v in moments.items():
+            state.optimizer.optimizer.state[t][k] = _narrow(v, dim, mesh).clone()
+        undo.append((t, dim))
+
+    def gather() -> None:
+        # the moments as they are now (born at the stage's first step), all
+        # in one bucket
+        keys = [list(_moments(state, t)) for t, _ in undo]
+        full = []
+        for (t, dim), ks in zip(undo, keys):
+            st = state.optimizer.optimizer.state.get(t, {})
+            full += [_zero_filled_cols(x, dim, mesh) for x in [t.data] + [st[k] for k in ks]]
+        all_reduce_sum(full, mesh.group("model"))
+        for (t, _), ks in zip(undo, keys):
+            t.data = full.pop(0)
+            for k in ks:
+                state.optimizer.optimizer.state[t][k] = full.pop(0)
+            del t.model_shard
+
+    return gather
+
+
+def shard_for_stage(state, mesh: Mesh, shard_latents: bool = False) -> Callable[[], None]:
+    """What a rank holds of the state for a stage: the latent tables
+    row-sharded with ``shard_latents``, the decoder model-sharded on a model
+    axis. Returns the collective that makes it whole again; its ``sharded``
+    are the row-sharded tables (``ShardView``)."""
+    undo = []
+    if shard_latents:
+        undo.append(shard_latent_tables(state, mesh))
+    if mesh.n_model > 1:
+        undo.append(shard_model_leaves(state, mesh))
+
+    def gather() -> None:
+        for g in reversed(undo):
+            g()
+
+    gather.sharded = tuple(t for g in undo for t in getattr(g, "sharded", ()))
+    return gather
+
+
 # ---------------------------------------------------------------------------
 # runners
 # ---------------------------------------------------------------------------
@@ -554,8 +738,9 @@ def sharded_stage_runner(mesh: Mesh, shard_latents: bool = False) -> Callable:
     """A drop-in for ``tasks.run_stage`` on ``mesh``: the batch padded to the
     data axis (its padded rows masked), each step given this rank's block of
     the images (``shard_stage_data``) and the whole batch's index and mask
-    (``ShardView`` picks its rows), and the latent tables row-sharded for
-    the stage with ``shard_latents``."""
+    (``ShardView`` picks its rows), the latent tables row-sharded for the
+    stage with ``shard_latents`` and the decoder model-sharded on a model
+    axis (``shard_for_stage``); the returned state is whole."""
     from reni_tpu_torch.train import tasks as _tasks
 
     def run_stage(step_fn, state, images, n_epochs, batch_size):
@@ -564,17 +749,16 @@ def sharded_stage_runner(mesh: Mesh, shard_latents: bool = False) -> Callable:
         imgs, idx_b, bmask_b = shard_stage_data(mesh, images, idx, bmask.astype(np.float32))
         bmask_b = bmask_b.to(imgs.dtype)
         rows = mesh.rows(batch_size)
-        gather = shard_latent_tables(state, mesh) if shard_latents else None
+        gather = shard_for_stage(state, mesh, shard_latents)
         epochs = []
-        with kernel_mesh(mesh, images.shape[1], getattr(gather, "sharded", ())):
+        with kernel_mesh(mesh, images.shape[1], gather.sharded):
             for _ in range(n_epochs):
                 ms = []
                 for b in range(idx_b.shape[0]):
                     state, m = step_fn(state, (imgs[idx_b[b, rows]], idx_b[b], bmask_b[b]))
                     ms.append(m)
                 epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
-        if gather is not None:
-            gather()
+        gather()
         return state, {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
 
     return run_stage

@@ -128,6 +128,18 @@ def agree_on_flag(value: bool) -> bool:
     return bool(_broadcast(bool(value)))
 
 
+def max_over_ranks(values) -> list[float]:
+    """Each entry of ``values``, the largest over the ranks, in one
+    all-reduce (the trainer's checks at a segment's end: the RSS exit's
+    memory reading, where the rank nearest its limit decides for all, and
+    rank 0's flags, which the other ranks send as 0). Collective."""
+    if process_count() <= 1:
+        return [float(v) for v in values]
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_host["group"])
+    return t.tolist()
+
+
 def agree_on_path(path: str) -> str:
     """Adopt rank 0's ``version_N`` run directory everywhere: each rank's
     own next-free-version scan can race with rank 0 creating it."""

@@ -146,7 +146,9 @@ def fit_inverse(
     counting); the other keywords go to ``fit_task``. With ``mesh=`` the
     task runs data-sharded: each rank decodes the whole light set of its
     rows of the batch and renders, where the render's rows divide the pixel
-    axis, its slice of them (``fit_task`` shards the targets' axis 1)."""
+    axis, its slice of them (``fit_task`` shards the targets' axis 1); on a
+    model axis the frozen decoder is sharded too, and the decodes run
+    through ``parallel/tp.py``."""
     if setup is None:
         setup = InverseRenderSetup(
             task_cfg.object_path,

@@ -53,21 +53,29 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the rasterizer unless its library is already built; raises
     RuntimeError with the compiler's output when ``g++`` fails."""
+    from reni_tpu_torch.kernels import _build
+    from reni_tpu_torch.utils import progress
+
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"the rasterizer needs g++: {e}") from e
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent reader never sees half a file
-    return out
+    with _build.name_lock(str(out)):
+        if out.exists():  # another thread built it meanwhile
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = _build.temporary(out)
+        cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+        try:
+            progress.note("g++ rasterizer")
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            progress.note("g++ rasterizer done")
+        except FileNotFoundError as e:
+            raise RuntimeError(f"the rasterizer needs g++: {e}") from e
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent reader never sees half a file
+        return out
 
 
 def library() -> ctypes.CDLL:

@@ -137,33 +137,35 @@ def _opt_layout(optimizer: ScheduledOptimizer) -> tuple[str, list[str]]:
 
 def opt_state_arrays(optimizer: ScheduledOptimizer) -> dict[str, np.ndarray]:
     """``optimizer``'s state in optax's flat layout (module docstring), keys
-    without the ``__opt__/`` prefix, values numpy arrays."""
+    without the ``__opt__/`` prefix, values numpy arrays; a sharded
+    parameter's moments whole (collective, as ``fetch_tree``)."""
     kind, _ = _opt_layout(optimizer)
     opt = optimizer.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     out = {}
 
-    def host(t):
-        return t.detach().cpu().numpy()
+    def host(t, p):
+        # a sharded parameter's moments are collected whole, as it is
+        return _whole(t, p).cpu().numpy()
 
     if kind == "adam":
         step = 0
         for name, p in zip(optimizer.names, params):
             st = opt.state.get(p, {})
-            zeros = host(torch.zeros_like(p))
-            out[f"0/1/{name}"] = host(st["exp_avg"]) if st else zeros
-            out[f"0/2/{name}"] = host(st["exp_avg_sq"]) if st else zeros
+            zeros = torch.zeros_like(p)
+            out[f"0/1/{name}"] = host(st["exp_avg"] if st else zeros, p)
+            out[f"0/2/{name}"] = host(st["exp_avg_sq"] if st else zeros, p)
             step = int(st["step"]) if st else step
         out["0/0"] = np.asarray(step, dtype=np.int32)
     elif kind == "adagrad":
         for name, p in zip(optimizer.names, params):
             st = opt.state.get(p, {})
             out[f"0/0/{name}"] = host(st["sum"] if st else torch.full_like(
-                p, opt.defaults["initial_accumulator_value"]))
+                p, opt.defaults["initial_accumulator_value"]), p)
     elif opt.defaults["momentum"]:
         for name, p in zip(optimizer.names, params):
             buf = opt.state.get(p, {}).get("momentum_buffer")
-            out[f"0/0/{name}"] = host(buf if buf is not None else torch.zeros_like(p))
+            out[f"0/0/{name}"] = host(buf if buf is not None else torch.zeros_like(p), p)
     out["1/0"] = np.asarray(optimizer.count, dtype=np.int32)
     return out
 
@@ -227,19 +229,31 @@ def load_opt_state(path: str, optimizer: ScheduledOptimizer) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _whole(t: torch.Tensor, like: torch.Tensor | None = None) -> torch.Tensor:
+    """``t`` whole: a latent table row-sharded over a mesh's data axis
+    (``parallel.mesh.shard_latent_tables``) or a decoder leaf sharded over
+    its model axis (``shard_model_leaves``), both inside a stage, is
+    collected by an all-reduce over that axis. ``like`` is the parameter
+    whose mark an optimizer moment ``t`` follows. Collective."""
+    from reni_tpu_torch.parallel.mesh import collect_cols, collect_rows
+
+    like = t if like is None else like
+    t = t.detach()
+    rows = getattr(like, "row_shard", None)
+    if rows is not None:
+        return collect_rows(t, *rows)
+    cols = getattr(like, "model_shard", None)
+    return t if cols is None else collect_cols(t, *cols)
+
+
 def fetch_tree(tree):
-    """Host (numpy) copies of a tree's leaves. A latent table that is
-    row-sharded over a mesh's data axis (``parallel.mesh.
-    shard_latent_tables``, inside a stage) is collected first, by an
-    all-reduce over that axis: the call is collective, so every rank makes
-    it at the same point and rank 0 alone writes what it returns."""
-    from reni_tpu_torch.parallel.mesh import collect_rows
+    """Host (numpy) copies of a tree's leaves, sharded ones collected whole
+    first (``_whole``): the call is collective, so every rank makes it at
+    the same point and rank 0 alone writes what it returns: the same files
+    as a single-device run's."""
 
     def fetch(t):
-        if isinstance(t, torch.Tensor):
-            shard = getattr(t, "row_shard", None)
-            t = t.detach() if shard is None else collect_rows(t.detach(), *shard)
-        return to_numpy(t)
+        return to_numpy(_whole(t) if isinstance(t, torch.Tensor) else t)
 
     return map_tree(fetch, tree)
 

@@ -62,7 +62,7 @@ from reni_tpu_torch.parallel.mesh import (
     chunk_gather,
     kernel_mesh,
     pad_batch_to,
-    shard_latent_tables,
+    shard_for_stage,
     sharded_stage_runner,
     stream_chunk_layout,
 )
@@ -616,8 +616,11 @@ def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None, mesh=None,
     rows of each batch or chunk (``batch_local_positions``; a chunk laid out
     data-shard-major by ``stream_chunk_layout``) and its pixels where they
     divide the pixel axis; a rank's padded rows are zeros, not decodes. The
-    steps run under ``kernel_mesh`` as the resident sharded runner's do, and
-    ``shard_latents`` row-shards the latent tables for the stage."""
+    steps run under ``kernel_mesh`` as the resident sharded runner's do,
+    ``shard_latents`` row-shards the latent tables for the stage and a model
+    axis shards the decoder (``parallel.mesh.shard_for_stage``). The model
+    ranks of a data coordinate stage the same rows, so each decodes them
+    from disk."""
     device = torch.device(device)
     notes: set = set()
 
@@ -679,7 +682,7 @@ def streaming_stage_runner(device, chunk: int = 1, stream_dtype=None, mesh=None,
         def prefetch(c: int) -> None:
             pre(rows[c] if valid[c] is None else rows[c][: valid[c]])
 
-        gather = shard_latent_tables(state, mesh) if mesh is not None and shard_latents else None
+        gather = shard_for_stage(state, mesh, shard_latents) if mesh is not None else None
         prefetch(0)
         slot = put(0)
         if n_chunks > 1:
@@ -724,13 +727,6 @@ def _stream_dtype(value) -> torch.dtype | None:
     raise ValueError(f"stream_dtype must be float32 or bfloat16, got {value!r}")
 
 
-# fit_task arguments of the JAX package that a later slice brings, with the
-# value that leaves them off
-_LATER = {
-    "precompile": (False, "Queue A-13 (left out until the card needs it)"),
-}
-
-
 def fit_task(
     model: RENIModel,
     params: Params,
@@ -751,7 +747,7 @@ def fit_task(
     stream: bool = False,
     stream_chunk: int = 1,
     stream_dtype=None,
-    precompile: bool = False,
+    precompile=False,
 ) -> tuple[Params, dict]:
     """Run a whole task with its multi-resolution curriculum (the JAX
     ``fit_task``).
@@ -782,8 +778,14 @@ def fit_task(
     (``checkpoint.read_opt_state``) or a loader called with the fresh
     ``TrainState`` (``checkpoint.load_train_state``: the optimizer state
     into its optimizer, the generator state into its generator). The
-    optimizer's step count keeps the LR schedule exact. ``precompile``
-    (ROADMAP A-13) raises NotImplementedError unless left off.
+    optimizer's step count keeps the LR schedule exact.
+
+    ``precompile`` (True, or a ``train.precompile.Precompiler``) builds the
+    native libraries the task's stages load in a background thread before
+    the first stage (``precompile.task_builds``; the process's default
+    precompiler for True): a build that finishes first saves the inline build at first
+    use, a failed one is logged and the inline build raises as without it.
+    The training itself is the same, bit for bit.
 
     With a ``mesh`` of more than one rank (``parallel.mesh.make_mesh``; every
     rank calls ``fit_task`` with the same arguments) the batch is padded to
@@ -797,13 +799,13 @@ def fit_task(
 
     Returns (params, metrics dict of (epochs run,) arrays under the
     reference's keys ``{task}_{name}``)."""
-    for name, value in dict(precompile=precompile).items():
-        off, where = _LATER[name]
-        if value != off:
-            raise NotImplementedError(f"fit_task({name}=...) is not ported yet: {where}")
     stream_dtype = _stream_dtype(stream_dtype)
     if mesh is not None and mesh.size == 1:
         mesh = None  # one rank: the single-device runners
+    if mesh is not None and not mesh.groups:
+        raise ValueError(
+            f"a mesh of {mesh.size} ranks without process groups is a layout: build it with "
+            f"parallel.mesh.make_mesh in each of WORLD_SIZE={mesh.size} ranks")
     task_cfg.validate()
     if step_builder is None and task_cfg.task not in ("FIT_DECODER", "FIT_LATENT"):
         raise ValueError(
@@ -814,7 +816,8 @@ def fit_task(
     if mesh is not None:
         batch_size = pad_batch_to(batch_size, mesh.n_data)
     stages = task_cfg.resolution_stages()
-    n_images = images_at(tuple(stages[0][0])).shape[0]
+    first = images_at(tuple(stages[0][0]))
+    n_images = first.shape[0]
     optim_cfg = dataclasses.replace(
         task_cfg.optim, epochs=task_cfg.epochs, steps_per_epoch=-(-n_images // batch_size)
     )
@@ -826,6 +829,13 @@ def fit_task(
             set_opt_state(state.optimizer, initial_opt_state)
     table = model.latents(state.params)
     dev, dtype = table.device, table.dtype
+    if precompile:
+        from reni_tpu_torch.train import precompile as pc
+
+        pool = precompile if isinstance(precompile, pc.Precompiler) else pc.default_pool()
+        pool.launch(pc.task_builds(model.config, task_cfg.task, dev,
+                                   from_disk=getattr(first, "prefetch", None) is not None))
+    del first
     stage_runner = run_stage
     if stream:
         stage_runner = streaming_stage_runner(dev, chunk=stream_chunk, stream_dtype=stream_dtype,

@@ -3,8 +3,9 @@ sizes of ``tests/test_cli.py``: the task chain through ``main`` beside the
 JAX package's ``main`` on the same config, FIT_INVERSE and FiLM chains, the
 task-order asserts, crash retries and relaunch adoption (bit for bit the
 uncut chain), MAX_RUNTIME, the wall-clock save cadence, ``--profile``, the
-precision knob, what the port refuses by name, and the module's command
-line with ``--device cpu``."""
+precision knob, the later slices' knobs, the hang watchdog and the RSS exit
+(exit 114, then a relaunch bit for bit the uncut run), and the module's
+command line with ``--device cpu``."""
 
 import json
 import math
@@ -370,6 +371,102 @@ def test_relaunch_refuses_a_run_with_another_config(tmp_path, tiny_dataset, monk
     assert os.path.basename(log_dir) == "version_1"
 
 
+_WEDGE = """\
+import sys, threading, time
+from reni_tpu_torch.cli import run as trun
+from reni_tpu_torch.utils import progress
+
+real = trun._BestTracker.maybe_save
+stalled = threading.Event()
+
+
+def heartbeat():
+    # the trainer's last note kept fresh up to the stall, so that the one
+    # idle gap is the stall's, however slow set-up and training run
+    while not stalled.wait(0.1):
+        progress.PROGRESS["ts"] = time.time()
+
+
+def wedged(self, params, epoch, *a, **k):
+    real(self, params, epoch, *a, **k)
+    if epoch == 2:  # a launch that never returns: no progress from here on
+        stalled.set()
+        time.sleep(600)
+
+
+threading.Thread(target=heartbeat, daemon=True).start()
+
+
+trun._BestTracker.maybe_save = wedged
+sys.exit(trun.cli(sys.argv[1:]))
+"""
+
+
+@pytest.mark.parametrize("fault", ["hang", "rss"])
+def test_exit_114_then_the_relaunch_is_the_uncut_run(tmp_path, tiny_dataset, fault):
+    """The two exits 114 (tests/test_cli.py:419 and :538), as subprocess
+    runs of the trainer's command line, a segment (a progress note) every 2
+    epochs: RENI_TPU_HANG_EXIT_S=5 with the trainer stuck after its epoch-2
+    checkpoint and its notes kept fresh until then (the watchdog logs a
+    ``hang_exit`` event naming that epoch's note and exits), RENI_TPU_RSS_EXIT_GB below the process's RSS (at the
+    first segment: checkpoint, ``rss_exit`` event, exit). The same command
+    with --retries 1 then adopts the run and ends bit for bit at the uncut
+    run's final checkpoint."""
+    cfg = _resume_config(tmp_path, tiny_dataset, "runs", ("FIT_DECODER",))
+    cfg.TRAINER.LOGGER_TYPE = "jsonl"  # no TensorFlow import in the child
+    cfg.TRAINER.LOGGER.LOG_IMAGES = False
+    cfg.TRAINER.CHKPTS.EVERY_N_EPOCHS = 2
+    uncut = cfg.clone()
+    uncut.TRAINER.LOGGER.TB.SAVE_DIR = str(tmp_path / "uncut")
+    _, uncut_dir = trun.main(uncut, device="cpu")
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    argv = ["--cfg_path", str(cfg_path), "--device", "cpu", "--retries", "1"]
+    if fault == "hang":
+        env["RENI_TPU_HANG_EXIT_S"] = "5"
+        cmd = [sys.executable, "-c", _WEDGE] + argv
+    else:
+        env["RENI_TPU_RSS_EXIT_GB"] = "0.001"
+        cmd = [sys.executable, "-m", "reni_tpu_torch.cli.run"] + argv
+    res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 114, res.stdout[-1500:] + res.stderr[-1500:]
+    log_dir = trun._experiment_runs(cfg)[0]
+    events = [r for r in _rows(log_dir) if "event" in r]
+    assert [e["event"] for e in events] == [f"{fault}_exit"], events
+    if fault == "hang":
+        assert "HANG: no trainer progress" in res.stderr and events[0]["idle_s"] >= 5
+        assert events[0]["last"].startswith("FIT_DECODER epoch 2 "), events
+    else:
+        assert "RENI_TPU_RSS_EXIT_GB" in res.stdout and events[0]["epoch"] == 2
+    _, relaunched = trun.run_with_retries(cfg, retries=1, device="cpu")
+    assert relaunched == log_dir
+    assert [r["event"] for r in _rows(log_dir) if "event" in r][-1] == "relaunch_adopt"
+    _assert_same_bits(_finals(log_dir, ("FIT_DECODER",)), _finals(uncut_dir, ("FIT_DECODER",)))
+
+
+def test_hang_watchdog_exits_114():
+    """RENI_TPU_HANG_EXIT_S (tests/test_cli.py:419): no progress note within
+    the bound exits 114; progress notes 0.05 s apart keep the process alive
+    past twice the bound."""
+    code = ("import time\n"
+            "from reni_tpu_torch.cli import run\n"
+            "run._arm_hang_watchdog()\n"
+            "t_end = time.monotonic() + 6\n"
+            "while time.monotonic() < t_end:\n"
+            "    time.sleep(0.05)\n"
+            "    run._note_progress('alive')\n"
+            "print('survived', flush=True)\n"
+            "time.sleep(60)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, RENI_TPU_HANG_EXIT_S="3")
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 114 and "survived" in res.stdout, res.stderr[-1000:]
+
+
 def test_max_runtime_stops_after_the_first_segment(tmp_path, tiny_dataset, monkeypatch):
     """TRAINER.MAX_RUNTIME (hours): once the clock passes it, the task stops
     at its next callback and later tasks do not start. The trainer's clock
@@ -475,58 +572,63 @@ def test_precision_knob(precision, mixed, want):
     (dict(MESH=dict(PIXEL=2)), "A-11"), (dict(SHARD_LATENTS=True), "A-11"),
     (dict(env=("WORLD_SIZE", "2")), "A-11"), (dict(env=("RENI_TPU_HANG_EXIT_S", "60")), "A-13"),
     (dict(env=("RENI_TPU_RSS_EXIT_GB", "40")), "A-13"),
-    (dict(env=("RENI_TPU_STOP_FILE", "/nonexistent/stop")), "A-13"),
-    (dict(env=("RENI_TPU_CHIP_LOCK", "/nonexistent/lock")), "A-13"),
+    (dict(env=("RENI_TPU_STOP_FILE", "{tmp}/stop")), "A-13"),
+    (dict(env=("RENI_TPU_CHIP_LOCK", "{tmp}/lock")), "A-13"),
     (dict(mesh="1x1x2"), "A-11b"), (dict(MESH=dict(MODEL=2)), "A-11b")],
     ids=lambda v: str(v).replace(" ", ""))
-def test_later_slices_raise_by_name(tmp_path, tiny_dataset, monkeypatch, ask, item):
-    """A tensor-parallel model axis (A-11b) and the TPU host's fault
-    machinery (A-13) raise NotImplementedError naming the ROADMAP queue
-    item, before any training. The mesh, sharded latents and multi-process
-    runs (A-11) are ported (tests/test_torch_multihost.py runs the ranks): in
-    one process without torchrun's variables a mesh of two ranks raises
-    ValueError naming WORLD_SIZE, WORLD_SIZE=2 without MASTER_ADDR raises in
-    the rendezvous, both before any training, and SHARD_LATENTS on one rank
-    trains as without it (the streaming keys run:
-    tests/test_torch_streaming.py)."""
+def test_later_slices_are_ported(tmp_path, tiny_dataset, monkeypatch, ask, item):
+    """The mesh, sharded latents and multi-process runs (A-11) and the
+    tensor-parallel model axis (A-11b) are ported (tests/test_torch_multihost.py
+    and tests/test_torch_tp.py run the ranks): in one process without
+    torchrun's variables a mesh of two ranks, a model axis of two among them,
+    raises ValueError naming WORLD_SIZE, WORLD_SIZE=2 without MASTER_ADDR
+    raises in the rendezvous, both before any training, and SHARD_LATENTS on
+    one rank trains as without it (the streaming keys run:
+    tests/test_torch_streaming.py). The fault machinery (A-13) is accepted:
+    the trainer through run_with_retries trains with each of its variables
+    set (a stop file that does not exist asks nothing; the chip lock is
+    taken and released)."""
     cfg = _tiny_config(tmp_path, tiny_dataset)
     ask = dict(ask)
     mesh = ask.pop("mesh", None)
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     if "env" in ask:
-        monkeypatch.setenv(*ask.pop("env"))
+        var, value = ask.pop("env")
+        monkeypatch.setenv(var, value.replace("{tmp}", str(tmp_path)))
     for key, value in ask.items():
         if isinstance(value, dict):
             cfg.TPU[key].update(value)
         else:
             cfg.TPU[key] = value
-    if item == "A-11" and cfg.TPU.SHARD_LATENTS:
+    if item == "A-13" or cfg.TPU.SHARD_LATENTS:
         cfg.RENI.TASKS = ["FIT_DECODER"]
         cfg.RENI.FIT_DECODER.EPOCHS = 2
         cfg.RENI.FIT_DECODER.MULTI_RES_TRAINING = False
-        results, _ = trun.main(cfg, device="cpu", mesh=mesh)
+        results, _ = trun.run_with_retries(cfg, device="cpu", mesh=mesh)
         assert results["FIT_DECODER"][1]["fit_decoder_loss"].shape == (2,)
         return
-    if item == "A-11":
-        with pytest.raises(ValueError, match="WORLD_SIZE|MASTER_ADDR"):
-            trun.main(cfg, device="cpu", mesh=mesh)
-    else:
-        with pytest.raises(NotImplementedError, match=f"Queue {item}$"):
-            trun.main(cfg, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="WORLD_SIZE|MASTER_ADDR"):
+        trun.main(cfg, device="cpu", mesh=mesh)
     assert not os.path.exists(cfg.TRAINER.LOGGER.TB.SAVE_DIR)
     assert not torch.distributed.is_initialized()
 
 
-def test_precompile_is_ignored_with_a_note(tmp_path, tiny_dataset, capsys):
-    cfg = _tiny_config(tmp_path, tiny_dataset)
-    cfg.RENI.TASKS = ["FIT_DECODER"]
-    cfg.RENI.FIT_DECODER.EPOCHS = 2
-    cfg.RENI.FIT_DECODER.MULTI_RES_TRAINING = False
-    cfg.TPU.PRECOMPILE = True
-    results, _ = trun.main(cfg, device="cpu", mesh="1x1")
-    assert "TPU.PRECOMPILE ignored" in capsys.readouterr().out
-    assert results["FIT_DECODER"][1]["fit_decoder_loss"].shape == (2,)
+def test_precompile_trains(tmp_path, tiny_dataset, capsys):
+    """TPU.PRECOMPILE: the chain's later tasks' libraries build in the
+    background (on the CPU the kernels' wrappers take their plain versions,
+    so no kernel library is asked for) and the training is the run's without
+    it, bit for bit."""
+    runs = []
+    for precompile in (False, True):
+        cfg = _tiny_config(tmp_path, tiny_dataset, runs=f"runs_{precompile}")
+        cfg.RENI.TASKS = ["FIT_DECODER"]
+        cfg.RENI.FIT_DECODER.EPOCHS = 2
+        cfg.RENI.FIT_DECODER.MULTI_RES_TRAINING = False
+        cfg.TPU.PRECOMPILE = precompile
+        runs.append(trun.main(cfg, device="cpu", mesh="1x1")[1])
+    assert "TPU.PRECOMPILE: later tasks' libraries build in background" in capsys.readouterr().out
+    _assert_same_bits(*(_finals(r, ("FIT_DECODER",)) for r in runs))
 
 
 def test_cli_needs_the_card_unless_told(tmp_path, tiny_dataset, monkeypatch):

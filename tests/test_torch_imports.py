@@ -1,7 +1,9 @@
 """Import hygiene of the port: reni_tpu_torch (every module, the kernels'
 anatomy probes, the config, data and codec modules, the renderer
 (render/), the evaluation harness (eval.py, cli/evaluate.py), the export,
-baselines, conversion and assets modules included), chip_smoke.py,
+baselines, conversion and assets modules, the tensor-parallel decoder
+(parallel/tp.py), the chip lock (utils/chiplock.py, the port's own copy)
+and the precompiler (train/precompile.py) included), chip_smoke.py,
 time_kernels.py and examples/fit_prior_torch.py import neither JAX nor the
 JAX package nor its benchmarks, nor at module level OpenCV, PIL or PyYAML
 (which the card's machine does not have) or scipy, turn no TF32 on, and the
@@ -46,7 +48,9 @@ def test_the_module_list_covers_this_slice():
             "reni_tpu_torch.baselines.spherical_gaussians", "reni_tpu_torch.utils.convert",
             "reni_tpu_torch.utils.assets", "reni_tpu_torch.data.piz", "reni_tpu_torch.data.b44",
             "reni_tpu_torch.data.dwa", "reni_tpu_torch.parallel", "reni_tpu_torch.parallel.mesh",
-            "reni_tpu_torch.parallel.multihost"} <= names
+            "reni_tpu_torch.parallel.multihost", "reni_tpu_torch.parallel.tp",
+            "reni_tpu_torch.utils.chiplock", "reni_tpu_torch.utils.progress",
+            "reni_tpu_torch.train.precompile"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -4,6 +4,7 @@ a run (tests/torch_multihost_worker.py), each with its own one thread, the
 rendezvous through a file. Mirrors tests/test_multihost.py.
 
 - the helpers: rank 0's string, flag and version_N adopted by both ranks,
+  the largest of the ranks' values (the RSS exit's reading),
   rank 0's checkpoint files sent to a rank that has no copy, barriers, and
   ``barrier_timeout`` returning False when the other rank never joins;
 - the trainer as a 2-process cluster on a 2 x 1 mesh with sharded latent
@@ -156,6 +157,7 @@ def test_helpers_over_two_ranks(runs):
         assert g["str"] == "plan of rank 0" and g["flag"] is True
         assert g["path"] == "runs/exp/version_3"
         assert g["unversioned"] == f"runs/exp_{r}"  # no version_N: each keeps its own
+        assert g["largest"] == [3.5, 0.0]  # each entry's largest: rank 1's, rank 0's
         assert g["npz"] and g["json"] == {"epoch": 7}
         assert g["both_join"] is True
     # rank 1 (its own working directory) received rank 0's files

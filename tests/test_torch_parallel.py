@@ -128,7 +128,8 @@ def _part(out: dict, prefix: str) -> tuple[dict, dict]:
 
 def test_make_mesh_against_world_size(ranks):
     """One process is a world of one: a 1 x 1 mesh, and a mesh of more ranks
-    raises naming both numbers; a model axis names A-11b."""
+    raises naming both numbers, a model axis too; a rank of a mesh with a
+    model axis sits at JAX's row-major coordinates, the model axis minor."""
     m = pmesh.make_mesh(device="cpu")
     assert m.shape == {"data": 1, "pixel": 1, "model": 1} and m.size == 1
     assert (m.data_index, m.pixel_index) == (0, 0)
@@ -136,10 +137,16 @@ def test_make_mesh_against_world_size(ranks):
         pmesh.make_mesh(n_data=2, device="cpu")
     with pytest.raises(ValueError, match="WORLD_SIZE 1 does not divide over pixel=2"):
         pmesh.make_mesh(n_pixel=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A-11b"):
-        pmesh.make_mesh(n_model=2, device="cpu")
+    with pytest.raises(ValueError, match=r"x model=2 = 2 ranks, but WORLD_SIZE is 1"):
+        pmesh.make_mesh(n_data=1, n_model=2, device="cpu")
     layout = pmesh.Mesh(2, 2, rank=3)
     assert (layout.data_index, layout.pixel_index) == (1, 1)
+    jm = jmesh.make_mesh(n_data=2, n_pixel=2, n_model=2, devices=jax.devices())
+    for r, device in enumerate(jm.devices.reshape(-1)):
+        tp = pmesh.Mesh(2, 2, 2, rank=r)
+        coords = tuple(int(c[0]) for c in np.nonzero(jm.devices == device))
+        assert (tp.data_index, tp.pixel_index, tp.model_index) == coords
+        assert tp.cols(32) == slice(16 * coords[2], 16 * coords[2] + 16)
     assert layout.rows(8) == slice(4, 8) and layout.pixels(128) == slice(64, 128)
     assert layout.pixels(127) == slice(None) and layout.group("all") is None
 
@@ -224,8 +231,12 @@ def test_state_sharding_refuses_an_unpadded_table():
     specs = pmesh.state_sharding(m, pmesh.pad_latent_rows(params, 4)[0], shard_latents=True)
     assert specs["latents/mu"] == ("data", None, None) and specs["decoder/final/w"] == ()
     assert set(pmesh.state_sharding(m, params).values()) == {()}
-    with pytest.raises(NotImplementedError, match="A-11b"):
-        pmesh.state_sharding(m, params, shard_model=True)
+    # a mesh without a model axis shards no decoder leaf, asked or not
+    assert set(pmesh.state_sharding(m, params, shard_model=True).values()) == {()}
+    tp = pmesh.state_sharding(pmesh.Mesh(2, 1, 2), params)
+    assert tp["decoder/layers/0/w"] == (None, "model") and tp["decoder/layers/1/w"] == (
+        "model", None)
+    assert tp["decoder/final/w"] == () and tp["latents/mu"] == ()
 
 
 @pytest.mark.parametrize("npix, batch", [(512, 4), (512, 3), (511, 4), (528, 4), (64, None)])

@@ -373,26 +373,22 @@ def test_fit_latent_masked_region_ignored():
 
 @pytest.mark.parametrize("name, value", [
     ("mesh", lambda: pmesh.Mesh(n_model=2)), ("shard_latents", True), ("precompile", True)])
-def test_fit_task_rejects_later_slices(name, value):
-    """The arguments of slices still to come raise, naming the queue item:
-    ``precompile`` (ROADMAP Queue A-13) and a mesh with a tensor-parallel
-    model axis (A-11b). The data x pixel mesh and ``shard_latents`` (A-11)
-    are ported (tests/test_torch_parallel.py); without a mesh
-    ``shard_latents`` leaves the run as it is, as in JAX. The callbacks,
+def test_fit_task_takes_the_later_slices(name, value):
+    """The arguments of the last slices are ported: a mesh with a
+    tensor-parallel model axis (A-11b; tests/test_torch_tp.py runs its
+    ranks) is, in one process, a layout without process groups and raises
+    naming WORLD_SIZE, as a data x pixel one does; ``precompile`` (A-13;
+    tests/test_torch_precompile.py) trains bit for bit as without it, as
+    ``shard_latents`` without a mesh does (A-11), as in JAX. The callbacks,
     resume and re-staging of A-4 are held in tests/test_torch_resume.py,
     the streaming tiers of A-9 in tests/test_torch_streaming.py."""
-    assert sorted(ttasks._LATER) == ["precompile"]
     cfg, jm, jp = _tiny_vad(3)
     tp = tparams.from_numpy(jp, "cpu")
     task = ttasks.TaskConfig(**dict(_latent_task(), optim=toptim.OptimConfig()))
     model = RENIModel(RENIConfig(**cfg))
     if name == "mesh":
-        with pytest.raises(NotImplementedError, match=r"Queue A-11b"):
+        with pytest.raises(ValueError, match=r"WORLD_SIZE=2"):
             ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), mesh=value())
-        return
-    if name == "precompile":
-        with pytest.raises(NotImplementedError, match=r"Queue A-13"):
-            ttasks.fit_task(model, tp, task, lambda res: None, torch.Generator(), precompile=value)
         return
     imgs = {(4, 8): torch.from_numpy(_targets(8, 5, 1, np.float32)),
             (8, 16): torch.from_numpy(_targets(16, 5, 2, np.float32))}

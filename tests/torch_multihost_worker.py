@@ -35,6 +35,8 @@ def helpers(out_dir: str) -> None:
         "flag": multihost.agree_on_flag(rank == 0),
         "path": multihost.agree_on_path(f"runs/exp/version_{3 + rank}"),
         "unversioned": multihost.agree_on_path(f"runs/exp_{rank}"),
+        # the RSS exit's agreement: the largest value over the ranks
+        "largest": multihost.max_over_ranks([1.5 + 2.0 * rank, -rank]),
     }
     # each rank in its own working directory: the relative path is a file
     # of rank 0's that the other rank does not have
