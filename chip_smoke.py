@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. build       - compile kernels/csrc/siren_fwd.cu, siren_bwd.cu,
-                 siren_step.cu, film_step.cu and siren_anatomy.cu with nvcc
+                 siren_step.cu, film_step.cu, siren_anatomy.cu and the
+                 tiled passes' tiled_{siren,film}_{bf16,f32}.cu with nvcc
                  (sm_90a), all at once
 2. compare     - at full width (N=49, 5x256 SIREN, 21 test latents x 32,768
                  directions, bf16 trunk, fast sine) each forward kernel
@@ -28,10 +29,12 @@ Phases (any failure exits non-zero and prints no result line):
                  kernel's bits)
 3. compare_bwd - the same for each backward kernel, every gradient, with
                  and without the weight gradients: shared and per-image
-                 grids, and the float32 trunk once (the chain kernel); then
+                 grids, and the float32 trunk once (the tiled passes); then
                  FIT_LATENT's three stage grids with and without weight
-                 gradients, and at 21 x 2,048 the Zoo trunk deepened to 8
-                 products; bars max |kernel - plain| <= 1e-2 (bf16) / 1e-4
+                 gradients, at 21 x 2,048 the Zoo trunk deepened to 8
+                 products, and at 21 x 8,192 the chain kernel
+                 (csrc/siren_bwd.cuh) on bf16 trunks of width 96 (CHAIN:
+                 cbc 5 products, FiLM 4 and one layer), no pass launched; bars max |kernel - plain| <= 1e-2 (bf16) / 1e-4
                  (float32) x max |plain|, two calls bitwise equal. The bf16
                  trunk runs as the layer-major passes (csrc/step_passes.cuh
                  with the cotangent last pass). Then each pass kernel of the
@@ -194,7 +197,9 @@ Phases (any failure exits non-zero and prints no result line):
                  (bf16) / 1e-6 (float32) relative, gradients as in phase 3;
                  two calls on the same inputs must give the same bits. The
                  bf16 step runs as layer-major passes (csrc/step_passes.cuh)
-                 and the float32 case through the chain kernel; then each
+                 and the float32 case through the tiled passes; the chain
+                 kernel (csrc/siren_step.cuh) on the CHAIN trunks at 100 x
+                 8,192, no pass launched; then each
                  pass kernel against its plain pass at 100 x 8,192, fed the
                  plain chain's scratch, every output it writes within 1e-2 x
                  max |plain|
@@ -327,8 +332,23 @@ Phases (any failure exits non-zero and prints no result line):
                  beside the two relaunches; the holder, the second launch and
                  each relaunch bit for bit cli_run's run A, with what the
                  precompiler built
-15. report    - one JSON line of kernels, the card's name and power limit,
-                 then {"ok": true, "device": {...}} as the last line
+15. wide      - (after faults) the tiled passes (csrc/tiled_passes.cuh):
+                 (a) bf16 at 5 x 384, 5 x 512, 3 x 1,024 and float32 at
+                 12 x 256, 5 x 512, 3 x 1,024, cbc and FiLM at 21 x 8,192:
+                 the step, the backward with and without weight gradients
+                 and the hand-off against their plain versions at the bars,
+                 two calls the same bits; at 5 x 512 each trunk's step at
+                 100 x 8,192 and backward at 21 x 8,192 timed; then, the
+                 route counts zeroed just before, (b) FIT_DECODER of the
+                 Zoo's cbc widened to 5 x 512 (fresh init, 6 epochs,
+                 curriculum 2 / 4) through the kernels and the plain step,
+                 within 0.1 dB; (c) the trainer's chain at 5 x 512 bf16 and
+                 12 x 256 float32 (cut to 6 / 6 / 1 epochs), every step of
+                 every task through the kernels on the tiled route
+16. report    - one JSON line of kernels, the card's name and power limit,
+                 then {"ok": true, "device": {...}} as the last line; the
+                 step and backward rows carry the tiled routes' numbers
+                 under "wide_routes"
 
 The numbers of the export, evaluate, baselines, convert and fit_prior
 phases are printed with the card's name and power limit beside them.
@@ -356,6 +376,7 @@ import traceback
 import urllib.error
 import urllib.request
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -374,6 +395,7 @@ MAX_ERR, MEAN_ERR = 0.05, 0.01
 # test_fused_apply_fast_sine_matches_fast_jnp (fast sine)
 F32_MAX_ERR = {False: 1e-5, True: 2e-5}
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
+PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SOURCE = "reni_tpu_torch/kernels/csrc/siren_fwd.cu"
 SOURCE_FUSED = "reni_tpu_torch/kernels/csrc/fused_fwd.cuh"
@@ -382,7 +404,9 @@ SOURCE_BWD = "reni_tpu_torch/kernels/csrc/siren_bwd.cu"
 SOURCE_STEP = "reni_tpu_torch/kernels/csrc/siren_step.cu"
 SOURCE_FILM_STEP = "reni_tpu_torch/kernels/csrc/film_step.cu"
 SOURCE_ANATOMY = "reni_tpu_torch/kernels/csrc/siren_anatomy.cu"
-KERNEL_SOURCES = ("siren_fwd", "siren_bwd", "siren_step", "film_step", "siren_anatomy")
+KERNEL_SOURCES = ("siren_fwd", "siren_bwd", "siren_step", "film_step", "siren_anatomy",
+                  "tiled_siren_bf16", "tiled_siren_f32", "tiled_film_bf16", "tiled_film_f32")
+SOURCE_TILED = "reni_tpu_torch/kernels/csrc/tiled_passes.cuh"
 # backward bars: max |kernel - plain| <= BAR x max |plain|, per gradient
 BWD_BAR = {"bfloat16": 1e-2, "float32": 1e-4}
 BWD_WIDTHS = (256, 128)  # 21 x 32,768 and 21 x 8,192 directions
@@ -403,6 +427,11 @@ ANATOMY_WIDE = 256  # and timed there and at 21 x 32,768
 ANATOMY_RUNS = 5  # timed runs per probe here; time_kernels.py --anatomy takes more
 WIDE = (("float32", 512), ("bfloat16", 1024))  # forward widths past the 64-row tile
 DEEP_MM = 8  # products of the deepened trunk the backward is held at
+# the chain kernels (csrc/siren_step.cuh, csrc/siren_bwd.cuh) on the bf16
+# trunks no pass design takes, a width that is not a multiple of 64: (H, H x
+# H products) by conditioning, within the chain's depth limit; FiLM also its
+# one-layer trunk
+CHAIN = {False: ((96, 5),), True: ((96, 4), (96, 0))}
 GUARD_BATCH = 1000  # FIT_DECODER batch of the device-memory guard's step
 SYNC_WARMUP = 2  # 64x128 FIT_DECODER steps before the sync check
 # the maps the Zoo was trained on (data/Zoo/README.md "Recipe") and the
@@ -522,6 +551,21 @@ TP_LOSS_BAR, TP_GRAD_BAR = 1e-5, 1e-4
 TP_FIT_EPOCHS, TP_FIT_CURRICULUM, TP_FIT_RES = 2, (1,), (32, 64)
 TP_CHAIN_CUTS = {"FIT_DECODER": (2, None, [16, 32]), "FIT_LATENT": (2, [1], [32, 64]),
                  "FIT_INVERSE": (2, None, None)}
+# wide: the tiled passes (csrc/tiled_passes.cuh) at (trunk, H, H x H
+# products), cbc and FiLM at 21 x 8,192 against their plain versions; the
+# Zoo's cbc trunk widened to 5 x 512 through FIT_DECODER (kernels and plain
+# step) and the trainer's chain at (H, layers, trunk), each cut to
+# WIDE_CLI_CUTS (epochs, curriculum)
+WIDE_KERNELS = (("bfloat16", 384, 5), ("bfloat16", 512, 5), ("bfloat16", 1024, 3),
+                ("float32", 256, 12), ("float32", 512, 5), ("float32", 1024, 3))
+WIDE_ONE_LAYER = (("bfloat16", 256), ("float32", 256))  # (trunk, H) of one-layer FiLM trunks
+WIDE_FIT = (512, 6, (2, 4))  # width, epochs, curriculum
+WIDE_CHAINS = ((512, 5, "bfloat16"), (256, 12, "float32"))
+WIDE_CLI_CUTS = {"FIT_DECODER": (6, [2, 4]), "FIT_LATENT": (6, [2, 4]), "FIT_INVERSE": (1, None)}
+WIDE_TIMED = (512, 5)  # the width and products timed for the kernels line
+
+
+T0 = time.perf_counter()  # the phases' start times are counted from import
 
 
 class SmokeFailure(Exception):
@@ -534,7 +578,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def load_entry(entry: str, device):
@@ -765,8 +809,8 @@ def min_bytes(ops, k: int, n_out: int, film: bool, trunk: str) -> int:
     return 4 * n + w_bytes * (ws.numel() + wf[:, :n_out].numel())
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -2471,16 +2515,17 @@ def training_maps(device, train, entry: str = CBC) -> tuple[torch.Tensor, dict]:
     return mu, maps
 
 
-def decoder_task_config():
+def decoder_task_config(epochs: int | None = None, curriculum=None):
+    """FIT_DECODER's task: DEC_EPOCHS and DEC_CURRICULUM unless given."""
     from reni_tpu_torch.train.optim import OptimConfig
     from reni_tpu_torch.train.tasks import TaskConfig
 
     return TaskConfig(
         task="FIT_DECODER",
         optim=OptimConfig(lr_start=1e-5, lr_end=1e-7, optimizer="adam", beta1=0.0, beta2=0.9),
-        batch_size=DEC_BATCH, epochs=DEC_EPOCHS, multi_res_training=True,
-        initial_resolution=FIT_RES[0], final_resolution=FIT_RES[1], curriculum=DEC_CURRICULUM,
-        kld_weighting=1e-4,
+        batch_size=DEC_BATCH, epochs=epochs or DEC_EPOCHS, multi_res_training=True,
+        initial_resolution=FIT_RES[0], final_resolution=FIT_RES[1],
+        curriculum=curriculum or DEC_CURRICULUM, kld_weighting=1e-4,
     )
 
 
@@ -2531,6 +2576,8 @@ def compare_step(cfg, ops, kw) -> tuple[float, float]:
     for i, (x, y) in enumerate(zip(got[1:], ref[1:])):
         check(tuple(x.shape) == tuple(y.shape), f"gradient {i} shape {tuple(x.shape)}")
         check(bool(torch.isfinite(x).all()), f"gradient {i} has non-finite values")
+        if not y.numel():  # dWs of a one-layer FiLM trunk
+            continue
         err, scale = (x - y).abs().max().item(), y.abs().max().item()
         worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
         report.append(f"{err / scale:.2g}")
@@ -2542,7 +2589,8 @@ def compare_step(cfg, ops, kw) -> tuple[float, float]:
 
 def compare_step_phase(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
     """The compare_step cases of the step kernel ``name`` (siren_step or
-    film_step); returns the absolute and relative errors."""
+    film_step), then its chain kernel (compare_chain_step); returns the
+    absolute and relative errors."""
     from reni_tpu_torch.core import sphere
 
     Z = mu[:DEC_BATCH]
@@ -2571,6 +2619,75 @@ def compare_step_phase(name, cfg, dec, mu, maps, device) -> tuple[list, list]:
             err, rel = compare_step(cfg, ops, kw)
             errs.append(err)
             rels.append(rel)
+    err, rel = compare_chain_step(cfg.is_film, device)
+    return errs + err, rels + rel
+
+
+def chain_cases(film: bool, device, B: int, seed: int):
+    """(label, operands, cotangent, loss operands, keywords) of each CHAIN
+    trunk of a conditioning at B x 8,192 (random weights, ``wide_operands``),
+    checked to be off the pass designs."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    for H, n_mm in CHAIN[film]:
+        label = f"chain kernel, {'film' if film else 'cbc'} bfloat16 {n_mm} x {H}"
+        check(ts.pass_design("bfloat16", H, n_mm) is None, f"{label}: on a pass design")
+        yield (label, *wide_operands(film, H, n_mm, device, B=B, seed=seed),
+               wide_kw(film, "bfloat16"))
+
+
+def compare_chain_step(film: bool, device) -> tuple[list, list]:
+    """The step's chain kernel (csrc/siren_step.cuh) against its plain
+    version on the CHAIN trunks at FIT_DECODER's 100 x 8,192 (compare_step:
+    the loss and every gradient, two calls bit for bit), no pass launched."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    errs, rels = [], []
+    kernel = step_fns(SimpleNamespace(is_film=film))[0]
+    for label, ops, g, loss_ops, kw in chain_cases(film, device, DEC_BATCH, seed=14):
+        print(f"{'film' if film else 'siren'}_step B={DEC_BATCH} P={g.shape[1]} {label}:")
+        calls, n0 = dict(ts.pass_launches), kernel.launches
+        with torch.no_grad():
+            err, rel = compare_step(SimpleNamespace(is_film=film), (*ops, *loss_ops),
+                                    dict(kw, out_act="tanh", gscale=1.0 / (3 * g.shape[1])))
+        check(kernel.launches == n0 + 2 and ts.pass_launches == calls,
+              f"{label}: the step did not run the chain kernel")
+        errs.append(err)
+        rels.append(rel)
+        del ops, g, loss_ops
+    torch.cuda.empty_cache()
+    return errs, rels
+
+
+def compare_chain_bwd(film: bool, device) -> tuple[list, list]:
+    """The backward's chain kernel (csrc/siren_bwd.cuh) against its plain
+    version on the CHAIN trunks at FIT_LATENT's 21 x 8,192, with and without
+    weight gradients, two calls bit for bit, no pass launched."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    errs, rels = [], []
+    kernel, plain, _ = bwd_fns(SimpleNamespace(is_film=film, fast_sine=True,
+                                               pallas_trunk="bfloat16",
+                                               first_omega_0=30.0, hidden_omega_0=30.0))
+    for label, ops, g, _, kw in chain_cases(film, device, 21, seed=13):
+        for wgrad in (False, True):
+            tag = f"{label}, {'' if wgrad else 'no '}weight gradients"
+            bkw = dict(kw, weight_grads=wgrad)
+            calls, n0 = dict(ts.pass_launches), kernel.launches
+            with torch.no_grad():
+                got, again, ref = kernel(*ops, g, **bkw), kernel(*ops, g, **bkw), plain(*ops, g, **bkw)
+            torch.cuda.synchronize()
+            check(kernel.launches == n0 + 2 and ts.pass_launches == calls,
+                  f"{tag}: the backward did not run the chain kernel")
+            same_bits(tag, got, again)
+            err, rel = held(tag, got, ref, BWD_BAR["bfloat16"])
+            print(f"{'film' if film else 'siren'}_bwd B=21 P={g.shape[1]} {tag}: worst max |diff| / "
+                  f"max |plain| {rel:.2g} (bar {BWD_BAR['bfloat16']}); two calls bitwise equal")
+            errs.append(err)
+            rels.append(rel)
+            del got, again, ref
+        del ops, g
+    torch.cuda.empty_cache()
     return errs, rels
 
 
@@ -2839,12 +2956,14 @@ def sync_watched(step, hits: list, warmup: int = SYNC_WARMUP):
     return run
 
 
-def fit_decoder(device, entry: str, *, plain: bool, train, sync_hits: list | None = None):
-    """One FIT_DECODER run of a fresh student of ``entry``'s configuration on
-    the dataset ``train`` (its ``images_at`` handed to ``fit_task``), through
-    the step kernel or (``plain``) its plain version; returns (trained
-    params, model, per-stage step times in ms, metrics, launches {step, fwd,
-    bwd} during the run). With ``sync_hits`` the final stage's steps after
+def fit_decoder(device, entry: str, *, plain: bool, train, sync_hits: list | None = None,
+                config=None, task=None):
+    """One FIT_DECODER run of a fresh student of ``entry``'s configuration
+    (or ``config``) on the dataset ``train`` (its ``images_at`` handed to
+    ``fit_task``), through the step kernel or (``plain``) its plain version,
+    under ``decoder_task_config()`` (or ``task``); returns (trained params,
+    model, per-stage step times in ms, metrics, launches {step, fwd, bwd}
+    during the run). With ``sync_hits`` the final stage's steps after
     warm-up are ``sync_watched`` into it."""
     import functools
 
@@ -2852,9 +2971,9 @@ def fit_decoder(device, entry: str, *, plain: bool, train, sync_hits: list | Non
     from reni_tpu_torch.train import checkpoint as ckpt
     from reni_tpu_torch.train import tasks
 
-    model = RENIModel(ckpt.load_model_config(os.path.join(entry, "checkpoint")))
+    model = RENIModel(config or ckpt.load_model_config(os.path.join(entry, "checkpoint")))
     params = model.init(torch.Generator().manual_seed(0), DEC_MAPS, device=device)
-    task = decoder_task_config()
+    task = task or decoder_task_config()
     events: dict = {}
 
     counters = kernel_counters(model.config)
@@ -4825,6 +4944,317 @@ def ckpt_unflatten(flat: dict) -> dict:
 
     return ckpt._unflatten(flat)
 
+# ---------------------------------------------------------------------------
+# the wide phase: the tiled passes
+# ---------------------------------------------------------------------------
+
+
+def wide_operands(film: bool, H: int, n_mm: int, device, B: int = 21, P: int = 8192,
+                  seed: int = 9):
+    """Random trunk operands of width ``H`` with ``n_mm`` H x H products
+    (``wide_trunk``; FiLM: the same weights, T = n_mm + 1 bias rows and
+    frequencies near 30), an output cotangent and the loss operands (a
+    masked last image)."""
+    ops = wide_trunk(H, device, B, P, n_mm, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if film:
+        d, a, _, ws, _, wf, bf = ops
+        T = n_mm + 1
+        rand = lambda *shape: torch.rand(shape, generator=gen, device=device) * 2 - 1
+        ops = (d, a, ws, 0.05 * rand(T, H), wf, bf, 30 + 5 * rand(B, 1, T * H), rand(B, 1, T * H))
+    g = torch.randn((B, P, 8), generator=gen, device=device)
+    tgt, sw = torch.zeros(B, P, 8, device=device), torch.zeros(1, P, 8, device=device)
+    tgt[..., :3] = torch.rand((B, P, 3), generator=gen, device=device) - 0.5
+    sw[..., :3] = torch.rand((1, P, 3), generator=gen, device=device)
+    bm = torch.ones(B, 1, 8, device=device)
+    bm[-1] = 0.0
+    return ops, g, (tgt, sw, bm)
+
+
+def wide_kw(film: bool, trunk: str) -> dict:
+    """The trunk's keywords: the fast sine with bf16, the exact one with
+    float32 (both sine modes of the tiled passes run)."""
+    kw = dict(trunk=trunk, fast_sine=trunk == "bfloat16")
+    if not film:
+        kw.update(omega0=30.0, omega_h=30.0)
+    return kw
+
+
+def held(label: str, got, ref, bar: float) -> tuple[float, float]:
+    """Each result within ``bar`` x max |plain|, finite, of its shape: the
+    largest max |diff| and max |diff| / max |plain|."""
+    worst, worst_rel = 0.0, 0.0
+    for i, (x, y) in enumerate(zip(got, ref)):
+        if y is None:
+            check(x is None, f"{label}: result {i} computed without weight gradients")
+            continue
+        check(tuple(x.shape) == tuple(y.shape) and bool(torch.isfinite(x).all()),
+              f"{label}: result {i} of shape {tuple(x.shape)} or not finite")
+        if not y.numel():
+            continue
+        err, scale = (x - y).abs().max().item(), y.abs().max().item()
+        check(err <= bar * scale, f"{label}: result {i} max |diff| {err:.3g} > {bar} x {scale:.3g}")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+    return worst, worst_rel
+
+
+def same_bits(label: str, a, b) -> None:
+    check(all(x is None or torch.equal(x, y) for x, y in zip(a, b)),
+          f"{label}: two calls on the same inputs differ")
+
+
+def wide_compare(device) -> dict:
+    """(a) Every tiled route against its plain version at 21 x 8,192
+    (WIDE_KERNELS, cbc and FiLM, and WIDE_ONE_LAYER's one-layer FiLM
+    trunks, the last pass alone): the step (loss and every gradient), the
+    backward with and without weight gradients and the differentiable
+    forward's hand-off (the fwd passes' output, then the backward from
+    their scratch), each called twice for the same bits. Returns {kernel:
+    (max abs err, max rel err)}."""
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    errs = {name: [0.0, 0.0] for name in ("siren_step", "film_step", "siren_bwd", "film_bwd")}
+    routes = ts.route_launches()
+    cases = [(trunk, H, n_mm, film) for trunk, H, n_mm in WIDE_KERNELS for film in (False, True)]
+    for trunk, H, n_mm, film in cases + [(trunk, H, 0, True) for trunk, H in WIDE_ONE_LAYER]:
+        label = f"{'film' if film else 'cbc'} {trunk} {n_mm} x {H}"
+        check(ts.pass_design(trunk, H, n_mm) == "tiled", f"{label}: not on the tiled route")
+        ops, g, loss_ops = wide_operands(film, H, n_mm, device)
+        kw, bar = wide_kw(film, trunk), BWD_BAR[trunk]
+        skw = dict(kw, out_act="tanh", gscale=1.0 / (3 * g.shape[1]))
+        print(f"wide {label} step B=21 P={g.shape[1]}:")
+        with torch.no_grad():
+            err, rel = compare_step(SimpleNamespace(is_film=film), (*ops, *loss_ops), skw)
+        e = errs["film_step" if film else "siren_step"]
+        e[0], e[1] = max(e[0], err), max(e[1], rel)
+        kernel, plain, _ = bwd_fns(SimpleNamespace(is_film=film, fast_sine=kw["fast_sine"],
+                                                   pallas_trunk=trunk,
+                                                   first_omega_0=30.0, hidden_omega_0=30.0))
+        plain_fwd = tk.film_trunk_reference if film else tk.siren_trunk_reference
+        report = []
+        for wgrad in (False, True):
+            bkw = dict(kw, weight_grads=wgrad)
+            with torch.no_grad():
+                got, again, ref = (kernel(*ops, g, **bkw), kernel(*ops, g, **bkw),
+                                   plain(*ops, g, **bkw))
+                out, handed = ts.passes_forward(film, ops, kw, wgrad)
+                via = ts.passes_bwd_handoff(handed, g)
+                out2, handed2 = ts.passes_forward(film, ops, kw, wgrad)
+                via2 = ts.passes_bwd_handoff(handed2, g)
+                ref_out = plain_fwd(*ops, **kw)
+            torch.cuda.synchronize()
+            tag = f"{label} backward {'with' if wgrad else 'without'} weight gradients"
+            same_bits(tag, got, again)
+            same_bits(f"{tag}, hand-off", (out, *via), (out2, *via2))
+            fe = (out - ref_out).abs()
+            if trunk == "float32":
+                check(fe.max().item() < F32_MAX_ERR[kw["fast_sine"]],
+                      f"{tag}: the hand-off's forward off the float32 bar")
+            else:
+                check(fe.max().item() < MAX_ERR and fe.mean().item() < MEAN_ERR,
+                      f"{tag}: the hand-off's forward off the bf16 bar")
+            e = errs["film_bwd" if film else "siren_bwd"]
+            for what, res in (("kernel", got), ("hand-off", via)):
+                err, rel = held(f"{tag} ({what})", res, ref, bar)
+                e[0], e[1] = max(e[0], err), max(e[1], rel)
+                report.append(f"{'w' if wgrad else 'no w'} {what} {rel:.2g}")
+            report.append(f"hand-off fwd max {fe.max().item():.3g}")
+            del got, again, ref, out, handed, via, out2, handed2, via2
+        print(f"wide {label} backward, max |diff| / max |plain| (bar {bar}): "
+              f"{'; '.join(report)}; two calls bitwise equal")
+        del ops, g, loss_ops
+        torch.cuda.empty_cache()
+    grew = {k: v - routes[k] for k, v in ts.route_launches().items()}
+    print(f"wide (a) pass calls by route: {grew}")
+    check(grew["tiled_bf16"] > 0 and grew["tiled_f32"] > 0 and grew["wgmma"] == 0,
+          f"the tiled routes did not run: {grew}")
+    return {k: tuple(v) for k, v in errs.items()}
+
+
+def wide_timings(device) -> dict:
+    """The tiled routes at WIDE_TIMED: the step at FIT_DECODER's 100 x 8,192
+    and the backward without weight gradients at FIT_LATENT's 21 x 8,192,
+    each trunk, cbc and FiLM, against the plain version; the bound (the
+    function's bytes, and its operations at the trunk's peak: bf16 tensor
+    cores or float32 FFMA) and the passes' byte floor (StepPlan.pass_cost).
+    Returns {kernel: {route: numbers}}."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    H, n_mm = WIDE_TIMED
+    out: dict = {}
+    for trunk in ("bfloat16", "float32"):
+        route = f"tiled_{'bf16' if trunk == 'bfloat16' else 'f32'}"
+        peak = PEAK_BF16_FLOPS if trunk == "bfloat16" else PEAK_F32_FLOPS
+        for film in (False, True):
+            depth = n_mm - film  # the Zoo's 5 trunk layers: FiLM has one product fewer
+            kw = wide_kw(film, trunk)
+            for name, B in ((("film_step" if film else "siren_step"), 100),
+                            (("film_bwd" if film else "siren_bwd"), 21)):
+                ops, g, loss_ops = wide_operands(film, H, depth, device, B=B, seed=31)
+                P = g.shape[1]
+                if name.endswith("step"):
+                    kernel, plain = step_fns(SimpleNamespace(is_film=film))
+                    args, fkw = (*ops, *loss_ops), dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+                    plan = ts.step_plan_cuda(film, args, device, trunk=trunk)
+                    nbytes = step_bytes(args, 4, 3, film, trunk)
+                else:
+                    kernel, plain, _ = bwd_fns(SimpleNamespace(
+                        is_film=film, fast_sine=kw["fast_sine"], pallas_trunk=trunk,
+                        first_omega_0=30.0, hidden_omega_0=30.0), weight_grads=False)
+                    args, fkw = (*ops, g), dict(kw, weight_grads=False)
+                    plan = ts.step_plan_cuda(film, args, device, bwd=True, weight_grads=False,
+                                             trunk=trunk)
+                    nbytes = bwd_bytes(ops, 4, 3, film, trunk, False)
+                flops = (sum(plan.pass_cost(k)[0] for k in range(len(plan.passes)))
+                         + plan.wgrad_cost()[0])
+                with torch.no_grad():
+                    ms = time_ms(lambda: kernel(*args, **fkw), runs=5, warmup=1)
+                    plain_ms = time_ms(lambda: plain(*args, **fkw), runs=2, warmup=1)
+                bound_ms, bound_by = bound(flops, nbytes, peak)
+                floor_ms = byte_floor_ms(plan)
+                print(f"wide {name} {route} {depth} x {H} B={B} P={P}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP "
+                      f"at {peak / 1e12:.0f} TFLOP/s, {nbytes:.4g} B), the passes' byte floor "
+                      f"{floor_ms:.4f} ms -> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s ({CARD})")
+                out.setdefault(name, {})[route] = {
+                    "shape": f"{B}x{P} {depth}x{H}", "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "byte_floor_ms": floor_ms}
+                del ops, g, loss_ops, args
+                torch.cuda.empty_cache()
+    return out
+
+
+def wide_fit_decoder(device, train) -> dict:
+    """(b) FIT_DECODER of the Zoo's cbc configuration widened to WIDE_FIT's
+    width (a fresh init; no checkpoint exists at that width) on the seed-1
+    maps at batch 100, WIDE_FIT's epochs and curriculum ending at 64 x 128,
+    through the step kernel (the tiled passes) and through the plain step;
+    the students' PSNR within PSNR_BAR_DB. Returns the kernel run's step
+    launches and ms a step per stage."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    H, epochs, curriculum = WIDE_FIT
+    config = dataclasses.replace(ckpt.load_model_config(os.path.join(CBC, "checkpoint")),
+                                 hidden_features=H)
+    task = decoder_task_config(epochs, curriculum)
+    steps = epochs * (DEC_MAPS // DEC_BATCH)
+    target = train.images_at(FIT_RES[1], device=device)
+    D = sphere.get_directions(FIT_RES[1][1], device=device)
+    result, out = {}, {}
+    for plain in (False, True):
+        run = "plain" if plain else "kernel"
+        t0 = time.perf_counter()
+        trained, model, ms, metrics, n, _ = fit_decoder(device, CBC, plain=plain, train=train,
+                                                        config=config, task=task)
+        wall = time.perf_counter() - t0
+        tag = f"wide FIT_DECODER cbc {config.hidden_layers} x {H} [{run}]"
+        want = {"step": 0 if plain else steps, "fwd": 0, "bwd": 0}
+        check(n == want, f"{tag}: launches {n}, expected {want}")
+        loss = metrics["fit_decoder_loss"]
+        check(bool(np.isfinite(loss).all()), f"{tag}: non-finite loss")
+        stages = {f"{r[0]}x{r[1]}": t for r, t in sorted(ms.items())}
+        with torch.no_grad():
+            mu = trained["latents"]["mu"]
+            decoded = torch.cat([model.apply(trained, z, D) for z in mu.split(DEC_BATCH)])
+        check(bool(torch.isfinite(decoded).all()), f"{tag}: non-finite decodes")
+        result[plain] = psnr(decoded, target)
+        print(f"{tag}: {steps} steps in {wall:.1f} s; ms a step by stage "
+              f"{ {k: round(v, 3) for k, v in stages.items()} }; loss {loss[0]:.6g} -> "
+              f"{loss[-1]:.6g}; PSNR {result[plain]:.3f} dB ({CARD})")
+        if not plain:
+            out = {"launches": n["step"], "ms_by_stage": stages}
+        del trained, model, decoded
+        torch.cuda.empty_cache()
+    gap = result[False] - result[True]
+    print(f"wide FIT_DECODER {H}: PSNR kernel - plain {gap:+.3f} dB")
+    check(abs(gap) <= PSNR_BAR_DB, f"wide FIT_DECODER: PSNR kernel vs plain differ by {gap:.3f} dB")
+    return out
+
+
+def wide_chains(device, maps_root: str) -> dict:
+    """(c) The trainer's chain (cli.run) FIT_DECODER -> FIT_LATENT ->
+    FIT_INVERSE on configs/zoo_synthetic.yaml's configuration at each of
+    WIDE_CHAINS (width, layers, trunk: TPU.PRECISION), cut to
+    WIDE_CLI_CUTS: every task's every step through the kernels (the step
+    kernel, the hand-off's forward passes and the backward) on the tiled
+    route, nothing raised. Returns each chain's launches by trunk."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    launches = {}
+    for H, L, trunk in WIDE_CHAINS:
+        work = os.path.join(maps_root, f"wide_{trunk}_{L}x{H}")
+        os.makedirs(work, exist_ok=True)
+        cfg = cli_config(maps_root, os.path.join(work, "runs"))
+        cfg.RENI.HIDDEN_FEATURES, cfg.RENI.HIDDEN_LAYERS, cfg.TPU.PRECISION = H, L, trunk
+        for task, (epochs, curriculum) in WIDE_CLI_CUTS.items():
+            cfg.RENI[task].EPOCHS = epochs
+            if curriculum:
+                cfg.RENI[task].CURRICULUM = curriculum
+        cfg.TRAINER.LOGGER.LOG_IMAGES = False
+        path = os.path.join(work, "chain.json")
+        with open(path, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        steps = {t: cfg.RENI[t].EPOCHS * -(-(SEED_MAPS["train"] if t == "FIT_DECODER"
+                                             else SEED_MAPS["test"]) // cfg.RENI[t].BATCH_SIZE)
+                 for t in CLI_TASKS}
+        routes = ts.route_launches()
+        t0 = time.perf_counter()
+        log, seconds, n = cli_chain(device, cfg, path)
+        grew = {k: v - routes[k] for k, v in ts.route_launches().items()}
+        tag = f"wide chain {trunk} {L} x {H}"
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s; task seconds "
+              f"{ {t: round(v['task'], 2) for t, v in seconds.items()} }; launches {n}; "
+              f"pass calls by route {grew}")
+        route = f"tiled_{'bf16' if trunk == 'bfloat16' else 'f32'}"
+        check(n["siren_step"] == steps["FIT_DECODER"], f"{tag}: step kernel {n['siren_step']}")
+        fit_steps = steps["FIT_LATENT"] + steps["FIT_INVERSE"]
+        check(n["siren_bwd"] == n["fwd_passes"] == fit_steps,
+              f"{tag}: backward {n['siren_bwd']}, forward passes {n['fwd_passes']}: {fit_steps}")
+        check(grew[route] > 0 and grew["wgmma"] == 0, f"{tag}: pass calls by route {grew}")
+        for t in CLI_TASKS:
+            loss = [r[f"{t.lower()}_loss"] for r in _cli_rows(log) if f"{t.lower()}_loss" in r]
+            check(bool(loss) and bool(np.isfinite(loss).all()), f"{tag} {t}: loss {loss}")
+        launches[trunk] = n
+    return launches
+
+
+def wide_phase(device, train, maps_root: str) -> dict:
+    """The wide phase: (a) wide_compare, the kernels line's timings
+    (wide_timings), then the main path on the tiled routes, the pass
+    counts zeroed just before and read by route just after: (b) wide_fit_decoder,
+    (c) wide_chains. Returns {kernel: {route: numbers}} for the kernels
+    line."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    t0 = time.perf_counter()
+    errs = wide_compare(device)
+    rows = wide_timings(device)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    ts.pass_launches.update({k: 0 for k in ts.pass_launches})
+    fit = wide_fit_decoder(device, train)
+    chains = wide_chains(device, maps_root)
+    torch.cuda.synchronize()
+    launched = ts.route_launches()
+    print(f"wide main path (b) + (c): pass calls by route {launched} ({time.perf_counter() - t1:.1f} s)")
+    check(launched["tiled_bf16"] > 0 and launched["tiled_f32"] > 0,
+          f"the main path did not take both tiled routes: {launched}")
+    # calls of each wrapper on the main path (both are Cond-by-Concat: FiLM's
+    # tiled routes run in (a) alone)
+    bf16, f32 = chains["bfloat16"], chains["float32"]
+    calls = {"siren_step": {"tiled_bf16": fit["launches"] + bf16["siren_step"],
+                            "tiled_f32": f32["siren_step"]},
+             "siren_bwd": {"tiled_bf16": bf16["siren_bwd"], "tiled_f32": f32["siren_bwd"]}}
+    for name, by_route in rows.items():
+        for route, row in by_route.items():
+            row.update(source=SOURCE_TILED, launches=calls.get(name, {}).get(route, 0),
+                       max_abs_err=errs[name][0], max_rel_err=errs[name][1])
+    rows["siren_step"]["tiled_bf16"]["fit_decoder_ms_by_stage"] = fit["ms_by_stage"]
+    print(f"wide phase wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4924,6 +5354,9 @@ def main() -> int:
                 err, rel = compare_bwd(cfg, dec, Z, grid, None, wgrad, seed=2, n_mm=DEEP_MM)
                 errors[name].append(err)
                 rel_errors[name].append(rel)
+        err, rel = compare_chain_bwd(cfg.is_film, dev)
+        errors[name] += err
+        rel_errors[name] += rel
         err, rel = compare_bwd_passes(name, cfg, dec, Z, dev)
         errors[name] += err
         rel_errors[name] += rel
@@ -5008,6 +5441,10 @@ def main() -> int:
 
     phase("faults")
     faults_phase(dev, maps_dir.name)
+
+    phase("wide")
+    torch.cuda.empty_cache()
+    wide_rows = wide_phase(dev, train, maps_dir.name)
     maps_dir.cleanup()
     arbitration.cleanup()
     for name, tag in (("siren_bwd", "siren_bwd@fit_inverse"), ("film_bwd", "film_bwd@fit_inverse"),
@@ -5142,6 +5579,9 @@ def main() -> int:
                           anatomy_ms, replaces, launches, errors, rel_errors))
     rows.append(probe_row("bwd_variant", "bwd", "bwd_no_sincos", cfg_cbc, dec_cbc, z21, dev,
                           anatomy_ms, replaces, launches, errors, rel_errors))
+    for row in rows:  # the tiled routes of the wide phase beside each kernel's own numbers
+        if row["name"] in wide_rows:
+            row["wide_routes"] = wide_rows[row["name"]]
     for row in rows:  # launches per resolution stage, where a path counts them
         for key, tag in (("launches_by_stage", "@"), ("fwd_passes_by_stage", "_fwd_passes@")):
             by = {k.split("@")[1]: v for k, v in launches.items()

@@ -200,9 +200,9 @@ def bwd_variant_reference(
 
 def bwd_route(trunk: str, hidden: int, n_mm: int) -> str:
     """Which design the backward probes are built from: ``"passes"`` where the
-    shipped backward is the layer-major passes (``siren_step.pass_route``),
-    else ``"chain"``."""
-    return "passes" if siren_step.pass_route(trunk, hidden, n_mm) else "chain"
+    shipped backward is the wgmma passes (``siren_step.pass_design``), else
+    ``"chain"`` (the probes have no tiled variant)."""
+    return "passes" if siren_step.pass_design(trunk, hidden, n_mm) == "wgmma" else "chain"
 
 
 def bwd_plan(d_pad, a, ws, sms: int) -> "siren_step.StepPlan":

@@ -17,17 +17,21 @@ decoder and needs only the per-image gradients.
 ``siren_trunk_bwd_cuda`` / ``film_trunk_bwd_cuda`` launch hand-written
 kernels (CUDA tensors only; a failed build or launch raises, with no
 fallback) and count their calls in ``.launches``, one per call. By
-``siren_step.pass_route`` (the train steps' rule) the bf16 trunk at widths
-that are a multiple of 64, up to 256, runs as the layer-major ``wgmma``
-passes of ``csrc/step_passes.cuh`` with a last pass that reads ``g``
+``siren_step.pass_design`` (the train steps' rule) a trunk runs, at any
+depth, as layer-major passes with a last pass that reads ``g``
 (``siren_step._passes_bwd``; built into ``csrc/siren_step.cu`` and
-``csrc/film_step.cu``), at any depth; the float32 trunk, other bf16 widths
-and a FiLM trunk of one layer run the chain kernel of ``csrc/siren_bwd.cu``
-(template in ``csrc/siren_bwd.cuh``), which keeps one tile of every layer in
-shared memory (``bwd_unsupported_reason``). A differentiable decode on the
-passes' route hands the scratch of its forward passes to the backward
-(``bwd_from_handoff``), which then runs from the last pass on. Every sum has
-a fixed order
+``csrc/film_step.cu``): the ``wgmma`` passes of ``csrc/step_passes.cuh``
+(bf16 at widths that are a multiple of 64, up to 256) or the tiled passes
+of ``csrc/tiled_passes.cuh`` (float32 at widths that are a multiple of 16,
+bf16 at widths that are a multiple of 64 from 320, up to 1,024; a FiLM
+trunk of one layer at a bf16 width that is a multiple of 64 or a float32
+one that is a multiple of 16). Other bf16 widths run the
+chain kernel of
+``csrc/siren_bwd.cu`` (template in ``csrc/siren_bwd.cuh``), which keeps one
+tile of every layer in shared memory (``bwd_unsupported_reason``). A
+differentiable decode on the passes' routes hands the scratch of its
+forward passes to the backward (``bwd_from_handoff``), which then runs from
+the last pass on. Every sum has a fixed order
 (per-CTA slots added in slot order; dWs through a device scratch and a
 split-K product, ``csrc/siren_chain.cuh``), so two calls on the same inputs
 give the same bits. ``siren_trunk_bwd_reference`` /
@@ -105,9 +109,10 @@ def bwd_unsupported_reason(
     hidden_features: int, n_mm: int, film: bool, trunk: str = "bfloat16"
 ) -> str | None:
     """Why the backward kernels cannot take this trunk (None = they can).
-    The passes (``siren_step.pass_route``) take any depth; on the chain
-    kernel one tile's activations and cos factors of every layer must fit
-    in a CTA's shared memory."""
+    The passes (``siren_step.pass_route``: bf16 widths that are a multiple
+    of 64 and float32 widths that are a multiple of 16, up to 1,024) take
+    any depth; on the chain kernel one tile's activations and cos factors of
+    every layer must fit in a CTA's shared memory."""
     from reni_tpu_torch.kernels.siren_step import pass_route
 
     if pass_route(trunk, hidden_features, n_mm):
@@ -429,8 +434,8 @@ def siren_trunk_bwd_cuda(
     d_pad, a, b0, ws, bs, wf, bf, g, *, omega0, omega_h, trunk="bfloat16",
     fast_sine=False, weight_grads=True,
 ):
-    """Cond-by-Concat backward on the card: the passes or the chain kernel of
-    ``csrc/siren_bwd.cu``, by ``siren_step.pass_route``; returns what
+    """Cond-by-Concat backward on the card: the passes (wgmma or tiled) or the
+    chain kernel of ``csrc/siren_bwd.cu``, by ``siren_step.pass_design``; returns what
     ``siren_trunk_bwd_reference`` returns."""
     from reni_tpu_torch.kernels import siren_step as ts
 
@@ -485,8 +490,8 @@ def film_trunk_bwd_cuda(
     d_pad, a0, ws, bs, wf, bf, fr, ph, g, *, trunk="bfloat16", fast_sine=False,
     weight_grads=True,
 ):
-    """FiLM backward on the card: the passes or the chain kernel of
-    ``csrc/siren_bwd.cu``, by ``siren_step.pass_route``; returns what
+    """FiLM backward on the card: the passes (wgmma or tiled) or the chain
+    kernel of ``csrc/siren_bwd.cu``, by ``siren_step.pass_design``; returns what
     ``film_trunk_bwd_reference`` returns."""
     from reni_tpu_torch.kernels import siren_step as ts
 

@@ -578,7 +578,8 @@ def film_trunk_cuda(
 
 def _handoff_forward(film, ops, kw, weight_grads):
     """A differentiable forward on the card through the layer-major passes
-    (``siren_step.passes_forward``) where the backward takes them
+    (``siren_step.passes_forward``: the wgmma or the tiled passes, by
+    ``siren_step.pass_design``) where the backward takes them
     (``siren_step.pass_route``) and their scratch fits the device-memory
     budget: (output, handoff), or None. Counted in
     ``siren_step.passes_forward.launches``, not in the forward kernel's

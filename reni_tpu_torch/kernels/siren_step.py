@@ -22,16 +22,21 @@ Padded lanes and masked rows carry zero weight.
 ``siren_step_cuda`` / ``film_step_cuda`` launch the hand-written kernels of
 ``csrc/siren_step.cu`` / ``csrc/film_step.cu`` (CUDA tensors only; a failed
 build or launch raises) and count their calls in ``.launches``; two calls on
-the same inputs give the same bits. By ``pass_route`` a step runs either as
-layer-major ``wgmma`` passes over 128-row tiles (``csrc/step_passes.cuh``; the
-bf16 trunk at widths that are a multiple of 64, up to 256) or as the chain
-kernel (``csrc/siren_step.cuh``; the float32 trunk, other bf16 widths, a FiLM
-trunk of one layer). The same passes, with a last pass that reads an output
-cotangent in place of the loss, are the backward of ``kernels/siren_bwd.py``
-on that route (``StepPlan(bwd=True)``, ``_passes_bwd``); a differentiable
-forward on that route runs the fwd passes and a last pass that writes the
-output, and hands their scratch to the backward (``passes_forward``,
-``passes_bwd_handoff``).
+the same inputs give the same bits. By ``pass_design`` a step runs as
+layer-major passes, one kernel a layer: the ``wgmma`` passes over 128-row
+tiles (``csrc/step_passes.cuh``; the bf16 trunk at widths that are a
+multiple of 64, up to 256) or the tiled passes (``csrc/tiled_passes.cuh``;
+the float32 trunk at widths that are a multiple of 16 and the bf16 trunk at
+widths that are a multiple of 64, from 320, both up to 1,024, and a FiLM
+trunk of one layer at a bf16 width that is a multiple of 64 or a float32
+one that is a multiple of 16), at any depth; or as the chain
+kernel (``csrc/siren_step.cuh``; bf16 widths that are not a multiple of
+64). The same passes,
+with a last pass that reads an output cotangent in place of the loss, are
+the backward of ``kernels/siren_bwd.py`` on those routes
+(``StepPlan(bwd=True)``, ``_passes_bwd``); a differentiable forward there
+runs the fwd passes and a last pass that writes the output, and hands their
+scratch to the backward (``passes_forward``, ``passes_bwd_handoff``).
 ``siren_step_reference`` / ``film_step_reference`` are their plain PyTorch
 versions, step by step like the TPU kernels with their bf16 rounding;
 ``step_pass_reference`` is the plain version of one pass, in the passes' own
@@ -39,11 +44,13 @@ scratch and slot layout (``StepPlan``, ``PassWork``), which ``step_pass_cuda``
 runs on the card.
 
 The passes keep h, dz and the kept values of every row in device memory
-(about 9 KB a row at 5 x 256). A call whose scratch the caching allocator
-refuses takes a budget (the card's free memory less ``MEM_MARGIN``) and runs
-its images in groups, one after another, each into its own rows of the
-per-CTA slots (``StepPlan.groups``): the per-image results and the loss keep
-the bits of one call, and dWs sums the groups' products in group order.
+(about 9 KB a row at 5 x 256 bf16). A call whose scratch the caching
+allocator refuses takes a budget (the card's free memory less
+``MEM_MARGIN``) and runs its images in groups, one after another, each into
+its own rows of the per-CTA slots (``StepPlan.groups``): the per-image
+results and the loss keep the bits of one call, and dWs sums the groups'
+products in group order. The budget counts dWs and its split-K partials
+(``StepPlan.wgrad_bytes``).
 ``StepMSE`` makes the loss differentiable: the value is a scalar, so the
 forward pass computes every gradient and the backward pass scales them by
 the incoming cotangent (``_wrap_step_vjp`` / ``_wrap_film_step_vjp``).
@@ -65,6 +72,8 @@ from reni_tpu_torch.core.fastmath import sincos_fns
 from reni_tpu_torch.kernels import siren_bwd
 from reni_tpu_torch.kernels.siren_bwd import (
     WARPS,
+    WGRAD_CTAS_PER_SM,
+    WGRAD_TILE,
     WeightGradWork,
     _align128,
     _pixel_dot,
@@ -99,26 +108,45 @@ def weight_values(hidden: int, n_mm: int, film: bool = False) -> int:
 
 
 PASS_ROWS = 128  # rows of one tile of the layer-major passes (csrc/step_passes.cuh TILE)
-PASS_WIDTH = 64  # the passes take widths that are a multiple of this (one wgmma column block)
-# device memory a grouped call leaves free beside its pass scratch: the
-# operands' casts, the split-K partials of dWs (52 MB at 5 x 256 on 132 SMs)
-# and the allocator's rounding
+PASS_WIDTH = 64  # the passes take bf16 widths that are a multiple of this (one wgmma column block)
+TILED_ROWS, TILED_COLS, TILED_DEPTH = 64, 64, 32  # csrc/tiled_passes.cuh BM, BN, BK
+TILED_SUMS = 19  # its per-column sums (NQ): 3 bias / modulation, 8 dWf, 8 dA
+TILED_F32_WIDTH = 16  # the tiled passes take float32 widths that are a multiple of this
+TILED_MAX_WIDTH = 1024  # and widths up to this (JAX's envelope checked here)
+# device memory a grouped call leaves free beside its pass scratch and its
+# dWs buffers (StepPlan.scratch_bytes): the operands' casts and the
+# allocator's rounding
 MEM_MARGIN = 1 << 30
 FINISH_IMG, FINISH_W, FINISH_DWS = 1, 2, 4  # csrc/step_passes.cuh FINISH_*
 
 
+def pass_design(trunk: str, hidden: int, n_mm: int) -> str | None:
+    """Which layer-major passes take a trunk of ``n_mm`` H x H products, for
+    the train steps, the backward and the differentiable forward alike:
+    ``"wgmma"`` (``csrc/step_passes.cuh``: bf16 at a width that is a
+    multiple of 64, where one layer's weights and a 128-row tile fit a CTA,
+    H <= 256), ``"tiled"`` (``csrc/tiled_passes.cuh``: float32 at a width
+    that is a multiple of 16 and bf16 at a width that is a multiple of 64,
+    up to 1,024, and a FiLM trunk of one layer, n_mm = 0, at any width that
+    is a multiple of 64 in bf16 or 16 in float32 up to 1,024), or None: the
+    chain kernels (``csrc/siren_step.cuh``, ``csrc/siren_bwd.cuh``), which
+    keep one tile of every layer and so have a depth limit. Any depth on either pass design.
+    The rule is by dtype and shape only: a failed build or launch raises on
+    every route."""
+    bf16 = trunk == "bfloat16"
+    tiled = (hidden % (PASS_WIDTH if bf16 else TILED_F32_WIDTH) == 0
+             and 0 < hidden <= TILED_MAX_WIDTH and tiled_smem_bytes(trunk, hidden) <= SMEM_LIMIT)
+    if n_mm == 0:  # a FiLM trunk of one layer: no H x H product
+        return "tiled" if tiled else None
+    if bf16 and hidden % PASS_WIDTH == 0 and pass_smem_bytes(hidden) <= SMEM_LIMIT:
+        return "wgmma"
+    return "tiled" if tiled else None
+
+
 def pass_route(trunk: str, hidden: int, n_mm: int) -> bool:
-    """The routing rule between the layer-major wgmma passes
-    (``csrc/step_passes.cuh``) and the chain kernels, for the train steps and
-    the backward alike. The passes take the bf16 trunk at a width that is a
-    multiple of 64 with at least one H x H product, where one layer's
-    weights and a 128-row tile fit in a CTA's shared memory (H <= 256); the
-    chain kernels (``csrc/siren_step.cuh``, ``csrc/siren_bwd.cuh``) take the
-    float32 trunk, other bf16 widths and a FiLM trunk of one layer (no H x H
-    product). The rule is by dtype and shape only: a failed build or launch
-    raises on either route."""
-    return (trunk == "bfloat16" and hidden % PASS_WIDTH == 0 and n_mm >= 1
-            and pass_smem_bytes(hidden) <= SMEM_LIMIT)
+    """Whether a trunk runs as layer-major passes (``pass_design``) rather
+    than the chain kernels."""
+    return pass_design(trunk, hidden, n_mm) is not None
 
 
 def pass_smem_bytes(hidden: int) -> int:
@@ -138,6 +166,26 @@ def pass_smem_bytes(hidden: int) -> int:
         _align128(2 * C_PAD * 4),
     )
     return sum(parts) + 1024
+
+
+def tiled_smem_bytes(trunk: str, hidden: int) -> int:
+    """Shared memory of one CTA of any tiled pass (the ``tiled_layout`` of
+    ``csrc/tiled_passes.cuh``): two K-slabs of the input tile and of the
+    block's weight rows in the trunk's dtype, the block's sums, the row
+    phases' and the CTA's per-column sums, the directions, g (rounded and
+    float32), the loss terms, the final layer's sums, the loss and dbf
+    partials, and 128 B to align the base. No depth in it, and the width only
+    in the CTA's per-column sums."""
+    es = 2 if trunk == "bfloat16" else 4
+    ldk = TILED_DEPTH + (8 if trunk == "bfloat16" else 4)
+    parts = (
+        2 * TILED_ROWS * ldk * es, 2 * TILED_COLS * ldk * es,  # input and weight slabs
+        TILED_ROWS * (TILED_COLS + 4) * 4,  # the block's sums
+        4 * TILED_SUMS * TILED_COLS * 4, TILED_SUMS * hidden * 4,  # column sums
+        TILED_ROWS * K_PAD * 4, *(TILED_ROWS * C_PAD * 4,) * 4,  # d; g, g rounded, loss, o
+        2 * C_PAD * 4,
+    )
+    return sum(_align128(p) for p in parts) + 128
 
 
 def chain_smem_bytes(trunk: str, hidden: int, n_mm: int, film: bool = False) -> int:
@@ -163,11 +211,15 @@ def chain_smem_bytes(trunk: str, hidden: int, n_mm: int, film: bool = False) -> 
 
 
 def step_smem_bytes(trunk: str, hidden: int, n_mm: int, film: bool = False) -> int:
-    """Shared memory of one CTA of the step, by ``pass_route``: the passes'
-    ``pass_smem_bytes`` (no depth in it: activations live in device memory)
-    or ``chain_smem_bytes``."""
-    if pass_route(trunk, hidden, n_mm):
+    """Shared memory of one CTA of the step, by ``pass_design``: the wgmma
+    passes' ``pass_smem_bytes`` or the tiled passes' ``tiled_smem_bytes`` (no
+    depth in either: activations live in device memory), or
+    ``chain_smem_bytes``."""
+    design = pass_design(trunk, hidden, n_mm)
+    if design == "wgmma":
         return pass_smem_bytes(hidden)
+    if design == "tiled":
+        return tiled_smem_bytes(trunk, hidden)
     return chain_smem_bytes(trunk, hidden, n_mm, film)
 
 
@@ -182,16 +234,18 @@ def step_unsupported_reason(
     """Why the step cannot take this trunk (None = it can). The
     Cond-by-Concat step needs one hidden layer at least, the FiLM step one
     trunk layer; a CTA's shared memory must hold what its route keeps: for
-    the passes one layer's weights and a 128-row tile (H <= 256 in bf16, any
-    depth), for the chain kernel one tile of every layer."""
+    the wgmma passes one layer's weights and a 128-row tile (H <= 256 in
+    bf16), for the tiled passes K-slabs and per-column sums (H <= 1,024),
+    both at any depth, for the chain kernel one tile of every layer."""
     if hidden_layers < 1:
         what = "trunk layer" if film else "hidden layer"
         return f"hidden_layers={hidden_layers}: the train-step kernel needs a {what}"
     n_mm = hidden_layers - 1 if film else hidden_layers
     smem = step_smem_bytes(trunk, hidden_features, n_mm, film)
     if smem > SMEM_LIMIT:
-        what = ("one layer's weights and a 128-row tile" if pass_route(trunk, hidden_features, n_mm)
-                else "one tile of every layer")
+        what = {"wgmma": "one layer's weights and a 128-row tile",
+                "tiled": "its K-slabs and per-column sums"}.get(
+                    pass_design(trunk, hidden_features, n_mm), "one tile of every layer")
         return (
             f"the {'FiLM ' if film else ''}train step of a {hidden_layers} x {hidden_features} "
             f"trunk needs {smem} B of shared memory per CTA with the {trunk} trunk for {what} "
@@ -270,7 +324,10 @@ class StepPlan:
     (``bwd=True``) reads it, and without ``weight_grads`` forms the
     per-image gradients alone. A differentiable forward runs a backward
     plan's passes up to its last one in the output mode and hands the
-    scratch to the backward (``passes_forward``)."""
+    scratch to the backward (``passes_forward``). A FiLM trunk of one layer
+    (n_mm = 0, the tiled passes) has the last pass alone, ``("last", -1)``.
+    ``trunk`` is the dtype of the scratch and the products, ``sms`` the
+    card's SM count (the split-K grid of dWs)."""
 
     film: bool
     batch: int
@@ -281,15 +338,28 @@ class StepPlan:
     chunks: int
     bwd: bool = False
     weight_grads: bool = True
+    trunk: str = "bfloat16"
+    sms: int = 132
 
     @property
     def rows(self) -> int:
         return self.batch * self.npix
 
     @property
+    def design(self) -> str | None:
+        """``pass_design`` of this plan's trunk: "wgmma" or "tiled"."""
+        return pass_design(self.trunk, self.hidden, self.n_mm)
+
+    @property
     def n_keep(self) -> int:
         """Layers whose kept value (cos factor / pre-modulation) is stored."""
-        return self.n_mm - 1
+        return max(self.n_mm - 1, 0)
+
+    @property
+    def last(self) -> int:
+        """The index of the last pass in ``passes``: a forward runs the
+        passes up to it, the backward of a handoff from it on."""
+        return max(self.n_mm - 1, 0)
 
     @property
     def n_img(self) -> int:
@@ -315,16 +385,30 @@ class StepPlan:
 
     @property
     def row_bytes(self) -> int:
-        """Scratch bytes per row: sc_h and sc_dz (bf16), sc_keep (float32)."""
-        return self.hidden * (2 * 2 * self.n_mm + 4 * self.n_keep)
+        """Scratch bytes per row: sc_h and sc_dz (the trunk's dtype), sc_keep
+        (float32)."""
+        act = 2 if self.trunk == "bfloat16" else 4
+        return self.hidden * (act * 2 * self.n_mm + 4 * self.n_keep)
+
+    @property
+    def wgrad_bytes(self) -> int:
+        """Device memory of dWs (none without weight gradients): the split-K
+        partials at the most chunks ``wgrad_chunks`` gives on this card (any
+        group's rows), dWs itself and the running sum and group slot of a
+        grouped call (``_run_passes``)."""
+        if not self.weight_grads or self.n_mm == 0:
+            return 0
+        tiles = math.ceil(self.hidden / WGRAD_TILE[self.trunk]) ** 2
+        chunks = max(1, WGRAD_CTAS_PER_SM * self.sms // (tiles * self.n_mm))
+        return (chunks + 3) * self.n_mm * self.hidden * self.hidden * 4
 
     @property
     def scratch_bytes(self) -> int:
-        """Device memory of one call's scratch and slots (``scratch_shapes``
-        and the slots' sums); the split-K partials of dWs sit in
-        ``MEM_MARGIN``."""
+        """Device memory of one call's scratch, slots (``scratch_shapes`` and
+        the slots' sums) and dWs buffers (``wgrad_bytes``)."""
         slots = self.batch * self.chunks * (self.n_img + self.n_w)
-        return self.rows * self.row_bytes + 4 * (slots + self.batch * self.n_img + self.n_w)
+        return (self.rows * self.row_bytes + 4 * (slots + self.batch * self.n_img + self.n_w)
+                + self.wgrad_bytes)
 
     def groups(self, budget: int) -> tuple:
         """The image ranges [g0, g1) a call runs one after another under a
@@ -344,31 +428,37 @@ class StepPlan:
         """(FLOP, bytes) of pass k: bytes of each operand read once and each
         result written once (directions, targets, pixel weights and the
         output cotangent as the kernel reads them, 8 float32 lanes), weights
-        once. Without weight gradients h_0 is not stored and dWf not formed."""
+        once, in the trunk's dtype. Without weight gradients h_0 is not
+        stored and dWf not formed. The last pass of a one-layer FiLM trunk
+        has no H x H product: layer 0 from d and dA in its place."""
         kind, j = self.passes[k]
         R, H = self.rows, self.hidden
-        flops = 2.0 * R * H * H
-        nbytes = 2 * H * H
+        e = 2 if self.trunk == "bfloat16" else 4
+        flops = 2.0 * R * H * H if j >= 0 else 0.0
+        nbytes = e * H * H if j >= 0 else 0
         if kind != "bwd":
-            first = j == 0
-            h0 = 2 * H if self.weight_grads else 0
-            nbytes += R * ((K_PAD * 4 + h0) if first else 2 * H)  # input (and h_0 out)
+            first = j <= 0
+            h0 = e * H if self.weight_grads and j == 0 else 0
+            nbytes += R * ((K_PAD * 4 + h0) if first else e * H)  # input (and h_0 out)
             flops += 2.0 * R * K_PAD * H if first else 0.0
+        dz_out = e * H if j >= 0 else 0
         if kind == "fwd":
-            nbytes += R * (2 * H + 4 * H)  # h and the kept value out
+            nbytes += R * (e * H + 4 * H)  # h and the kept value out
         elif kind == "last" and self.bwd:
-            nbytes += R * (C_PAD * 4 + 2 * H) + H * C_PAD * 2  # g in; dz out; Wf
+            nbytes += R * (C_PAD * 4 + dz_out) + H * C_PAD * e  # g in; dz out; Wf
             flops += (2 if self.weight_grads else 1) * 2.0 * R * H * C_PAD  # g Wf^T (, dWf)
         elif kind == "last":
-            nbytes += R * (2 * C_PAD * 4 + 2 * H) + H * C_PAD * 2  # tgt, sw in; dz out; Wf
+            nbytes += R * (2 * C_PAD * 4 + dz_out) + H * C_PAD * e  # tgt, sw in; dz out; Wf
             flops += 3 * 2.0 * R * H * C_PAD  # final layer, dWf, g Wf^T
         else:
-            nbytes += R * 2 * H  # dz in
+            nbytes += R * e * H  # dz in
             if j > 0:
-                nbytes += R * (4 * H + 2 * H)  # kept value in, dz out
+                nbytes += R * (4 * H + e * H)  # kept value in, dz out
             else:
                 nbytes += R * K_PAD * 4
                 flops += 2 * 2.0 * R * K_PAD * H  # layer 0 again, d^T dz0
+        if j < 0:
+            flops += 2.0 * R * K_PAD * H  # d^T dz0
         return flops, nbytes
 
     def wgrad_cost(self) -> tuple[float, int]:
@@ -377,7 +467,8 @@ class StepPlan:
         if not self.weight_grads:
             return 0.0, 0
         R, H = self.rows, self.hidden
-        return 2.0 * self.n_mm * R * H * H, self.n_mm * (R * 4 * H + H * H * 4)
+        e = 2 if self.trunk == "bfloat16" else 4
+        return 2.0 * self.n_mm * R * H * H, self.n_mm * (R * 2 * e * H + H * H * 4)
 
 
 def pass_grid(npix: int, batch: int, sms: int) -> tuple[int, int]:
@@ -387,9 +478,9 @@ def pass_grid(npix: int, batch: int, sms: int) -> tuple[int, int]:
 
 
 def step_plan(film: bool, batch: int, npix: int, hidden: int, n_mm: int, sms: int,
-              bwd: bool = False, weight_grads: bool = True) -> StepPlan:
+              bwd: bool = False, weight_grads: bool = True, trunk: str = "bfloat16") -> StepPlan:
     tiles, chunks = pass_grid(npix, batch, sms)
-    return StepPlan(film, batch, npix, hidden, n_mm, tiles, chunks, bwd, weight_grads)
+    return StepPlan(film, batch, npix, hidden, n_mm, tiles, chunks, bwd, weight_grads, trunk, sms)
 
 
 @dataclasses.dataclass
@@ -465,7 +556,10 @@ def pass_outputs(plan: StepPlan, k: int, work: PassWork) -> dict:
         out["sc_h0"] = work.sc_h[0]
     layer = j + 1 if plan.film else j  # the bias row of the dz this pass forms
     if kind == "last":
-        out["sc_dz"] = work.sc_dz[j]
+        if j >= 0:
+            out["sc_dz"] = work.sc_dz[j]
+        else:  # a one-layer FiLM trunk: dA here
+            out["dA"] = img[..., : K_PAD * H]
         if plan.weight_grads:
             out["mse"] = w[:, :C_PAD]
             out["dbs"] = w[:, C_PAD + layer * H : C_PAD + (layer + 1) * H]
@@ -571,13 +665,16 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     sc_h, sc_keep, sc_dz = (_scratch(t, plan) for t in (work.sc_h, work.sc_keep, work.sc_dz))
     w_slots = work.part_w.view(plan.batch, plan.chunks, -1)
     if kind in ("fwd", "last"):
-        if j == 0:
-            h_in = _layer0(plan, o, kw)[0]
-            if plan.weight_grads:
-                sc_h[0] = h_in
+        if j < 0:  # a one-layer FiLM trunk: layer 0 is the last layer
+            h, kept, cos = _layer0(plan, o, kw)
         else:
-            h_in = sc_h[j].float()
-        h, kept, cos = _layer(plan, o, kw, _matmul(h_in, o["ws"][j], trunk), j + 1)
+            if j == 0:
+                h_in = _layer0(plan, o, kw)[0]
+                if plan.weight_grads:
+                    sc_h[0] = h_in
+            else:
+                h_in = sc_h[j].float()
+            h, kept, cos = _layer(plan, o, kw, _matmul(h_in, o["ws"][j], trunk), j + 1)
         if kind == "fwd":
             sc_h[j + 1] = h
             sc_keep[j] = kept
@@ -601,7 +698,10 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
             dmod = dh * cos
             f = o["fr"][..., (j + 1) * H : (j + 2) * H]
             _film_sums(plan, work, j + 1, dmod, kept, f)
-            sc_dz[j] = dmod * f
+            if j >= 0:
+                sc_dz[j] = dmod * f
+            else:
+                _first_layer_grad(plan, o, work, dmod * f, sc_dz.dtype, trunk)
         else:
             dz = dh * (kw["omega_h"] * cos)
             if plan.weight_grads:
@@ -630,10 +730,15 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     if j > 0:
         sc_dz[j - 1] = dz
         return
+    _first_layer_grad(plan, o, work, dz, sc_dz.dtype, trunk)
+
+
+def _first_layer_grad(plan: StepPlan, o, work: PassWork, dz0, dtype, trunk: str) -> None:
+    """dA = d^T dz0 into the per-image slots, dz0 rounded as stored."""
     d = o["d"].expand(plan.batch, *o["d"].shape[1:])
     da = torch.einsum("bcsk,bcsh->bckh", *(_rounded(_cta_rows(x, plan), trunk)
-                                           for x in (d, dz.to(sc_dz.dtype).float())))
-    work.part_img[..., : K_PAD * H] = da.flatten(2)
+                                           for x in (d, dz0.to(dtype).float())))
+    work.part_img[..., : K_PAD * plan.hidden] = da.flatten(2)
 
 
 def step_finish_reference(plan: StepPlan, work: PassWork, trunk: str,
@@ -718,7 +823,7 @@ def step_passes_reference(film: bool, ops, kw, sms: int = 132, budget: int | Non
     ``budget``, as ``passes_reference``)."""
     o = _step_operands(film, ops)
     plan = step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1],
-                     o["ws"].shape[0], sms)
+                     o["ws"].shape[0], sms, trunk=kw["trunk"])
     return _results(plan, passes_reference(plan, ops, kw, sms, budget))
 
 
@@ -730,7 +835,8 @@ def bwd_passes_reference(film: bool, ops, g, kw, weight_grads: bool, sms: int = 
     the same operands and keyword arguments."""
     o = _step_operands(film, (*ops, g), bwd=True)
     plan = step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1],
-                     o["ws"].shape[0], sms, bwd=True, weight_grads=weight_grads)
+                     o["ws"].shape[0], sms, bwd=True, weight_grads=weight_grads,
+                     trunk=kw["trunk"])
     return _results(plan, passes_reference(plan, (*ops, g), kw, sms, budget))
 
 
@@ -747,6 +853,8 @@ _SIGNATURES = {
     "reni_siren_step_passes": [_P, ctypes.c_longlong, *[_P] * 21, *[_I] * 8, _F, _F, _F,
                                *[_I] * 6, _P],
     "reni_film_step_passes": [_P, ctypes.c_longlong, *[_P] * 22, *[_I] * 8, _F, *[_I] * 6, _P],
+    "reni_tiled_passes": [_P, ctypes.c_longlong, *[_P] * 23, *[_I] * 8, _F, _F, _F, *[_I] * 6,
+                          _P],
     "reni_pass_reduce": [_P, _P, _I, _I, ctypes.c_longlong, _P],
 }
 
@@ -762,10 +870,10 @@ _SYMBOLS = {
 
 def library(film: bool = False):
     """The built ``csrc/siren_step.cu`` or ``csrc/film_step.cu`` (compiled at
-    first call), with ``step`` (the chain kernel), ``passes`` (a step's or a
-    backward's), ``reduce`` (a sum of slots), ``smem_bytes`` (the chain
-    kernel's layout), ``pass_smem_bytes`` (the passes') and ``error_string``
-    bound."""
+    first call), with ``step`` (the chain kernel), ``passes`` (the wgmma
+    passes of a step, a backward or a forward), ``reduce`` (a sum of slots),
+    ``smem_bytes`` (the chain kernel's layout), ``pass_smem_bytes`` (the
+    passes') and ``error_string`` bound."""
     from reni_tpu_torch.kernels import _build
 
     source, step, passes, smem, error_string = _SYMBOLS[film]
@@ -780,6 +888,33 @@ def library(film: bool = False):
             fn.argtypes, fn.restype = _SIGNATURES[name], ctypes.c_int
         lib.smem_bytes.argtypes, lib.smem_bytes.restype = [_I, _I, _I], ctypes.c_int
         lib.pass_smem_bytes.argtypes, lib.pass_smem_bytes.restype = [_I], ctypes.c_int
+        lib.error_string.argtypes, lib.error_string.restype = [ctypes.c_int], ctypes.c_char_p
+    return lib
+
+
+def tiled_source(film: bool, trunk: str) -> str:
+    """The source of the tiled passes of a conditioning and trunk dtype
+    (``csrc/tiled_<siren|film>_<bf16|f32>.cu``)."""
+    return f"tiled_{'film' if film else 'siren'}_{'bf16' if trunk == 'bfloat16' else 'f32'}"
+
+
+TILED_SOURCES = tuple(tiled_source(f, t) for f in (False, True) for t in ("bfloat16", "float32"))
+
+
+def tiled_library(film: bool, trunk: str):
+    """The built tiled passes of a conditioning and trunk dtype (compiled at
+    first call), with ``passes``, ``smem_bytes`` (``tiled_smem_bytes``'s
+    mirror) and ``error_string`` bound."""
+    from reni_tpu_torch.kernels import _build
+
+    source = tiled_source(film, trunk)
+    lib = _build.load(source)
+    if not hasattr(lib, "passes"):
+        lib.source = source
+        lib.passes, lib.smem_bytes = lib.reni_tiled_passes, lib.reni_tiled_smem_bytes
+        lib.error_string = lib.reni_tiled_error_string
+        lib.passes.argtypes, lib.passes.restype = _SIGNATURES["reni_tiled_passes"], ctypes.c_int
+        lib.smem_bytes.argtypes, lib.smem_bytes.restype = [_I], ctypes.c_int
         lib.error_string.argtypes, lib.error_string.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
 
@@ -833,17 +968,29 @@ class PassOperands:
 
     PER_IMAGE = ("a", "b0", "fr", "ph", "tgt", "bm", "gin", "out")
 
-    def head(self, g0: int = 0) -> tuple:
-        """The pointers before the work space, in the C argument order, for
-        the images from ``g0`` on (a group of a grouped call)."""
-        ptrs = []
+    def named(self, g0: int = 0) -> dict:
+        """The operands' pointers by name for the images from ``g0`` on (a
+        group of a grouped call); None where the call has none."""
+        ptrs = {}
         for name, t in self.tensors.items():
             if t is not None and (name in self.PER_IMAGE or (name == "d" and self.d_bstride)):
                 t = t[g0:]
-            ptrs.append(None if t is None else t.data_ptr())
-            if name == "d":
-                ptrs.append(self.d_bstride)
-        return tuple(ptrs)
+            ptrs[name] = None if t is None else t.data_ptr()
+        return ptrs
+
+    def head(self, g0: int = 0) -> tuple:
+        """The pointers before the work space, in the C argument order of
+        the wgmma passes' entry, for the images from ``g0`` on."""
+        ptrs = list(self.named(g0).values())
+        return (ptrs[0], self.d_bstride, *ptrs[1:])
+
+    TILED = ("a", "b0", "ws", "wst", "bs", "wf", "bf", "fr", "ph", "tgt", "sw", "bm", "gin", "out")
+
+    def tiled_head(self, g0: int = 0) -> tuple:
+        """The same in the order of the tiled passes' entry, which takes
+        both conditionings' operands (b0, fr, ph None where absent)."""
+        ptrs = self.named(g0)
+        return (ptrs["d"], self.d_bstride, *(ptrs.get(name) for name in self.TILED))
 
 
 def _validate_passes(film: bool, bwd: bool, ops, kw) -> tuple:
@@ -861,17 +1008,17 @@ def _validate_passes(film: bool, bwd: bool, ops, kw) -> tuple:
 
 def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
     """Cast and lay out the operands of a step or (a backward plan) of a
-    backward for the pass kernels: the float32 vectors, W in bf16 and its
-    transpose per layer (the forward's B operand, K-major; a copy, not a
-    product). ``d`` and ``d_bstride`` are the call's validated directions;
-    without them the operands are validated here."""
+    backward for the pass kernels: the float32 vectors, W in the plan's
+    trunk dtype and its transpose per layer (the forward's B operand,
+    K-major; a copy, not a product). ``d`` and ``d_bstride`` are the call's
+    validated directions; without them the operands are validated here."""
     o = _step_operands(plan.film, ops, plan.bwd)
     if d is None:
         d, d_bstride = _validate_passes(plan.film, plan.bwd, ops, kw)
-    ws = _weights(o["ws"], "bfloat16")
+    ws = _weights(o["ws"], plan.trunk)
     f32 = {k: _f32(v) for k, v in o.items() if k not in ("d", "ws", "wf") and v is not None}
     tensors = dict(d=d, a=f32["a"], b0=f32.get("b0"), ws=ws, wst=ws.transpose(1, 2).contiguous(),
-                   bs=f32["bs"], wf=_weights(o["wf"], "bfloat16"), bf=f32["bf"], fr=f32.get("fr"),
+                   bs=f32["bs"], wf=_weights(o["wf"], plan.trunk), bf=f32["bf"], fr=f32.get("fr"),
                    ph=f32.get("ph"), tgt=f32.get("tgt"), sw=f32.get("sw"), bm=f32.get("bm"),
                    gin=f32.get("g"), out=None)
     if not plan.film:
@@ -887,28 +1034,48 @@ def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
 def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: int,
                finish: int, g0: int = 0, lib=None) -> None:
     """Passes [lo, hi) of ``plan`` on the card over ``work`` for the images
-    from ``g0`` on, then what ``finish`` (FINISH_* flags) asks for
-    (``csrc/step_passes.cuh``), through ``lib``'s ``passes`` (the step
-    library of the plan's conditioning by default; the anatomy probes pass
-    theirs). Counted in ``pass_launches`` by library."""
+    from ``g0`` on, then what ``finish`` (FINISH_* flags) asks for, through
+    ``lib``'s ``passes``: the wgmma passes (``csrc/step_passes.cuh``) of the
+    step library of the plan's conditioning by default (the anatomy probes
+    pass theirs), or on the tiled design the tiled passes
+    (``csrc/tiled_passes.cuh``, ``tiled_library``). Counted in
+    ``pass_launches`` by library (``route_launches`` sums them by design)."""
     rest = (work.part_img.data_ptr(), work.out_img.data_ptr(), work.part_w.data_ptr(),
             work.out_w.data_ptr(), work.sc_h.data_ptr(), work.sc_keep.data_ptr(),
             work.sc_dz.data_ptr(), work.part_dws.data_ptr(), work.dws.data_ptr(), plan.batch,
             plan.npix, plan.hidden)
     grid = (plan.tiles_per_cta, plan.chunks, work.rows_per_chunk, work.n_wchunks)
-    lib = lib or library(plan.film)
+    if plan.design == "tiled":
+        lib = tiled_library(plan.film, plan.trunk)
+        head, depth = prep.tiled_head(g0), plan.n_mm
+        scalars = (0.0, 0.0, *prep.scalars) if plan.film else prep.scalars
+    else:
+        lib = lib or library(plan.film)
+        head, depth, scalars = prep.head(g0), prep.depth, prep.scalars
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
-        err = lib.passes(*prep.head(g0), *rest, prep.depth, *grid, *prep.scalars, *prep.flags,
+        err = lib.passes(*head, *rest, depth, *grid, *scalars, *prep.flags,
                          int(plan.weight_grads), lo, hi, finish, stream)
     _check(err, lib.error_string,
-           f"{'film' if plan.film else 'siren'}_{'bwd' if plan.bwd else 'step'} passes")
+           f"{'film' if plan.film else 'siren'}_{'bwd' if plan.bwd else 'step'} "
+           f"{plan.design} passes")
     pass_launches[lib.source] += 1
 
 
 # calls into each library's pass entry (its ``source``): siren_step,
-# film_step and the anatomy probes' siren_anatomy
-pass_launches = {"siren_step": 0, "film_step": 0, "siren_anatomy": 0}
+# film_step, the anatomy probes' siren_anatomy and the four tiled sources
+pass_launches = {"siren_step": 0, "film_step": 0, "siren_anatomy": 0,
+                 **{source: 0 for source in TILED_SOURCES}}
+
+
+def route_launches() -> dict:
+    """``pass_launches`` summed by pass design and trunk: the wgmma passes
+    (the step libraries and the anatomy probes), the tiled passes in bf16
+    and in float32."""
+    tiled = {t: sum(pass_launches[tiled_source(film, t)] for film in (False, True))
+             for t in ("bfloat16", "float32")}
+    return {"wgmma": sum(pass_launches[k] for k in ("siren_step", "film_step", "siren_anatomy")),
+            "tiled_bf16": tiled["bfloat16"], "tiled_f32": tiled["float32"]}
 
 
 def device_budget(device) -> int:
@@ -930,11 +1097,11 @@ def _work_and_groups(plan: StepPlan, device, budget: int | None) -> tuple:
     cudaMemGetInfo would otherwise hold every call until the card is idle)."""
     if budget is None:
         try:
-            return PassWork.for_plan(plan, "bfloat16", device), ((0, plan.batch),)
+            return PassWork.for_plan(plan, plan.trunk, device), ((0, plan.batch),)
         except torch.cuda.OutOfMemoryError:
             budget = device_budget(device)
     groups = plan.groups(budget)
-    return (PassWork.for_plan(plan, "bfloat16", device, images=groups[0][1] - groups[0][0]),
+    return (PassWork.for_plan(plan, plan.trunk, device, images=groups[0][1] - groups[0][0]),
             groups)
 
 
@@ -945,26 +1112,28 @@ def _run_passes(plan: StepPlan, prep: PassOperands, budget: int | None = None) -
     does not fit, the images run in groups (``StepPlan.groups``) over one
     group-sized scratch, each its full pass sequence into its own rows of
     the slots and its dWs into a slot of its own; the slots are then summed
-    as in one call, and the groups' dWs in group order."""
+    as in one call, and the groups' dWs in group order: a running sum (slot
+    0) and the group's slot (slot 1) added after each group, the bits of one
+    sum over every group's slot."""
     work, groups = _work_and_groups(plan, prep.device, budget)
     finish, n = _finish_flags(plan), len(plan.passes)
     if len(groups) == 1:
         _pass_call(plan, prep, work, 0, n, finish)
         return work
-    group_dws = torch.empty((len(groups), *work.dws.shape), dtype=torch.float32,
-                            device=prep.device)
+    sums = torch.zeros((2, *work.dws.shape), dtype=torch.float32, device=prep.device)
+    lib = library(plan.film)
     for i, (g0, g1) in enumerate(groups):
         gplan = dataclasses.replace(plan, batch=g1 - g0)
-        gwork = work.group(plan, g0, g1, group_dws[i], "bfloat16")
+        gwork = work.group(plan, g0, g1, sums[1], plan.trunk)
         _pass_call(gplan, prep, gwork, 0, n, finish & FINISH_DWS, g0)
+        if plan.weight_grads:
+            with torch.cuda.device(prep.device):
+                stream = torch.cuda.current_stream(prep.device).cuda_stream
+                err = lib.reduce(sums.data_ptr(), sums.data_ptr(), 1, 2, work.dws.numel(), stream)
+            _check(err, lib.error_string, "the groups' dWs sum")
     _pass_call(plan, prep, work, 0, 0, finish & ~FINISH_DWS)
     if plan.weight_grads:
-        lib = library(plan.film)
-        with torch.cuda.device(prep.device):
-            stream = torch.cuda.current_stream(prep.device).cuda_stream
-            err = lib.reduce(group_dws.data_ptr(), work.dws.data_ptr(), 1, len(groups),
-                             work.dws.numel(), stream)
-        _check(err, lib.error_string, "the groups' dWs sum")
+        work.dws.copy_(sums[0])
     return work
 
 
@@ -972,7 +1141,7 @@ def _passes_step(film, ops, kw, budget: int | None = None) -> tuple:
     """The whole step through the passes (operands validated here): what
     ``siren_step_reference`` / ``film_step_reference`` return."""
     d, d_bstride = _validate_passes(film, False, ops, kw)
-    plan = step_plan_cuda(film, ops, d.device)
+    plan = step_plan_cuda(film, ops, d.device, trunk=kw["trunk"])
     return _results(plan, _run_passes(plan, pass_operands(plan, ops, kw, d, d_bstride), budget))
 
 
@@ -980,7 +1149,8 @@ def _passes_bwd(film, ops, g, kw, weight_grads: bool, budget: int | None = None)
     """The backward through the passes (operands validated here): what
     ``siren_trunk_bwd_reference`` / ``film_trunk_bwd_reference`` return."""
     d, d_bstride = _validate_passes(film, True, (*ops, g), kw)
-    plan = step_plan_cuda(film, (*ops, g), d.device, bwd=True, weight_grads=weight_grads)
+    plan = step_plan_cuda(film, (*ops, g), d.device, bwd=True, weight_grads=weight_grads,
+                          trunk=kw["trunk"])
     return _results(plan, _run_passes(plan, pass_operands(plan, (*ops, g), kw, d, d_bstride),
                                       budget))
 
@@ -1008,17 +1178,18 @@ def passes_forward(film, ops, kw, weight_grads: bool, budget: int | None = None)
     kind = f"{'film' if film else 'siren'}_fwd passes"
     o = _step_operands(film, ops)
     d, d_bstride = _cuda_operands(kind, kw["trunk"], ops[0], o["a"].shape[0], ops[1:])
-    plan = step_plan_cuda(film, (*ops, None), d.device, bwd=True, weight_grads=weight_grads)
+    plan = step_plan_cuda(film, (*ops, None), d.device, bwd=True, weight_grads=weight_grads,
+                          trunk=kw["trunk"])
     if budget is not None and len(plan.groups(budget)) > 1:
         return None
     try:
-        work = PassWork.for_plan(plan, "bfloat16", d.device)
+        work = PassWork.for_plan(plan, plan.trunk, d.device)
     except torch.cuda.OutOfMemoryError:
         return None
     prep = pass_operands(plan, (*ops, None), kw, d, d_bstride)
     out = torch.empty((plan.batch, plan.npix, C_PAD), dtype=torch.float32, device=d.device)
     _pass_call(plan, dataclasses.replace(prep, tensors={**prep.tensors, "out": out}), work, 0,
-               plan.n_mm, 0)
+               plan.last + 1, 0)
     passes_forward.launches += 1
     return out, Handoff(plan, prep, work)
 
@@ -1036,7 +1207,7 @@ def passes_bwd_handoff(handoff: Handoff, g) -> tuple:
         raise ValueError(f"cotangent {tuple(g.shape)} on {g.device}: a CUDA tensor of shape "
                          f"{(plan.batch, plan.npix, C_PAD)} is needed")
     prep = dataclasses.replace(prep, tensors={**prep.tensors, "gin": _f32(g)})
-    _pass_call(plan, prep, handoff.work, plan.n_mm - 1, len(plan.passes), _finish_flags(plan))
+    _pass_call(plan, prep, handoff.work, plan.last, len(plan.passes), _finish_flags(plan))
     return _results(plan, handoff.work)
 
 
@@ -1056,13 +1227,13 @@ step_pass_cuda.launches = 0
 
 
 def step_plan_cuda(film: bool, ops, device, bwd: bool = False,
-                   weight_grads: bool = True) -> StepPlan:
+                   weight_grads: bool = True, trunk: str = "bfloat16") -> StepPlan:
     """The plan the step (or, ``bwd``, the backward) takes for these
-    operands on ``device``."""
+    operands of a ``trunk`` trunk on ``device``."""
     o = _step_operands(film, ops, bwd)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return step_plan(film, o["a"].shape[0], o["d"].shape[1], o["a"].shape[-1], o["ws"].shape[0],
-                     sms, bwd, weight_grads)
+                     sms, bwd, weight_grads, trunk)
 
 
 def siren_step_cuda(

@@ -259,24 +259,7 @@ class RENIModel:
         tp_mesh = mesh if mesh is not None and mesh.n_model > 1 else None
         if use_pallas:
             B, npix = Z.shape[0], D.shape[1]
-            if tp_mesh is not None:
-                reason = model_axis_reason(tp_mesh)
-            elif D.shape[0] not in (1, B):
-                reason = (
-                    f"direction grid batch {D.shape[0]} matches neither 1 "
-                    f"nor Z batch {B}"
-                )
-            elif not (cfg.is_film or cfg.last_layer_linear):
-                reason = "last_layer_linear=False (the kernel's final layer is linear)"
-            else:
-                reason = unsupported_reason(
-                    npix, cfg.hidden_features, batch=B, trunk=cfg.pallas_trunk
-                )
-                if reason is None and _needs_grad(params, Z):
-                    n_mm = cfg.hidden_layers - 1 if cfg.is_film else cfg.hidden_layers
-                    reason = bwd_unsupported_reason(
-                        cfg.hidden_features, n_mm, cfg.is_film, cfg.pallas_trunk
-                    )
+            reason = self.decode_reason(B, npix, D.shape[0], grad=_needs_grad(params, Z))
             if reason is None:
                 _note_trunk_path(
                     f"fused trunk{_mesh_suffix()} on {Z.device.type} for B={B}, npix={npix}"
@@ -345,6 +328,32 @@ class RENIModel:
             hidden_omega_0=cfg.hidden_omega_0,
             fast_sine=cfg.fast_sine,
         )
+
+    def decode_reason(self, batch: int, npix: int, d_batch: int = 1,
+                      grad: bool = False) -> str | None:
+        """Why the fused kernels cannot serve ``apply`` of ``batch`` latents x
+        ``npix`` directions with a direction grid of batch ``d_batch``: None
+        means they can. With ``grad`` (a latent or a decoder weight needs a
+        gradient) the backward kernels must take the trunk too
+        (``siren_bwd.bwd_unsupported_reason``: any depth on the layer-major
+        passes, bf16 widths that are a multiple of 64 and float32 widths
+        that are a multiple of 16 up to 1,024). A mesh with a model axis
+        declines the kernels (JAX's reason)."""
+        cfg = self.config
+        mesh = active_kernel_mesh()
+        if mesh is not None and mesh.n_model > 1:
+            return model_axis_reason(mesh)
+        if d_batch not in (1, batch):
+            return f"direction grid batch {d_batch} matches neither 1 nor Z batch {batch}"
+        if not (cfg.is_film or cfg.last_layer_linear):
+            return "last_layer_linear=False (the kernel's final layer is linear)"
+        reason = unsupported_reason(npix, cfg.hidden_features, batch=batch, trunk=cfg.pallas_trunk)
+        if reason is None and grad:
+            n_mm = cfg.hidden_layers - 1 if cfg.is_film else cfg.hidden_layers
+            reason = bwd_unsupported_reason(
+                cfg.hidden_features, n_mm, cfg.is_film, cfg.pallas_trunk
+            )
+        return reason
 
     def fused_step_reason(self, batch: int, npix: int, d_batch: int = 1) -> str | None:
         """Why the train-step kernel (``kernels.siren_step.fused_step_mse``,

@@ -109,14 +109,22 @@ def task_builds(model_config, task: str, device, *, from_disk: bool = False) -> 
     """The libraries a task loads: with ``use_pallas`` on the card the step
     kernel of its conditioning and the forward kernel (FIT_DECODER's grids),
     for FIT_LATENT and FIT_INVERSE also the backward (their decodes take the
-    forward passes of the step library); FIT_INVERSE's rasterizer; the EXR
-    decoder when rows decode from disk. On the CPU the kernels' wrappers
-    take their plain versions, so only the g++ libraries load there."""
+    forward passes of the step library), and the tiled passes of the trunk
+    where ``siren_step.pass_design`` routes it there; FIT_INVERSE's
+    rasterizer; the EXR decoder when rows decode from disk. On the CPU the
+    kernels' wrappers take their plain versions, so only the g++ libraries
+    load there."""
     import torch
+
+    from reni_tpu_torch.kernels import siren_step
 
     out = []
     if model_config.use_pallas and torch.device(device).type == "cuda":
         out.append(_kernel("film_step" if model_config.is_film else "siren_step"))
+        trunk, film = model_config.pallas_trunk, model_config.is_film
+        n_mm = model_config.hidden_layers - film
+        if siren_step.pass_design(trunk, model_config.hidden_features, n_mm) == "tiled":
+            out.append(_kernel(siren_step.tiled_source(film, trunk)))
         out.append(_kernel("siren_fwd"))
         if task != "FIT_DECODER":
             out.append(_kernel("siren_bwd"))

@@ -308,13 +308,13 @@ def test_forward_row_tile_rule(hidden, trunk, tm):
 
 
 @pytest.mark.parametrize("hidden,n_mm,passes", [(256, 5, True), (256, 12, True), (64, 1, True),
-                                                (320, 1, False), (512, 1, False), (96, 2, False)])
+                                                (320, 1, True), (512, 1, True), (96, 2, False)])
 def test_bwd_route_and_depth_limit(hidden, n_mm, passes):
-    """The backward follows pass_route: on the passes (bf16, a multiple of 64
-    up to 256) any depth is taken; the chain kernel (H = 320 and 512, whose
-    weights and a tile do not fit one CTA; bf16 widths not a multiple of 64;
-    the float32 trunk) keeps its shared-memory depth limit, written down in
-    bwd_unsupported_reason."""
+    """The backward follows pass_route: on the passes (bf16, a multiple of 64:
+    the wgmma passes up to 256, the tiled passes at H = 320 and 512 whose
+    weights and a tile do not fit one CTA; the float32 trunk) any depth is
+    taken; the chain kernel (bf16 widths not a multiple of 64) keeps its
+    shared-memory depth limit, written down in bwd_unsupported_reason."""
     assert ts.pass_route("bfloat16", hidden, n_mm) is passes
     for film in (False, True):
         reason = tb.bwd_unsupported_reason(hidden, n_mm, film, "bfloat16")
@@ -323,8 +323,9 @@ def test_bwd_route_and_depth_limit(hidden, n_mm, passes):
         else:
             smem = tb.bwd_smem_bytes(film, "bfloat16", hidden, n_mm)
             assert (reason is None) is (smem <= tk.SMEM_LIMIT)
-    assert "shared memory" in tb.bwd_unsupported_reason(256, 12, False, "float32")
-    assert "shared memory" in tb.bwd_unsupported_reason(512, 5, True, "bfloat16")
+    assert tb.bwd_unsupported_reason(256, 12, False, "float32") is None
+    assert tb.bwd_unsupported_reason(512, 5, True, "bfloat16") is None
+    assert "shared memory" in tb.bwd_unsupported_reason(96, 21, False, "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

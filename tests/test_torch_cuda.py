@@ -7,6 +7,7 @@ without it:
 """
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -180,20 +181,21 @@ def test_bwd_kernel_matches_plain(cuda, equiv, film, trunk, fast_sine, weight_gr
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
-    """Several tiles per CTA on each route: the chain kernel (float32 trunk,
-    8-row tiles) three per CTA, 33 tiles per image; the passes (bf16, 128-row
-    tiles) two per CTA, 3 tiles per image (the last CTA has one). The
-    per-image sums are the same as with the default grid, to float32
-    rounding, and bitwise the same from run to run."""
+    """Several tiles per CTA on each route: the passes (bf16 at H = 128, the
+    wgmma design; float32, the tiled one; 128-row tiles) two per CTA, and
+    the chain kernel (bf16 at H = 96, a width no pass design takes) 3 tiles
+    per image (the last CTA has one). The per-image sums are the same as
+    with the default grid, to float32 rounding, and bitwise the same from
+    run to run."""
     rng = np.random.default_rng(21)
-    N, B, H, L, P = 5, 3, 128, 2, 264
-    dec = _decoder(rng, "SO2", N, H, L, film, cuda)
+    N, B, L, P = 5, 3, 2, 264
     Z = torch.as_tensor(rng.normal(size=(B, N, 3)).astype(np.float32), device=cuda)
     D = torch.nn.functional.normalize(torch.randn(1, P, 3, device=cuda), dim=-1)
-    ops = _pack(dec, "SO2", N, Z, D, film, H)
     g = torch.randn(B, P, 8, device=cuda)
     kernel, plain = _bwd_pair(film)
-    for trunk in ("float32", "bfloat16"):
+    for trunk, H in (("float32", 128), ("bfloat16", 128), ("bfloat16", 96)):
+        ops = _pack(_decoder(rng, "SO2", N, H, L, film, cuda), "SO2", N, Z, D, film, H)
+        assert ts.pass_route(trunk, H, ops[2 if film else 3].shape[0]) is (H == 128)
         kw = dict(trunk=trunk, fast_sine=True, weight_grads=False)
         if not film:
             kw.update(omega0=30.0, omega_h=30.0)
@@ -206,7 +208,7 @@ def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
             again = kernel(*ops, g, **kw)
         ref = plain(*ops, g, **kw)
         torch.cuda.synchronize()
-        _assert_grads_close(three, ref, trunk, f"several tiles per CTA, {trunk}")
+        _assert_grads_close(three, ref, trunk, f"several tiles per CTA, {trunk} {H}")
         for x, y, z in zip(one, three, again):
             if x is not None:
                 assert torch.equal(y, z)
@@ -217,10 +219,10 @@ def test_bwd_kernel_walks_several_tiles_per_cta(cuda, film, monkeypatch):
 def test_fused_apply_backward_launches_both_kernels(cuda, film):
     """One autograd backward through fused_apply on the card launches a
     forward and the backward once each, and its gradients (latents and every
-    decoder weight) match the plain Function's. On the passes' route (bf16,
-    H = 128) the forward is the passes' (siren_step.passes_forward, whose
-    scratch the backward reads), not the forward kernel; with the float32
-    trunk it is the forward kernel and a backward that recomputes."""
+    decoder weight) match the plain Function's. On the passes' routes (bf16
+    at H = 128 the wgmma passes, float32 the tiled ones) the forward is the
+    passes' (siren_step.passes_forward, whose scratch the backward reads),
+    not the forward kernel."""
     rng = np.random.default_rng(22)
     N, B, H, L, P = 5, 3, 128, 2, 200
     dec = _decoder(rng, "SO2", N, H, L, film, cuda)
@@ -242,7 +244,7 @@ def test_fused_apply_backward_launches_both_kernels(cuda, film):
             t.grad = None
         return got
 
-    for trunk, passes in (("bfloat16", 1), ("float32", 0)):
+    for trunk, passes in (("bfloat16", 1), ("float32", 1)):
         counts = lambda: (wrap.launches, ts.passes_forward.launches, kernel.launches)
         n0 = counts()
         got = grads(wrap, trunk)
@@ -255,32 +257,56 @@ def test_fused_apply_backward_launches_both_kernels(cuda, film):
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_model_apply_with_grad_outside_bwd_limit_raises(cuda, film):
-    """H = 512 with 5 layers: the forward kernel takes it, the backward
-    kernel's shared memory does not. With a latent that requires grad
-    RENIModel.apply raises on the card instead of training with plain
-    PyTorch; without one it decodes."""
+    """H = 512 with 5 layers, which the backward's chain kernel declined
+    before the tiled passes: with a latent that requires grad RENIModel.apply
+    now trains through the kernels (the tiled passes' forward and backward,
+    no plain PyTorch on the card), its latent gradient within the bf16 bar of
+    the plain bf16 Function's; a bf16 width that is not a multiple of 64 past the
+    chain kernel's depth still raises."""
     from reni_tpu_torch.models.reni import RENIConfig, RENIModel
 
     rng = np.random.default_rng(23)
     cfg = RENIConfig(conditioning="FiLM" if film else "Cond-by-Concat", latent_dim=5,
                      hidden_layers=5, hidden_features=512, mapping_layers=1,
-                     mapping_features=64, use_pallas=True, fast_sine=True)
+                     mapping_features=64, use_pallas=True, fast_sine=True,
+                     output_activation="tanh", first_omega_0=30.0, hidden_omega_0=30.0)
     dec = _decoder(rng, "SO2", 5, 512, 5, film, cuda)
     D = torch.nn.functional.normalize(torch.randn(1, 64, 3, device=cuda), dim=-1)
-    Z = torch.zeros(2, 5, 3, device=cuda)
+    Z0 = torch.as_tensor(rng.normal(size=(2, 5, 3)).astype(np.float32), device=cuda)
     model = RENIModel(cfg)
-    assert model.apply({"decoder": dec}, Z, D).shape == (2, 64, 3)
+    assert model.apply({"decoder": dec}, Z0, D).shape == (2, 64, 3)
+    routes, fwd = ts.route_launches(), ts.passes_forward.launches
+    ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
+    grads = []
+    for kernel in (True, False):  # the kernels through apply; the plain bf16 Function
+        Z = Z0.clone().requires_grad_()
+        out = (model.apply({"decoder": dec}, Z, D) if kernel
+               else _run(ref_fn, dec, "SO2", 5, Z, D, film, 5, 512, "bfloat16", True))
+        (out ** 2).sum().backward()
+        grads.append(Z.grad)
+    torch.cuda.synchronize()
+    assert ts.route_launches()["tiled_bf16"] == routes["tiled_bf16"] + 2  # forward, backward
+    assert ts.passes_forward.launches == fwd + 1
+    err, scale = (grads[0] - grads[1]).abs().max().item(), grads[1].abs().max().item()
+    assert torch.isfinite(grads[0]).all() and err <= 1e-2 * scale, (err, scale)
+    deep = RENIModel(dataclasses.replace(cfg, hidden_features=96, hidden_layers=21 - film))
     with pytest.raises(ValueError, match="shared memory"):
-        model.apply({"decoder": dec}, Z.requires_grad_(), D)
+        deep.apply({"decoder": _decoder(rng, "SO2", 5, 96, 21 - film, film, cuda)},
+                   Z0.clone().requires_grad_(), D)
 
 
 def test_bwd_smem_formula_matches_kernel(cuda):
+    """The chain backward's layout and, for the backward's new routes, the
+    tiled passes' (tiled_smem_bytes) as each library reports them."""
     lib = tb.library()
     for film in (False, True):
         for trunk in tk.TRUNKS:
             for H, n_mm in ((128, 2), (256, 5), (256, 4), (512, 1), (64, 0)):
                 got = lib.reni_bwd_smem_bytes(int(film), int(trunk == "bfloat16"), H, n_mm)
                 assert got == tb.bwd_smem_bytes(film, trunk, H, n_mm)
+            tiled = ts.tiled_library(film, trunk)
+            for H in (64, 320, 512, 1024):
+                assert tiled.smem_bytes(H) == ts.tiled_smem_bytes(trunk, H)
 
 
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
@@ -625,8 +651,8 @@ def test_fused_film_step_mse_launches_the_step_kernel_only(cuda):
 
 
 def test_film_step_smem_formula_matches_kernel(cuda):
-    """The FiLM counterpart of test_step_smem_formula_matches_kernel (one
-    trunk layer, n_mm = 0, takes the chain kernel)."""
+    """The FiLM counterpart of test_step_smem_formula_matches_kernel: the
+    chain kernel's layout at every shape, one trunk layer (n_mm = 0) too."""
     lib = ts.library(film=True)
     for trunk in tk.TRUNKS:
         for H, n_mm in ((128, 2), (256, 4), (256, 0), (512, 1), (32, 3), (96, 2), (256, 12),
@@ -747,13 +773,14 @@ def test_steps_match_plain_at_fit_decoder_shapes(cuda, film, npix):
 
 
 @pytest.mark.parametrize(
-    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, False), ("bfloat16", 96, False),
+    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, True), ("bfloat16", 96, False),
                        ("bfloat16", 32, False)])
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_step_route_on_card(cuda, film, trunk, H, passes, monkeypatch):
-    """The routing rule on the card: the float32 trunk and bf16 widths that
-    are not a multiple of 64 take the chain kernel (no pass launches), bf16
-    at a multiple of 64 the passes; each route matches the plain step."""
+    """The routing rule on the card: bf16 widths that are not a multiple of
+    64 take the chain kernel (no pass launches), bf16 at a multiple of 64
+    the wgmma passes, the float32 trunk the tiled passes; each route matches
+    the plain step."""
     calls = []
     real = ts._pass_call
     monkeypatch.setattr(ts, "_pass_call", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
@@ -990,14 +1017,15 @@ def test_bwd_passes_match_plain_at_fit_latent_shapes(cuda, film, npix):
 
 
 @pytest.mark.parametrize(
-    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, False), ("bfloat16", 96, False),
-                       ("bfloat16", 512, False)])
+    "trunk,H,passes", [("bfloat16", 128, True), ("float32", 128, True), ("bfloat16", 96, False),
+                       ("bfloat16", 512, True)])
 @pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
 def test_bwd_route_on_card(cuda, film, trunk, H, passes, monkeypatch):
     """The backward follows the steps' routing rule: bf16 at a multiple of
-    64 up to 256 takes the passes; the float32 trunk, other bf16 widths and
-    H = 512 (one layer's weights and a tile do not fit) the chain kernel.
-    Each route matches the plain backward, with weight gradients."""
+    64 up to 256 takes the wgmma passes, H = 512 (one layer's weights and a
+    tile do not fit) and the float32 trunk the tiled passes, other bf16
+    widths the chain kernel. Each route matches the plain backward, with
+    weight gradients."""
     calls = []
     real = ts._pass_call
     monkeypatch.setattr(ts, "_pass_call", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
@@ -1343,4 +1371,4 @@ def test_sharded_step_kernel_plan_on_the_card(cuda, tmp_path):
     batch = np.random.default_rng(0).uniform(-1, 1, (100, 8192, 3)).astype(np.float32)
     launches, grads, outs, _ = chip_smoke.mesh_step_check(cuda, str(tmp_path), batch, 1, 2)
     assert launches == {"cbc": 4, "film": 4}
-    assert "decoder/final/w" in grads and [r["coords"] for r, _ in outs] == [[0, 0], [0, 1]]
+    assert "decoder/final/w" in grads and [r["coords"] for r, _ in outs] == [[0, 0, 0], [0, 1, 0]]

@@ -215,9 +215,12 @@ def test_time_kernels_anatomy_refuses_without_a_card():
 
 
 def test_every_kernel_source_is_built_by_chip_smoke():
-    """chip_smoke.build_all compiles every csrc/*.cu, all at once."""
+    """chip_smoke.build_all compiles every csrc/*.cu, all at once: the five
+    sources and the tiled passes' four (one per conditioning and dtype)."""
     import chip_smoke
+
+    from reni_tpu_torch.kernels import siren_step
 
     sources = sorted(p.stem for p in (ROOT / "reni_tpu_torch" / "kernels" / "csrc").glob("*.cu"))
     assert sorted(chip_smoke.KERNEL_SOURCES) == sources
-    assert len(sources) == 5
+    assert len(sources) == 9 and set(siren_step.TILED_SOURCES) < set(sources)

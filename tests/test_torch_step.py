@@ -230,17 +230,23 @@ def test_step_reference_operands_and_results():
         (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
         (dict(), (70000, 128, 1), "grid limit"),
         (dict(), (4, 0, 1), "no pixels"),
-        (dict(hidden_features=512), (4, 128, 1), "shared memory"),
+        (dict(hidden_features=512), (4, 128, 1), None),
         (dict(hidden_layers=0), (4, 128, 1), "needs a hidden layer"),
-        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), "shared memory"),
+        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), None),
+        (dict(hidden_features=96, hidden_layers=21), (4, 128, 1), "shared memory"),
+        (dict(pallas_trunk="float32", hidden_features=2048), (4, 128, 1), "shared memory"),
     ],
     ids=["off", "film", "sine_final", "grid_batch", "width", "batch", "npix", "smem_wide",
-         "no_hidden", "smem_deep"],
+         "no_hidden", "smem_deep", "chain_deep_96", "f32_fwd_2048"],
 )
 def test_fused_step_reason_guards(cfg, shape, match):
-    """Every guard of RENIModel.apply plus the step kernel's own limits."""
+    """Every guard of RENIModel.apply plus the step kernel's own limits. The
+    tiled passes take 5 x 512 bf16 and 12 x 256 float32 (None: accepted);
+    what still declines is a bf16 width that is not a multiple of 64 past the
+    chain kernel's depth and the float32 forward past its row tiles."""
     model = RENIModel(RENIConfig(**{**dict(use_pallas=True), **cfg}))
-    assert match in model.fused_step_reason(*shape)
+    reason = model.fused_step_reason(*shape)
+    assert reason is None if match is None else match in reason
 
 
 def test_fused_step_reason_accepts_the_published_shapes():
@@ -259,9 +265,10 @@ def test_fused_step_reason_accepts_the_published_shapes():
     assert ts.step_smem_bytes("bfloat16", 256, 12) == 226432 <= 227 * 1024
     deep = RENIModel(RENIConfig(use_pallas=True, hidden_layers=12))
     assert deep.fused_step_reason(100, 8192) is None
-    # the chain kernel (float32, and bf16 widths not a multiple of 64) keeps
-    # every layer of a tile: more than the backward kernel
-    assert ts.step_smem_bytes("float32", 256, 5) > tb.bwd_smem_bytes(False, "float32", 256, 5)
+    # the chain kernel (bf16 widths not a multiple of 64; the float32 trunk
+    # takes the tiled passes) keeps every layer of a tile: more than the
+    # backward kernel
+    assert ts.chain_smem_bytes("float32", 256, 5) > tb.bwd_smem_bytes(False, "float32", 256, 5)
     assert ts.step_smem_bytes("bfloat16", 96, 5) > tb.bwd_smem_bytes(False, "bfloat16", 96, 5)
 
 
@@ -481,27 +488,32 @@ def test_film_step_reference_operands_and_results():
         (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
         (dict(), (70000, 128, 1), "grid limit"),
         (dict(), (4, 0, 1), "no pixels"),
-        (dict(hidden_features=512), (4, 128, 1), "shared memory"),
+        (dict(hidden_features=512), (4, 128, 1), None),
         (dict(hidden_layers=0), (4, 128, 1), "needs a trunk layer"),
-        (dict(hidden_layers=7, hidden_features=320), (4, 128, 1), "FiLM train step of a 7 x 320"),
-        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), "shared memory"),
+        (dict(hidden_layers=7, hidden_features=320), (4, 128, 1), None),
+        (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), None),
+        (dict(hidden_layers=20, hidden_features=96), (4, 128, 1), "FiLM train step of a 20 x 96"),
     ],
     ids=["off", "grid_batch", "width", "batch", "npix", "smem_wide", "no_layer", "smem_deep",
-         "smem_deep_f32"],
+         "smem_deep_f32", "chain_deep_96"],
 )
 def test_fused_step_reason_film_guards(cfg, shape, match):
     """Every guard of fused_step_reason for a FiLM model: those of
-    RENIModel.apply, then the FiLM step kernel's own limits."""
+    RENIModel.apply, then the FiLM step kernel's own limits. The tiled
+    passes take 5 x 512 and 7 x 320 bf16 and 12 x 256 float32 (None:
+    accepted); a bf16 width that is not a multiple of 64 keeps the chain
+    kernel's depth limit."""
     model = RENIModel(RENIConfig(**{**dict(use_pallas=True, conditioning="FiLM"), **cfg}))
-    assert match in model.fused_step_reason(*shape)
+    reason = model.fused_step_reason(*shape)
+    assert reason is None if match is None else match in reason
 
 
 def test_fused_step_reason_accepts_the_published_film_shapes():
     """The FiLM Zoo trunk (5 x 256, bf16) at the three curriculum stages with a
     shared or a per-image grid, and every shape JAX's fused_step_reason
     accepts for it; last_layer_linear matters only for Cond-by-Concat (JAX's
-    rule); one trunk layer is taken; the shared-memory mirror of
-    csrc/siren_step.cuh."""
+    rule); one trunk layer is taken (by the tiled passes); the shared-memory
+    mirror of csrc/siren_step.cuh."""
     model = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM"))
     jm = JModel(JConfig(use_pallas=True, conditioning="FiLM"))
     for npix in (512, 2048, 8192):
@@ -517,10 +529,12 @@ def test_fused_step_reason_accepts_the_published_film_shapes():
     # the passes: the Cond-by-Concat layout, no depth in it
     assert ts.film_step_smem_bytes("bfloat16", 256, 4) == ts.step_smem_bytes(
         "bfloat16", 256, 4, film=True) == ts.pass_smem_bytes(256)
-    # the chain kernel (one trunk layer; bf16 widths not a multiple of 64):
-    # what it keeps beyond the FiLM backward kernel is a target, a
-    # pixel-weight and a loss tile (the 8 loss partials fit the sums' padding)
-    assert not ts.pass_route("bfloat16", 256, 0)
+    # one trunk layer: the tiled passes' last pass alone; the chain kernel
+    # (bf16 widths not a multiple of 64, one trunk layer among them): what it
+    # keeps beyond the FiLM backward kernel is a target, a pixel-weight and a
+    # loss tile (the 8 loss partials fit the sums' padding)
+    assert ts.pass_design("bfloat16", 256, 0) == "tiled"
+    assert not ts.pass_route("bfloat16", 96, 0)
     assert ts.film_step_smem_bytes("bfloat16", 96, 4) - tb.bwd_smem_bytes(
         True, "bfloat16", 96, 4) == 3 * 512
     deep = RENIModel(RENIConfig(use_pallas=True, conditioning="FiLM", hidden_layers=12))
@@ -697,18 +711,23 @@ def test_plain_passes_write_every_slot_once(film):
 @pytest.mark.parametrize(
     "trunk,hidden,n_mm,passes",
     [("bfloat16", 256, 5, True), ("bfloat16", 64, 1, True), ("bfloat16", 192, 3, True),
-     ("bfloat16", 96, 2, False), ("bfloat16", 32, 2, False), ("float32", 256, 5, False),
-     ("bfloat16", 256, 0, False)],
-    ids=["zoo", "narrow", "192", "96", "32", "float32", "film_one_layer"],
+     ("bfloat16", 96, 2, False), ("bfloat16", 32, 2, False), ("float32", 256, 5, True),
+     ("bfloat16", 256, 0, True), ("bfloat16", 96, 0, False)],
+    ids=["zoo", "narrow", "192", "96", "32", "float32", "film_one_layer", "film_one_layer_96"],
 )
 def test_step_route_rule(trunk, hidden, n_mm, passes):
-    """The routing rule: the passes take bf16 widths that are a multiple of
-    64 with an H x H product; the chain kernel the float32 trunk, other bf16
-    widths and a FiLM trunk of one layer. The shared-memory figure and the
-    limit follow the route."""
+    """The routing rule: the wgmma passes take bf16 widths that are a
+    multiple of 64 up to 256 with an H x H product, the tiled passes the
+    float32 trunk and a FiLM trunk of one layer; the chain kernel other bf16
+    widths, a one-layer FiLM trunk among them. The shared-memory figure and
+    the limit follow the route."""
     assert ts.pass_route(trunk, hidden, n_mm) is passes
     smem = ts.step_smem_bytes(trunk, hidden, n_mm)
-    assert smem == (ts.pass_smem_bytes(hidden) if passes
-                    else ts.chain_smem_bytes(trunk, hidden, n_mm))
-    if passes:
-        assert ts.step_smem_bytes(trunk, hidden, n_mm + 20) == smem  # no depth limit
+    design = ts.pass_design(trunk, hidden, n_mm)
+    assert smem == {"wgmma": ts.pass_smem_bytes(hidden),
+                    "tiled": ts.tiled_smem_bytes(trunk, hidden)}.get(
+                        design, ts.chain_smem_bytes(trunk, hidden, n_mm))
+    if passes:  # no depth limit on either pass design
+        deeper = max(n_mm, 1)
+        assert ts.step_smem_bytes(trunk, hidden, deeper + 20) == ts.step_smem_bytes(
+            trunk, hidden, deeper)

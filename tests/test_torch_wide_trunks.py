@@ -1,0 +1,233 @@
+"""The trunks past the wgmma passes' width (bf16 widths from 320 to 1,024) and
+the float32 trunk, which the port's tiled passes (csrc/tiled_passes.cuh)
+take at any depth: the routing envelope held against JAX's
+``unsupported_reason``, and the port's plain versions (the forward, the
+backward and the step as the plain passes chain them) held against the JAX
+package's Pallas kernels in interpret mode, as tests/test_pallas.py runs
+them, on the same numpy-seeded operands. The CUDA kernels themselves are
+checked on the card (tests/test_torch_cuda.py and chip_smoke.py's wide
+phase)."""
+
+import math
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from reni_tpu.kernels import siren_pallas as jk
+from reni_tpu_torch.kernels import siren_bwd as tb
+from reni_tpu_torch.kernels import siren_fwd as tk
+from reni_tpu_torch.kernels import siren_step as ts
+from reni_tpu_torch.models.reni import RENIConfig, RENIModel
+
+ENVELOPE = [(H, depth) for H in range(128, 1025, 128) for depth in range(1, 17)]
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+@pytest.mark.parametrize("conditioning", ["Cond-by-Concat", "FiLM"])
+@pytest.mark.parametrize("H,depth", ENVELOPE, ids=[f"H{h}-L{d}" for h, d in ENVELOPE])
+def test_port_takes_every_trunk_jax_takes(H, depth, conditioning, trunk):
+    """Wherever JAX's unsupported_reason accepts a trunk (a width that is a
+    multiple of 128, any depth, both trunks), the port's step kernel
+    (fused_step_reason) and apply's guard with a gradient (decode_reason)
+    accept it too, at FIT_DECODER's batch and last stage."""
+    B, npix = 100, 8192
+    assert jk.unsupported_reason(npix, H, batch=B) is None
+    model = RENIModel(RENIConfig(conditioning=conditioning, hidden_layers=depth,
+                                 hidden_features=H, use_pallas=True, pallas_trunk=trunk))
+    assert model.fused_step_reason(B, npix) is None
+    assert model.decode_reason(B, npix, grad=True) is None
+    n_mm = depth - 1 if conditioning == "FiLM" else depth
+    assert ts.pass_design(trunk, H, n_mm) == ("wgmma" if trunk == "bfloat16" and H <= 256 and n_mm
+                                              else "tiled")
+
+
+def _operands(film, B, P, H, n_mm, seed):
+    """Packed trunk operands (SIREN-scaled weights, frequencies near 30 for
+    FiLM), an output cotangent g (B, P, 8) and the loss operands, from a
+    seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    u = lambda *s, b=1.0: torch.from_numpy(rng.uniform(-b, b, size=s).astype(np.float32))
+    d = torch.zeros(1, P, 8)
+    d[..., :4] = u(1, P, 4)
+    a = torch.zeros(B, 8, H)
+    a[:, :4] = u(B, 4, H, b=0.5)
+    ws = u(n_mm, H, H, b=np.sqrt(6 / H) / 30)
+    wf = torch.zeros(H, 8)
+    wf[:, :3] = u(H, 3, b=np.sqrt(6 / H) / 30)
+    bf = torch.zeros(1, 8)
+    bf[0, :3] = u(3, b=0.1)
+    g = torch.from_numpy(rng.normal(size=(B, P, 8)).astype(np.float32))
+    tgt, sw = torch.zeros(B, P, 8), torch.zeros(1, P, 8)
+    tgt[..., :3], sw[..., :3] = u(B, P, 3, b=0.5), u(1, P, 3).abs()
+    bm = torch.ones(B, 1, 8)
+    bm[-1] = 0.0  # a masked row
+    if film:
+        T = n_mm + 1
+        ops = (d, a, ws, u(T, H, b=0.05), wf, bf, 30 + 5 * u(B, 1, T * H), u(B, 1, T * H))
+        kw = dict(fast_sine=True)
+    else:
+        ops = (d, a, u(B, 1, H, b=0.1), ws, u(n_mm, H, b=0.05), wf, bf)
+        kw = dict(omega0=30.0, omega_h=30.0, fast_sine=True)
+    return ops, g, (tgt, sw, bm), kw
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _worst(got, ref):
+    """The largest max |diff| / max |ref| over the results."""
+    worst = 0.0
+    for x, r in zip(got, ref):
+        x, r = _np(x), _np(r)
+        assert x.shape == r.shape, (x.shape, r.shape)
+        if r.size:
+            worst = max(worst, float(np.abs(x - r).max() / np.abs(r).max()))
+    return worst
+
+
+WIDE_CASES = [  # (film, H, n_mm)
+    (False, 384, 2), (True, 384, 2), (False, 512, 3), (True, 512, 2)]
+# float32: 5e-5 of each result's largest entry; bf16: the output at the bars
+# of test_fused_bf16_trunk_close (max 0.05, mean 0.01), the loss to 1e-3
+# relative and each gradient to 2.5e-3 of its largest entry (the bars of
+# tests/test_torch_step.py's bf16 step against Pallas)
+BARS = {"float32": (5e-5, 5e-5), "bfloat16": (1e-3, 2.5e-3)}
+
+
+@pytest.mark.parametrize("trunk", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[f"{'film' if c[0] else 'cbc'}-H{c[1]}-mm{c[2]}"
+                                                  for c in WIDE_CASES])
+def test_plain_versions_match_pallas_past_256(case, trunk):
+    """At H = 384 and 512 (the tiled passes' route on the card) the port's
+    plain forward, the backward and the step as the plain passes chain them
+    (the scratch and per-CTA slots of a 2-SM card) against JAX's Pallas
+    forward, _bwd_kernel / _film_bwd_kernel and _step_kernel /
+    _film_step_kernel in interpret mode on the same operands (B = 2, P = 256:
+    two 128-row tiles on both sides)."""
+    film, H, n_mm = case
+    B, P = 2, 256
+    ops, g, loss_ops, kw = _operands(film, B, P, H, n_mm, seed=H + n_mm)
+    kw["trunk"] = trunk
+    assert ts.pass_design(trunk, H, n_mm) == "tiled"
+    dtype = {"bfloat16": jnp.bfloat16, "float32": None}[trunk]
+    gscale = 1.0 / (3 * P)
+    if film:
+        fwd, bwd = jk._film_calls(n_mm + 1, H, tile=128, trunk_dtype=dtype, interpret=True,
+                                  fast_sine=True)
+        step = jk._film_step_call_builder(n_mm + 1, H, out_act="tanh", gscale=gscale, tile=128,
+                                          trunk_dtype=dtype, interpret=True, fast_sine=True)
+        plain_fwd = tk.film_trunk_reference
+    else:
+        fwd, bwd = jk._siren_calls(n_mm, H, 30.0, 30.0, tile=128, trunk_dtype=dtype,
+                                   interpret=True, fast_sine=True)
+        step = jk._step_call_builder(n_mm, H, 30.0, 30.0, out_act="tanh", gscale=gscale,
+                                     tile=128, trunk_dtype=dtype, interpret=True, fast_sine=True)
+        plain_fwd = tk.siren_trunk_reference
+    j = lambda ts_: [jnp.asarray(_np(t)) for t in ts_]
+    loss_bar, grad_bar = BARS[trunk]
+    with torch.no_grad():
+        out = _np(plain_fwd(*ops, **kw))
+        ref_out = np.asarray(fwd(*j(ops)))
+        err = np.abs(out - ref_out)
+        if trunk == "float32":
+            assert err.max() <= 5e-5, err.max()
+        else:
+            assert err.max() < 0.05 and err.mean() < 0.01, (err.max(), err.mean())
+
+        got = ts.bwd_passes_reference(film, ops, g, kw, True, sms=2)
+        ref = bwd(*j(ops), jnp.asarray(_np(g)))
+        assert _worst(got, ref) <= grad_bar
+
+        step_kw = dict(kw, out_act="tanh", gscale=gscale)
+        got = ts.step_passes_reference(film, (*ops, *loss_ops), step_kw, sms=2)
+        ref = step(*j(ops), *j(loss_ops))
+        loss, loss_ref = float(got[0].sum()), float(np.asarray(ref[0]).sum())
+        assert abs(loss - loss_ref) <= loss_bar * abs(loss_ref), (loss, loss_ref)
+        assert _worst(got[1:], ref[1:]) <= grad_bar
+
+
+TILED_CASES = [  # (film, trunk, H, n_mm, P)
+    (False, "float32", 80, 3, 300), (True, "float32", 48, 2, 200), (False, "bfloat16", 320, 1, 140),
+    (True, "bfloat16", 1024, 0, 130), (True, "float32", 1024, 1, 70)]
+
+
+@pytest.mark.parametrize("case", TILED_CASES, ids=[
+    f"{'film' if c[0] else 'cbc'}-{c[1]}-H{c[2]}-mm{c[3]}" for c in TILED_CASES])
+def test_plain_passes_match_plain_step_on_the_tiled_route(case):
+    """The plain passes of the tiled route's shapes (float32 widths that are
+    a multiple of 16, a bf16 width past 256, a one-layer FiLM trunk whose
+    last pass forms layer 0 and dA itself) chained equal the plain step and
+    the plain backward. Bars: float32 1e-6 x max |reference| (the slots sum
+    in another order), bf16 1e-2 x max |reference|."""
+    film, trunk, H, n_mm, P = case
+    B = 3
+    ops, g, loss_ops, kw = _operands(film, B, P, H, n_mm, seed=7)
+    kw["trunk"] = trunk
+    bar = 1e-6 if trunk == "float32" else 1e-2
+    step_kw = dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+    plain_step = ts.film_step_reference if film else ts.siren_step_reference
+    with torch.no_grad():
+        got = ts.step_passes_reference(film, (*ops, *loss_ops), step_kw, sms=2)
+        ref = plain_step(*ops, *loss_ops, **step_kw)
+        assert _worst(got, ref) <= bar
+        plain_bwd = tb.film_trunk_bwd_reference if film else tb.siren_trunk_bwd_reference
+        for weight_grads in (False, True):
+            got = ts.bwd_passes_reference(film, ops, g, kw, weight_grads, sms=2)
+            ref = plain_bwd(*ops, g, **kw, weight_grads=weight_grads)
+            assert all((x is None) == (r is None) for x, r in zip(got, ref))
+            assert _worst([x for x in got if x is not None], [r for r in ref if r is not None]) <= bar
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_tiled_plan_scratch_and_costs(trunk):
+    """The tiled route's plan at 5 x 512 (FIT_DECODER's 100 x 8,192 on a
+    132-SM card): the trunk's dtype in the scratch (bf16 18 KB a row,
+    float32 28 KB) and in the byte counts (46 KB and 76 KB of traffic a row), the products' FLOP, and the
+    split-K partials of dWs in the device-memory budget (C-1)."""
+    plan = ts.step_plan(False, 100, 8192, 512, 5, 132, trunk=trunk)
+    assert plan.design == "tiled"
+    e = 2 if trunk == "bfloat16" else 4
+    assert plan.row_bytes == 512 * (e * 2 * 5 + 4 * 4)
+    flops = sum(plan.pass_cost(k)[0] for k in range(10)) + plan.wgrad_cost()[0]
+    assert 15 * 2 * 512 * 512 * plan.rows <= flops < 1.02 * 15 * 2 * 512 * 512 * plan.rows
+    per_row = (sum(plan.pass_cost(k)[1] for k in range(10)) + plan.wgrad_cost()[1]) / plan.rows
+    assert per_row == pytest.approx(46_200 if trunk == "bfloat16" else 75_900, rel=0.01)
+    tiles = math.ceil(512 / tb.WGRAD_TILE[trunk]) ** 2
+    chunks = max(1, tb.WGRAD_CTAS_PER_SM * 132 // (tiles * 5))
+    assert plan.wgrad_bytes == (chunks + 3) * 5 * 512 * 512 * 4
+    slots = plan.batch * plan.chunks * (plan.n_img + plan.n_w) + plan.batch * plan.n_img + plan.n_w
+    assert plan.scratch_bytes == plan.rows * plan.row_bytes + 4 * slots + plan.wgrad_bytes
+    per, n = tb.wgrad_chunks(plan.rows, 512, 5, trunk, "cpu", sms=132)
+    assert n <= chunks  # a call's partials never exceed what the budget counts
+    no_w = ts.step_plan(False, 100, 8192, 512, 5, 132, bwd=True, weight_grads=False, trunk=trunk)
+    assert no_w.wgrad_bytes == 0
+
+
+def test_budget_counts_the_split_k_partials_at_1024():
+    """C-1: at 5 x 1,024 the split-K partials of dWs (and dWs with a grouped
+    call's running sum) are in the budget a grouped call divides, not in
+    MEM_MARGIN: a budget that holds the scratch of 10 images besides them
+    gives groups of 10, one that holds it only without them gives more."""
+    plan = ts.step_plan(False, 100, 8192, 1024, 5, 132)
+    assert plan.wgrad_bytes >= 4 * 5 * 1024 * 1024 * 4  # partials, dWs, sum and group slot
+    fixed = plan.scratch_bytes - plan.rows * plan.row_bytes
+    per_image = plan.npix * plan.row_bytes
+    assert plan.groups(fixed + 10 * per_image)[0] == (0, 10)
+    assert plan.groups(fixed - plan.wgrad_bytes + 10 * per_image)[0][1] < 10
+
+
+def test_declines_that_remain():
+    """What the port still declines, and why: a bf16 width that is not a
+    multiple of 64 (the chain kernel's depth limit; JAX declines it too, not
+    a multiple of 128), widths past 1,024 on the step and the backward, and
+    the float32 forward past its 64-row tile limits at H = 2,048."""
+    assert ts.pass_design("bfloat16", 96, 40) is None
+    assert "shared memory" in ts.step_unsupported_reason(96, 40, "bfloat16")
+    assert "shared memory" in tb.bwd_unsupported_reason(96, 40, False, "bfloat16")
+    assert jk.unsupported_reason(8192, 96) is not None
+    assert ts.pass_design("bfloat16", 1088, 5) is None
+    assert "shared memory" in ts.step_unsupported_reason(1088, 5, "bfloat16")
+    assert "shared memory" in tk.unsupported_reason(8192, 2048, trunk="float32")

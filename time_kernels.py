@@ -4,6 +4,7 @@ of a kernel source in one process chain on one card.
 
     python3 time_kernels.py             # from the repository root, one NVIDIA GPU
     python3 time_kernels.py --anatomy   # the anatomy probes in place of the kernels
+    python3 time_kernels.py --float32   # the Zoo's trunks under the float32 trunk
 
 Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
 decoders, bf16 trunk, fast sine) prints the median time of both train-step
@@ -36,6 +37,16 @@ the attribution line of the shipped backward at each shape
 (``chip_smoke.attribution``: sines, weight work, the reduction after the
 passes, ``wgrad_bf16``, the skeleton, against the bound and the passes' byte
 floor): what each part of the shipped kernels costs.
+
+With ``--float32`` it prints instead the median time of both train-step
+kernels at 100 x 8,192 and of both backward kernels at 21 x 8,192 with and
+without weight gradients, on the Cond-by-Concat and FiLM Zoo decoders (5 x
+256) run with the float32 trunk (``TPU.PRECISION: float32``), each after one
+check against its plain version, and whether the trunk is on the
+layer-major passes (``siren_step.pass_route``). It uses only entry points
+that the port has had since its chain kernels took the float32 trunk, so
+the same file times an older tree: copy it into that tree's root and run it
+there.
 """
 
 from __future__ import annotations
@@ -78,10 +89,51 @@ def anatomy(dev) -> None:
     print(cs.card_line())
 
 
+def float32_zoo(dev) -> None:
+    """Print the float32 trunk's step and backward times on the Zoo's 5 x
+    256 decoders (``--float32``), then the card line."""
+    from reni_tpu_torch.core import sphere
+    from reni_tpu_torch.kernels import siren_step as ts
+    from reni_tpu_torch.train import checkpoint as ckpt
+
+    table = ckpt.load_checkpoint(os.path.join(cs.CBC, "checkpoint"))[0]["latents"]["mu"]
+    mu = torch.as_tensor(table, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    D = sphere.get_directions(128, device=dev)
+    P = D.shape[1]
+    with torch.no_grad():
+        for name, entry in (("siren", cs.CBC), ("film", cs.FILM)):
+            cfg, dec, z21 = cs.load_entry(entry, dev)
+            n_mm = cfg.hidden_layers - 1 if cfg.is_film else cfg.hidden_layers
+            print(f"{name} float32 {cfg.hidden_layers} x {cfg.hidden_features}: on the passes "
+                  f"{ts.pass_route('float32', cfg.hidden_features, n_mm)}")
+            targets = torch.tanh(torch.randn((100, P, 3), generator=gen, device=dev))
+            ops = cs.step_operands(cfg, dec, mu[:100], D, targets,
+                                   sphere.get_sineweight(128, device=dev))
+            kw = cs.step_kwargs(cfg, P, "float32")
+            kernel = ts.film_step_cuda if cfg.is_film else ts.siren_step_cuda
+            plain = ts.film_step_reference if cfg.is_film else ts.siren_step_reference
+            errs = relative_errors(kernel(*ops, **kw)[1:], plain(*ops, **kw)[1:])
+            ms = cs.time_ms(lambda: kernel(*ops, **kw), runs=10)
+            print(f"{name}_step float32 100 x {P:,}: {ms:.3f} ms; vs plain {errs}")
+            del ops
+            trunk_ops, g = cs.packed(cfg, dec, z21, D), cs.cotangent(z21, P, seed=3)
+            for wgrad in (False, True):
+                bwd, plain_bwd, bkw = cs.bwd_fns(cfg, trunk="float32", weight_grads=wgrad)
+                errs = relative_errors(bwd(*trunk_ops, g, **bkw), plain_bwd(*trunk_ops, g, **bkw))
+                ms = cs.time_ms(lambda: bwd(*trunk_ops, g, **bkw), runs=10)
+                print(f"{name}_bwd float32 21 x {P:,} {'with' if wgrad else 'without'} weight "
+                      f"gradients: {ms:.3f} ms; vs plain {errs}")
+            torch.cuda.empty_cache()
+    print(cs.card_line())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--anatomy", action="store_true",
                     help="time the anatomy probes in place of the training kernels")
+    ap.add_argument("--float32", action="store_true",
+                    help="time the Zoo's trunks with the float32 trunk in place of the kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device is available", file=sys.stderr)
@@ -90,6 +142,9 @@ def main(argv=None) -> int:
     if args.anatomy:
         cs.build_all()
         anatomy(torch.device(cs.DEVICE))
+        return 0
+    if args.float32:  # builds at first call only what the float32 trunk runs
+        float32_zoo(torch.device(cs.DEVICE))
         return 0
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_bwd as tb
