@@ -69,8 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
 5. fit_latent  - train.tasks.fit_task FIT_LATENT on each Zoo decoder at the
                  published hyperparameters (21 maps in one batch, Adam b1=0
                  b2=0.9, LR 1e-2 -> 1e-4, curriculum 16x32 -> 32x64 ->
-                 64x128) with the epochs cut from 2,400 to 300 (curriculum
-                 100, 200), from fresh latents (load_decoder_only, mu = 0)
+                 64x128) with the epochs cut from 2,400 to 150 (curriculum
+                 50, 100), from fresh latents (load_decoder_only, mu = 0)
                  to the port's own decode of the entry's 21 test latents;
                  once more masked with data/Masks/Mask-3.png (cbc). Per
                  stage: median ms per step (CUDA events around whole steps),
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero and prints no result line):
                  published RENI.FIT_INVERSE (data/3D_Models/teapot.obj, a
                  64x64 render, KD_VALUE 1.0, one view, batch 1, 64x128 maps =
                  8,192 lights, Adam b1=0 b2=0.999, LR 1e-2 -> 1e-5) with the
-                 epochs cut from 1,200 to 40 (840 steps), from fresh latents
+                 epochs cut from 1,200 to 20 (420 steps), from fresh latents
                  to the 21 seed-1 test maps, through the kernels and through
                  the plain decoder from the same generators. First the
                  backward at one latent x 8,192 against its plain version
@@ -170,9 +170,9 @@ Phases (any failure exits non-zero and prints no result line):
                  configs/zoo_synthetic.yaml (written here as JSON: the card
                  has no PyYAML) with the chain FIT_DECODER -> FIT_LATENT ->
                  FIT_INVERSE (FIT_INVERSE as in the fit_inverse phase) on the
-                 seed-1 maps, cut to 30 / 60 / 10 epochs (curricula (10, 20)
-                 and (20, 40)), checkpoints every 5 epochs, 10 image grids
-                 every 10. Run A: the chain in this process through
+                 seed-1 maps, cut to 16 / 32 / 8 epochs (curricula (8, 12)
+                 and (8, 16)), checkpoints every 4 epochs, 10 image grids
+                 every 8. Run A: the chain in this process through
                  cli.run.cli, the step kernel once per FIT_DECODER step, the
                  backward and the forward passes once per FIT_LATENT and
                  FIT_INVERSE step, the fused forward once per grid; best-2 +
@@ -412,8 +412,8 @@ BWD_BAR = {"bfloat16": 1e-2, "float32": 1e-4}
 BWD_WIDTHS = (256, 128)  # 21 x 32,768 and 21 x 8,192 directions
 MASK = os.path.join(ROOT, "data", "Masks", "Mask-3.png")
 # FIT_LATENT: the published task (config.yaml RENI.FIT_LATENT) with the
-# epochs cut from 2,400 to 300
-FIT_EPOCHS, FIT_CURRICULUM = 300, (100, 200)
+# epochs cut from 2,400 to 150
+FIT_EPOCHS, FIT_CURRICULUM = 150, (50, 100)
 FIT_RES = ((16, 32), (64, 128))  # initial and final resolution
 PSNR_BAR_DB = 0.1  # ROADMAP yardstick for trained runs
 # FIT_DECODER: the published task (config.yaml RENI.FIT_DECODER) with the
@@ -425,7 +425,10 @@ STEP_TIMED = (100, 21)  # batches timed at 64 x 128
 ANATOMY_WIDTH = 128  # the probes are held against their plain versions at 21 x 8,192
 ANATOMY_WIDE = 256  # and timed there and at 21 x 32,768
 ANATOMY_RUNS = 5  # timed runs per probe here; time_kernels.py --anatomy takes more
-WIDE = (("float32", 512), ("bfloat16", 1024))  # forward widths past the 64-row tile
+# forward widths past the 64-row tile; float32 2,048 is past the 16-row tile
+# too: the passes' output mode (siren_fwd.fwd_route "passes")
+WIDE = (("float32", 512), ("bfloat16", 1024), ("float32", 2048))
+C8_SHAPE = (65536, 64, 64, 2)  # images, directions, width, products: past the grid's old y limit
 DEEP_MM = 8  # products of the deepened trunk the backward is held at
 # the chain kernels (csrc/siren_step.cuh, csrc/siren_bwd.cuh) on the bf16
 # trunks no pass design takes, a width that is not a multiple of 64: (H, H x
@@ -440,9 +443,9 @@ SEED_MAPS = dict(train=1000, test=21, width=128, seed=1)
 PUBLISHED_TRANSFORMS = [["minmaxnormalise", [-18.0536, 11.4633]]]
 # FIT_INVERSE: the published task (config.yaml RENI.FIT_INVERSE: teapot,
 # 64 x 64 render, KD_VALUE 1.0, one view, batch 1, 64 x 128 maps) with the
-# epochs cut from 1,200 to 40
+# epochs cut from 1,200 to 20
 TEAPOT = os.path.join(ROOT, "data", "3D_Models", "teapot.obj")
-INV_EPOCHS, INV_RENDER, INV_KD = 40, 64, 1.0
+INV_EPOCHS, INV_RENDER, INV_KD = 20, 64, 1.0
 # the TF32 guard: one GT render with a specular term (kd 0.5) in float32
 # against float64, sum |f32 - f64| / sum |f64| (K = 3 dots whose inputs are
 # rounded to TF32's 10 mantissa bits put more than 1e-2 there:
@@ -506,8 +509,8 @@ ZOO_SYNTHETIC = {
     },
 }
 CLI_TASKS = ("FIT_DECODER", "FIT_LATENT", "FIT_INVERSE")
-CLI_CUTS = {"FIT_DECODER": (30, [10, 20]), "FIT_LATENT": (60, [20, 40]), "FIT_INVERSE": (10, None)}
-CLI_EVERY, CLI_IMAGES_EVERY = 5, 10
+CLI_CUTS = {"FIT_DECODER": (16, [8, 12]), "FIT_LATENT": (32, [8, 16]), "FIT_INVERSE": (8, None)}
+CLI_EVERY, CLI_IMAGES_EVERY = 4, 8
 CLI_PROBE_S = 600  # time limit of each process of the crash / relaunch probe
 CLI_INVERSE_BAR = 1e-6  # FIT_INVERSE's final latents, run B vs run A, relative, if not bitwise
 # export: the artifact (the plain decoder) against the plain decoder, float32
@@ -528,9 +531,9 @@ CODEC_FILES = (("PIZ", "half"), ("B44", "half"), ("B44A", "half"), ("DWAA", "hal
                ("DWAB", "half"), ("PIZ", "float"))
 CODEC_PYTHON_DWA = 4
 # stream: FIT_DECODER (decoder_task_config) with the epochs cut from 2,400 to
-# 9 (3 a stage); chunk 5 divides the 10 batches an epoch; 64x128 steps
+# 6 (2 a stage); chunk 5 divides the 10 batches an epoch; 64x128 steps
 # [10, 18) of the from-disk run traced; the host stage timed over 200 rows
-STREAM_EPOCHS, STREAM_CURRICULUM = 9, (3, 6)
+STREAM_EPOCHS, STREAM_CURRICULUM = 6, (2, 4)
 STREAM_CHUNK = 5
 STREAM_PROFILED = (10, 18)
 STREAM_THREADS, STREAM_RATE_ROWS = (1, 2, 4, 8), 200
@@ -557,12 +560,15 @@ TP_CHAIN_CUTS = {"FIT_DECODER": (2, None, [16, 32]), "FIT_LATENT": (2, [1], [32,
 # step) and the trainer's chain at (H, layers, trunk), each cut to
 # WIDE_CLI_CUTS (epochs, curriculum)
 WIDE_KERNELS = (("bfloat16", 384, 5), ("bfloat16", 512, 5), ("bfloat16", 1024, 3),
-                ("float32", 256, 12), ("float32", 512, 5), ("float32", 1024, 3))
+                ("float32", 256, 12), ("float32", 512, 5), ("float32", 1024, 3),
+                ("bfloat16", 1152, 3), ("bfloat16", 2048, 2), ("float32", 1152, 3),
+                ("float32", 2048, 2))
 WIDE_ONE_LAYER = (("bfloat16", 256), ("float32", 256))  # (trunk, H) of one-layer FiLM trunks
 WIDE_FIT = (512, 6, (2, 4))  # width, epochs, curriculum
 WIDE_CHAINS = ((512, 5, "bfloat16"), (256, 12, "float32"))
 WIDE_CLI_CUTS = {"FIT_DECODER": (6, [2, 4]), "FIT_LATENT": (6, [2, 4]), "FIT_INVERSE": (1, None)}
 WIDE_TIMED = (512, 5)  # the width and products timed for the kernels line
+WIDE_ZOO_F32 = (256, 5)  # and the Zoo's own trunk under TPU.PRECISION: float32 (the step)
 
 
 T0 = time.perf_counter()  # the phases' start times are counted from import
@@ -3637,8 +3643,10 @@ def wide_trunk(H: int, device, B: int = 21, P: int = 8192, L: int = 2, seed: int
 
 def compare_wide(device, errors, rel_errors) -> None:
     """The forward at widths past the 64-row tile (WIDE) against its plain
-    version at 21 x 8,192: the row-tile kernel, on its 32-row tile."""
+    version at 21 x 8,192: the row-tile kernel, on its 32-row tile, and past
+    the 16-row tile the passes' output mode (siren_step.passes_output)."""
     from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
 
     kw0 = dict(omega0=30.0, omega_h=30.0, fast_sine=True)
     for trunk, H in WIDE:
@@ -3646,21 +3654,83 @@ def compare_wide(device, errors, rel_errors) -> None:
         kw = dict(kw0, trunk=trunk)
         check(tk.unsupported_reason(ops[0].shape[1], H, 21, trunk) is None,
               f"the forward declines H = {H} ({trunk})")
-        tiles = tk.tile_fwd_launches
+        route = tk.fwd_route(trunk, H, ops[3].shape[0])
+        count = lambda: tk.tile_fwd_launches if route == "tile" else ts.passes_output.launches
+        before = count()
         with torch.no_grad():
-            out, ref = tk.siren_trunk_cuda(*ops, **kw), tk.siren_trunk_reference(*ops, **kw)
+            out, again = tk.siren_trunk_cuda(*ops, **kw), tk.siren_trunk_cuda(*ops, **kw)
+            ref = tk.siren_trunk_reference(*ops, **kw)
         torch.cuda.synchronize()
-        check(tk.tile_fwd_launches == tiles + 1, f"H = {H} ({trunk}) did not take the row-tile kernel")
+        check(count() == before + 2, f"H = {H} ({trunk}) did not take the {route} route")
+        same_bits(f"siren_fwd H={H} {trunk}", (out,), (again,))
         err = (out - ref).abs()
         mx, mean = err.max().item(), err.mean().item()
-        print(f"siren_fwd H={H} {trunk} (a {tk.tile_rows(H, trunk)}-row tile) B=21 P=8192: "
-              f"max abs err {mx:.3g}, mean {mean:.3g}")
+        how = f"a {tk.tile_rows(H, trunk)}-row tile" if route == "tile" else "the passes"
+        print(f"siren_fwd H={H} {trunk} ({how}) B=21 P=8192: max abs err {mx:.3g}, mean "
+              f"{mean:.3g}; two calls bitwise equal")
         if trunk == "float32":
             check(mx < F32_MAX_ERR[True], f"H = {H} float32 forward off the float32 bar")
         else:
             check(mx < MAX_ERR and mean < MEAN_ERR, f"H = {H} bf16 forward off the bf16 bar")
         errors["siren_fwd"].append(mx)
         rel_errors["siren_fwd"].append(mx / ref.abs().max().item())
+
+
+def compare_c8(device, errors, rel_errors) -> dict:
+    """C-8, batches past the grid's old y limit of 65,535 images, at
+    C8_SHAPE: the forward on both routes (the fused kernel in bf16, the
+    row-tile kernel in float32), the backward with and without weight
+    gradients and the step on the wgmma passes (bf16) and on the tiled
+    passes (float32), each against its plain version at the existing bars
+    and called twice for the same bits. Appends the forward's and the
+    backward's errors; returns the step's (max abs, max rel) by trunk."""
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_fwd as tk
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    B, P, H, n_mm = C8_SHAPE
+    step_errs = {}
+    for trunk in ("bfloat16", "float32"):
+        ops, g, loss_ops = wide_operands(False, H, n_mm, device, B=B, P=P, seed=41)
+        kw = wide_kw(False, trunk)
+        route, design = tk.fwd_route(trunk, H, n_mm), ts.pass_design(trunk, H, n_mm)
+        check((route, design) == (("fused", "wgmma") if trunk == "bfloat16" else ("tile", "tiled")),
+              f"C-8 {trunk}: routes {route}, {design}")
+        label = f"C-8 {trunk} {n_mm} x {H} B={B} P={P}"
+        with torch.no_grad():
+            out, again = tk.siren_trunk_cuda(*ops, **kw), tk.siren_trunk_cuda(*ops, **kw)
+            ref = tk.siren_trunk_reference(*ops, **kw)
+            torch.cuda.synchronize()
+            same_bits(f"{label} forward", (out,), (again,))
+            err = (out - ref).abs()
+            mx, mean = err.max().item(), err.mean().item()
+            if trunk == "float32":
+                check(mx < F32_MAX_ERR[kw["fast_sine"]], f"{label} forward off the float32 bar")
+            else:
+                check(mx < MAX_ERR and mean < MEAN_ERR, f"{label} forward off the bf16 bar")
+            errors["siren_fwd"].append(mx)
+            rel_errors["siren_fwd"].append(mx / ref.abs().max().item())
+            del out, again, ref
+            report = [f"forward ({route}) max {mx:.3g} mean {mean:.3g}"]
+            for wgrad in (False, True):
+                bkw = dict(kw, weight_grads=wgrad)
+                got, again = tb.siren_trunk_bwd_cuda(*ops, g, **bkw), tb.siren_trunk_bwd_cuda(
+                    *ops, g, **bkw)
+                ref = tb.siren_trunk_bwd_reference(*ops, g, **bkw)
+                torch.cuda.synchronize()
+                tag = f"{label} backward {'with' if wgrad else 'without'} weight gradients"
+                same_bits(tag, got, again)
+                err, rel = held(tag, got, ref, BWD_BAR[trunk])
+                errors["siren_bwd"].append(err)
+                rel_errors["siren_bwd"].append(rel)
+                report.append(f"backward {'w' if wgrad else 'no w'} {rel:.2g}")
+                del got, again, ref
+            print(f"{label}: {'; '.join(report)}; step ({design} passes):")
+            step_errs[trunk] = compare_step(SimpleNamespace(is_film=False), (*ops, *loss_ops),
+                                            dict(kw, out_act="tanh", gscale=1.0 / (3 * P)))
+        del ops, g, loss_ops
+        torch.cuda.empty_cache()
+    return step_errs
 
 
 def forward_digest(entries, device) -> None:
@@ -4998,6 +5068,16 @@ def held(label: str, got, ref, bar: float) -> tuple[float, float]:
     return worst, worst_rel
 
 
+def route_calls() -> dict:
+    """Calls into the pass libraries by route (siren_step.pass_calls by
+    design and trunk): the wgmma passes, the tiled passes in bf16 and in
+    float32."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    return {"wgmma": ts.pass_calls("wgmma"), "tiled_bf16": ts.pass_calls("tiled", "bfloat16"),
+            "tiled_f32": ts.pass_calls("tiled", "float32")}
+
+
 def same_bits(label: str, a, b) -> None:
     check(all(x is None or torch.equal(x, y) for x, y in zip(a, b)),
           f"{label}: two calls on the same inputs differ")
@@ -5015,7 +5095,7 @@ def wide_compare(device) -> dict:
     from reni_tpu_torch.kernels import siren_step as ts
 
     errs = {name: [0.0, 0.0] for name in ("siren_step", "film_step", "siren_bwd", "film_bwd")}
-    routes = ts.route_launches()
+    routes = route_calls()
     cases = [(trunk, H, n_mm, film) for trunk, H, n_mm in WIDE_KERNELS for film in (False, True)]
     for trunk, H, n_mm, film in cases + [(trunk, H, 0, True) for trunk, H in WIDE_ONE_LAYER]:
         label = f"{'film' if film else 'cbc'} {trunk} {n_mm} x {H}"
@@ -5065,63 +5145,91 @@ def wide_compare(device) -> dict:
               f"{'; '.join(report)}; two calls bitwise equal")
         del ops, g, loss_ops
         torch.cuda.empty_cache()
-    grew = {k: v - routes[k] for k, v in ts.route_launches().items()}
+    grew = {k: v - routes[k] for k, v in route_calls().items()}
     print(f"wide (a) pass calls by route: {grew}")
     check(grew["tiled_bf16"] > 0 and grew["tiled_f32"] > 0 and grew["wgmma"] == 0,
           f"the tiled routes did not run: {grew}")
     return {k: tuple(v) for k, v in errs.items()}
 
 
+def step_split(film: bool, args, kw, device) -> tuple[float, float]:
+    """(passes, dWs) ms of one step on the pass route, by CUDA events: every
+    pass and the slot sums, then dWs = h^T dz alone (wgrad_bf16 /
+    wgrad_f32 and the sum of its split-K partials) over their scratch."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    plan = ts.step_plan_cuda(film, args, device, trunk=kw["trunk"])
+    prep, work = ts.pass_operands(plan, args, kw), ts.PassWork.for_plan(plan, plan.trunk, device)
+    n = len(plan.passes)
+    passes = time_ms(lambda: ts._pass_call(plan, prep, work, 0, n, ts.FINISH_IMG | ts.FINISH_W),
+                     runs=5, warmup=1)
+    wgrad = time_ms(lambda: ts._pass_call(plan, prep, work, 0, 0, ts.FINISH_DWS), runs=5,
+                    warmup=1)
+    return passes, wgrad
+
+
 def wide_timings(device) -> dict:
     """The tiled routes at WIDE_TIMED: the step at FIT_DECODER's 100 x 8,192
     and the backward without weight gradients at FIT_LATENT's 21 x 8,192,
-    each trunk, cbc and FiLM, against the plain version; the bound (the
-    function's bytes, and its operations at the trunk's peak: bf16 tensor
-    cores or float32 FFMA) and the passes' byte floor (StepPlan.pass_cost).
-    Returns {kernel: {route: numbers}}."""
+    each trunk, cbc and FiLM, and the float32 step at WIDE_ZOO_F32, against
+    the plain version; the bound (the function's bytes, and its operations
+    at the trunk's peak: bf16 tensor cores or float32 FFMA), the passes'
+    byte floor (StepPlan.pass_cost) and the step's split between the passes
+    and dWs (step_split). Returns {kernel: {route: numbers}}; the Zoo
+    width's row under the route's name with "@5x256"."""
     from reni_tpu_torch.kernels import siren_step as ts
 
     H, n_mm = WIDE_TIMED
     out: dict = {}
-    for trunk in ("bfloat16", "float32"):
+    cases = [(trunk, film, name, B, H, n_mm - film, "")
+             for trunk in ("bfloat16", "float32") for film in (False, True)
+             # the Zoo's 5 trunk layers: FiLM has one product fewer
+             for name, B in ((("film_step" if film else "siren_step"), 100),
+                             (("film_bwd" if film else "siren_bwd"), 21))]
+    cases.append(("float32", False, "siren_step", 100, *WIDE_ZOO_F32,
+                  "@{1}x{0}".format(*WIDE_ZOO_F32)))
+    for trunk, film, name, B, H, depth, key in cases:
         route = f"tiled_{'bf16' if trunk == 'bfloat16' else 'f32'}"
         peak = PEAK_BF16_FLOPS if trunk == "bfloat16" else PEAK_F32_FLOPS
-        for film in (False, True):
-            depth = n_mm - film  # the Zoo's 5 trunk layers: FiLM has one product fewer
-            kw = wide_kw(film, trunk)
-            for name, B in ((("film_step" if film else "siren_step"), 100),
-                            (("film_bwd" if film else "siren_bwd"), 21)):
-                ops, g, loss_ops = wide_operands(film, H, depth, device, B=B, seed=31)
-                P = g.shape[1]
-                if name.endswith("step"):
-                    kernel, plain = step_fns(SimpleNamespace(is_film=film))
-                    args, fkw = (*ops, *loss_ops), dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
-                    plan = ts.step_plan_cuda(film, args, device, trunk=trunk)
-                    nbytes = step_bytes(args, 4, 3, film, trunk)
-                else:
-                    kernel, plain, _ = bwd_fns(SimpleNamespace(
-                        is_film=film, fast_sine=kw["fast_sine"], pallas_trunk=trunk,
-                        first_omega_0=30.0, hidden_omega_0=30.0), weight_grads=False)
-                    args, fkw = (*ops, g), dict(kw, weight_grads=False)
-                    plan = ts.step_plan_cuda(film, args, device, bwd=True, weight_grads=False,
-                                             trunk=trunk)
-                    nbytes = bwd_bytes(ops, 4, 3, film, trunk, False)
-                flops = (sum(plan.pass_cost(k)[0] for k in range(len(plan.passes)))
-                         + plan.wgrad_cost()[0])
-                with torch.no_grad():
-                    ms = time_ms(lambda: kernel(*args, **fkw), runs=5, warmup=1)
-                    plain_ms = time_ms(lambda: plain(*args, **fkw), runs=2, warmup=1)
-                bound_ms, bound_by = bound(flops, nbytes, peak)
-                floor_ms = byte_floor_ms(plan)
-                print(f"wide {name} {route} {depth} x {H} B={B} P={P}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP "
-                      f"at {peak / 1e12:.0f} TFLOP/s, {nbytes:.4g} B), the passes' byte floor "
-                      f"{floor_ms:.4f} ms -> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s ({CARD})")
-                out.setdefault(name, {})[route] = {
-                    "shape": f"{B}x{P} {depth}x{H}", "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "byte_floor_ms": floor_ms}
-                del ops, g, loss_ops, args
-                torch.cuda.empty_cache()
+        kw = wide_kw(film, trunk)
+        ops, g, loss_ops = wide_operands(film, H, depth, device, B=B, seed=31)
+        P = g.shape[1]
+        if name.endswith("step"):
+            kernel, plain = step_fns(SimpleNamespace(is_film=film))
+            args, fkw = (*ops, *loss_ops), dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+            plan = ts.step_plan_cuda(film, args, device, trunk=trunk)
+            nbytes = step_bytes(args, 4, 3, film, trunk)
+        else:
+            kernel, plain, _ = bwd_fns(SimpleNamespace(
+                is_film=film, fast_sine=kw["fast_sine"], pallas_trunk=trunk,
+                first_omega_0=30.0, hidden_omega_0=30.0), weight_grads=False)
+            args, fkw = (*ops, g), dict(kw, weight_grads=False)
+            plan = ts.step_plan_cuda(film, args, device, bwd=True, weight_grads=False,
+                                     trunk=trunk)
+            nbytes = bwd_bytes(ops, 4, 3, film, trunk, False)
+        flops = (sum(plan.pass_cost(k)[0] for k in range(len(plan.passes)))
+                 + plan.wgrad_cost()[0])
+        with torch.no_grad():
+            ms = time_ms(lambda: kernel(*args, **fkw), runs=5, warmup=1)
+            plain_ms = time_ms(lambda: plain(*args, **fkw), runs=2, warmup=1)
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        floor_ms = byte_floor_ms(plan)
+        split = ""
+        row = {"shape": f"{B}x{P} {depth}x{H}", "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "byte_floor_ms": floor_ms}
+        if name.endswith("step"):
+            with torch.no_grad():
+                row["passes_ms"], row["wgrad_ms"] = step_split(film, args, fkw, device)
+            split = (f"; the passes {row['passes_ms']:.4f} ms, dWs "
+                     f"{row['wgrad_ms']:.4f} ms")
+        print(f"wide {name} {route} {depth} x {H} B={B} P={P}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4g} FLOP "
+              f"at {peak / 1e12:.0f} TFLOP/s, {nbytes:.4g} B), the passes' byte floor "
+              f"{floor_ms:.4f} ms -> {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s{split} "
+              f"({CARD})")
+        out.setdefault(name, {})[route + key] = row
+        del ops, g, loss_ops, args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5199,10 +5307,10 @@ def wide_chains(device, maps_root: str) -> dict:
         steps = {t: cfg.RENI[t].EPOCHS * -(-(SEED_MAPS["train"] if t == "FIT_DECODER"
                                              else SEED_MAPS["test"]) // cfg.RENI[t].BATCH_SIZE)
                  for t in CLI_TASKS}
-        routes = ts.route_launches()
+        routes = route_calls()
         t0 = time.perf_counter()
         log, seconds, n = cli_chain(device, cfg, path)
-        grew = {k: v - routes[k] for k, v in ts.route_launches().items()}
+        grew = {k: v - routes[k] for k, v in route_calls().items()}
         tag = f"wide chain {trunk} {L} x {H}"
         print(f"{tag}: {time.perf_counter() - t0:.1f} s; task seconds "
               f"{ {t: round(v['task'], 2) for t, v in seconds.items()} }; launches {n}; "
@@ -5237,7 +5345,7 @@ def wide_phase(device, train, maps_root: str) -> dict:
     fit = wide_fit_decoder(device, train)
     chains = wide_chains(device, maps_root)
     torch.cuda.synchronize()
-    launched = ts.route_launches()
+    launched = route_calls()
     print(f"wide main path (b) + (c): pass calls by route {launched} ({time.perf_counter() - t1:.1f} s)")
     check(launched["tiled_bf16"] > 0 and launched["tiled_f32"] > 0,
           f"the main path did not take both tiled routes: {launched}")
@@ -5324,6 +5432,7 @@ def main() -> int:
                     check(mx < MAX_ERR and mean < MEAN_ERR, f"{name} {label} off the bf16 bar")
             fused_bits(name, cfg, dec, Z, D)
     compare_wide(dev, errors, rel_errors)
+    c8_step = compare_c8(dev, errors, rel_errors)
     forward_digest(entries, dev)
 
     phase("compare_bwd at full width and at FIT_LATENT's shapes")
@@ -5464,6 +5573,9 @@ def main() -> int:
     mu, maps = training_maps(dev, train)
     errors["siren_step"], rel_errors["siren_step"] = compare_step_phase(
         "siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
+    for err, rel in c8_step.values():
+        errors["siren_step"].append(err)
+        rel_errors["siren_step"].append(rel)
     err, rel = compare_passes("siren_step", cfg_cbc, dec_cbc, mu, maps, dev)
     errors["siren_step"] += err
     rel_errors["siren_step"] += rel

@@ -177,7 +177,7 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
   const int n_bs = FILM ? n_act : n_mm;
   float* dwf_acc = wacc + (size_t)n_bs * H;
   float* dbf_acc = dwf_acc + (size_t)H * C_PAD;
-  const int b = blockIdx.y, chunk = blockIdx.x;
+  const int b = cta_image(g.n_chunks), chunk = cta_item(g.n_chunks);
   const float* d = g.d + b * g.d_bstride;
   const float* a = g.a + (size_t)b * K_PAD * H;
   const act_t* ws = static_cast<const act_t*>(g.ws);
@@ -195,7 +195,7 @@ __global__ void __launch_bounds__(THREADS) trunk_bwd(Args g) {
     if (p0 >= g.P) break;  // the same for every thread of the CTA
     // this tile's h and dz of product `layer`, for the weight-gradient GEMM
     auto scratch_rows = [&](const act_t* h, const act_t* dz_tile, int layer) {
-      const size_t at = (((size_t)layer * gridDim.y + b) * g.P + p0) * H;
+      const size_t at = (((size_t)layer * cta_images(g.n_chunks) + b) * g.P + p0) * H;
       const int valid = min(TM, g.P - p0);
       store_rows(h, static_cast<act_t*>(g.sc_h) + at, valid, H, lda);
       store_rows(dz_tile, static_cast<act_t*>(g.sc_dz) + at, valid, H, lda);
@@ -367,7 +367,9 @@ inline int launch(KernelFn kern, bool film, const Args& g, int batch, bool bf16,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kern<<<dim3(g.n_chunks, batch), THREADS, smem, s>>>(g);
+  const unsigned grid = image_grid(g.n_chunks, batch);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kern<<<grid, THREADS, smem, s>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess || !reduce) return (int)err;
   err = launch_reduce(g.part, out, batch, g.n_chunks, image_values(film, g.H, g.n_mm), s);

@@ -16,6 +16,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 #include "siren_common.cuh"
 
@@ -110,19 +111,39 @@ __device__ __forceinline__ void store_rows(const act_t* tile, act_t* dst, int va
   }
 }
 
-// out[b][j] = sum over slots, in slot order, of part[b][slot][j].
-static __global__ void reduce_slots(const float* part, float* out, int n_slots, long long n) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// out[b][j] = sum over slots, in slot order, of part[b][slot][j]; with
+// `block` > 0 the slots are summed `block` at a time and the blocks' sums in
+// order. A flat grid (image_grid): blocks of 256 values of one image, the
+// values fastest.
+static __global__ void reduce_slots(const float* part, float* out, int n_slots, long long n,
+                                    int block) {
+  const int per = (int)((n + 255) / 256), b = cta_image(per);
+  const long long j = (long long)cta_item(per) * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const float* p = part + (size_t)blockIdx.y * n_slots * n + j;
+  const float* p = part + (size_t)b * n_slots * n + j;
+  const int step = block > 0 ? block : n_slots;
   float s = 0.0f;
-  for (int c = 0; c < n_slots; ++c) s += p[(size_t)c * n];
-  out[(size_t)blockIdx.y * n + j] = s;
+  for (int c0 = 0; c0 < n_slots; c0 += step) {
+    float t = 0.0f;
+    for (int c = c0; c < min(n_slots, c0 + step); ++c) t += p[(size_t)c * n];
+    s = c0 == 0 ? t : s + t;
+  }
+  out[(size_t)b * n + j] = s;
 }
+
+// Up to SLOT_SEQ_MAX slots are summed in one sequential sum; more are summed
+// SLOT_BLOCK at a time. The rounding error of a sequential float32 sum grows
+// with the number of slots: over the 65,536 weight slots of 65,536 images one
+// sum missed the float32 step's loss bar (2.4e-6 relative against 1e-6, an
+// H100 at 65,536 x 64).
+constexpr int SLOT_BLOCK = 256, SLOT_SEQ_MAX = 1024;
 
 static inline cudaError_t launch_reduce(const float* part, float* out, int batch, int n_slots,
                                         long long n, cudaStream_t s) {
-  reduce_slots<<<dim3((unsigned)((n + 255) / 256), batch), 256, 0, s>>>(part, out, n_slots, n);
+  const unsigned grid = image_grid((n + 255) / 256, batch);
+  if (grid == 0) return cudaErrorInvalidValue;
+  reduce_slots<<<grid, 256, 0, s>>>(part, out, n_slots, n,
+                                    n_slots > SLOT_SEQ_MAX ? SLOT_BLOCK : 0);
   return cudaGetLastError();
 }
 
@@ -195,56 +216,89 @@ wgrad_bf16(const __nv_bfloat16* h, const __nv_bfloat16* dz, float* part, long lo
     }
 }
 
-// The same product for the float32 trunk: FMA loops, a 64 x 64 output tile
-// per CTA, 4 x 4 outputs per thread, 16 rows at a time.
-constexpr int WF_BM = 64, WF_KT = 16;
+// The same product for the float32 trunk on the CUDA cores (FFMA, no TF32),
+// the register tiling of the tiled passes' float32 product: a 128 x 128
+// output tile per CTA, 8 x 8 outputs a thread (rows ty * 4 + i and 64 +
+// ty * 4 + i, columns likewise by tx), the chunk's rows 16 at a time through
+// a ring of WF_STAGES cp.async stages of both operands, read as float4.
+constexpr int WF_BM = 128, WF_KT = 16, WF_STAGES = 3;
+constexpr size_t WF_SMEM = (size_t)WF_STAGES * 2 * WF_KT * WF_BM * sizeof(float);
 
-static __global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void wf_cp16(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+static __global__ void __launch_bounds__(THREADS, 1)
 wgrad_f32(const float* h, const float* dz, float* part, long long rows, int rows_per_chunk,
           int H) {
-  __shared__ __align__(16) float sh[WF_KT * WF_BM];
-  __shared__ __align__(16) float sz[WF_KT * WF_BM];
+  extern __shared__ __align__(16) float wf_smem[];  // WF_STAGES x (h rows, dz rows), (WF_KT, WF_BM)
   const int tiles_n = (H + WF_BM - 1) / WF_BM;
   const int m0 = (blockIdx.x / tiles_n) * WF_BM, n0 = (blockIdx.x % tiles_n) * WF_BM;
   const int chunk = blockIdx.y, layer = blockIdx.z, n_layers = gridDim.z;
-  const int tm = (threadIdx.x / 16) * 4, tn = (threadIdx.x % 16) * 4;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long row0 = (long long)chunk * rows_per_chunk;
   const long long row_end = min(rows, row0 + (long long)rows_per_chunk);
+  const int nk = (int)((row_end - row0 + WF_KT - 1) / WF_KT);
   h += (size_t)layer * rows * H;
   dz += (size_t)layer * rows * H;
-  float acc[4][4] = {};
-  for (long long k0 = row0; k0 < row_end; k0 += WF_KT) {
-    {
-      const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
-      const long long row = k0 + r;
-      float4 vh = make_float4(0.f, 0.f, 0.f, 0.f), vz = vh;
-      if (row < row_end) {
-        if (m0 + c < H) vh = *reinterpret_cast<const float4*>(h + (size_t)row * H + m0 + c);
-        if (n0 + c < H) vz = *reinterpret_cast<const float4*>(dz + (size_t)row * H + n0 + c);
-      }
-      *reinterpret_cast<float4*>(sh + r * WF_BM + c) = vh;
-      *reinterpret_cast<float4*>(sz + r * WF_BM + c) = vz;
+  auto stage = [&](int kb) { return wf_smem + (size_t)(kb % WF_STAGES) * 2 * WF_KT * WF_BM; };
+  auto load = [&](int kb) {  // 16 rows x 32 chunks of each operand, two a thread
+    float* sh = stage(kb);
+    float* sz = sh + WF_KT * WF_BM;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = threadIdx.x + THREADS * i, r = e / 32, c = (e % 32) * 4;
+      const long long row = row0 + (long long)kb * WF_KT + r;
+      const bool in = row < row_end;
+      const size_t at = (size_t)(in ? row : row0) * H;
+      wf_cp16(sh + r * WF_BM + c, h + at + (m0 + c < H ? m0 + c : 0), in && m0 + c < H);
+      wf_cp16(sz + r * WF_BM + c, dz + at + (n0 + c < H ? n0 + c : 0), in && n0 + c < H);
     }
+  };
+  float acc[8][8] = {};
+#pragma unroll
+  for (int kb = 0; kb < WF_STAGES - 1; ++kb) {
+    if (kb < nk) load(kb);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WF_STAGES - 2) : "memory");
     __syncthreads();
+    if (kb + WF_STAGES - 1 < nk) load(kb + WF_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* sh = stage(kb);
+    const float* sz = sh + WF_KT * WF_BM;
 #pragma unroll
     for (int k = 0; k < WF_KT; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(sh + k * WF_BM + tm);
-      const float4 y = *reinterpret_cast<const float4*>(sz + k * WF_BM + tn);
-      const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+      const float4 a0 = *reinterpret_cast<const float4*>(sh + k * WF_BM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(sh + k * WF_BM + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(sz + k * WF_BM + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(sz + k * WF_BM + 64 + tx * 4);
+      const float xs[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float ys[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
     }
-    __syncthreads();
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   float* out = part + ((size_t)chunk * n_layers + layer) * H * H;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+    if (m >= H) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (m0 + tm + i < H && n0 + tn + j < H)
-        out[(size_t)(m0 + tm + i) * H + n0 + tn + j] = acc[i][j];
+    for (int jh = 0; jh < 2; ++jh) {
+      const int n = n0 + jh * 64 + tx * 4;
+      if (n < H)
+        *reinterpret_cast<float4*>(out + (size_t)m * H + n) =
+            make_float4(acc[i][4 * jh], acc[i][4 * jh + 1], acc[i][4 * jh + 2], acc[i][4 * jh + 3]);
+    }
+  }
 }
 
 // dws (n_layers, H, H) = h^T dz over all rows, from the scratch the chain
@@ -264,7 +318,10 @@ static inline cudaError_t launch_weight_grads(bool bf16, const void* h, const vo
         rows_per_chunk, H);
   } else {
     const int t = (H + WF_BM - 1) / WF_BM;
-    wgrad_f32<<<dim3(t * t, n_chunks, n_layers), THREADS, 0, s>>>(
+    const cudaError_t err =
+        cudaFuncSetAttribute(wgrad_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WF_SMEM);
+    if (err != cudaSuccess) return err;
+    wgrad_f32<<<dim3(t * t, n_chunks, n_layers), THREADS, WF_SMEM, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(dz), part, rows, rows_per_chunk,
         H);
   }

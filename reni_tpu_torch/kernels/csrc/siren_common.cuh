@@ -20,6 +20,18 @@ constexpr int C_PAD = 8;  // output channels, padded
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
+// Grids over (per-image item, image) lie flat on x, the item fastest:
+// gridDim.y would cap the batch at 65,535, x takes 2^31 - 1 CTAs. The CTAs
+// run in the order the (items, images) grid gave them.
+__device__ __forceinline__ int cta_image(int per_image) { return (int)(blockIdx.x / per_image); }
+__device__ __forceinline__ int cta_item(int per_image) { return (int)(blockIdx.x % per_image); }
+__device__ __forceinline__ int cta_images(int per_image) { return (int)(gridDim.x / per_image); }
+// the flat grid of `per_image` CTAs for each of `batch` images (0 CTAs: too many)
+inline unsigned image_grid(long long per_image, long long batch) {
+  const long long n = per_image * batch;
+  return n > 0x7fffffffLL ? 0u : (unsigned)n;
+}
+
 constexpr float PI_HI = 0x1.92p+1f;
 constexpr float PI_LO = 0x1.fb5444p-11f;
 constexpr float INV_PI = 0x1.45f306p-2f;

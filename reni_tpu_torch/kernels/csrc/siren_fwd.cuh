@@ -180,7 +180,8 @@ __global__ void __launch_bounds__(THREADS) trunk_fwd(Args g) {
   act_t* h0 = reinterpret_cast<act_t*>(smem);
   act_t* h1 = h0 + (size_t)TM * lda;
   float* scratch = reinterpret_cast<float*>(h1 + (size_t)TM * lda);
-  const int b = blockIdx.y, p0 = blockIdx.x * TM;
+  const int tiles = (g.P + TM - 1) / TM;
+  const int b = cta_image(tiles), p0 = cta_item(tiles) * TM;
 
   first_layer<FILM, BF16, SINE, TM>(g, b, p0, h0, lda);
   __syncthreads();
@@ -225,7 +226,8 @@ inline int launch(KernelFn kern, const Args& g, int batch, int bf16, void* strea
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.P + tm - 1) / tm, batch);
+  const unsigned grid = image_grid((g.P + tm - 1) / tm, batch);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }

@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(THREADS) trunk_step(Args g) {
   float* dbs_acc = mse_acc + C_PAD;
   float* dwf_acc = dbs_acc + (size_t)bias_rows(FILM, n_mm) * H;
   float* dbf_acc = dwf_acc + (size_t)H * C_PAD;
-  const int b = blockIdx.y, chunk = blockIdx.x;
+  const int b = cta_image(g.n_chunks), chunk = cta_item(g.n_chunks);
   const float* d = g.d + b * g.d_bstride;
   const float* a = g.a + (size_t)b * K_PAD * H;
   const float* b0 = FILM ? nullptr : g.b0 + (size_t)b * H;
@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(THREADS) trunk_step(Args g) {
   const act_t* ws = static_cast<const act_t*>(g.ws);
   const act_t* wf = static_cast<const act_t*>(g.wf);
   const act_t* h_last = hs + (size_t)n_mm * TM * lda;
-  const size_t rows = (size_t)gridDim.y * g.P;
+  const size_t rows = (size_t)cta_images(g.n_chunks) * g.P;
   act_t* sc_h = static_cast<act_t*>(g.sc_h);
   act_t* sc_dz = static_cast<act_t*>(g.sc_dz);
 
@@ -423,7 +423,9 @@ int launch(const Args& g, const Sums& o, int batch, int bf16, int fast, int act,
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kern<<<dim3(g.n_chunks, batch), THREADS, smem, s>>>(g);
+  const unsigned grid = image_grid(g.n_chunks, batch);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kern<<<grid, THREADS, smem, s>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = launch_reduce(g.part_img, o.out_img, batch, g.n_chunks,

@@ -227,10 +227,10 @@ struct Tile {
 };
 
 __device__ __forceinline__ bool next_tile(const PassArgs& g, int i, Tile* t) {
-  t->p0 = (blockIdx.x * g.tiles_per_cta + i) * TILE;
+  t->p0 = (cta_item(g.n_chunks) * g.tiles_per_cta + i) * TILE;
   if (i >= g.tiles_per_cta || t->p0 >= g.P) return false;
   t->valid = min(TILE, g.P - t->p0);
-  t->row0 = (size_t)blockIdx.y * g.P + t->p0;
+  t->row0 = (size_t)cta_image(g.n_chunks) * g.P + t->p0;
   return true;
 }
 
@@ -245,7 +245,7 @@ __device__ __forceinline__ void tile_ready() {
 // the directions of a tile rounded to bf16 (every use takes them so), zero
 // past `valid`
 __device__ __forceinline__ void load_dtile(const PassArgs& g, float* dt, const Tile& t) {
-  const float* d = g.d + blockIdx.y * g.d_bstride;
+  const float* d = g.d + cta_image(g.n_chunks) * g.d_bstride;
   for (int i = threadIdx.x; i < TILE * K_PAD; i += PTHREADS) {
     const int r = i / K_PAD;
     dt[i] = r < t.valid ? rnd<true>(d[(size_t)(t.p0 + r) * K_PAD + i % K_PAD]) : 0.0f;
@@ -254,7 +254,7 @@ __device__ __forceinline__ void load_dtile(const PassArgs& g, float* dt, const T
 
 // this image's first-layer weight (K_PAD, H) rounded to bf16, into shared memory
 __device__ __forceinline__ void load_a(const PassArgs& g, float* as) {
-  const float* a = g.a + (size_t)blockIdx.y * K_PAD * g.H;
+  const float* a = g.a + (size_t)cta_image(g.n_chunks) * K_PAD * g.H;
   for (int i = threadIdx.x; i < K_PAD * g.H; i += PTHREADS) as[i] = rnd<true>(a[i]);
 }
 
@@ -275,7 +275,7 @@ __device__ __forceinline__ float layer0(const float* d, const float* a, float bi
 template <bool FILM, int SN, bool ROUND_A>
 __device__ void prologue(const PassArgs& g, const float* dt, const float* a, bf16* at,
                          const Tile& t) {
-  const int H = g.H, b = blockIdx.y;
+  const int H = g.H, b = cta_image(g.n_chunks);
   const float* fr = FILM ? g.fr + (size_t)b * (g.n_mm + 1) * H : nullptr;
   const float* ph = FILM ? g.ph + (size_t)b * (g.n_mm + 1) * H : nullptr;
   for (int c = threadIdx.x; c < H; c += PTHREADS) {
@@ -319,7 +319,7 @@ template <bool FILM>
 __device__ __forceinline__ void load_layer_vectors(const PassArgs& g, float* vec, int layer) {
   const int H = g.H;
   if constexpr (FILM) {
-    const size_t img = (size_t)blockIdx.y * (g.n_mm + 1) * H + (size_t)layer * H;
+    const size_t img = (size_t)cta_image(g.n_chunks) * (g.n_mm + 1) * H + (size_t)layer * H;
     load_floats(vec, g.bs + (size_t)layer * H, H);
     load_floats(vec + H, g.fr + img, H);
     load_floats(vec + 2 * H, g.ph + img, H);
@@ -339,7 +339,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) fwd_pass(PassArgs g) {
   float* vec = reinterpret_cast<float*>(smem + lay.vec);
   float* dt = reinterpret_cast<float*>(smem + lay.dtile);
   float* as = reinterpret_cast<float*>(smem + lay.aux);  // (K_PAD, H) for j = 0
-  const size_t rows = (size_t)gridDim.y * g.P;
+  const size_t rows = (size_t)cta_images(g.n_chunks) * g.P;
   bf16* h_out = g.sc_h + (size_t)(j + 1) * rows * H;
   float* keep_out = g.sc_keep + (size_t)j * rows * H;
 
@@ -431,7 +431,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   constexpr bool COT = MODE == LAST_COT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
+  const int H = g.H, j = g.j, nch = H / 64, b = cta_image(g.n_chunks), tid = threadIdx.x;
   const bool wgrad = g.wgrad != 0;
   const PassLayout lay = pass_layout(H);
   bf16* w = reinterpret_cast<bf16*>(smem + lay.w);
@@ -446,7 +446,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   float* dbf_acc = sums + C_PAD;
   float* lt = dt;   // loss terms of the tile (the directions are used up by then)
   float* gf = red;  // g of the tile in float32
-  const size_t rows = (size_t)gridDim.y * g.P;
+  const size_t rows = (size_t)cta_images(g.n_chunks) * g.P;
   bf16* dz_out = g.sc_dz + (size_t)j * rows * H;
   const float* bm = MODE == LAST_STEP ? g.bm + (size_t)b * C_PAD : nullptr;
 
@@ -617,7 +617,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   if constexpr (MODE == LAST_OUT) return;
   const int n_mm = g.n_mm, n_w = reni_step::weight_values(FILM, H, n_mm);
   const int layer = FILM ? j + 1 : j;  // the bias row of the last layer's dz
-  float* part_w = g.part_w + ((size_t)b * g.n_chunks + blockIdx.x) * n_w;
+  float* part_w = g.part_w + ((size_t)b * g.n_chunks + cta_item(g.n_chunks)) * n_w;
   float* dwf_out = part_w + C_PAD + (size_t)reni_step::bias_rows(FILM, n_mm) * H;
   if (wgrad) {  // the backward's mse slot stays 0
     if (tid < H) {
@@ -631,7 +631,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) last_pass(PassArgs g) {
   }
   if constexpr (FILM) {
     const int T = n_mm + 1, n_img = reni_step::image_values(true, H, n_mm);
-    float* part_img = g.part_img + ((size_t)b * g.n_chunks + blockIdx.x) * n_img;
+    float* part_img = g.part_img + ((size_t)b * g.n_chunks + cta_item(g.n_chunks)) * n_img;
     flush_cols(cs[0], H, red, part_img + (K_PAD + layer) * H);
     flush_cols(cs[1], H, red, part_img + (K_PAD + T + layer) * H);
     if (wgrad) flush_cols(cs[2], H, red, part_w + C_PAD + (size_t)layer * H);
@@ -644,7 +644,7 @@ template <bool FILM, int SN>
 __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  const int H = g.H, j = g.j, nch = H / 64, b = blockIdx.y, tid = threadIdx.x;
+  const int H = g.H, j = g.j, nch = H / 64, b = cta_image(g.n_chunks), tid = threadIdx.x;
   // the column sums of dz: dbs (weight gradients only) or, Cond-by-Concat at
   // j = 0, the per-image db0; FiLM's dfreqs and dphases sums always run
   const bool dz_sums = g.wgrad != 0 || (!FILM && j == 0);
@@ -655,7 +655,7 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
   float* vec = reinterpret_cast<float*>(smem + lay.vec);
   float* dt = reinterpret_cast<float*>(smem + lay.dtile);
   float* as = reinterpret_cast<float*>(smem + lay.aux);  // (K_PAD, H) for j = 0
-  const size_t rows = (size_t)gridDim.y * g.P;
+  const size_t rows = (size_t)cta_images(g.n_chunks) * g.P;
   const float* keep = j > 0 ? g.sc_keep + (size_t)(j - 1) * rows * H : nullptr;
   bf16* dz_out = j > 0 ? g.sc_dz + (size_t)(j - 1) * rows * H : nullptr;
   const bf16* dz_in = g.sc_dz + (size_t)j * rows * H;
@@ -794,8 +794,8 @@ __global__ void __launch_bounds__(PTHREADS, 1) bwd_pass(PassArgs g) {
 
   const int n_mm = g.n_mm, n_img = reni_step::image_values(FILM, H, n_mm);
   const int n_w = reni_step::weight_values(FILM, H, n_mm);
-  float* part_img = g.part_img + ((size_t)b * g.n_chunks + blockIdx.x) * n_img;
-  float* part_w = g.part_w + ((size_t)b * g.n_chunks + blockIdx.x) * n_w;
+  float* part_img = g.part_img + ((size_t)b * g.n_chunks + cta_item(g.n_chunks)) * n_img;
+  float* part_w = g.part_w + ((size_t)b * g.n_chunks + cta_item(g.n_chunks)) * n_w;
   if constexpr (FILM) {
     const int T = n_mm + 1;
     flush_cols(cs[0], H, red, part_img + (K_PAD + j) * H);
@@ -847,12 +847,13 @@ int launch_passes(PassArgs g, const reni_step::Sums& o, int batch, int lo, int h
                   cudaStream_t s) {
   const size_t smem = pass_layout(g.H).total;
   const int last = g.gin != nullptr ? LAST_COT : g.out != nullptr ? LAST_OUT : LAST_STEP;
+  if (image_grid(g.n_chunks, batch) == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   for (int k = lo; k < hi && k < 2 * g.n_mm; ++k) {
     const PassFn fn = pass_kernel<FILM, SN>(k, g.n_mm, last, &g.j);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fn<<<dim3(g.n_chunks, batch), PTHREADS, smem, s>>>(g);
+    fn<<<image_grid(g.n_chunks, batch), PTHREADS, smem, s>>>(g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -23,7 +23,7 @@ depth, as layer-major passes with a last pass that reads ``g``
 ``csrc/film_step.cu``): the ``wgmma`` passes of ``csrc/step_passes.cuh``
 (bf16 at widths that are a multiple of 64, up to 256) or the tiled passes
 of ``csrc/tiled_passes.cuh`` (float32 at widths that are a multiple of 16,
-bf16 at widths that are a multiple of 64 from 320, up to 1,024; a FiLM
+bf16 at widths that are a multiple of 64 from 320, at any width; a FiLM
 trunk of one layer at a bf16 width that is a multiple of 64 or a float32
 one that is a multiple of 16). Other bf16 widths run the
 chain kernel of
@@ -65,7 +65,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
 WARPS = 8  # csrc/siren_chain.cuh THREADS / 32
 CTAS_PER_SM = 4  # CTAs the launch aims for per SM (one is resident at a time)
 WGRAD_CTAS_PER_SM = 6  # the same for the split-K weight-gradient product
-WGRAD_TILE = {"bfloat16": 128, "float32": 64}  # its output tile (WG_BM, WF_BM)
+WGRAD_TILE = {"bfloat16": (128, 128), "float32": (128, 128)}  # its output tile (rows, columns)
 
 
 def tile_rows(trunk: str) -> int:
@@ -110,7 +110,7 @@ def bwd_unsupported_reason(
 ) -> str | None:
     """Why the backward kernels cannot take this trunk (None = they can).
     The passes (``siren_step.pass_route``: bf16 widths that are a multiple
-    of 64 and float32 widths that are a multiple of 16, up to 1,024) take
+    of 64 and float32 widths that are a multiple of 16, at any width) take
     any depth; on the chain kernel one tile's activations and cos factors of
     every layer must fit in a CTA's shared memory."""
     from reni_tpu_torch.kernels.siren_step import pass_route
@@ -321,7 +321,7 @@ def wgrad_chunks(rows: int, hidden: int, n_mm: int, trunk: str, device,
     """(rows per chunk, chunks) of the split-K weight-gradient product: about
     WGRAD_CTAS_PER_SM CTAs per SM over its (output tiles, chunks, layers)
     grid; a chunk is a multiple of 64 rows."""
-    tiles = math.ceil(hidden / WGRAD_TILE[trunk]) ** 2
+    tiles = math.prod(math.ceil(hidden / t) for t in WGRAD_TILE[trunk])
     sms = _sms(device, sms)
     want = max(1, WGRAD_CTAS_PER_SM * sms // max(1, tiles * n_mm))
     per = math.ceil(math.ceil(rows / want) / 64) * 64

@@ -20,7 +20,9 @@ Two kernels serve a CUDA trunk, chosen by dtype and shape alone
 the bf16 trunk with H a multiple of 64 up to 256 and 1 to MAX_FUSED_MM H x H
 products: every Zoo entry and serving shape) and the row-tile kernel of
 ``csrc/siren_fwd.cuh`` (``"tile"``: the float32 trunk, other widths, a FiLM
-trunk of one layer). The fused kernel reads the hidden weights as swizzled
+trunk of one layer), and past the widths whose row tile fits a CTA (float32
+from H = 1,792, bf16 from 3,584) the layer-major passes in their output mode
+(``"passes"``, ``siren_step.passes_output``, counted there). The fused kernel reads the hidden weights as swizzled
 64-row slabs (``pack_slabs``), packed once per weight tensor and kept while
 the tensor is unchanged (``weight_slabs``); a persistent grid of one CTA per
 SM walks the (image, 128-row tile) items in order (``fused_schedule``).
@@ -61,7 +63,6 @@ TRUNKS = ("bfloat16", "float32")
 # launch geometry of csrc/siren_fwd.cu: row tiles, largest first
 TILE_ROWS, ROW_PAD, WARPS = (64, 32, 16), 8, 8
 SMEM_LIMIT = 227 * 1024  # H100 dynamic shared memory per block
-MAX_GRID_Y = 65535  # the image index is the grid's y
 # the fused kernel (csrc/fused_fwd.cuh): widths, depths, row tile, ring stages
 FUSED_WIDTHS = (64, 128, 192, 256)
 MAX_FUSED_MM = 16
@@ -98,15 +99,23 @@ def model_axis_reason(mesh) -> str | None:
     return None
 
 
+def passes_width(hidden: int, trunk: str) -> bool:
+    """Whether the layer-major passes take this width at any depth (bf16 a
+    multiple of 64, float32 of 16): the forward's route where the row tile
+    does not fit (``fwd_route`` "passes")."""
+    return hidden > 0 and hidden % (64 if trunk == "bfloat16" else 16) == 0
+
+
 def unsupported_reason(
     npix: int, hidden_features: int, batch: int | None = None,
     trunk: str = "bfloat16", mesh=None,
 ) -> str | None:
     """Why the CUDA kernels cannot take this shape (None = they can): the
-    wmma tiles need a hidden width that is a multiple of 16, a CTA's two
+    wmma tiles need a hidden width that is a multiple of 16, and a CTA's two
     activation buffers must fit in shared memory at one of the row tiles
-    (64, 32 or 16 rows), and the batch is the grid's y. Any pixel count
-    works: a ragged tail tile is masked.
+    (64, 32 or 16 rows) unless the layer-major passes take the width
+    (``passes_width``). Any batch and any pixel count work: the grids put
+    images on x, and a ragged tail tile is masked.
 
     Mesh-aware: with a ``mesh`` (``parallel.mesh``) ``npix`` and ``batch``
     are the whole batch's, each rank launches the kernel on its block, so
@@ -128,7 +137,7 @@ def unsupported_reason(
         return f"no pixels to decode (npix={npix})"
     if hidden_features < 16 or hidden_features % 16:
         return f"hidden_features={hidden_features} is not a multiple of 16"
-    if tile_rows(hidden_features, trunk) is None:
+    if tile_rows(hidden_features, trunk) is None and not passes_width(hidden_features, trunk):
         tm = TILE_ROWS[-1]
         smem = fwd_smem_bytes(tm, hidden_features, trunk)
         return (
@@ -136,17 +145,19 @@ def unsupported_reason(
             f"memory per CTA with the {trunk} trunk at the smallest row tile "
             f"({tm} rows; limit {SMEM_LIMIT})"
         )
-    if batch is not None and batch > MAX_GRID_Y:
-        return f"batch {batch} exceeds the kernel grid limit {MAX_GRID_Y}"
     return None
 
 
 def fwd_route(trunk: str, hidden: int, n_mm: int) -> str:
     """The kernel a CUDA trunk of this dtype and shape takes: ``"fused"``
     (bf16, H in FUSED_WIDTHS, 1 <= n_mm <= MAX_FUSED_MM; ``n_mm`` counts
-    the H x H products) or ``"tile"``."""
+    the H x H products), ``"tile"`` where a row tile fits a CTA, else
+    ``"passes"``: the layer-major passes' output mode
+    (``siren_step.passes_output``; float32 from H = 1,792, bf16 from 3,584)."""
     fused = trunk == "bfloat16" and hidden in FUSED_WIDTHS and 1 <= n_mm <= MAX_FUSED_MM
-    return "fused" if fused else "tile"
+    if fused:
+        return "fused"
+    return "tile" if tile_rows(hidden, trunk) is not None else "passes"
 
 
 def _align128(n: int) -> int:
@@ -477,7 +488,7 @@ def _route(kind, route, trunk, hidden, n_mm) -> str:
     auto = fwd_route(trunk, hidden, n_mm)
     if route is None:
         return auto
-    if route not in ("fused", "tile") or (route == "fused" and auto != "fused"):
+    if route not in ("fused", "tile", "passes") or (route != "tile" and auto != route):
         raise ValueError(f"{kind}: no {route!r} route for the {trunk} trunk at H = {hidden}, "
                          f"{n_mm} products")
     return route
@@ -498,7 +509,7 @@ def _launched(route: str) -> None:
     global fused_fwd_launches, tile_fwd_launches
     if route == "fused":
         fused_fwd_launches += 1
-    else:
+    elif route == "tile":
         tile_fwd_launches += 1
 
 
@@ -507,11 +518,20 @@ def siren_trunk_cuda(
     fast_sine=False, route=None, sched=None,
 ):
     """Cond-by-Concat trunk on the card (``csrc/siren_fwd.cu``) -> (B, P, 8):
-    the kernel ``fwd_route`` picks, or ``route`` ("fused" / "tile");
+    the kernel ``fwd_route`` picks, or ``route`` ("fused" / "tile" /
+    "passes": ``siren_step.passes_output``);
     ``sched`` overrides the fused kernel's schedule (SCHED_*)."""
     batch, hidden = a.shape[0], a.shape[-1]
     d, d_bstride = _cuda_operands("siren_fwd", trunk, d_pad, batch, (a, b0, ws, bs, wf, bf))
     route = _route("siren_fwd", route, trunk, hidden, ws.shape[0])
+    if route == "passes":
+        from reni_tpu_torch.kernels.siren_step import passes_output
+
+        out = passes_output(False, (d_pad, a, b0, ws, bs, wf, bf),
+                            dict(omega0=omega0, omega_h=omega_h, trunk=trunk,
+                                 fast_sine=fast_sine))
+        fused_apply.launches += 1
+        return out
     a, b0, bs, bf = _f32(a), _f32(b0), _f32(bs), _f32(bf)
     wf = _weights(wf, trunk)
     npix = d.shape[1]
@@ -547,6 +567,13 @@ def film_trunk_cuda(
         "film_fwd", trunk, d_pad, batch, (a0, ws, bs, wf, bf, fr, ph)
     )
     route = _route("film_fwd", route, trunk, hidden, ws.shape[0])
+    if route == "passes":
+        from reni_tpu_torch.kernels.siren_step import passes_output
+
+        out = passes_output(True, (d_pad, a0, ws, bs, wf, bf, fr, ph),
+                            dict(trunk=trunk, fast_sine=fast_sine))
+        fused_film_apply.launches += 1
+        return out
     a0, bs, bf, fr, ph = _f32(a0), _f32(bs), _f32(bf), _f32(fr), _f32(ph)
     wf = _weights(wf, trunk)
     npix = d.shape[1]

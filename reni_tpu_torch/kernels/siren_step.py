@@ -27,9 +27,11 @@ layer-major passes, one kernel a layer: the ``wgmma`` passes over 128-row
 tiles (``csrc/step_passes.cuh``; the bf16 trunk at widths that are a
 multiple of 64, up to 256) or the tiled passes (``csrc/tiled_passes.cuh``;
 the float32 trunk at widths that are a multiple of 16 and the bf16 trunk at
-widths that are a multiple of 64, from 320, both up to 1,024, and a FiLM
+widths that are a multiple of 64, from 320, both at any width, and a FiLM
 trunk of one layer at a bf16 width that is a multiple of 64 or a float32
-one that is a multiple of 16), at any depth; or as the chain
+one that is a multiple of 16: a CTA a block of output columns, ``wgmma``
+over a ring of K-slabs in bf16, register-tiled FFMA in float32), at any
+depth; or as the chain
 kernel (``csrc/siren_step.cuh``; bf16 widths that are not a multiple of
 64). The same passes,
 with a last pass that reads an output cotangent in place of the loss, are
@@ -64,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -95,6 +98,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     _weights,
     pack_film_inputs,
     pack_inputs,
+    pack_slabs,
 )
 
 ACTIVATIONS = {None: 0, "tanh": 1, "exp": 2}  # csrc/siren_step.cuh ACT_*
@@ -109,10 +113,13 @@ def weight_values(hidden: int, n_mm: int, film: bool = False) -> int:
 
 PASS_ROWS = 128  # rows of one tile of the layer-major passes (csrc/step_passes.cuh TILE)
 PASS_WIDTH = 64  # the passes take bf16 widths that are a multiple of this (one wgmma column block)
-TILED_ROWS, TILED_COLS, TILED_DEPTH = 64, 64, 32  # csrc/tiled_passes.cuh BM, BN, BK
-TILED_SUMS = 19  # its per-column sums (NQ): 3 bias / modulation, 8 dWf, 8 dA
+# the tiled passes (csrc/tiled_passes.cuh): ring stages, rows of a product
+# tile, a bf16 K-slab's depth, the float32 product's block columns and slab
+# depth, the elementwise kernels' rows and per-column sums (NQ)
+TILED_STAGES, TILED_ROWS, TILED_BF16_DEPTH = 3, 128, 64
+TILED_F32_COLS, TILED_F32_DEPTH = 64, 16
+TILED_ELEM_ROWS, TILED_SUMS = 64, 19
 TILED_F32_WIDTH = 16  # the tiled passes take float32 widths that are a multiple of this
-TILED_MAX_WIDTH = 1024  # and widths up to this (JAX's envelope checked here)
 # device memory a grouped call leaves free beside its pass scratch and its
 # dWs buffers (StepPlan.scratch_bytes): the operands' casts and the
 # allocator's rounding
@@ -120,6 +127,7 @@ MEM_MARGIN = 1 << 30
 FINISH_IMG, FINISH_W, FINISH_DWS = 1, 2, 4  # csrc/step_passes.cuh FINISH_*
 
 
+@functools.lru_cache(maxsize=None)
 def pass_design(trunk: str, hidden: int, n_mm: int) -> str | None:
     """Which layer-major passes take a trunk of ``n_mm`` H x H products, for
     the train steps, the backward and the differentiable forward alike:
@@ -127,15 +135,15 @@ def pass_design(trunk: str, hidden: int, n_mm: int) -> str | None:
     multiple of 64, where one layer's weights and a 128-row tile fit a CTA,
     H <= 256), ``"tiled"`` (``csrc/tiled_passes.cuh``: float32 at a width
     that is a multiple of 16 and bf16 at a width that is a multiple of 64,
-    up to 1,024, and a FiLM trunk of one layer, n_mm = 0, at any width that
-    is a multiple of 64 in bf16 or 16 in float32 up to 1,024), or None: the
+    at any width, and a FiLM trunk of one layer, n_mm = 0, at any width that
+    is a multiple of 64 in bf16 or 16 in float32), or None: the
     chain kernels (``csrc/siren_step.cuh``, ``csrc/siren_bwd.cuh``), which
     keep one tile of every layer and so have a depth limit. Any depth on either pass design.
     The rule is by dtype and shape only: a failed build or launch raises on
     every route."""
     bf16 = trunk == "bfloat16"
-    tiled = (hidden % (PASS_WIDTH if bf16 else TILED_F32_WIDTH) == 0
-             and 0 < hidden <= TILED_MAX_WIDTH and tiled_smem_bytes(trunk, hidden) <= SMEM_LIMIT)
+    tiled = (hidden % (PASS_WIDTH if bf16 else TILED_F32_WIDTH) == 0 and hidden > 0
+             and tiled_smem_bytes(trunk, hidden) <= SMEM_LIMIT)
     if n_mm == 0:  # a FiLM trunk of one layer: no H x H product
         return "tiled" if tiled else None
     if bf16 and hidden % PASS_WIDTH == 0 and pass_smem_bytes(hidden) <= SMEM_LIMIT:
@@ -168,24 +176,42 @@ def pass_smem_bytes(hidden: int) -> int:
     return sum(parts) + 1024
 
 
+def tiled_block_cols(trunk: str, hidden: int) -> int:
+    """Output columns a tiled product CTA owns (``block_cols`` of
+    ``csrc/tiled_passes.cuh``): bf16 64 NB, NB the largest of 4, 3, 2 that
+    divides H / 64, else 1; float32 TILED_F32_COLS."""
+    if trunk != "bfloat16":
+        return TILED_F32_COLS
+    n = hidden // 64
+    return 64 * next((nb for nb in (4, 3, 2) if n % nb == 0), 1)
+
+
+def tiled_col_blocks(trunk: str, hidden: int) -> int:
+    """Column blocks of a tiled product (the partial final layers, sc_o)."""
+    return -(-hidden // tiled_block_cols(trunk, hidden))
+
+
 def tiled_smem_bytes(trunk: str, hidden: int) -> int:
-    """Shared memory of one CTA of any tiled pass (the ``tiled_layout`` of
-    ``csrc/tiled_passes.cuh``): two K-slabs of the input tile and of the
-    block's weight rows in the trunk's dtype, the block's sums, the row
-    phases' and the CTA's per-column sums, the directions, g (rounded and
-    float32), the loss terms, the final layer's sums, the loss and dbf
-    partials, and 128 B to align the base. No depth in it, and the width only
-    in the CTA's per-column sums."""
-    es = 2 if trunk == "bfloat16" else 4
-    ldk = TILED_DEPTH + (8 if trunk == "bfloat16" else 4)
-    parts = (
-        2 * TILED_ROWS * ldk * es, 2 * TILED_COLS * ldk * es,  # input and weight slabs
-        TILED_ROWS * (TILED_COLS + 4) * 4,  # the block's sums
-        4 * TILED_SUMS * TILED_COLS * 4, TILED_SUMS * hidden * 4,  # column sums
-        TILED_ROWS * K_PAD * 4, *(TILED_ROWS * C_PAD * 4,) * 4,  # d; g, g rounded, loss, o
-        2 * C_PAD * 4,
-    )
-    return sum(_align128(p) for p in parts) + 128
+    """Shared memory of the largest CTA of the tiled passes at this width
+    (``tiled_smem`` of ``csrc/tiled_passes.cuh``): the product's ring of
+    TILED_STAGES input and weight K-slabs, dz0 of a tile in the trunk's
+    dtype (or the warps' column sums), the block's vectors, its first-layer
+    or final weight, the tile's directions, the ring's barriers and 1 KB to
+    align the base to the swizzle atom; the elementwise kernels' layout is
+    smaller. The width enters only through the block's columns (at most
+    256): no width is too wide."""
+    bf16 = trunk == "bfloat16"
+    bn = tiled_block_cols(trunk, hidden)
+    a_slab = TILED_ROWS * (TILED_BF16_DEPTH * 2 if bf16 else (TILED_F32_DEPTH + 4) * 4)
+    stage = a_slab + (bn * TILED_BF16_DEPTH * 2 if bf16 else TILED_F32_DEPTH * bn * 4)
+    product = (TILED_STAGES * stage
+               + _align128(max(TILED_ROWS * bn * (2 if bf16 else 4), WARPS * bn * 4))
+               + _align128(3 * bn * 4) + _align128(K_PAD * bn * 4)
+               + _align128(TILED_ROWS * K_PAD * 4) + _align128(2 * TILED_STAGES * 8) + 1024)
+    r = TILED_ELEM_ROWS
+    elem = (_align128(r * K_PAD * 4) + _align128(r * (64 + 4) * 4)
+            + _align128(4 * TILED_SUMS * 64 * 4) + 2 * _align128(r * C_PAD * 4) + 128)
+    return max(product, elem)
 
 
 def chain_smem_bytes(trunk: str, hidden: int, n_mm: int, film: bool = False) -> int:
@@ -235,8 +261,9 @@ def step_unsupported_reason(
     Cond-by-Concat step needs one hidden layer at least, the FiLM step one
     trunk layer; a CTA's shared memory must hold what its route keeps: for
     the wgmma passes one layer's weights and a 128-row tile (H <= 256 in
-    bf16), for the tiled passes K-slabs and per-column sums (H <= 1,024),
-    both at any depth, for the chain kernel one tile of every layer."""
+    bf16), for the tiled passes a ring of K-slabs of one column block (any
+    width), both at any depth, for the chain kernel one tile of every
+    layer."""
     if hidden_layers < 1:
         what = "trunk layer" if film else "hidden layer"
         return f"hidden_layers={hidden_layers}: the train-step kernel needs a {what}"
@@ -244,7 +271,7 @@ def step_unsupported_reason(
     smem = step_smem_bytes(trunk, hidden_features, n_mm, film)
     if smem > SMEM_LIMIT:
         what = {"wgmma": "one layer's weights and a 128-row tile",
-                "tiled": "its K-slabs and per-column sums"}.get(
+                "tiled": "its ring of K-slabs"}.get(
                     pass_design(trunk, hidden_features, n_mm), "one tile of every layer")
         return (
             f"the {'FiLM ' if film else ''}train step of a {hidden_layers} x {hidden_features} "
@@ -316,8 +343,9 @@ def film_step_reference(
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
     """The pass plan of one call (``csrc/step_passes.cuh``): a grid of
-    (``chunks`` per image, ``batch``) CTAs, each walking ``tiles_per_cta``
-    consecutive 128-row tiles of one image, and ``2 n_mm`` passes:
+    (``chunks`` per image, ``batch``) CTAs (on the tiled passes times
+    ``n_cb`` column blocks), each walking ``tiles_per_cta`` consecutive
+    128-row tiles of one image, and ``2 n_mm`` passes:
     ``("fwd", j)`` for products 0..n_mm-2, ``("last", n_mm - 1)``, then
     ``("bwd", j)`` from n_mm - 1 down to 0. A train step (``bwd=False``)
     forms the output cotangent from the loss in its last pass; a backward
@@ -352,8 +380,18 @@ class StepPlan:
 
     @property
     def n_keep(self) -> int:
-        """Layers whose kept value (cos factor / pre-modulation) is stored."""
+        """Layers of sc_keep: the kept values (cos factor / pre-modulation)
+        of layers 1..n_mm-1 and, on the tiled passes, the last layer's
+        pre-activation (x + bias), which their last pass stores rather than
+        forming the product twice."""
+        if self.design == "tiled":
+            return max(self.n_mm, 1)
         return max(self.n_mm - 1, 0)
+
+    @property
+    def n_cb(self) -> int:
+        """Column blocks of a tiled product (0 on the wgmma passes)."""
+        return tiled_col_blocks(self.trunk, self.hidden) if self.design == "tiled" else 0
 
     @property
     def last(self) -> int:
@@ -376,19 +414,24 @@ class StepPlan:
                 *(("bwd", j) for j in reversed(range(n))))
 
     def scratch_shapes(self) -> dict:
-        """Shapes of the device scratch: sc_h and sc_dz in bf16, sc_keep in
-        float32, the per-image and per-CTA slots in float32."""
+        """Shapes of the device scratch: sc_h and sc_dz in the trunk's
+        dtype, sc_keep in float32, the per-image and per-CTA slots in
+        float32; on the tiled passes also the column blocks' partial final
+        layer sc_o and the output cotangent sc_g, float32."""
         R, H = self.rows, self.hidden
+        tiled = {"sc_o": (self.n_cb, R, C_PAD), "sc_g": (R, C_PAD)} if self.n_cb else {}
         return {"sc_h": (self.n_mm, R, H), "sc_keep": (self.n_keep, R, H),
-                "sc_dz": (self.n_mm, R, H), "part_img": (self.batch, self.chunks, self.n_img),
+                "sc_dz": (self.n_mm, R, H), **tiled,
+                "part_img": (self.batch, self.chunks, self.n_img),
                 "part_w": (self.batch * self.chunks, self.n_w)}
 
     @property
     def row_bytes(self) -> int:
         """Scratch bytes per row: sc_h and sc_dz (the trunk's dtype), sc_keep
-        (float32)."""
+        (float32), on the tiled passes sc_o and sc_g (float32)."""
         act = 2 if self.trunk == "bfloat16" else 4
-        return self.hidden * (act * 2 * self.n_mm + 4 * self.n_keep)
+        tiled = 4 * C_PAD * (self.n_cb + 1) if self.n_cb else 0
+        return self.hidden * (act * 2 * self.n_mm + 4 * self.n_keep) + tiled
 
     @property
     def wgrad_bytes(self) -> int:
@@ -398,7 +441,7 @@ class StepPlan:
         grouped call (``_run_passes``)."""
         if not self.weight_grads or self.n_mm == 0:
             return 0
-        tiles = math.ceil(self.hidden / WGRAD_TILE[self.trunk]) ** 2
+        tiles = math.prod(math.ceil(self.hidden / t) for t in WGRAD_TILE[self.trunk])
         chunks = max(1, WGRAD_CTAS_PER_SM * self.sms // (tiles * self.n_mm))
         return (chunks + 3) * self.n_mm * self.hidden * self.hidden * 4
 
@@ -414,13 +457,19 @@ class StepPlan:
         """The image ranges [g0, g1) a call runs one after another under a
         device-memory budget of ``budget`` bytes: all images at once when
         ``scratch_bytes`` fits, else as few groups as fit, of one size but
-        the last, at least one image each. Every group keeps this plan's
-        grid (``tiles_per_cta``, ``chunks``), so each per-CTA slot holds what
-        it holds in one call."""
+        the last. Every group keeps this plan's grid (``tiles_per_cta``,
+        ``chunks``), so each per-CTA slot holds what it holds in one call.
+        Raises ``MemoryError`` where not even one image's scratch fits."""
         if self.scratch_bytes <= budget:
             return ((0, self.batch),)
         fixed = self.scratch_bytes - self.rows * self.row_bytes
-        fit = max(1, (budget - fixed) // (self.npix * self.row_bytes))
+        fit = (budget - fixed) // (self.npix * self.row_bytes)
+        if fit < 1:
+            raise MemoryError(
+                f"device memory: one image's pass scratch ({self.npix * self.row_bytes} B for "
+                f"{self.npix} rows of a {self.n_mm + 1} x {self.hidden} {self.trunk} trunk) and "
+                f"the call's slots and weight gradients ({fixed} B) exceed the budget of "
+                f"{budget} B")
         size = math.ceil(self.batch / math.ceil(self.batch / fit))
         return tuple((g0, min(g0 + size, self.batch)) for g0 in range(0, self.batch, size))
 
@@ -436,11 +485,17 @@ class StepPlan:
         e = 2 if self.trunk == "bfloat16" else 4
         flops = 2.0 * R * H * H if j >= 0 else 0.0
         nbytes = e * H * H if j >= 0 else 0
+        tiled = self.design == "tiled"
         if kind != "bwd":
             first = j <= 0
-            h0 = e * H if self.weight_grads and j == 0 else 0
+            h0 = e * H if (self.weight_grads or tiled) and j == 0 else 0
             nbytes += R * ((K_PAD * 4 + h0) if first else e * H)  # input (and h_0 out)
+            nbytes += R * e * H if tiled and j == 0 else 0  # h_0 read back by the product
             flops += 2.0 * R * K_PAD * H if first else 0.0
+        if tiled and kind == "last":  # the last layer's pre-activation out and back
+            nbytes += R * 2 * 4 * H
+            if not self.bwd:  # the blocks' partial final layers and g, out and back
+                nbytes += R * 2 * 4 * C_PAD * (self.n_cb + 1)
         dz_out = e * H if j >= 0 else 0
         if kind == "fwd":
             nbytes += R * (e * H + 4 * H)  # h and the kept value out
@@ -486,13 +541,17 @@ def step_plan(film: bool, batch: int, npix: int, hidden: int, n_mm: int, sms: in
 @dataclasses.dataclass
 class PassWork(WeightGradWork):
     """``WeightGradWork`` plus what the passes add: the kept values' scratch
-    ``sc_keep`` (n_mm - 1, rows, H) float32, the per-image slots
-    ``part_img`` (B, chunks, n_img) and their sum ``out_img``. Without weight
-    gradients ``part_dws`` and ``dws`` are empty."""
+    ``sc_keep`` (``StepPlan.n_keep``, rows, H) float32, the per-image slots
+    ``part_img`` (B, chunks, n_img) and their sum ``out_img``; on the tiled
+    passes the partial final layers ``sc_o`` (n_cb, rows, 8) and the output
+    cotangent ``sc_g`` (rows, 8), empty otherwise. Without weight gradients
+    ``part_dws`` and ``dws`` are empty."""
 
     sc_keep: torch.Tensor
     part_img: torch.Tensor
     out_img: torch.Tensor
+    sc_o: torch.Tensor
+    sc_g: torch.Tensor
 
     @classmethod
     def for_plan(cls, plan: StepPlan, trunk: str, device, sms: int | None = None,
@@ -515,7 +574,9 @@ class PassWork(WeightGradWork):
                    rows_per_chunk=per, n_wchunks=chunks,
                    sc_keep=torch.empty((plan.n_keep, rows, H), **f32),
                    part_img=torch.empty((plan.batch, plan.chunks, plan.n_img), **f32),
-                   out_img=torch.empty((plan.batch, plan.n_img), **f32))
+                   out_img=torch.empty((plan.batch, plan.n_img), **f32),
+                   sc_o=torch.empty((plan.n_cb, rows if plan.n_cb else 0, C_PAD), **f32),
+                   sc_g=torch.empty((rows if plan.n_cb else 0, C_PAD), **f32))
 
     def group(self, plan: StepPlan, g0: int, g1: int, dws: torch.Tensor, trunk: str,
               sms: int | None = None) -> "PassWork":
@@ -525,8 +586,8 @@ class PassWork(WeightGradWork):
         rows = (g1 - g0) * plan.npix
 
         def front(t):
-            n, _, H = t.shape
-            return t.view(-1)[: n * rows * H].view(n, rows, H)
+            n, r, H = t.shape
+            return t.view(-1)[: n * rows * H].view(n, rows, H) if r else t
 
         per, chunks = ((0, 0) if not plan.weight_grads else
                        wgrad_chunks(rows, plan.hidden, plan.n_mm, trunk, dws.device, sms))
@@ -535,7 +596,8 @@ class PassWork(WeightGradWork):
         return dataclasses.replace(
             self, part_w=self.part_w[g0 * c : g1 * c], part_img=self.part_img[g0:g1],
             out_img=self.out_img[g0:g1], sc_h=front(self.sc_h), sc_dz=front(self.sc_dz),
-            sc_keep=front(self.sc_keep), dws=dws, rows_per_chunk=per, n_wchunks=chunks)
+            sc_keep=front(self.sc_keep), sc_o=front(self.sc_o), sc_g=self.sc_g[:rows],
+            dws=dws, rows_per_chunk=per, n_wchunks=chunks)
 
     def clone(self) -> "PassWork":
         return dataclasses.replace(self, **{
@@ -549,10 +611,12 @@ def pass_outputs(plan: StepPlan, k: int, work: PassWork) -> dict:
     H, T = plan.hidden, plan.n_mm + 1
     img, w = work.part_img, work.part_w
     out = {}
+    tiled = plan.design == "tiled"
+    if kind == "fwd" or (kind == "last" and tiled):  # tiled: the last pre-activation
+        out["sc_keep"] = work.sc_keep[max(j, 0)]
     if kind == "fwd":
         out["sc_h"] = work.sc_h[j + 1]
-        out["sc_keep"] = work.sc_keep[j]
-    if kind != "bwd" and j == 0 and plan.weight_grads:
+    if kind != "bwd" and j == 0 and (plan.weight_grads or tiled):
         out["sc_h0"] = work.sc_h[0]
     layer = j + 1 if plan.film else j  # the bias row of the dz this pass forms
     if kind == "last":
@@ -664,21 +728,27 @@ def step_pass_reference(plan: StepPlan, k: int, ops, kw, work: PassWork) -> None
     o, trunk, H = _step_operands(plan.film, ops, plan.bwd), kw["trunk"], plan.hidden
     sc_h, sc_keep, sc_dz = (_scratch(t, plan) for t in (work.sc_h, work.sc_keep, work.sc_dz))
     w_slots = work.part_w.view(plan.batch, plan.chunks, -1)
+    tiled = plan.design == "tiled"
     if kind in ("fwd", "last"):
         if j < 0:  # a one-layer FiLM trunk: layer 0 is the last layer
             h, kept, cos = _layer0(plan, o, kw)
+            z = _matmul(o["d"], o["a"], trunk) + (o["bs"][0] if plan.film else o["b0"])
         else:
             if j == 0:
                 h_in = _layer0(plan, o, kw)[0]
-                if plan.weight_grads:
+                if plan.weight_grads or tiled:
                     sc_h[0] = h_in
             else:
                 h_in = sc_h[j].float()
-            h, kept, cos = _layer(plan, o, kw, _matmul(h_in, o["ws"][j], trunk), j + 1)
+            z = _matmul(h_in, o["ws"][j], trunk)
+            h, kept, cos = _layer(plan, o, kw, z, j + 1)
+            z = z + o["bs"][j + 1 if plan.film else j]
         if kind == "fwd":
             sc_h[j + 1] = h
             sc_keep[j] = kept
             return
+        if tiled:  # the last layer's pre-activation, for its backward
+            sc_keep[max(j, 0)] = z
         if plan.bwd:
             g = o["g"]
         else:
@@ -853,7 +923,7 @@ _SIGNATURES = {
     "reni_siren_step_passes": [_P, ctypes.c_longlong, *[_P] * 21, *[_I] * 8, _F, _F, _F,
                                *[_I] * 6, _P],
     "reni_film_step_passes": [_P, ctypes.c_longlong, *[_P] * 22, *[_I] * 8, _F, *[_I] * 6, _P],
-    "reni_tiled_passes": [_P, ctypes.c_longlong, *[_P] * 23, *[_I] * 8, _F, _F, _F, *[_I] * 6,
+    "reni_tiled_passes": [_P, ctypes.c_longlong, *[_P] * 25, *[_I] * 9, _F, _F, _F, *[_I] * 6,
                           _P],
     "reni_pass_reduce": [_P, _P, _I, _I, ctypes.c_longlong, _P],
 }
@@ -984,11 +1054,13 @@ class PassOperands:
         ptrs = list(self.named(g0).values())
         return (ptrs[0], self.d_bstride, *ptrs[1:])
 
-    TILED = ("a", "b0", "ws", "wst", "bs", "wf", "bf", "fr", "ph", "tgt", "sw", "bm", "gin", "out")
+    TILED = ("a", "b0", "w_bwd", "w_fwd", "bs", "wf", "bf", "fr", "ph", "tgt", "sw", "bm", "gin",
+             "out")
 
     def tiled_head(self, g0: int = 0) -> tuple:
         """The same in the order of the tiled passes' entry, which takes
-        both conditionings' operands (b0, fr, ph None where absent)."""
+        both conditionings' operands (b0, fr, ph None where absent) and the
+        products' B operands in the tiled layout (``tiled_weights``)."""
         ptrs = self.named(g0)
         return (ptrs["d"], self.d_bstride, *(ptrs.get(name) for name in self.TILED))
 
@@ -1006,6 +1078,16 @@ def _validate_passes(film: bool, bwd: bool, ops, kw) -> tuple:
                      kw["out_act"], ops[1:-3], *ops[-3:])
 
 
+def tiled_weights(ws: torch.Tensor, wst: torch.Tensor, trunk: str) -> tuple:
+    """(backward's, forward's) B operand of the tiled products from W (n_mm,
+    H, H) and its transpose per layer, both in the trunk's dtype: bf16 as
+    swizzled 64-deep K-slabs (``siren_fwd.pack_slabs``; slabs of W and of
+    W^T), float32 row-major (K, N) (W^T and W as they are)."""
+    if trunk != "bfloat16" or ws.shape[0] == 0:
+        return wst, ws
+    return pack_slabs(wst), pack_slabs(ws)
+
+
 def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
     """Cast and lay out the operands of a step or (a backward plan) of a
     backward for the pass kernels: the float32 vectors, W in the plan's
@@ -1017,7 +1099,10 @@ def pass_operands(plan: StepPlan, ops, kw, d=None, d_bstride=0) -> PassOperands:
         d, d_bstride = _validate_passes(plan.film, plan.bwd, ops, kw)
     ws = _weights(o["ws"], plan.trunk)
     f32 = {k: _f32(v) for k, v in o.items() if k not in ("d", "ws", "wf") and v is not None}
-    tensors = dict(d=d, a=f32["a"], b0=f32.get("b0"), ws=ws, wst=ws.transpose(1, 2).contiguous(),
+    wst = ws.transpose(1, 2).contiguous()
+    weights = (dict(zip(("w_bwd", "w_fwd"), tiled_weights(ws, wst, plan.trunk)))
+               if plan.design == "tiled" else dict(ws=ws, wst=wst))
+    tensors = dict(d=d, a=f32["a"], b0=f32.get("b0"), **weights,
                    bs=f32["bs"], wf=_weights(o["wf"], plan.trunk), bf=f32["bf"], fr=f32.get("fr"),
                    ph=f32.get("ph"), tgt=f32.get("tgt"), sw=f32.get("sw"), bm=f32.get("bm"),
                    gin=f32.get("g"), out=None)
@@ -1039,19 +1124,22 @@ def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: 
     step library of the plan's conditioning by default (the anatomy probes
     pass theirs), or on the tiled design the tiled passes
     (``csrc/tiled_passes.cuh``, ``tiled_library``). Counted in
-    ``pass_launches`` by library (``route_launches`` sums them by design)."""
-    rest = (work.part_img.data_ptr(), work.out_img.data_ptr(), work.part_w.data_ptr(),
-            work.out_w.data_ptr(), work.sc_h.data_ptr(), work.sc_keep.data_ptr(),
-            work.sc_dz.data_ptr(), work.part_dws.data_ptr(), work.dws.data_ptr(), plan.batch,
-            plan.npix, plan.hidden)
+    ``pass_launches`` by library (``pass_calls`` sums them by design and
+    trunk)."""
+    scratch = (work.sc_h.data_ptr(), work.sc_keep.data_ptr(), work.sc_dz.data_ptr())
     grid = (plan.tiles_per_cta, plan.chunks, work.rows_per_chunk, work.n_wchunks)
     if plan.design == "tiled":
         lib = tiled_library(plan.film, plan.trunk)
         head, depth = prep.tiled_head(g0), plan.n_mm
         scalars = (0.0, 0.0, *prep.scalars) if plan.film else prep.scalars
+        scratch += (work.sc_o.data_ptr(), work.sc_g.data_ptr())
+        grid = (*grid[:2], plan.n_cb, *grid[2:])
     else:
         lib = lib or library(plan.film)
         head, depth, scalars = prep.head(g0), prep.depth, prep.scalars
+    rest = (work.part_img.data_ptr(), work.out_img.data_ptr(), work.part_w.data_ptr(),
+            work.out_w.data_ptr(), *scratch, work.part_dws.data_ptr(), work.dws.data_ptr(),
+            plan.batch, plan.npix, plan.hidden)
     with torch.cuda.device(prep.device):
         stream = torch.cuda.current_stream(prep.device).cuda_stream
         err = lib.passes(*head, *rest, depth, *grid, *scalars, *prep.flags,
@@ -1068,14 +1156,14 @@ pass_launches = {"siren_step": 0, "film_step": 0, "siren_anatomy": 0,
                  **{source: 0 for source in TILED_SOURCES}}
 
 
-def route_launches() -> dict:
-    """``pass_launches`` summed by pass design and trunk: the wgmma passes
-    (the step libraries and the anatomy probes), the tiled passes in bf16
-    and in float32."""
-    tiled = {t: sum(pass_launches[tiled_source(film, t)] for film in (False, True))
-             for t in ("bfloat16", "float32")}
-    return {"wgmma": sum(pass_launches[k] for k in ("siren_step", "film_step", "siren_anatomy")),
-            "tiled_bf16": tiled["bfloat16"], "tiled_f32": tiled["float32"]}
+def pass_calls(design: str, trunk: str = "bfloat16") -> int:
+    """``pass_launches`` summed over the libraries of one pass design and
+    trunk: "wgmma" (bf16 only: the step libraries and the anatomy probes)
+    or "tiled" (the tiled sources of both conditionings)."""
+    if design == "wgmma":
+        return (sum(pass_launches[k] for k in ("siren_step", "film_step", "siren_anatomy"))
+                if trunk == "bfloat16" else 0)
+    return sum(pass_launches[tiled_source(film, trunk)] for film in (False, True))
 
 
 def device_budget(device) -> int:
@@ -1166,35 +1254,67 @@ class Handoff:
     work: PassWork
 
 
-def passes_forward(film, ops, kw, weight_grads: bool, budget: int | None = None):
+def _fwd_passes(film, ops, kw, weight_grads: bool, budget: int | None, held: bool):
     """The trunk's forward (operands of ``siren_trunk_reference`` /
-    ``film_trunk_reference``) as the fwd passes and the output last pass,
-    into a scratch that the backward then reads in place of running the
-    forward again: (output (B, P, 8), ``Handoff``). None when that scratch,
-    held from the forward to the backward, does not fit at once (the
-    allocator refuses it, or it exceeds ``budget``): the caller takes the
-    forward kernel and the backward recomputes, in groups. Counted in
-    ``.launches``."""
+    ``film_trunk_reference``) as the fwd passes and the output last pass:
+    (output (B, P, 8), ``Handoff``). With ``held`` the scratch is kept for
+    the backward, so it must fit at once: None where it does not (the
+    allocator refuses it, or it exceeds ``budget``). Without, the images run
+    in groups under the device-memory guard (``_work_and_groups``), each
+    into its own rows of the output."""
     kind = f"{'film' if film else 'siren'}_fwd passes"
     o = _step_operands(film, ops)
     d, d_bstride = _cuda_operands(kind, kw["trunk"], ops[0], o["a"].shape[0], ops[1:])
     plan = step_plan_cuda(film, (*ops, None), d.device, bwd=True, weight_grads=weight_grads,
                           trunk=kw["trunk"])
-    if budget is not None and len(plan.groups(budget)) > 1:
-        return None
-    try:
-        work = PassWork.for_plan(plan, plan.trunk, d.device)
-    except torch.cuda.OutOfMemoryError:
-        return None
+    if plan.design is None:
+        raise ValueError(f"{kind}: no pass design takes the {kw['trunk']} trunk at "
+                         f"H = {plan.hidden}")
+    if held:
+        try:
+            if budget is not None and len(plan.groups(budget)) > 1:
+                return None
+            work, groups = PassWork.for_plan(plan, plan.trunk, d.device), ((0, plan.batch),)
+        except (MemoryError, torch.cuda.OutOfMemoryError):
+            return None
+    else:
+        work, groups = _work_and_groups(plan, d.device, budget)
     prep = pass_operands(plan, (*ops, None), kw, d, d_bstride)
     out = torch.empty((plan.batch, plan.npix, C_PAD), dtype=torch.float32, device=d.device)
-    _pass_call(plan, dataclasses.replace(prep, tensors={**prep.tensors, "out": out}), work, 0,
-               plan.last + 1, 0)
-    passes_forward.launches += 1
+    into = dataclasses.replace(prep, tensors={**prep.tensors, "out": out})
+    for g0, g1 in groups:
+        gplan = dataclasses.replace(plan, batch=g1 - g0)
+        gwork = work if len(groups) == 1 else work.group(plan, g0, g1, work.dws, plan.trunk)
+        _pass_call(gplan, into, gwork, 0, plan.last + 1, 0, g0)
     return out, Handoff(plan, prep, work)
 
 
+def passes_forward(film, ops, kw, weight_grads: bool, budget: int | None = None):
+    """The differentiable forward's half (``_fwd_passes`` with its scratch
+    held): (output, ``Handoff``) for the backward to read in place of running
+    the forward again, or None where that scratch does not fit at once (the
+    caller takes the forward kernel and the backward recomputes, in groups).
+    Counted in ``.launches``."""
+    res = _fwd_passes(film, ops, kw, weight_grads, budget, held=True)
+    if res is not None:
+        passes_forward.launches += 1
+    return res
+
+
 passes_forward.launches = 0
+
+
+def passes_output(film, ops, kw, budget: int | None = None) -> torch.Tensor:
+    """The trunk's output alone (``_fwd_passes``, its scratch dropped after
+    the call; ``budget`` in bytes, a keyword for the tests): the plain
+    forward of a width whose row tile does not fit a CTA (``siren_fwd.fwd_route``
+    "passes"). Counted in ``.launches``."""
+    out = _fwd_passes(film, ops, kw, False, budget, held=False)[0]
+    passes_output.launches += 1
+    return out
+
+
+passes_output.launches = 0
 
 
 def passes_bwd_handoff(handoff: Handoff, g) -> tuple:

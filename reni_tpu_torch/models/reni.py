@@ -337,7 +337,7 @@ class RENIModel:
         gradient) the backward kernels must take the trunk too
         (``siren_bwd.bwd_unsupported_reason``: any depth on the layer-major
         passes, bf16 widths that are a multiple of 64 and float32 widths
-        that are a multiple of 16 up to 1,024). A mesh with a model axis
+        that are a multiple of 16, at any width). A mesh with a model axis
         declines the kernels (JAX's reason)."""
         cfg = self.config
         mesh = active_kernel_mesh()

@@ -181,10 +181,16 @@ def test_group_plan_keeps_the_grid(budget_images, groups):
     """The device-memory guard's groups at the flagship step shape (100 x
     8,192): all images at once when the scratch fits; else as few groups as
     fit, of one size but the last, at least one image each, covering every
-    image once; each group keeps the whole batch's grid."""
+    image once; each group keeps the whole batch's grid. Where not even one
+    image fits (budget_images 0), the call declines with a MemoryError that
+    names memory, and one image's bytes more give groups of one."""
     plan = ts.step_plan(False, 100, 8192, 256, 5, 132)
     fixed = plan.scratch_bytes - plan.rows * plan.row_bytes
     budget = fixed + budget_images * plan.npix * plan.row_bytes
+    if budget_images == 0:
+        with pytest.raises(MemoryError, match="device memory"):
+            plan.groups(budget)
+        budget += plan.npix * plan.row_bytes
     got = plan.groups(budget)
     assert got == groups
     covered = [i for g0, g1 in got for i in range(g0, g1)]
@@ -290,14 +296,19 @@ def test_bwd_passes_write_every_slot_once(film):
 @pytest.mark.parametrize("hidden,trunk,tm", [
     (256, "bfloat16", 64), (256, "float32", 64), (512, "bfloat16", 64), (512, "float32", 32),
     (880, "bfloat16", 32), (1024, "bfloat16", 32), (1024, "float32", 16),
-    (2048, "bfloat16", 16), (2048, "float32", None), (4096, "bfloat16", None)])
+    (2048, "bfloat16", 16), (2048, "float32", None), (4096, "bfloat16", None),
+    (3600, "bfloat16", None)])
 def test_forward_row_tile_rule(hidden, trunk, tm):
     """The forward takes the largest row tile (64, 32 or 16) whose two
     activation buffers fit in a CTA's shared memory; past the 16-row tile
-    unsupported_reason declines and names the tile it tried."""
+    the layer-major passes' output mode takes a width they take (fwd_route
+    "passes"), and unsupported_reason declines any other and names the tile
+    it tried."""
     assert tk.tile_rows(hidden, trunk) == tm
     reason = tk.unsupported_reason(512, hidden, batch=4, trunk=trunk)
-    if tm is None:
+    if tm is None and tk.passes_width(hidden, trunk):
+        assert reason is None and tk.fwd_route(trunk, hidden, 3) == "passes"
+    elif tm is None:
         assert "shared memory" in reason and "(16 rows;" in reason, reason
         assert str(tk.fwd_smem_bytes(16, hidden, trunk)) in reason
     else:

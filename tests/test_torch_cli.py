@@ -698,7 +698,8 @@ def test_chip_smoke_cli_config_is_the_zoo_recipe(tmp_path):
         if field == "optim":
             a, b = a.__dict__ | {"epochs": 0}, b.__dict__ | {"epochs": 0}
         assert a == b, field
-    assert got.resolution_stages() == [(chip_smoke.FIT_RES[1], 10)]
+    cut = chip_smoke.CLI_CUTS["FIT_INVERSE"][0]
+    assert got.resolution_stages() == [(chip_smoke.FIT_RES[1], cut)]
     for task, (epochs, curriculum) in chip_smoke.CLI_CUTS.items():
         assert cfg.RENI[task].EPOCHS == epochs
         assert not curriculum or cfg.RENI[task].CURRICULUM == curriculum

@@ -275,7 +275,7 @@ def test_model_apply_with_grad_outside_bwd_limit_raises(cuda, film):
     Z0 = torch.as_tensor(rng.normal(size=(2, 5, 3)).astype(np.float32), device=cuda)
     model = RENIModel(cfg)
     assert model.apply({"decoder": dec}, Z0, D).shape == (2, 64, 3)
-    routes, fwd = ts.route_launches(), ts.passes_forward.launches
+    tiled, fwd = ts.pass_calls("tiled", "bfloat16"), ts.passes_forward.launches
     ref_fn = tk.fused_film_apply_reference if film else tk.fused_apply_reference
     grads = []
     for kernel in (True, False):  # the kernels through apply; the plain bf16 Function
@@ -285,7 +285,7 @@ def test_model_apply_with_grad_outside_bwd_limit_raises(cuda, film):
         (out ** 2).sum().backward()
         grads.append(Z.grad)
     torch.cuda.synchronize()
-    assert ts.route_launches()["tiled_bf16"] == routes["tiled_bf16"] + 2  # forward, backward
+    assert ts.pass_calls("tiled", "bfloat16") == tiled + 2  # forward, backward
     assert ts.passes_forward.launches == fwd + 1
     err, scale = (grads[0] - grads[1]).abs().max().item(), grads[1].abs().max().item()
     assert torch.isfinite(grads[0]).all() and err <= 1e-2 * scale, (err, scale)
@@ -297,7 +297,8 @@ def test_model_apply_with_grad_outside_bwd_limit_raises(cuda, film):
 
 def test_bwd_smem_formula_matches_kernel(cuda):
     """The chain backward's layout and, for the backward's new routes, the
-    tiled passes' (tiled_smem_bytes) as each library reports them."""
+    tiled passes' (tiled_smem_bytes: the product's ring of K-slabs of one
+    column block, whatever the width) as each library reports them."""
     lib = tb.library()
     for film in (False, True):
         for trunk in tk.TRUNKS:
@@ -305,7 +306,7 @@ def test_bwd_smem_formula_matches_kernel(cuda):
                 got = lib.reni_bwd_smem_bytes(int(film), int(trunk == "bfloat16"), H, n_mm)
                 assert got == tb.bwd_smem_bytes(film, trunk, H, n_mm)
             tiled = ts.tiled_library(film, trunk)
-            for H in (64, 320, 512, 1024):
+            for H in (64, 320, 384, 512, 1024, 1152, 2048, 4096):
                 assert tiled.smem_bytes(H) == ts.tiled_smem_bytes(trunk, H)
 
 
@@ -1372,3 +1373,149 @@ def test_sharded_step_kernel_plan_on_the_card(cuda, tmp_path):
     launches, grads, outs, _ = chip_smoke.mesh_step_check(cuda, str(tmp_path), batch, 1, 2)
     assert launches == {"cbc": 4, "film": 4}
     assert "decoder/final/w" in grads and [r["coords"] for r, _ in outs] == [[0, 0, 0], [0, 1, 0]]
+
+
+def _wide_ops(film, B, P, H, n_mm, seed, device):
+    """Random trunk operands of width H (SIREN-scaled, numpy-seeded), an
+    output cotangent and the loss operands (a masked last image)."""
+    rng = np.random.default_rng(seed)
+    u = lambda *s, b=1.0: torch.as_tensor(_uniform(rng, s, b), device=device)
+    d = torch.zeros(1, P, 8, device=device)
+    d[..., :4] = u(1, P, 4)
+    a = torch.zeros(B, 8, H, device=device)
+    a[:, :4] = u(B, 4, H, b=0.5)
+    ws = u(n_mm, H, H, b=math.sqrt(6 / H) / 30)
+    wf = torch.zeros(H, 8, device=device)
+    wf[:, :3] = u(H, 3, b=math.sqrt(6 / H) / 30)
+    bf = torch.zeros(1, 8, device=device)
+    g = torch.as_tensor(rng.normal(size=(B, P, 8)).astype(np.float32), device=device)
+    tgt, sw = torch.zeros(B, P, 8, device=device), torch.zeros(1, P, 8, device=device)
+    tgt[..., :3], sw[..., :3] = u(B, P, 3, b=0.5), u(1, P, 3).abs()
+    bm = torch.ones(B, 1, 8, device=device)
+    bm[-1] = 0.0
+    if film:
+        T = n_mm + 1
+        ops = (d, a, ws, u(T, H, b=0.05), wf, bf, 30 + 5 * u(B, 1, T * H), u(B, 1, T * H))
+    else:
+        ops = (d, a, u(B, 1, H, b=0.1), ws, u(n_mm, H, b=0.05), wf, bf)
+    return ops, g, (tgt, sw, bm)
+
+
+def _held(got, ref, bar):
+    for x, r in zip(got, ref):
+        assert (x is None) == (r is None)
+        if r is None or not r.numel():
+            continue
+        assert torch.isfinite(x).all()
+        assert (x - r).abs().max().item() <= bar * r.abs().max().item()
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_batches_past_65535_images(cuda, trunk):
+    """C-8: 65,536 images x 64 directions at H = 64 (the grids put images on
+    x): the forward (the fused kernel in bf16, the row-tile kernel in
+    float32), the backward with and without weight gradients and the step
+    (the wgmma passes in bf16, the tiled passes in float32) against their
+    plain versions at the file's bars, two calls the same bits."""
+    B, P, H, n_mm = 65536, 64, 64, 2
+    ops, g, loss_ops = _wide_ops(False, B, P, H, n_mm, 41, cuda)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk=trunk, fast_sine=trunk == "bfloat16")
+    assert tk.fwd_route(trunk, H, n_mm) == ("fused" if trunk == "bfloat16" else "tile")
+    bar = 1e-2 if trunk == "bfloat16" else 1e-4
+    with torch.no_grad():
+        out = tk.siren_trunk_cuda(*ops, **kw)
+        assert torch.equal(out, tk.siren_trunk_cuda(*ops, **kw))
+        _assert_close(out, tk.siren_trunk_reference(*ops, **kw), trunk, kw["fast_sine"], "fwd")
+        for wgrad in (False, True):
+            got = tb.siren_trunk_bwd_cuda(*ops, g, **kw, weight_grads=wgrad)
+            again = tb.siren_trunk_bwd_cuda(*ops, g, **kw, weight_grads=wgrad)
+            assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+            _held(got, tb.siren_trunk_bwd_reference(*ops, g, **kw, weight_grads=wgrad), bar)
+        skw = dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+        got = ts.siren_step_cuda(*ops, *loss_ops, **skw)
+        ref = ts.siren_step_reference(*ops, *loss_ops, **skw)
+        assert abs(got[0].sum().item() / ref[0].sum().item() - 1) <= 1e-4
+        _held(got[1:], ref[1:], bar)
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,n_mm", [(1152, 3), (2048, 2)])
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_tiled_routes_past_1024(cuda, film, H, n_mm, trunk):
+    """C-3: widths past 1,024 on both tiled routes at 3 x 300 (a ragged
+    tile): the step, the backward with and without weight gradients, the
+    differentiable forward's hand-off and the plain forward (at float32 H =
+    2,048 the passes' output mode) against their plain versions, two step
+    calls the same bits."""
+    B, P = 3, 300
+    ops, g, loss_ops = _wide_ops(film, B, P, H, n_mm, H + n_mm, cuda)
+    kw = dict(trunk=trunk, fast_sine=True, **({} if film else dict(omega0=30.0, omega_h=30.0)))
+    assert ts.pass_design(trunk, H, n_mm) == "tiled"
+    bar = 1e-2 if trunk == "bfloat16" else 1e-4
+    step_k, step_r = ((ts.film_step_cuda, ts.film_step_reference) if film
+                      else (ts.siren_step_cuda, ts.siren_step_reference))
+    bwd_k, bwd_r = ((tb.film_trunk_bwd_cuda, tb.film_trunk_bwd_reference) if film
+                    else (tb.siren_trunk_bwd_cuda, tb.siren_trunk_bwd_reference))
+    fwd_k, fwd_r = ((tk.film_trunk_cuda, tk.film_trunk_reference) if film
+                    else (tk.siren_trunk_cuda, tk.siren_trunk_reference))
+    with torch.no_grad():
+        skw = dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+        got = step_k(*ops, *loss_ops, **skw)
+        assert all(torch.equal(x, y) for x, y in zip(got, step_k(*ops, *loss_ops, **skw)))
+        ref = step_r(*ops, *loss_ops, **skw)
+        assert abs(got[0].sum().item() / ref[0].sum().item() - 1) <= 1e-4
+        _held(got[1:], ref[1:], bar)
+        for wgrad in (False, True):
+            ref = bwd_r(*ops, g, **kw, weight_grads=wgrad)
+            _held(bwd_k(*ops, g, **kw, weight_grads=wgrad), ref, bar)
+            out, handed = ts.passes_forward(film, ops, kw, wgrad)
+            _assert_close(out, fwd_r(*ops, **kw), trunk, True, "hand-off forward")
+            _held(ts.passes_bwd_handoff(handed, g), ref, bar)
+        before = ts.passes_output.launches
+        _assert_close(fwd_k(*ops, **kw), fwd_r(*ops, **kw), trunk, True, "forward")
+        passes = tk.fwd_route(trunk, H, n_mm) == "passes"
+        assert ts.passes_output.launches == before + passes
+        assert passes is (trunk == "float32" and H == 2048)
+
+
+@pytest.mark.parametrize("film", [False, True], ids=["cbc", "film"])
+def test_passes_output_in_groups(cuda, film):
+    """The plain forward past the row tile (float32 H = 2,048, the passes'
+    output mode) under a device-memory budget that forces groups: each image
+    runs in a group of its own over one group-sized scratch, into its own
+    rows of the output, and the output equals one call's bit for bit and
+    holds the float32 forward bar against the plain forward."""
+    B, P, H, n_mm = 3, 300, 2048, 2
+    ops, _, _ = _wide_ops(film, B, P, H, n_mm, 43, cuda)
+    kw = dict(trunk="float32", fast_sine=True,
+              **({} if film else dict(omega0=30.0, omega_h=30.0)))
+    plan = ts.step_plan_cuda(film, (*ops, None), cuda, bwd=True, weight_grads=False,
+                             trunk="float32")
+    budget = plan.scratch_bytes - plan.rows * plan.row_bytes + plan.npix * plan.row_bytes
+    assert len(plan.groups(budget)) == B
+    plain = tk.film_trunk_reference if film else tk.siren_trunk_reference
+    with torch.no_grad():
+        before = ts.passes_output.launches
+        grouped = ts.passes_output(film, ops, kw, budget=budget)
+        whole = ts.passes_output(film, ops, kw)
+        assert ts.passes_output.launches == before + 2
+        assert torch.equal(grouped, whole)
+        _assert_close(grouped, plain(*ops, **kw), "float32", True, "grouped forward")
+
+
+@pytest.mark.parametrize("B", [1024, 65535, 65536])
+def test_weight_slot_sums_hold_the_float32_loss_bar(cuda, B):
+    """The float32 step's loss sums one weight slot a CTA (B slots at 64
+    directions): in one sequential sum up to 1,024 slots and 256 at a time
+    past that (``launch_reduce``). Either way the loss holds the float32
+    step's bar against the plain step, 1e-6 relative, and the gradients
+    1e-4 of their largest entry."""
+    P, H, n_mm = 64, 64, 2
+    ops, _, loss_ops = _wide_ops(False, B, P, H, n_mm, 47, cuda)
+    kw = dict(omega0=30.0, omega_h=30.0, trunk="float32", fast_sine=False, out_act="tanh",
+              gscale=1.0 / (3 * P))
+    with torch.no_grad():
+        got = ts.siren_step_cuda(*ops, *loss_ops, **kw)
+        ref = ts.siren_step_reference(*ops, *loss_ops, **kw)
+        assert abs(got[0].sum().item() / ref[0].sum().item() - 1) <= 1e-6
+        _held(got[1:], ref[1:], 1e-4)

@@ -141,12 +141,14 @@ def test_wrapper_rejects_unsupported_shapes():
             out_features=3, output_activation="tanh", first_omega_0=30.0,
             hidden_omega_0=30.0, trunk="float32",
         )
-    # a wide trunk takes a smaller row tile; past the 16-row tile it declines
+    # a wide trunk takes a smaller row tile; past the 16-row tile the passes'
+    # output mode takes the widths the passes take, and other widths decline
     assert tk.unsupported_reason(256, 512, trunk="float32") is None
-    reason = tk.unsupported_reason(256, 2048, trunk="float32")
+    assert tk.unsupported_reason(256, 2048, trunk="float32") is None
+    reason = tk.unsupported_reason(256, 3600, trunk="bfloat16")
     assert "shared memory" in reason and "16 rows" in reason
     assert tk.unsupported_reason(256, 512, trunk="bfloat16") is None
-    assert "grid limit" in tk.unsupported_reason(256, 256, batch=70000)
+    assert tk.unsupported_reason(256, 256, batch=70000) is None  # any batch: images on x
 
 
 def test_wrapper_takes_ragged_pixel_count():

@@ -228,22 +228,24 @@ def test_step_reference_operands_and_results():
         (dict(last_layer_linear=False), (4, 128, 1), "last_layer_linear"),
         (dict(), (4, 128, 3), "direction grid batch 3"),
         (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
-        (dict(), (70000, 128, 1), "grid limit"),
+        (dict(), (70000, 128, 1), None),
         (dict(), (4, 0, 1), "no pixels"),
         (dict(hidden_features=512), (4, 128, 1), None),
         (dict(hidden_layers=0), (4, 128, 1), "needs a hidden layer"),
         (dict(pallas_trunk="float32", hidden_layers=12), (4, 128, 1), None),
         (dict(hidden_features=96, hidden_layers=21), (4, 128, 1), "shared memory"),
-        (dict(pallas_trunk="float32", hidden_features=2048), (4, 128, 1), "shared memory"),
+        (dict(pallas_trunk="float32", hidden_features=2048), (4, 128, 1), None),
     ],
     ids=["off", "film", "sine_final", "grid_batch", "width", "batch", "npix", "smem_wide",
          "no_hidden", "smem_deep", "chain_deep_96", "f32_fwd_2048"],
 )
 def test_fused_step_reason_guards(cfg, shape, match):
     """Every guard of RENIModel.apply plus the step kernel's own limits. The
-    tiled passes take 5 x 512 bf16 and 12 x 256 float32 (None: accepted);
-    what still declines is a bf16 width that is not a multiple of 64 past the
-    chain kernel's depth and the float32 forward past its row tiles."""
+    tiled passes take 5 x 512 bf16, 12 x 256 and 5 x 2,048 float32 (None:
+    accepted; the forward past its row tiles runs as the passes), and any
+    batch (70,000 images: the grids put images on x); what still declines is
+    a bf16 width that is not a multiple of 64 past the chain kernel's
+    depth."""
     model = RENIModel(RENIConfig(**{**dict(use_pallas=True), **cfg}))
     reason = model.fused_step_reason(*shape)
     assert reason is None if match is None else match in reason
@@ -486,7 +488,7 @@ def test_film_step_reference_operands_and_results():
         (dict(use_pallas=False), (4, 128, 1), "use_pallas off"),
         (dict(), (4, 128, 3), "direction grid batch 3"),
         (dict(hidden_features=120), (4, 128, 1), "multiple of 16"),
-        (dict(), (70000, 128, 1), "grid limit"),
+        (dict(), (70000, 128, 1), None),
         (dict(), (4, 0, 1), "no pixels"),
         (dict(hidden_features=512), (4, 128, 1), None),
         (dict(hidden_layers=0), (4, 128, 1), "needs a trunk layer"),
@@ -501,8 +503,8 @@ def test_fused_step_reason_film_guards(cfg, shape, match):
     """Every guard of fused_step_reason for a FiLM model: those of
     RENIModel.apply, then the FiLM step kernel's own limits. The tiled
     passes take 5 x 512 and 7 x 320 bf16 and 12 x 256 float32 (None:
-    accepted); a bf16 width that is not a multiple of 64 keeps the chain
-    kernel's depth limit."""
+    accepted), at any batch; a bf16 width that is not a multiple of 64 keeps
+    the chain kernel's depth limit."""
     model = RENIModel(RENIConfig(**{**dict(use_pallas=True, conditioning="FiLM"), **cfg}))
     reason = model.fused_step_reason(*shape)
     assert reason is None if match is None else match in reason

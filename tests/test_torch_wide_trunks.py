@@ -1,6 +1,6 @@
-"""The trunks past the wgmma passes' width (bf16 widths from 320 to 1,024) and
+"""The trunks past the wgmma passes' width (bf16 widths from 320 up) and
 the float32 trunk, which the port's tiled passes (csrc/tiled_passes.cuh)
-take at any depth: the routing envelope held against JAX's
+take at any depth and width: the routing envelope held against JAX's
 ``unsupported_reason``, and the port's plain versions (the forward, the
 backward and the step as the plain passes chain them) held against the JAX
 package's Pallas kernels in interpret mode, as tests/test_pallas.py runs
@@ -21,7 +21,8 @@ from reni_tpu_torch.kernels import siren_fwd as tk
 from reni_tpu_torch.kernels import siren_step as ts
 from reni_tpu_torch.models.reni import RENIConfig, RENIModel
 
-ENVELOPE = [(H, depth) for H in range(128, 1025, 128) for depth in range(1, 17)]
+ENVELOPE = [(H, depth) for H in range(128, 1025, 128) for depth in range(1, 17)] + [
+    (H, depth) for H in (1152, 1536, 2048, 4096) for depth in (1, 2, 5, 16)]
 
 
 @pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
@@ -41,6 +42,27 @@ def test_port_takes_every_trunk_jax_takes(H, depth, conditioning, trunk):
     n_mm = depth - 1 if conditioning == "FiLM" else depth
     assert ts.pass_design(trunk, H, n_mm) == ("wgmma" if trunk == "bfloat16" and H <= 256 and n_mm
                                               else "tiled")
+
+
+BATCHES = [1, 2, 100, 65_535, 65_536, 65_537, 100_000, 131_071, 131_072, 199_999, 200_000]
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+@pytest.mark.parametrize("conditioning", ["Cond-by-Concat", "FiLM"])
+def test_port_takes_every_batch_jax_takes(conditioning, trunk):
+    """C-8: JAX's unsupported_reason puts no bound on the batch; neither do
+    the port's guards (the grids put images on x): decode_reason with and
+    without a gradient and fused_step_reason are None for every batch of
+    the sweep up to 200,000 images, at the Zoo's width and past 1,024."""
+    for H in (128, 512, 2048):
+        model = RENIModel(RENIConfig(conditioning=conditioning, hidden_layers=5,
+                                     hidden_features=H, use_pallas=True, pallas_trunk=trunk))
+        for B in BATCHES:
+            assert jk.unsupported_reason(64, H, batch=B) is None
+            assert tk.unsupported_reason(64, H, batch=B, trunk=trunk) is None
+            assert model.decode_reason(B, 64) is None
+            assert model.decode_reason(B, 64, grad=True) is None
+            assert model.fused_step_reason(B, 64) is None
 
 
 def _operands(film, B, P, H, n_mm, seed):
@@ -88,8 +110,9 @@ def _worst(got, ref):
     return worst
 
 
-WIDE_CASES = [  # (film, H, n_mm)
-    (False, 384, 2), (True, 384, 2), (False, 512, 3), (True, 512, 2)]
+WIDE_CASES = [  # (film, H, n_mm, P)
+    (False, 384, 2, 256), (True, 384, 2, 256), (False, 512, 3, 256), (True, 512, 2, 256),
+    (False, 1152, 2, 64), (True, 1152, 1, 64)]
 # float32: 5e-5 of each result's largest entry; bf16: the output at the bars
 # of test_fused_bf16_trunk_close (max 0.05, mean 0.01), the loss to 1e-3
 # relative and each gradient to 2.5e-3 of its largest entry (the bars of
@@ -101,30 +124,31 @@ BARS = {"float32": (5e-5, 5e-5), "bfloat16": (1e-3, 2.5e-3)}
 @pytest.mark.parametrize("case", WIDE_CASES, ids=[f"{'film' if c[0] else 'cbc'}-H{c[1]}-mm{c[2]}"
                                                   for c in WIDE_CASES])
 def test_plain_versions_match_pallas_past_256(case, trunk):
-    """At H = 384 and 512 (the tiled passes' route on the card) the port's
-    plain forward, the backward and the step as the plain passes chain them
-    (the scratch and per-CTA slots of a 2-SM card) against JAX's Pallas
-    forward, _bwd_kernel / _film_bwd_kernel and _step_kernel /
+    """At H = 384, 512 and 1,152 (the tiled passes' route on the card) the
+    port's plain forward, the backward and the step as the plain passes
+    chain them (the scratch and per-CTA slots of a 2-SM card) against JAX's
+    Pallas forward, _bwd_kernel / _film_bwd_kernel and _step_kernel /
     _film_step_kernel in interpret mode on the same operands (B = 2, P = 256:
-    two 128-row tiles on both sides)."""
-    film, H, n_mm = case
-    B, P = 2, 256
+    two 128-row tiles on both sides; past 1,024 depth 2 at P = 64, one
+    64-row tile)."""
+    film, H, n_mm, P = case
+    B, tile = 2, min(P, 128)
     ops, g, loss_ops, kw = _operands(film, B, P, H, n_mm, seed=H + n_mm)
     kw["trunk"] = trunk
     assert ts.pass_design(trunk, H, n_mm) == "tiled"
     dtype = {"bfloat16": jnp.bfloat16, "float32": None}[trunk]
     gscale = 1.0 / (3 * P)
     if film:
-        fwd, bwd = jk._film_calls(n_mm + 1, H, tile=128, trunk_dtype=dtype, interpret=True,
+        fwd, bwd = jk._film_calls(n_mm + 1, H, tile=tile, trunk_dtype=dtype, interpret=True,
                                   fast_sine=True)
-        step = jk._film_step_call_builder(n_mm + 1, H, out_act="tanh", gscale=gscale, tile=128,
+        step = jk._film_step_call_builder(n_mm + 1, H, out_act="tanh", gscale=gscale, tile=tile,
                                           trunk_dtype=dtype, interpret=True, fast_sine=True)
         plain_fwd = tk.film_trunk_reference
     else:
-        fwd, bwd = jk._siren_calls(n_mm, H, 30.0, 30.0, tile=128, trunk_dtype=dtype,
+        fwd, bwd = jk._siren_calls(n_mm, H, 30.0, 30.0, tile=tile, trunk_dtype=dtype,
                                    interpret=True, fast_sine=True)
         step = jk._step_call_builder(n_mm, H, 30.0, 30.0, out_act="tanh", gscale=gscale,
-                                     tile=128, trunk_dtype=dtype, interpret=True, fast_sine=True)
+                                     tile=tile, trunk_dtype=dtype, interpret=True, fast_sine=True)
         plain_fwd = tk.siren_trunk_reference
     j = lambda ts_: [jnp.asarray(_np(t)) for t in ts_]
     loss_bar, grad_bar = BARS[trunk]
@@ -184,18 +208,23 @@ def test_plain_passes_match_plain_step_on_the_tiled_route(case):
 @pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
 def test_tiled_plan_scratch_and_costs(trunk):
     """The tiled route's plan at 5 x 512 (FIT_DECODER's 100 x 8,192 on a
-    132-SM card): the trunk's dtype in the scratch (bf16 18 KB a row,
-    float32 28 KB) and in the byte counts (46 KB and 76 KB of traffic a row), the products' FLOP, and the
-    split-K partials of dWs in the device-memory budget (C-1)."""
+    132-SM card): the trunk's dtype in the scratch (bf16 20 KB a row,
+    float32 30 KB: h and dz, the kept values and the last layer's
+    pre-activation, the column blocks' partial final layers and g) and in
+    the byte counts (52 KB and 83 KB of traffic a row), the products' FLOP,
+    and the split-K partials of dWs in the device-memory budget (C-1)."""
     plan = ts.step_plan(False, 100, 8192, 512, 5, 132, trunk=trunk)
     assert plan.design == "tiled"
     e = 2 if trunk == "bfloat16" else 4
-    assert plan.row_bytes == 512 * (e * 2 * 5 + 4 * 4)
+    n_cb = 2 if trunk == "bfloat16" else 8  # 256- and 64-column blocks
+    assert (plan.n_keep, plan.n_cb) == (5, n_cb)
+    assert plan.row_bytes == 512 * (e * 2 * 5 + 4 * 5) + 4 * 8 * (n_cb + 1)
+    assert plan.scratch_shapes()["sc_o"] == (n_cb, plan.rows, 8)
     flops = sum(plan.pass_cost(k)[0] for k in range(10)) + plan.wgrad_cost()[0]
     assert 15 * 2 * 512 * 512 * plan.rows <= flops < 1.02 * 15 * 2 * 512 * 512 * plan.rows
     per_row = (sum(plan.pass_cost(k)[1] for k in range(10)) + plan.wgrad_cost()[1]) / plan.rows
-    assert per_row == pytest.approx(46_200 if trunk == "bfloat16" else 75_900, rel=0.01)
-    tiles = math.ceil(512 / tb.WGRAD_TILE[trunk]) ** 2
+    assert per_row == pytest.approx(51_530 if trunk == "bfloat16" else 82_640, rel=0.01)
+    tiles = math.prod(math.ceil(512 / t) for t in tb.WGRAD_TILE[trunk])
     chunks = max(1, tb.WGRAD_CTAS_PER_SM * 132 // (tiles * 5))
     assert plan.wgrad_bytes == (chunks + 3) * 5 * 512 * 512 * 4
     slots = plan.batch * plan.chunks * (plan.n_img + plan.n_w) + plan.batch * plan.n_img + plan.n_w
@@ -222,12 +251,22 @@ def test_budget_counts_the_split_k_partials_at_1024():
 def test_declines_that_remain():
     """What the port still declines, and why: a bf16 width that is not a
     multiple of 64 (the chain kernel's depth limit; JAX declines it too, not
-    a multiple of 128), widths past 1,024 on the step and the backward, and
-    the float32 forward past its 64-row tile limits at H = 2,048."""
+    a multiple of 128; past the row tile the forward too), and at call time
+    a trunk whose one image's pass scratch does not fit the device-memory
+    budget (a MemoryError that names memory). Widths past 1,024 and the
+    float32 forward at H = 2,048 are taken."""
     assert ts.pass_design("bfloat16", 96, 40) is None
     assert "shared memory" in ts.step_unsupported_reason(96, 40, "bfloat16")
     assert "shared memory" in tb.bwd_unsupported_reason(96, 40, False, "bfloat16")
     assert jk.unsupported_reason(8192, 96) is not None
-    assert ts.pass_design("bfloat16", 1088, 5) is None
-    assert "shared memory" in ts.step_unsupported_reason(1088, 5, "bfloat16")
-    assert "shared memory" in tk.unsupported_reason(8192, 2048, trunk="float32")
+    assert "shared memory" in tk.unsupported_reason(8192, 3600, trunk="bfloat16")
+    assert jk.unsupported_reason(8192, 3600) is not None
+    assert ts.pass_design("bfloat16", 1088, 5) == "tiled"
+    assert ts.step_unsupported_reason(1088, 5, "bfloat16") is None
+    assert tk.unsupported_reason(8192, 2048, trunk="float32") is None
+    assert tk.fwd_route("float32", 2048, 2) == "passes"
+    plan = ts.step_plan(False, 4, 1 << 20, 4096, 16, 132)
+    fixed = plan.scratch_bytes - plan.rows * plan.row_bytes
+    with pytest.raises(MemoryError, match="device memory"):
+        plan.groups(fixed + plan.npix * plan.row_bytes - 1)
+    assert plan.groups(fixed + plan.npix * plan.row_bytes) == tuple((b, b + 1) for b in range(4))

@@ -5,6 +5,7 @@ of a kernel source in one process chain on one card.
     python3 time_kernels.py             # from the repository root, one NVIDIA GPU
     python3 time_kernels.py --anatomy   # the anatomy probes in place of the kernels
     python3 time_kernels.py --float32   # the Zoo's trunks under the float32 trunk
+    python3 time_kernels.py --tiled     # the tiled passes at the widths they take
 
 Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
 decoders, bf16 trunk, fast sine) prints the median time of both train-step
@@ -47,6 +48,14 @@ layer-major passes (``siren_step.pass_route``). It uses only entry points
 that the port has had since its chain kernels took the float32 trunk, so
 the same file times an older tree: copy it into that tree's root and run it
 there.
+
+With ``--tiled`` it prints instead the median time of the tiled passes'
+routes at TILED_SHAPES (the step at FIT_DECODER's 100 x 8,192 and the
+backward without weight gradients at FIT_LATENT's 21 x 8,192, on
+``chip_smoke.wide_operands``' trunks), each after one check against its
+plain version, and the plain step's time at float32 5 x 512. It too uses
+entry points an older tree has (since the tiled passes came in), so the same
+file times that tree when copied into its root.
 """
 
 from __future__ import annotations
@@ -128,12 +137,52 @@ def float32_zoo(dev) -> None:
     print(cs.card_line())
 
 
+# (name, trunk, H, H x H products, batch): the step at 100 x 8,192, the
+# backward without weight gradients at 21 x 8,192
+TILED_SHAPES = (("siren_step", "bfloat16", 512, 5, 100), ("film_step", "bfloat16", 512, 4, 100),
+                ("siren_bwd", "bfloat16", 512, 5, 21), ("siren_step", "float32", 256, 5, 100),
+                ("siren_step", "float32", 512, 5, 100), ("siren_bwd", "float32", 512, 5, 21))
+
+
+def tiled(dev) -> None:
+    """Print the tiled routes' times at TILED_SHAPES (``--tiled``), then the
+    card line."""
+    from reni_tpu_torch.kernels import siren_bwd as tb
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    with torch.no_grad():
+        for name, trunk, H, n_mm, B in TILED_SHAPES:
+            film = name.startswith("film")
+            ops, g, loss_ops = cs.wide_operands(film, H, n_mm, dev, B=B, seed=31)
+            P = g.shape[1]
+            kw = cs.wide_kw(film, trunk)
+            if name.endswith("step"):
+                kernel = ts.film_step_cuda if film else ts.siren_step_cuda
+                plain = ts.film_step_reference if film else ts.siren_step_reference
+                args, fkw = (*ops, *loss_ops), dict(kw, out_act="tanh", gscale=1.0 / (3 * P))
+            else:
+                kernel = tb.film_trunk_bwd_cuda if film else tb.siren_trunk_bwd_cuda
+                plain = tb.film_trunk_bwd_reference if film else tb.siren_trunk_bwd_reference
+                args, fkw = (*ops, g), dict(kw, weight_grads=False)
+            errs = relative_errors(kernel(*args, **fkw), plain(*args, **fkw))
+            ms = cs.time_ms(lambda: kernel(*args, **fkw), runs=5, warmup=1)
+            line = f"tiled {name} {trunk} {n_mm} x {H} {B} x {P:,}: {ms:.3f} ms"
+            if trunk == "float32" and H == 512 and name == "siren_step":
+                line += f"; plain {cs.time_ms(lambda: plain(*args, **fkw), runs=3, warmup=1):.3f} ms"
+            print(f"{line}; vs plain {errs}", flush=True)
+            del ops, g, loss_ops, args
+            torch.cuda.empty_cache()
+    print(cs.card_line())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--anatomy", action="store_true",
                     help="time the anatomy probes in place of the training kernels")
     ap.add_argument("--float32", action="store_true",
                     help="time the Zoo's trunks with the float32 trunk in place of the kernels")
+    ap.add_argument("--tiled", action="store_true",
+                    help="time the tiled passes' routes in place of the kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device is available", file=sys.stderr)
@@ -145,6 +194,9 @@ def main(argv=None) -> int:
         return 0
     if args.float32:  # builds at first call only what the float32 trunk runs
         float32_zoo(torch.device(cs.DEVICE))
+        return 0
+    if args.tiled:  # likewise
+        tiled(torch.device(cs.DEVICE))
         return 0
     from reni_tpu_torch.core import sphere
     from reni_tpu_torch.kernels import siren_bwd as tb
