@@ -2821,12 +2821,11 @@ def compare_handoff(name, cfg, dec, Z, device) -> tuple[list, list]:
     return errs, rels
 
 
-def time_plan_passes(label, plan, ops, kw, device, runs: int = 10) -> tuple[dict, float]:
+def time_plan_passes(label, plan, ops, kw, device, runs: int = 10) -> tuple[dict, dict]:
     """The passes of ``plan`` timed alone, each with its bytes, FLOPs and
     achieved rates, and (with weight gradients) the weight-gradient product
-    alone, then the design's byte floor (printed); returns ({pass: ms}, dWs
-    ms or 0)."""
-    from reni_tpu_torch.kernels import anatomy as ta
+    over their scratch (``wgrad_timings``), then the design's byte floor
+    (printed); returns ({pass: ms}, the product's numbers or {})."""
     from reni_tpu_torch.kernels import siren_step as ts
 
     work = ts.PassWork.for_plan(plan, kw["trunk"], device)
@@ -2841,40 +2840,68 @@ def time_plan_passes(label, plan, ops, kw, device, runs: int = 10) -> tuple[dict
         passes[f"{kind}{j}"] = ms
         print(f"  {label} pass {kind} {j}: {ms:.4f} ms, {nbytes:.4g} B, {flops:.4g} FLOP -> "
               f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    wgrad_ms = 0.0
+    wgrad = {}
     if plan.weight_grads:
-        wgrad_ms = time_ms(lambda: ta.weight_grads_cuda(work.sc_h, work.sc_dz), runs=5, warmup=1)
-        flops, nbytes = plan.wgrad_cost()
-        total += nbytes
-        print(f"  {label} dWs (wgrad_bf16 + its sum): {wgrad_ms:.4f} ms, {nbytes:.4g} B, "
-              f"{flops:.4g} FLOP -> {nbytes / (wgrad_ms * 1e-3) / 1e12:.3f} TB/s, "
-              f"{flops / (wgrad_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        wgrad = wgrad_timings(label, plan, work.sc_h, work.sc_dz)
+        total += plan.wgrad_cost()[1]
     del work, prep
     torch.cuda.empty_cache()
     print(f"  {label}: the design's byte floor {total:.4g} B ({total / plan.rows:.0f} per row) -> "
           f"{total / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12:.2f} TB/s; sum of the passes"
-          f"{' and dWs' if plan.weight_grads else ''} {sum(passes.values()) + wgrad_ms:.4f} ms")
-    return passes, wgrad_ms
+          f"{' and dWs' if plan.weight_grads else ''} "
+          f"{sum(passes.values()) + wgrad.get('wgrad_ms', 0.0):.4f} ms")
+    return passes, wgrad
+
+
+def wgrad_timings(label, plan, sc_h, sc_dz, runs: int = 5) -> dict:
+    """dWs = h^T dz over a plan's scratch: the kernel held once against
+    ``weight_grads_reference``, the float64 product (bf16: 1e-4 x its max
+    |dWs|; two calls bitwise equal), then timed with the sum of its split-K
+    partials and alone, beside its bound (its FLOP at the trunk's peak, its
+    bytes at PEAK_BYTES), its plain version and, as a yardstick only (the
+    port never calls it), torch.bmm of the same scratch (TF32 off)."""
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    dws, again = ta.weight_grads_cuda(sc_h, sc_dz), ta.weight_grads_cuda(sc_h, sc_dz)
+    check(torch.equal(dws, again), f"{label}: dWs differs between two calls")
+    ref = ta.weight_grads_reference(sc_h, sc_dz)
+    rel = ((dws - ref).abs().max() / ref.abs().max()).item()
+    check(plan.trunk != "bfloat16" or rel <= 1e-4,  # wgrad_f32 is held in its own tests
+          f"{label}: wgrad_bf16 off the float64 product: {rel:.3g} > 1e-4 x max |dWs|")
+    del dws, again, ref
+    flops, nbytes = plan.wgrad_cost()
+    bound_ms, bound_by = bound(flops, nbytes,
+                               PEAK_BF16_FLOPS if plan.trunk == "bfloat16" else PEAK_F32_FLOPS)
+    out = {
+        "wgrad_ms": time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz), runs=runs, warmup=1),
+        "wgrad_alone_ms": time_ms(lambda: ta.weight_grads_cuda(sc_h, sc_dz, reduce=False),
+                                  runs=runs, warmup=1),
+        "wgrad_library_ms": time_ms(lambda: torch.bmm(sc_h.transpose(1, 2), sc_dz), runs=runs,
+                                    warmup=1),
+        "wgrad_plain_ms": time_ms(lambda: ta.weight_grads_reference(sc_h, sc_dz), runs=3,
+                                  warmup=1),
+        "wgrad_bound_ms": bound_ms, "wgrad_bound_by": bound_by, "wgrad_max_rel_err": rel,
+    }
+    name = "wgrad_bf16" if plan.trunk == "bfloat16" else "wgrad_f32"
+    print(f"  {label} dWs ({name}, {sc_h.shape[0]} x {sc_h.shape[1]:,} x {sc_h.shape[2]}): "
+          f"alone {out['wgrad_alone_ms']:.4f} ms, with its split-K sum {out['wgrad_ms']:.4f} ms; "
+          f"{nbytes:.4g} B, {flops:.4g} FLOP -> {nbytes / (out['wgrad_ms'] * 1e-3) / 1e12:.3f} "
+          f"TB/s, {flops / (out['wgrad_ms'] * 1e-3) / 1e12:.1f} TFLOP/s; bound {bound_ms:.4f} ms "
+          f"({bound_by}); yardstick (not called by the port): torch.bmm of the same scratch "
+          f"{out['wgrad_library_ms']:.4f} ms; plain (float64) {out['wgrad_plain_ms']:.4f} ms; "
+          f"max |diff| / max |plain| {rel:.3g} ({CARD})")
+    return out
 
 
 def pass_timings(name, cfg, ops, kw, device) -> dict:
-    """The passes of one step timed alone at the step's shape
-    (``time_plan_passes``); and, as a yardstick only (the port never calls
-    it), torch.matmul of the same rows x H x H bf16 product. Returns the
-    numbers for the kernels line."""
+    """The passes of one step timed alone at the step's shape, then dWs alone
+    over the step's own scratch beside torch.bmm of it (``time_plan_passes``).
+    Returns the numbers for the kernels line."""
     from reni_tpu_torch.kernels import siren_step as ts
 
     plan = ts.step_plan_cuda(cfg.is_film, ops, device)
-    passes, wgrad_ms = time_plan_passes(name, plan, ops, kw, device)
-    gen = torch.Generator(device=device).manual_seed(7)
-    x = torch.randn((plan.rows, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
-    w = torch.randn((plan.hidden, plan.hidden), generator=gen, device=device).to(torch.bfloat16)
-    mm_ms = time_ms(lambda: torch.matmul(x, w), runs=10)
-    mm_bytes = 2 * (2 * x.numel() + w.numel())
-    print(f"  yardstick (not called by the port): torch.matmul {plan.rows} x {plan.hidden} x "
-          f"{plan.hidden} bf16 {mm_ms:.4f} ms -> {mm_bytes / (mm_ms * 1e-3) / 1e12:.3f} TB/s")
-    del x, w
-    return {"passes_ms": passes, "wgrad_ms": wgrad_ms, "matmul_yardstick_ms": mm_ms}
+    passes, wgrad = time_plan_passes(name, plan, ops, kw, device)
+    return {"passes_ms": passes, **wgrad}
 
 
 def bwd_pass_timings(name, cfg, dec, Z, device) -> dict:
@@ -2885,11 +2912,10 @@ def bwd_pass_timings(name, cfg, dec, Z, device) -> dict:
     for weight_grads in (False, True):
         plan, ops, kw = bwd_plan(cfg, dec, Z, device, weight_grads)
         tag = "wgrad" if weight_grads else "no_wgrad"
-        passes, wgrad_ms = time_plan_passes(f"{name} 21 x 8,192 ({tag})", plan, ops, kw, device,
-                                            runs=25)
+        passes, wgrad = time_plan_passes(f"{name} 21 x 8,192 ({tag})", plan, ops, kw, device,
+                                         runs=25)
         out[f"passes_ms_21x8192_{tag}"] = passes
-        if weight_grads:
-            out["wgrad_ms_21x8192"] = wgrad_ms
+        out.update({f"{k}_21x8192": v for k, v in wgrad.items()})
     return out
 
 
@@ -3359,7 +3385,8 @@ def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
         if route == "passes":
             check(torch.equal(dws, shipped_bwd[True][2]),
                   "wgrad_bf16 on the bwd_no_accum scratch is not the shipped backward's dWs")
-        compare_probe("wgrad_bf16 alone", [dws], [ta.weight_grads_reference(sc_h, sc_dz)], 1e-4)
+        compare_probe("wgrad_bf16 alone (against the float64 product)", [dws],
+                      [ta.weight_grads_reference(sc_h, sc_dz)], 1e-4)
         del sc_h, sc_dz, dws, again, got, ref, shipped_bwd
         torch.cuda.synchronize()
         ta.fwd_variant_cuda.launches = ta.bwd_variant_cuda.launches = 0
@@ -5152,10 +5179,11 @@ def wide_compare(device) -> dict:
     return {k: tuple(v) for k, v in errs.items()}
 
 
-def step_split(film: bool, args, kw, device) -> tuple[float, float]:
-    """(passes, dWs) ms of one step on the pass route, by CUDA events: every
-    pass and the slot sums, then dWs = h^T dz alone (wgrad_bf16 /
-    wgrad_f32 and the sum of its split-K partials) over their scratch."""
+def step_split(film: bool, args, kw, device) -> dict:
+    """The passes and dWs of one step on the pass route, by CUDA events:
+    every pass and the slot sums, then dWs = h^T dz alone over their scratch
+    (wgrad_bf16 / wgrad_f32 and the sum of its split-K partials,
+    ``wgrad_timings``: beside torch.bmm of the same scratch)."""
     from reni_tpu_torch.kernels import siren_step as ts
 
     plan = ts.step_plan_cuda(film, args, device, trunk=kw["trunk"])
@@ -5163,9 +5191,10 @@ def step_split(film: bool, args, kw, device) -> tuple[float, float]:
     n = len(plan.passes)
     passes = time_ms(lambda: ts._pass_call(plan, prep, work, 0, n, ts.FINISH_IMG | ts.FINISH_W),
                      runs=5, warmup=1)
-    wgrad = time_ms(lambda: ts._pass_call(plan, prep, work, 0, 0, ts.FINISH_DWS), runs=5,
-                    warmup=1)
-    return passes, wgrad
+    out = wgrad_timings(f"{'film' if film else 'siren'}_step {plan.n_mm} x {plan.hidden} "
+                        f"{plan.trunk}", plan, work.sc_h, work.sc_dz)
+    del prep, work
+    return {"passes_ms": passes, **out}
 
 
 def wide_timings(device) -> dict:
@@ -5219,7 +5248,7 @@ def wide_timings(device) -> dict:
                "bound_ms": bound_ms, "bound_by": bound_by, "byte_floor_ms": floor_ms}
         if name.endswith("step"):
             with torch.no_grad():
-                row["passes_ms"], row["wgrad_ms"] = step_split(film, args, fkw, device)
+                row.update(step_split(film, args, fkw, device))
             split = (f"; the passes {row['passes_ms']:.4f} ms, dWs "
                      f"{row['wgrad_ms']:.4f} ms")
         print(f"wide {name} {route} {depth} x {H} B={B} P={P}: kernel {ms:.4f} ms, plain "

@@ -215,8 +215,13 @@ def bwd_plan(d_pad, a, ws, sms: int) -> "siren_step.StepPlan":
 
 def weight_grads_reference(sc_h: torch.Tensor, sc_dz: torch.Tensor) -> torch.Tensor:
     """dWs (L, H, H) = h_i^T dz_i over all rows of the scratches (L, rows, H),
-    summed in float32."""
-    return torch.einsum("lrm,lrn->lmn", sc_h.float(), sc_dz.float())
+    summed in float64 and rounded once to float32: the exact product that the
+    kernels' float32 sums are held to."""
+    L, _, H = sc_h.shape
+    out = torch.empty((L, H, H), dtype=torch.float64, device=sc_h.device)
+    for i in range(L):  # a layer at a time: float64 copies of the whole scratch are large
+        out[i] = sc_h[i].double().T @ sc_dz[i].double()
+    return out.float()
 
 
 # ---------------------------------------------------------------------------
@@ -400,12 +405,17 @@ def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool =
     (L, rows, H) a backward wrote (bf16 or float32; the passes' or a chain
     kernel's, which ``bwd_variant_cuda(..., accum=False)`` returns) -> dWs
     (L, H, H); with ``reduce=False`` the split-K partials (chunks, L, H, H),
-    not summed."""
+    not summed (``siren_bwd.wgrad_chunks``). bf16 runs ``wgrad_bf16``, the
+    wgmma product over tensor-map K-slabs (H a multiple of 16), float32
+    ``wgrad_f32``."""
     trunk = "bfloat16" if sc_h.dtype == torch.bfloat16 else "float32"
     if not (sc_h.is_cuda and sc_dz.is_cuda):
         raise ValueError("weight_grads kernel operands must all be CUDA tensors")
     if sc_h.shape != sc_dz.shape or sc_h.dtype != sc_dz.dtype or sc_h.dim() != 3:
         raise ValueError(f"scratch shapes {tuple(sc_h.shape)} and {tuple(sc_dz.shape)}")
+    if sc_h.dtype not in (torch.bfloat16, torch.float32) or sc_h.shape[2] % 16:
+        raise ValueError(f"scratch of {sc_h.dtype}, width {sc_h.shape[2]}: the product takes "
+                         "bf16 or float32 rows of a multiple of 16 values")
     n_mm, rows, hidden = sc_h.shape
     per, chunks = siren_bwd.wgrad_chunks(rows, hidden, n_mm, trunk, sc_h.device)
     f32 = dict(dtype=torch.float32, device=sc_h.device)

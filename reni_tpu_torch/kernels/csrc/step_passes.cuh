@@ -34,8 +34,9 @@
 //   bwd_pass j (j = n_mm-1..0): dz_j -> dz_j W_j^T = dh_j -> layer j's
 //     backward epilogue from sc_keep[j-1] (j = 0: the kept value is formed
 //     again from d): dz to sc_dz[j-1], or for j = 0 the per-image dA.
-// Then dWs = h^T dz over sc_h / sc_dz by wgrad_bf16 and the slot sums by
-// reduce_slots (siren_chain.cuh), as for the chain kernel.
+// Then dWs = h^T dz over sc_h / sc_dz by wgrad_bf16 (a wgmma split-K GEMM
+// on MN-major K-slabs of the scratch) and the slot sums by reduce_slots
+// (siren_chain.cuh), as for the chain kernel.
 //
 // The backward (gin set) runs the same passes with the cotangent last pass
 // (last_pass<..., LAST_COT>): it reads the tile's output cotangent g from

@@ -39,10 +39,12 @@
 //     row-major and are read as float4 along K, the weights as float4 along
 //     the columns, both conflict-free. Two CTAs share an SM, so one's
 //     epilogue runs under the other's products (on an H100 5% faster at
-//     5 x 512 than one 256-thread CTA of 128 x 128). wgrad_f32 (siren_chain.cuh) has
-//     the same 8 x 8 register tiles in one 256-thread CTA of 128 x 128 (a
-//     128 x 64 CTA pair measured no faster there on an H100: it has no
-//     epilogue).
+//     5 x 512 than one 256-thread CTA of 128 x 128). wgrad_f32
+//     (siren_chain.cuh) has the same 8 x 8 register tiles in one 256-thread
+//     CTA of 128 x 128 (a 128 x 64 CTA pair measured no faster there on an
+//     H100: it has no epilogue); its bf16 counterpart wgrad_bf16 is a wgmma
+//     split-K GEMM over tensor-map K-slabs of the scratch, 128 x up to 256
+//     outputs a CTA.
 //   - the epilogues work on the accumulators in registers: bias, sine, the
 //     kept value, FiLM modulation, dz; column sums by warp shuffles, kept in
 //     registers across the CTA's tiles and added over the warps in order at
@@ -59,8 +61,8 @@
 //     pass 0's product then reads like any other layer (a one-layer FiLM
 //     trunk: the last layer's pre-activation and partial o in its place).
 // No float atomics: two calls on the same inputs give the same bits. dWs is
-// wgrad_bf16 / wgrad_f32 of siren_chain.cuh over the scratch, as on the
-// other route.
+// wgrad_bf16 (wgmma on MN-major K-slabs of sc_h / sc_dz) / wgrad_f32 of
+// siren_chain.cuh over the scratch, as on the other route.
 //
 // What bounds it on the H100. Per 128 x 256 bf16 block and 64 of K a
 // consumer pair issues 8 wgmma (4.2 MFLOP) on 48 KB of slabs from L2, so the

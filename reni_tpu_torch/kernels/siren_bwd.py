@@ -64,8 +64,17 @@ from reni_tpu_torch.kernels.siren_fwd import (
 
 WARPS = 8  # csrc/siren_chain.cuh THREADS / 32
 CTAS_PER_SM = 4  # CTAs the launch aims for per SM (one is resident at a time)
-WGRAD_CTAS_PER_SM = 6  # the same for the split-K weight-gradient product
-WGRAD_TILE = {"bfloat16": (128, 128), "float32": (128, 128)}  # its output tile (rows, columns)
+# the split-K weight-gradient product (csrc/siren_chain.cuh): float32 CTAs of
+# a 128 x 128 output tile, about WGRAD_CTAS_PER_SM of them per SM; bf16 CTAs
+# (one an SM) of a block of 128 rows by at most 256 columns over blocks of at
+# most WGRAD_WINDOW_ROWS rows, which is all one tensor-core sum takes (each
+# block's sum is then added to its chunk's slot in float32), at least one
+# wave of the card and at most WGRAD_WAVES
+WGRAD_CTAS_PER_SM = 6
+WGRAD_F32_TILE = (128, 128)
+WGRAD_BF16_ROWS, WGRAD_BF16_COLS = 128, 256
+WGRAD_WINDOW_ROWS = 256 * 64
+WGRAD_WAVES = 8
 
 
 def tile_rows(trunk: str) -> int:
@@ -316,16 +325,49 @@ def launch_grid(npix: int, batch: int, trunk: str, device) -> tuple[int, int]:
     return tile_grid(npix, batch, tile_rows(trunk), _sms(device, None))
 
 
+def wgrad_tile(trunk: str, hidden: int) -> tuple[int, int]:
+    """The output block (rows, columns) of one CTA of the split-K
+    weight-gradient product: float32 128 x 128; bf16 128 rows by the fewest
+    blocks of at most 256 columns, as even as 64-column atoms allow
+    (``csrc/siren_chain.cuh::wgrad_nb``)."""
+    if trunk != "bfloat16":
+        return WGRAD_F32_TILE
+    blocks = math.ceil(hidden / WGRAD_BF16_COLS)
+    return WGRAD_BF16_ROWS, 64 * math.ceil(math.ceil(hidden / blocks) / 64)
+
+
+def wgrad_split(rows: int, hidden: int, n_mm: int, trunk: str, sms: int) -> int:
+    """The chunks the split-K product cuts ``rows`` rows into (at most; whole
+    64-row slabs may leave fewer) on a card of ``sms`` SMs. float32: about
+    WGRAD_CTAS_PER_SM CTAs per SM over its (output tiles, chunks, layers)
+    grid, whatever the rows. bf16, one CTA an SM: a chunk a block of
+    WGRAD_WINDOW_ROWS rows, so that a CTA adds its tensor-core sums to its
+    slot once; but at least one wave of CTAs and at most WGRAD_WAVES waves,
+    which holds the partials to about WGRAD_WAVES x SMs output blocks of
+    device memory (a chunk then takes several blocks). More rows never give
+    fewer chunks."""
+    tiles = math.prod(math.ceil(hidden / t) for t in wgrad_tile(trunk, hidden)) * max(1, n_mm)
+    if trunk != "bfloat16":
+        return max(1, WGRAD_CTAS_PER_SM * sms // tiles)
+    fill, cap = max(1, sms // tiles), max(1, WGRAD_WAVES * sms // tiles)
+    return min(cap, max(fill, math.ceil(rows / WGRAD_WINDOW_ROWS)))
+
+
 def wgrad_chunks(rows: int, hidden: int, n_mm: int, trunk: str, device,
                  sms: int | None = None) -> tuple[int, int]:
-    """(rows per chunk, chunks) of the split-K weight-gradient product: about
-    WGRAD_CTAS_PER_SM CTAs per SM over its (output tiles, chunks, layers)
-    grid; a chunk is a multiple of 64 rows."""
-    tiles = math.prod(math.ceil(hidden / t) for t in WGRAD_TILE[trunk])
-    sms = _sms(device, sms)
-    want = max(1, WGRAD_CTAS_PER_SM * sms // max(1, tiles * n_mm))
+    """(rows per block, chunks) of the split-K weight-gradient product, a
+    function of the rows, the width, the depth and the SM count alone: the
+    rows go in blocks of whole 64-row slabs (the bf16 kernel's K-slab), block
+    b into chunk b % chunks, at most ``wgrad_split`` chunks. float32, and
+    bf16 up to WGRAD_WINDOW_ROWS rows a chunk: one block a chunk; past that
+    a bf16 chunk takes k blocks of at most WGRAD_WINDOW_ROWS rows (the last
+    chunks k - 1)."""
+    want = wgrad_split(rows, hidden, n_mm, trunk, _sms(device, sms))
     per = math.ceil(math.ceil(rows / want) / 64) * 64
-    return per, math.ceil(rows / per)
+    if trunk == "bfloat16" and per > WGRAD_WINDOW_ROWS:
+        k = math.ceil(per / WGRAD_WINDOW_ROWS)
+        per = math.ceil(math.ceil(rows / (k * want)) / 64) * 64
+    return per, min(want, math.ceil(rows / per))
 
 
 @dataclasses.dataclass

@@ -75,14 +75,13 @@ from reni_tpu_torch.core.fastmath import sincos_fns
 from reni_tpu_torch.kernels import siren_bwd
 from reni_tpu_torch.kernels.siren_bwd import (
     WARPS,
-    WGRAD_CTAS_PER_SM,
-    WGRAD_TILE,
     WeightGradWork,
     _align128,
     _pixel_dot,
     _rounded,
     tile_rows,
     wgrad_chunks,
+    wgrad_split,
 )
 from reni_tpu_torch.kernels.siren_fwd import (
     C_PAD,
@@ -436,13 +435,12 @@ class StepPlan:
     @property
     def wgrad_bytes(self) -> int:
         """Device memory of dWs (none without weight gradients): the split-K
-        partials at the most chunks ``wgrad_chunks`` gives on this card (any
-        group's rows), dWs itself and the running sum and group slot of a
-        grouped call (``_run_passes``)."""
+        partials at the most chunks ``wgrad_chunks`` gives on this card (all
+        rows at once; a group's fewer rows never take more), dWs itself and
+        the running sum and group slot of a grouped call (``_run_passes``)."""
         if not self.weight_grads or self.n_mm == 0:
             return 0
-        tiles = math.prod(math.ceil(self.hidden / t) for t in WGRAD_TILE[self.trunk])
-        chunks = max(1, WGRAD_CTAS_PER_SM * self.sms // (tiles * self.n_mm))
+        chunks = wgrad_split(self.rows, self.hidden, self.n_mm, self.trunk, self.sms)
         return (chunks + 3) * self.n_mm * self.hidden * self.hidden * 4
 
     @property

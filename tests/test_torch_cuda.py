@@ -939,6 +939,51 @@ def test_weight_grads_product_alone_matches_plain(cuda):
         assert (parts.sum(0) - got).abs().max().item() <= rel * ref.abs().max().item()
 
 
+def _wgrad_held(h, dz):
+    """The bf16 product on (h, dz) against weight_grads_reference (the
+    float64 product) within 1e-4 x its max |dWs|: two calls bitwise equal,
+    the split-K partials (wgrad_chunks' count) summing to the result."""
+    L, rows, H = h.shape
+    n0 = ta.weight_grads_cuda.launches
+    got, again = ta.weight_grads_cuda(h, dz), ta.weight_grads_cuda(h, dz)
+    parts = ta.weight_grads_cuda(h, dz, reduce=False)
+    ref = ta.weight_grads_reference(h, dz)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert ta.weight_grads_cuda.launches == n0 + 3
+    assert parts.shape[0] == tb.wgrad_chunks(rows, H, L, "bfloat16", h.device)[1]
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= 1e-4 * scale, (H, rows)
+    assert (parts.sum(0) - got).abs().max().item() <= 1e-4 * scale, (H, rows)
+
+
+@pytest.mark.parametrize("H", [64, 96, 128, 256, 320, 512, 1152, 2048])
+def test_wgmma_weight_grads_every_width(cuda, H):
+    """The bf16 weight-gradient product (wgmma over tensor-map K-slabs,
+    csrc/siren_chain.cuh) at every kind of width the three routes hand it:
+    multiples of 64 (the wgmma and tiled passes; one to four 64-column
+    atoms a block, paired or odd m blocks) and 96 (the chain route), on 1
+    row (one slab, 63 rows zero-filled) and 3,000 (a ragged last chunk)."""
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    for rows in (1, 3000):
+        h = torch.randn(2, rows, H, device=cuda, generator=gen).to(torch.bfloat16)
+        dz = torch.randn(2, rows, H, device=cuda, generator=gen).to(torch.bfloat16)
+        _wgrad_held(h, dz)
+
+
+@pytest.mark.parametrize("H,n_mm", [(256, 5), (512, 5), (1152, 1)])
+def test_wgmma_weight_grads_at_fit_decoder_rows(cuda, H, n_mm):
+    """The product at FIT_DECODER's 100 x 8,192 rows: the Zoo's 5 x 256 (50
+    chunks of one block), the 5 x 512 trunk (26 chunks of two blocks) and a
+    width past 1,024 (23 chunks of three). No tensor-core sum takes more
+    than one block of siren_bwd.WGRAD_WINDOW_ROWS rows, so the float32 sums
+    stay within the bar of the float64 product."""
+    gen = torch.Generator(device=cuda).manual_seed(H + n_mm)
+    h = torch.randn(n_mm, 100 * 8192, H, device=cuda, generator=gen).to(torch.bfloat16)
+    dz = torch.randn(n_mm, 100 * 8192, H, device=cuda, generator=gen).to(torch.bfloat16)
+    _wgrad_held(h, dz)
+
+
 # ---------------------------------------------------------------------------
 # the backward on the layer-major passes, the device-memory guard of the
 # passes' scratch, the forward's smaller row tiles

@@ -224,8 +224,11 @@ def test_tiled_plan_scratch_and_costs(trunk):
     assert 15 * 2 * 512 * 512 * plan.rows <= flops < 1.02 * 15 * 2 * 512 * 512 * plan.rows
     per_row = (sum(plan.pass_cost(k)[1] for k in range(10)) + plan.wgrad_cost()[1]) / plan.rows
     assert per_row == pytest.approx(51_530 if trunk == "bfloat16" else 82_640, rel=0.01)
-    tiles = math.prod(math.ceil(512 / t) for t in tb.WGRAD_TILE[trunk])
-    chunks = max(1, tb.WGRAD_CTAS_PER_SM * 132 // (tiles * 5))
+    # bf16: 4 x 2 blocks of 128 x 256 a layer, 26 chunks (1,040 CTAs: the
+    # cap of 8 waves, under 50 blocks of 16,384 rows, so two blocks a
+    # chunk); float32: 16 tiles of 128 x 128, 6 CTAs an SM
+    chunks = {"bfloat16": 26, "float32": 9}[trunk]
+    assert tb.wgrad_split(plan.rows, 512, 5, trunk, 132) == chunks
     assert plan.wgrad_bytes == (chunks + 3) * 5 * 512 * 512 * 4
     slots = plan.batch * plan.chunks * (plan.n_img + plan.n_w) + plan.batch * plan.n_img + plan.n_w
     assert plan.scratch_bytes == plan.rows * plan.row_bytes + 4 * slots + plan.wgrad_bytes
@@ -246,6 +249,92 @@ def test_budget_counts_the_split_k_partials_at_1024():
     per_image = plan.npix * plan.row_bytes
     assert plan.groups(fixed + 10 * per_image)[0] == (0, 10)
     assert plan.groups(fixed - plan.wgrad_bytes + 10 * per_image)[0][1] < 10
+
+
+# bf16 widths and the output block of the wgmma weight-gradient product:
+# the fewest blocks of at most 256 columns, as even as 64-column atoms allow
+WGRAD_BLOCKS = {16: 64, 64: 64, 96: 128, 128: 128, 192: 192, 256: 256, 320: 192, 384: 192,
+                448: 256, 512: 256, 576: 192, 1024: 256, 1152: 256, 2048: 256, 4096: 256}
+
+
+@pytest.mark.parametrize("H", sorted(WGRAD_BLOCKS))
+def test_wgrad_tile_rule(H):
+    """The bf16 product's output block at every width the routes hand it
+    (multiples of 64 on the wgmma and tiled passes, other multiples of 16 on
+    the chain route): 128 rows (two warpgroups of m64) by WGRAD_BLOCKS[H]
+    columns, as the kernel's wgrad_nb computes it; float32 keeps 128 x 128."""
+    rows, cols = tb.wgrad_tile("bfloat16", H)
+    assert (rows, cols) == (128, WGRAD_BLOCKS[H])
+    blocks = math.ceil(H / 256)
+    assert math.ceil(H / cols) == blocks and cols % 64 == 0 and cols <= 256
+    # csrc/siren_chain.cuh::wgrad_nb, term for term
+    assert 64 * (((H + blocks - 1) // blocks + 63) // 64) == cols
+    assert tb.wgrad_tile("float32", H) == (128, 128)
+
+
+@pytest.mark.parametrize("rows,H,n_mm,sms,want", [
+    (100 * 8192, 256, 5, 132, 50), (100 * 8192, 256, 4, 132, 50), (21 * 32768, 256, 5, 132, 42),
+    (100 * 8192, 512, 5, 132, 26), (100 * 8192, 512, 4, 132, 33), (21 * 8192, 256, 5, 132, 13),
+    (3000, 128, 2, 132, 66), (3000, 96, 3, 132, 44), (100 * 8192, 2048, 2, 132, 4),
+    (100 * 8192, 4096, 16, 132, 1), (100 * 8192, 256, 5, 114, 50), (21 * 8192, 256, 5, 114, 11)])
+def test_wgrad_split_fills_the_card(rows, H, n_mm, sms, want):
+    """The bf16 split, one CTA an SM: a chunk a block of 16,384 rows (the
+    kernel's accumulators then reach the slot once: the Zoo's 5 x 256 at
+    100 x 8,192 in 50 chunks, 21 x 32,768 in 42), at least one wave of CTAs
+    (FIT_LATENT's 21 x 8,192: 13 chunks, 130 CTAs) and at most eight (bf16
+    5 x 512: 26 chunks, 1,040 CTAs), so the partials stay within about
+    8 x 132 output blocks; float32 keeps about WGRAD_CTAS_PER_SM CTAs an SM
+    of 128 x 128 tiles, whatever the rows."""
+    assert tb.wgrad_split(rows, H, n_mm, "bfloat16", sms) == want
+    tiles = math.prod(math.ceil(H / t) for t in tb.wgrad_tile("bfloat16", H)) * n_mm
+    assert max(1, sms // tiles) <= want <= max(1, tb.WGRAD_WAVES * sms // tiles)
+    assert want * tiles <= max(tiles, tb.WGRAD_WAVES * sms)
+    # more rows never give fewer chunks (a grouped call's partials fit)
+    assert tb.wgrad_split(rows // 3, H, n_mm, "bfloat16", sms) <= want
+    f32_tiles = math.ceil(H / 128) ** 2 * n_mm
+    assert tb.wgrad_split(rows, H, n_mm, "float32", sms) == max(
+        1, tb.WGRAD_CTAS_PER_SM * sms // f32_tiles)
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 792, 3000, 21 * 8192, 100 * 8192])
+def test_wgrad_chunks_cover_the_rows(rows, trunk):
+    """Blocks of whole 64-row K-slabs (a slab never reaches into the next
+    block; the last block's tail is the kernel's zero fill) covering every
+    row once, block b in chunk b % chunks, at most wgrad_split chunks: a
+    function of rows, width, depth and SM count only. float32 takes one
+    block a chunk; bf16 blocks take at most WGRAD_WINDOW_ROWS rows (the
+    rows of one tensor-core sum), and its chunks hold as many blocks as
+    one another, give or take one."""
+    for H, n_mm in ((96, 3), (256, 5), (512, 5), (1152, 1), (2048, 2)):
+        per, chunks = tb.wgrad_chunks(rows, H, n_mm, trunk, "cpu", sms=132)
+        blocks = math.ceil(rows / per)
+        assert per % 64 == 0 and per > 0
+        assert (blocks - 1) * per < rows <= blocks * per
+        assert chunks == min(blocks, tb.wgrad_split(rows, H, n_mm, trunk, 132))
+        if trunk == "float32":
+            assert blocks == chunks
+        else:
+            assert per <= tb.WGRAD_WINDOW_ROWS
+            held = [len(range(c, blocks, chunks)) for c in range(chunks)]
+            assert max(held) - min(held) <= 1 and min(held) >= 1
+        assert (per, chunks) == tb.wgrad_chunks(rows, H, n_mm, trunk, "cpu", sms=132)
+
+
+@pytest.mark.parametrize("trunk", ["bfloat16", "float32"])
+def test_wgrad_groups_fit_the_partials(trunk):
+    """A grouped call's dWs partials: every group's chunks fit the partials
+    that PassWork.for_plan allocates for the whole batch and that
+    StepPlan.wgrad_bytes counts in the budget."""
+    plan = ts.step_plan(False, 7, 200, 256, 5, 132, trunk=trunk)
+    work = ts.PassWork.for_plan(plan, trunk, "cpu", sms=132)
+    split = tb.wgrad_split(plan.rows, 256, 5, trunk, 132)
+    assert work.part_dws.shape[0] <= split
+    assert plan.wgrad_bytes == (split + 3) * 5 * 256 * 256 * 4
+    for g0, g1 in ((0, 3), (3, 6), (6, 7)):
+        sub = work.group(plan, g0, g1, torch.empty(5, 256, 256), trunk, sms=132)
+        assert sub.n_wchunks <= work.part_dws.shape[0] and sub.rows_per_chunk % 64 == 0
+        assert sub.sc_h.shape == (5, (g1 - g0) * 200, 256)
 
 
 def test_declines_that_remain():

@@ -10,8 +10,10 @@ of a kernel source in one process chain on one card.
 Builds the kernels, then at full width (the Cond-by-Concat and FiLM Zoo
 decoders, bf16 trunk, fast sine) prints the median time of both train-step
 kernels at 100 x 8,192 and 21 x 8,192 (at 100 x 8,192 also each of their
-layer-major passes alone, with bytes, FLOPs and achieved rates, and the
-torch.matmul yardstick of chip_smoke.pass_timings), of both backward kernels at 21 x
+layer-major passes alone, with bytes, FLOPs and achieved rates, and dWs =
+h^T dz alone over the step's scratch beside torch.bmm of the same scratch,
+a yardstick the port never calls: chip_smoke.pass_timings, and ``dws_split``
+in entry points an older tree has), of both backward kernels at 21 x
 32,768 and 21 x 8,192 with and without weight gradients (the bf16 trunk on the
 layer-major passes), each after one check against its plain version
 (max |difference| / max |plain| per result); then both forward kernels (the
@@ -33,7 +35,8 @@ sub-tiles), ``bwd``, ``bwd_no_accum``, ``bwd_no_sincos``, ``bwd_no_dw``,
 ``bwd_mxu_only`` (the bf16 backward's probes are the layer-major passes:
 the shipped ones, the passes built with the linear stand-in, and the passes
 without the reduction after them)), and of the weight-gradient product
-``wgrad_bf16`` alone, without and with the sum of its split-K partials; then
+``wgrad_bf16`` (the wgmma split-K GEMM over tensor-map K-slabs of the
+scratch) alone, without and with the sum of its split-K partials; then
 the attribution line of the shipped backward at each shape
 (``chip_smoke.attribution``: sines, weight work, the reduction after the
 passes, ``wgrad_bf16``, the skeleton, against the bound and the passes' byte
@@ -53,7 +56,8 @@ With ``--tiled`` it prints instead the median time of the tiled passes'
 routes at TILED_SHAPES (the step at FIT_DECODER's 100 x 8,192 and the
 backward without weight gradients at FIT_LATENT's 21 x 8,192, on
 ``chip_smoke.wide_operands``' trunks), each after one check against its
-plain version, and the plain step's time at float32 5 x 512. It too uses
+plain version, the step's dWs alone over its scratch beside torch.bmm
+(``dws_split``), and the plain step's time at float32 5 x 512. It too uses
 entry points an older tree has (since the tiled passes came in), so the same
 file times that tree when copied into its root.
 """
@@ -67,6 +71,35 @@ import sys
 import torch
 
 import chip_smoke as cs
+
+
+def step_scratch(film: bool, args, kw, dev):
+    """(plan, work) after one step's passes: the scratch sc_h / sc_dz that
+    dWs reads. Uses only entry points that a tree has had since its tiled
+    passes came in."""
+    from reni_tpu_torch.kernels import siren_step as ts
+
+    plan = ts.step_plan_cuda(film, args, dev, trunk=kw["trunk"])
+    work = ts.PassWork.for_plan(plan, plan.trunk, dev)
+    ts._pass_call(plan, ts.pass_operands(plan, args, kw), work, 0, len(plan.passes),
+                  ts.FINISH_IMG | ts.FINISH_W)
+    return plan, work
+
+
+def dws_split(film: bool, args, kw, dev) -> str:
+    """dWs = h^T dz alone over the scratch of one step's passes: the kernel
+    alone and with the sum of its split-K partials, beside torch.bmm of the
+    same scratch (a yardstick the port never calls)."""
+    from reni_tpu_torch.kernels import anatomy as ta
+
+    plan, work = step_scratch(film, args, kw, dev)
+    h, dz = work.sc_h, work.sc_dz
+    alone = cs.time_ms(lambda: ta.weight_grads_cuda(h, dz, reduce=False), runs=10)
+    summed = cs.time_ms(lambda: ta.weight_grads_cuda(h, dz), runs=10)
+    bmm = cs.time_ms(lambda: torch.bmm(h.transpose(1, 2), dz), runs=10)
+    del work
+    return (f"dWs {' x '.join(f'{n:,}' for n in h.shape)} {plan.trunk}: alone {alone:.4f} ms, "
+            f"with its split-K sum {summed:.4f} ms; torch.bmm of the same scratch {bmm:.4f} ms")
 
 
 def relative_errors(got, ref) -> str:
@@ -170,6 +203,9 @@ def tiled(dev) -> None:
             if trunk == "float32" and H == 512 and name == "siren_step":
                 line += f"; plain {cs.time_ms(lambda: plain(*args, **fkw), runs=3, warmup=1):.3f} ms"
             print(f"{line}; vs plain {errs}", flush=True)
+            if name.endswith("step"):
+                print(f"  {name} {trunk} {n_mm} x {H} {dws_split(film, args, fkw, dev)}",
+                      flush=True)
             del ops, g, loss_ops, args
             torch.cuda.empty_cache()
     print(cs.card_line())
@@ -188,6 +224,7 @@ def main(argv=None) -> int:
         print("time_kernels: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    cs.CARD = cs.card_line()  # beside chip_smoke's timing lines
     if args.anatomy:
         cs.build_all()
         anatomy(torch.device(cs.DEVICE))
@@ -227,6 +264,7 @@ def main(argv=None) -> int:
             ms = cs.time_ms(lambda: ts.siren_step_cuda(*ops, **kw), runs=15)
             print(f"siren_step {batch} x 8,192: {ms:.3f} ms")
             if batch == 100:
+                print(f"  siren_step {dws_split(False, ops, kw, dev)}", flush=True)
                 cs.pass_timings("siren_step", cfg, ops, kw, dev)
         del ops
         cfg_f, dec_f, _ = cs.load_entry(cs.FILM, dev)
@@ -244,6 +282,7 @@ def main(argv=None) -> int:
                 ms = cs.time_ms(lambda: ts.film_step_cuda(*fops, **fkw), runs=15)
                 print(f"film_step {batch} x 8,192: {ms:.3f} ms")
                 if batch == 100:
+                    print(f"  film_step {dws_split(True, fops, fkw, dev)}", flush=True)
                     cs.pass_timings("film_step", cfg_f, fops, fkw, dev)
         del fops
         for width in (256, 128):
