@@ -455,11 +455,6 @@ INV_EPOCHS, INV_RENDER, INV_KD = 20, 64, 1.0
 TF32_GUARD_KD, TF32_GUARD_BAR = 0.5, 1e-4
 STEP0_BAR = 1e-2  # step 0's metrics, kernel vs plain run, relative
 INV_PROFILED = (100, 105)  # steps of the kernel run traced by torch.profiler
-# the decoder's own CUDA kernels, by name (everything else on the card in a
-# FIT_INVERSE step is PyTorch's: the shading's maps and light sums, the
-# loss, Adam, the encodings)
-DECODER_KERNELS = ("fused_fwd", "trunk_fwd", "trunk_bwd", "trunk_step", "fwd_pass", "last_pass",
-                   "bwd_pass", "reduce_slots", "wgrad")
 # evaluate: the six Zoo entries with the dataset and transform of each one's
 # config.yaml (the exp entry trains on raw radiance; the LDR entry on the
 # --ldr PNGs of the same skies with normalize(0.5, 0.5)), kernel run vs
@@ -1611,27 +1606,36 @@ def fit_inverse(entry: str, device, test, setup, *, plain: bool):
 
 
 def device_split(prof, n_steps: int, step_ms: float, label: str) -> None:
-    """Device time a step from a torch.profiler trace of ``n_steps`` steps
-    (kernels, copies and fills; not the annotations' ranges): the decoder's
-    own kernels (DECODER_KERNELS) and PyTorch's (the shading, loss, Adam,
-    encodings), beside the median step of the unprofiled steps (the
-    profiler slows the host); the rest is the card's idle time. Printed,
-    not held."""
+    """Device time a step over ``n_steps`` steps that torch.profiler traced:
+    the decoder's and the render's from the port's spans
+    (``utils/profiling.py``: ``kernels.trunk_fwd`` / ``kernels.trunk_bwd``,
+    ``render.forward`` / ``render.backward``; each span's time between its
+    two device events), the card's busy time from the trace (kernels,
+    copies and fills; not the annotations' ranges), beside the median step
+    of the unprofiled steps (the profiler slows the host); the rest of the
+    busy time is the loss, Adam and the encodings. Printed, not held."""
     from torch.autograd import DeviceType
+
+    from reni_tpu_torch.utils import profiling
 
     work = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     if not work:
         print(f"{label}: the profiler saw no device time (CUDA events only)")
         return
+    spans = profiling.snapshot()["spans"]
+
+    def spans_ms(prefix: str) -> float:
+        return sum(s["device_ms"] or 0.0 for s in spans if s["name"].startswith(prefix)) / n_steps
+
+    decoder, render = spans_ms("kernels.trunk_"), spans_ms("render.")
     per_step = {}
     for e in work:
         per_step[e.name] = per_step.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_steps
-    ours = sum(v for k, v in per_step.items() if any(d in k for d in DECODER_KERNELS))
     total = sum(per_step.values())
     heavy = sorted(per_step.items(), key=lambda kv: -kv[1])[:5]
-    print(f"{label}: a step's device time (torch.profiler, {n_steps} steps): the decoder's "
-          f"kernels {ours:.3f} ms, PyTorch's kernels {total - ours:.3f} ms, of a {step_ms:.3f} ms "
+    print(f"{label}: a step's device time (torch.profiler, {n_steps} steps): the decoder "
+          f"{decoder:.3f} ms, the render {render:.3f} ms, busy {total:.3f} ms of a {step_ms:.3f} ms "
           f"step (idle {max(step_ms - total, 0.0) / step_ms:.1%}); heaviest: "
           + ", ".join(f"{k[:40]} {v:.3f}" for k, v in heavy))
 

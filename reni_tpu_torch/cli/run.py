@@ -18,7 +18,12 @@ of the reference's run.py:29-138, as the JAX package has it:
 - ``--resume`` (params, optimizer state, generator state: bit for bit the
   uncut run) and ``--retries`` (in-process retries, and adoption of the
   newest incomplete run of the same config by a relaunched process);
-- ``TRAINER.MAX_RUNTIME`` (hours), image grids, ``--profile``;
+- ``TRAINER.MAX_RUNTIME`` (hours), image grids;
+- ``--profile DIR`` (``utils/profiling.py::trace``): a torch.profiler
+  Chrome trace of the run, ``DIR/reni_tpu_torch.trace.json``, which turns
+  the port's spans on (``task.*``, ``model.step``, ``render.*``,
+  ``kernels.*``, ``mesh.reduce``: each layer's host range on the trace's
+  timeline), and their host and device times, ``DIR/reni_tpu_torch.spans.json``;
 - the streaming tiers: ``TPU.STREAM_DATA`` keeps the staged dataset in host
   memory and copies a batch a step (``train/tasks.py::
   streaming_stage_runner``), ``TPU.STREAM_FROM_DISK`` keeps only the file
@@ -894,7 +899,8 @@ def cli(argv=None) -> int:
                              "a device, WORLD_SIZE ranks; DATA -1: WORLD_SIZE / (PIXEL x "
                              "MODEL)); MODEL shards the decoder tensor-parallel")
     parser.add_argument("--profile", type=str, default=None,
-                        help="write a torch.profiler Chrome trace of the run into this dir")
+                        help="write a torch.profiler Chrome trace of the run and the port's "
+                             "spans (reni_tpu_torch.spans.json) into this dir")
     parser.add_argument("--resume", type=str, default=None,
                         help="mid-task resume from a periodic checkpoint (params + optimizer "
                              "state + generator state + epoch) or a run directory (its newest "

@@ -56,6 +56,7 @@ from reni_tpu_torch.core import encodings
 from reni_tpu_torch.core.fastmath import sine_fns
 from reni_tpu_torch.models import film as film_lib
 from reni_tpu_torch.models import siren as siren_lib
+from reni_tpu_torch.utils.profiling import span
 
 C_PAD = 8  # output channels padded
 K_PAD = 8  # direction-feature width padded (actual <= 4)
@@ -647,15 +648,16 @@ class SirenTrunk(torch.autograd.Function):
     def backward(ctx, g):
         from reni_tpu_torch.kernels import siren_bwd
 
-        if ctx.handoff is not None:
-            grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
-            ctx.handoff = None
-        else:
-            bwd = (siren_bwd.siren_trunk_bwd_cuda if ctx.kernel
-                   else siren_bwd.siren_trunk_bwd_reference)
-            grads = bwd(
-                *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[3:7]), **ctx.kw
-            )
+        with span("kernels.trunk_bwd", g):
+            if ctx.handoff is not None:
+                grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
+                ctx.handoff = None
+            else:
+                bwd = (siren_bwd.siren_trunk_bwd_cuda if ctx.kernel
+                       else siren_bwd.siren_trunk_bwd_reference)
+                grads = bwd(
+                    *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[3:7]), **ctx.kw
+                )
         return (None, *grads, None, None)
 
 
@@ -678,15 +680,16 @@ class FilmTrunk(torch.autograd.Function):
     def backward(ctx, g):
         from reni_tpu_torch.kernels import siren_bwd
 
-        if ctx.handoff is not None:
-            grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
-            ctx.handoff = None
-        else:
-            bwd = (siren_bwd.film_trunk_bwd_cuda if ctx.kernel
-                   else siren_bwd.film_trunk_bwd_reference)
-            grads = bwd(
-                *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[2:6]), **ctx.kw
-            )
+        with span("kernels.trunk_bwd", g):
+            if ctx.handoff is not None:
+                grads = siren_bwd.bwd_from_handoff(ctx.handoff, g)
+                ctx.handoff = None
+            else:
+                bwd = (siren_bwd.film_trunk_bwd_cuda if ctx.kernel
+                       else siren_bwd.film_trunk_bwd_reference)
+                grads = bwd(
+                    *ctx.saved_tensors, g, weight_grads=any(ctx.needs_input_grad[2:6]), **ctx.kw
+                )
         da0, dws, dbs, dwf, dbf, dfr, dph = grads
         return None, da0, dws, dbs, dwf, dbf, dfr, dph, None, None
 
@@ -697,10 +700,13 @@ FilmTrunk.trunks = (film_trunk_reference, film_trunk_cuda)
 
 def _trunk(fn, ops, kernel: bool, kw: dict):
     """Run a trunk: through its autograd Function when a gradient is needed,
-    else directly (serving under inference_mode records nothing)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
-        return fn.apply(*ops, kernel, kw)
-    return fn.trunks[kernel](*ops, **kw)
+    else directly (serving under inference_mode records nothing). A span
+    ``kernels.trunk_fwd`` (``utils/profiling.py``); the Functions' backward
+    is ``kernels.trunk_bwd``."""
+    with span("kernels.trunk_fwd", ops[0]):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+            return fn.apply(*ops, kernel, kw)
+        return fn.trunks[kernel](*ops, **kw)
 
 
 # ---------------------------------------------------------------------------

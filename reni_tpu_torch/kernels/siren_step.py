@@ -99,6 +99,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     pack_inputs,
     pack_slabs,
 )
+from reni_tpu_torch.utils.profiling import span
 
 ACTIVATIONS = {None: 0, "tanh": 1, "exp": 2}  # csrc/siren_step.cuh ACT_*
 
@@ -1458,7 +1459,8 @@ class StepMSE(torch.autograd.Function):
     step that runs: the plain version, or (``kernel=True``) the CUDA kernel.
     ``ops`` are the step's operands in order: ``d_pad``, the trunk operands,
     then the targets, the pixel weights and the mask; only the trunk operands
-    get a gradient."""
+    get a gradient. Spans ``kernels.step`` and ``kernels.step_bwd``
+    (``utils/profiling.py``): the host's time in each."""
 
     steps = {
         False: (siren_step_reference, siren_step_cuda),
@@ -1467,13 +1469,16 @@ class StepMSE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, film, kernel, kw, *ops):
-        mse_row, *grads = StepMSE.steps[film][kernel](*ops, **kw)
-        ctx.save_for_backward(*grads)
-        return mse_row.sum() * kw["gscale"]
+        with span("kernels.step"):
+            mse_row, *grads = StepMSE.steps[film][kernel](*ops, **kw)
+            ctx.save_for_backward(*grads)
+            return mse_row.sum() * kw["gscale"]
 
     @staticmethod
     def backward(ctx, ct):
-        return (None, None, None, None, *(ct * g for g in ctx.saved_tensors), None, None, None)
+        with span("kernels.step_bwd"):
+            return (None, None, None, None, *(ct * g for g in ctx.saved_tensors),
+                    None, None, None)
 
 
 def _loss_operands(targets, sineweight, bmask):

@@ -47,6 +47,7 @@ from reni_tpu_torch.parallel import tp
 from reni_tpu_torch.parallel.mesh import active_kernel_mesh
 from reni_tpu_torch.params import map_tree, tree_leaves
 from reni_tpu_torch.utils.device import resolve_device
+from reni_tpu_torch.utils.profiling import span
 
 Params = dict[str, Any]
 
@@ -252,7 +253,11 @@ class RENIModel:
         block, so the guard checks those local extents and the note names
         the mesh. A mesh with a model axis declines the kernel (JAX's
         reason), and the decoder is ``parallel.tp``'s on the rank's slices
-        of the weights."""
+        of the weights. A span ``model.step`` (``utils/profiling.py``)."""
+        with span("model.step", Z):
+            return self._decode(params, Z, D)
+
+    def _decode(self, params: Params, Z: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         use_pallas = cfg.use_pallas
         mesh = active_kernel_mesh()
@@ -384,7 +389,12 @@ class RENIModel:
         * bmask)`` through the train-step kernel (value and every gradient
         in one call). Callers must have checked ``fused_step_reason`` is
         None. On a mesh the tensors are this rank's block and ``pixels`` is
-        the whole batch's pixel count (the partial losses sum to the loss)."""
+        the whole batch's pixel count (the partial losses sum to the loss).
+        A span ``model.step`` (``utils/profiling.py``)."""
+        with span("model.step", Z):
+            return self._step_mse(params, Z, D, targets, sineweight, bmask, pixels)
+
+    def _step_mse(self, params: Params, Z, D, targets, sineweight, bmask, pixels):
         cfg = self.config
         if cfg.is_film:
             return fused_film_step_mse(

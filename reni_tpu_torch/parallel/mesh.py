@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from reni_tpu_torch.params import tree_items
+from reni_tpu_torch.utils.profiling import span
 
 AXES = ("data", "pixel", "model")
 
@@ -275,11 +276,13 @@ class ShardView:
         row-sharded and the metric partials, summed over ``dp`` (a
         model-sharded leaf's slice sums with the same slice of the other
         data x pixel ranks; ``parallel/tp.py`` leaves every replicated leaf
-        the same gradient on each model rank). Returns the summed metrics."""
+        the same gradient on each model rank). Returns the summed metrics. A
+        span ``mesh.reduce`` (``utils/profiling.py``)."""
         grads = [p.grad for p in params if p.grad is not None and not self.is_sharded(p)]
         names = list(metrics)
         vals = torch.stack([metrics[k].detach() for k in names])
-        all_reduce_sum(grads + [vals], self.mesh.group("dp"))
+        with span("mesh.reduce", vals):
+            all_reduce_sum(grads + [vals], self.mesh.group("dp"))
         return {k: vals[i] for i, k in enumerate(names)}
 
 

@@ -24,6 +24,7 @@ from reni_tpu_torch.render import shading
 from reni_tpu_torch.render.rasterizer import rasterize_world
 from reni_tpu_torch.train import tasks
 from reni_tpu_torch.utils.device import resolve_device
+from reni_tpu_torch.utils.profiling import backward_span, span
 
 
 class InverseRenderSetup:
@@ -95,16 +96,21 @@ class InverseRenderSetup:
         rows=None) -> (B, V*H, W, 3) for env maps of equirect width
         ``width``: the V static views stacked along the height axis (V = 1:
         plain (B, H, W, 3)); with ``rows`` (a slice of V*H, a mesh rank's)
-        only those rows, each view rendering its part of them."""
+        only those rows, each view rendering its part of them. Spans
+        (``utils/profiling.py``): ``render.forward``, and ``render.backward``
+        from the render's output back to ``envmaps``."""
         light_dirs = sphere.get_directions(width, device=self.device)[0]
         h = self.render_resolution
 
         def render(envmaps, sineweight, rows: slice = slice(None)):
-            lo, hi, _ = rows.indices(h * len(self._renders))
-            views = [r(envmaps, sineweight, light_dirs,
-                       slice(max(lo - v * h, 0), min(hi - v * h, h)))
-                     for v, r in enumerate(self._renders) if lo < (v + 1) * h and hi > v * h]
-            return views[0] if len(views) == 1 else torch.cat(views, dim=1)
+            with span("render.forward", envmaps):
+                envmaps, close = backward_span("render.backward", envmaps)
+                lo, hi, _ = rows.indices(h * len(self._renders))
+                views = [r(envmaps, sineweight, light_dirs,
+                           slice(max(lo - v * h, 0), min(hi - v * h, h)))
+                         for v, r in enumerate(self._renders)
+                         if lo < (v + 1) * h and hi > v * h]
+                return close(views[0] if len(views) == 1 else torch.cat(views, dim=1))
 
         return render
 

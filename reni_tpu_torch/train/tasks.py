@@ -76,6 +76,7 @@ from reni_tpu_torch.train.optim import (
     merge_params,
     partition_params,
 )
+from reni_tpu_torch.utils.profiling import span
 
 Params = dict[str, Any]
 
@@ -273,7 +274,8 @@ def _update(state: TrainState, loss: torch.Tensor, metrics: dict, view) -> dict:
     """Backward, on a mesh the one all-reduce of the gradient bucket and the
     metric partials (``ShardView.reduce``), then the optimizer's step."""
     state.optimizer.zero_grad()
-    loss.backward()
+    with span("task.backward", loss):
+        loss.backward()
     if view is not None:
         metrics = view.reduce(tree_leaves(state.trainable), metrics)
     state.optimizer.step()
@@ -460,19 +462,26 @@ def run_stage(
 
     images: (S, P, 3) on the training device. Returns (state, metrics) with
     metrics values of shape (n_epochs,): each epoch's mean over its batches
-    (RENI_module.py:148-163)."""
-    idx, bmask = make_batches(images.shape[0], batch_size)
-    dev = images.device
-    idx_b = torch.as_tensor(idx, dtype=torch.long, device=dev)
-    bmask_b = torch.as_tensor(bmask, dtype=images.dtype, device=dev)
-    epochs = []
-    for _ in range(n_epochs):
-        ms = []
-        for b in range(idx_b.shape[0]):
-            state, m = step_fn(state, (images[idx_b[b]], idx_b[b], bmask_b[b]))
-            ms.append(m)
-        epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
-    metrics = {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
+    (RENI_module.py:148-163). Spans (``utils/profiling.py``): the call
+    (``task.call``), the batches' index and mask to the device
+    (``task.upload``), each step (``task.step``) and the metrics' one
+    synchronise (``task.readback``)."""
+    with span("task.call", images):
+        with span("task.upload", images):
+            idx, bmask = make_batches(images.shape[0], batch_size)
+            dev = images.device
+            idx_b = torch.as_tensor(idx, dtype=torch.long, device=dev)
+            bmask_b = torch.as_tensor(bmask, dtype=images.dtype, device=dev)
+        epochs = []
+        for _ in range(n_epochs):
+            ms = []
+            for b in range(idx_b.shape[0]):
+                with span("task.step", images):
+                    state, m = step_fn(state, (images[idx_b[b]], idx_b[b], bmask_b[b]))
+                ms.append(m)
+            epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
+        with span("task.readback"):
+            metrics = {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
     return state, metrics
 
 
