@@ -96,8 +96,10 @@ class InverseRenderSetup:
         rows=None) -> (B, V*H, W, 3) for env maps of equirect width
         ``width``: the V static views stacked along the height axis (V = 1:
         plain (B, H, W, 3)); with ``rows`` (a slice of V*H, a mesh rank's)
-        only those rows, each view rendering its part of them. Spans
-        (``utils/profiling.py``): ``render.forward``, and ``render.backward``
+        only those rows, each view rendering its part of them (each view's
+        transport product, ``shading.make_render_fn``). Spans
+        (``utils/profiling.py``): ``render.forward``, inside it a view's
+        ``render.transport`` or ``render.chunked``, and ``render.backward``
         from the render's output back to ``envmaps``."""
         light_dirs = sphere.get_directions(width, device=self.device)[0]
         h = self.render_resolution
