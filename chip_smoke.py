@@ -1750,7 +1750,8 @@ def fit_inverse_phase(device, test, entries) -> dict:
             else:
                 # a forward as the fwd passes and a cotangent backward from
                 # their scratch each step: two calls into the pass entry, no
-                # forward kernel, no chain kernel
+                # forward kernel, no chain kernel (a replay of the step's
+                # CUDA graph counts the launches its capture counted)
                 check(n["fwd_passes"] == steps and n["bwd"] == steps and n["pass_calls"] == 2 * steps
                       and n["fwd"] == n["fused"] == n["tile"] == 0,
                       f"{label}: {n} in {steps} steps (passes route, nothing else)")
@@ -3395,7 +3396,7 @@ def anatomy_phase(cfg, dec, Z, device, errors, rel_errors, launches) -> dict:
         torch.cuda.synchronize()
         ta.fwd_variant_cuda.launches = ta.bwd_variant_cuda.launches = 0
         ta.weight_grads_cuda.launches = 0
-        ta.bwd_variant_cuda.routes = {"passes": 0, "chain": 0}
+        ta.bwd_variant_cuda.routes.update(passes=0, chain=0)
         ts.pass_launches.update({k: 0 for k in ts.pass_launches})
         times = time_anatomy(cfg, dec, Z, D, runs=ANATOMY_RUNS)
         torch.cuda.empty_cache()

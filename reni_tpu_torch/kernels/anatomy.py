@@ -102,6 +102,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     _matmul,
     _weights,
 )
+from reni_tpu_torch.utils.graphs import counter
 
 SINE_LINEAR = 2  # csrc/siren_common.cuh; 0 is the exact sine, 1 the fast one
 INTERLEAVES = (1, 2, 4)
@@ -310,6 +311,7 @@ def fwd_variant_cuda(
 
 
 fwd_variant_cuda.launches = 0
+counter(fwd_variant_cuda, "launches")
 
 
 def bwd_variant_cuda(
@@ -398,6 +400,8 @@ def _chain_variant(d_pad, a, b0, ws, bs, wf, bf, g, omega0, omega_h, trunk, fast
 
 bwd_variant_cuda.launches = 0
 bwd_variant_cuda.routes = {"passes": 0, "chain": 0}
+counter(bwd_variant_cuda, "launches")
+counter(bwd_variant_cuda.routes, *bwd_variant_cuda.routes)
 
 
 def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool = True):
@@ -435,6 +439,7 @@ def weight_grads_cuda(sc_h: torch.Tensor, sc_dz: torch.Tensor, *, reduce: bool =
 
 
 weight_grads_cuda.launches = 0
+counter(weight_grads_cuda, "launches")
 
 
 def l2_read_reference(buf: torch.Tensor, reps: int) -> torch.Tensor:
@@ -462,3 +467,4 @@ def l2_read_cuda(buf: torch.Tensor, reps: int) -> torch.Tensor:
 
 
 l2_read_cuda.launches = 0
+counter(l2_read_cuda, "launches")

@@ -61,6 +61,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     _matmul,
     _weights,
 )
+from reni_tpu_torch.utils.graphs import counter
 
 WARPS = 8  # csrc/siren_chain.cuh THREADS / 32
 CTAS_PER_SM = 4  # CTAs the launch aims for per SM (one is resident at a time)
@@ -493,6 +494,7 @@ def siren_trunk_bwd_cuda(
 
 
 siren_trunk_bwd_cuda.launches = 0
+counter(siren_trunk_bwd_cuda, "launches")
 
 
 def siren_bwd_chain_cuda(
@@ -548,6 +550,7 @@ def film_trunk_bwd_cuda(
 
 
 film_trunk_bwd_cuda.launches = 0
+counter(film_trunk_bwd_cuda, "launches")
 
 
 def film_bwd_chain_cuda(

@@ -28,7 +28,9 @@ the tensor is unchanged (``weight_slabs``); a persistent grid of one CTA per
 SM walks the (image, 128-row tile) items in order (``fused_schedule``).
 
 Each wrapper counts its calls in ``.launches``; ``fused_fwd_launches`` and
-``tile_fwd_launches`` count the launches of each route.
+``tile_fwd_launches`` count the launches of each route. The counters are
+registered with ``utils/graphs.py::counter``, so that a CUDA graph's
+replays count the launches they make.
 
 The trunks are differentiable (``SirenTrunk``, ``FilmTrunk``: the
 ``custom_vjp`` of the JAX package). Their backward is the port of
@@ -48,6 +50,7 @@ Operand layout (float32; K_PAD = C_PAD = 8):
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 
 import torch
@@ -56,6 +59,7 @@ from reni_tpu_torch.core import encodings
 from reni_tpu_torch.core.fastmath import sine_fns
 from reni_tpu_torch.models import film as film_lib
 from reni_tpu_torch.models import siren as siren_lib
+from reni_tpu_torch.utils.graphs import counter, keep
 from reni_tpu_torch.utils.profiling import span
 
 C_PAD = 8  # output channels padded
@@ -72,6 +76,7 @@ FUSED_STAGES = (4, 3, 2)  # deepest first
 SCHED_LOCKSTEP, SCHED_PINGPONG = 0, 1
 fused_fwd_launches = 0  # launches of the fused kernel
 tile_fwd_launches = 0  # launches of the row-tile kernel
+counter(sys.modules[__name__], "fused_fwd_launches", "tile_fwd_launches")
 
 
 def fwd_smem_bytes(tm: int, hidden: int, trunk: str) -> int:
@@ -238,7 +243,9 @@ class _TensorCache:
     keyed by their identities and version counters (an in-place update, as
     Adam's, bumps the counter). An entry holds its tensors, so no other
     tensor takes their identity while it lives; inference tensors, which
-    have no version counter, are never cached. The oldest entries go first.
+    have no version counter, are never cached. The oldest entries go first;
+    a CUDA graph being captured holds what it is handed
+    (``utils/graphs.py::keep``).
     The daemon decodes from several threads: a lock guards the entries."""
 
     def __init__(self, size: int):
@@ -252,13 +259,13 @@ class _TensorCache:
         with self.lock:
             hit = self.entries.get(key)
             if hit is not None and hit[1] == versions:
-                return hit[2]
+                return keep(hit[2])
             value = make()
             self.entries.pop(key, None)
             self.entries[key] = (tuple(tensors), versions, value)
             while len(self.entries) > self.size:
                 self.entries.pop(next(iter(self.entries)))
-            return value
+            return keep(value)
 
 
 _stacks = _TensorCache(8)
@@ -749,6 +756,7 @@ def fused_apply(
 
 
 fused_apply.launches = 0
+counter(fused_apply, "launches")
 
 
 def fused_apply_reference(
@@ -798,6 +806,7 @@ def fused_film_apply(
 
 
 fused_film_apply.launches = 0
+counter(fused_film_apply, "launches")
 
 
 def fused_film_apply_reference(

@@ -99,6 +99,7 @@ from reni_tpu_torch.kernels.siren_fwd import (
     pack_inputs,
     pack_slabs,
 )
+from reni_tpu_torch.utils.graphs import counter
 from reni_tpu_torch.utils.profiling import span
 
 ACTIVATIONS = {None: 0, "tanh": 1, "exp": 2}  # csrc/siren_step.cuh ACT_*
@@ -1153,6 +1154,7 @@ def _pass_call(plan: StepPlan, prep: PassOperands, work: PassWork, lo: int, hi: 
 # film_step, the anatomy probes' siren_anatomy and the four tiled sources
 pass_launches = {"siren_step": 0, "film_step": 0, "siren_anatomy": 0,
                  **{source: 0 for source in TILED_SOURCES}}
+counter(pass_launches, *pass_launches)
 
 
 def pass_calls(design: str, trunk: str = "bfloat16") -> int:
@@ -1301,6 +1303,7 @@ def passes_forward(film, ops, kw, weight_grads: bool, budget: int | None = None)
 
 
 passes_forward.launches = 0
+counter(passes_forward, "launches")
 
 
 def passes_output(film, ops, kw, budget: int | None = None) -> torch.Tensor:
@@ -1314,6 +1317,7 @@ def passes_output(film, ops, kw, budget: int | None = None) -> torch.Tensor:
 
 
 passes_output.launches = 0
+counter(passes_output, "launches")
 
 
 def passes_bwd_handoff(handoff: Handoff, g) -> tuple:
@@ -1343,6 +1347,7 @@ def step_pass_cuda(plan: StepPlan, k: int, ops, kw, work: PassWork,
 
 
 step_pass_cuda.launches = 0
+counter(step_pass_cuda, "launches")
 
 
 def step_plan_cuda(film: bool, ops, device, bwd: bool = False,
@@ -1395,6 +1400,7 @@ def siren_step_cuda(
 
 
 siren_step_cuda.launches = 0
+counter(siren_step_cuda, "launches")
 
 
 def film_step_cuda(
@@ -1445,6 +1451,7 @@ def film_step_cuda(
 
 
 film_step_cuda.launches = 0
+counter(film_step_cuda, "launches")
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from reni_tpu_torch.render.rasterizer import Fragments
 from reni_tpu_torch.utils.device import resolve_device
+from reni_tpu_torch.utils.graphs import keep
 from reni_tpu_torch.utils.profiling import span
 
 LIGHT_BUDGET_BYTES = 2 << 30
@@ -259,8 +260,12 @@ def make_render_fn(
     The render keeps the transport matrix T of the newest light set it
     rendered (``transport_matrix``, all H*W rows, in the colors' dtype),
     built at the set's first call; a light set of another shape, dtype or
-    device, or with other directions, replaces it. A render is then
-    T[rows] @ colors, under the span ``render.transport``. Where T's bytes
+    device, or with other directions, replaces it. The same directions
+    tensor finds T by identity, with no read of the card; while a CUDA
+    graph is captured only so (the graph holds that T:
+    ``utils/graphs.py::keep``), and a capture that would have to compare
+    directions or build T raises. A render is then T[rows] @ colors, under
+    the span ``render.transport``. Where T's bytes
     would pass ``LIGHT_BUDGET_BYTES``, the render keeps no T and shades
     through ``blinn_phong_env_shading``, under the span ``render.chunked``."""
     positions, normals = pixel_geometry(fragments, face_verts, face_normals, device)
@@ -272,8 +277,15 @@ def make_render_fn(
     def transport(light_dirs, dtype):
         nonlocal held
         key = (tuple(light_dirs.shape), light_dirs.dtype, light_dirs.device, dtype)
-        if held is not None and held[0] == key and (
-                held[1] is light_dirs or torch.equal(held[1], light_dirs)):
+        found = held is not None and held[0] == key
+        if found and held[1] is light_dirs:
+            return keep(held[2])
+        if light_dirs.is_cuda and torch.cuda.is_current_stream_capturing():
+            # torch.equal reads the card, and a T built here would be built
+            # at every replay: the capture needs T found by identity
+            raise RuntimeError("a CUDA graph captures a render whose transport matrix was "
+                               "not built for these light directions before the capture")
+        if found and torch.equal(held[1], light_dirs):
             held = (key, light_dirs, held[2])  # the next call finds it by identity
         else:
             held = None  # free the old T before the new one is built

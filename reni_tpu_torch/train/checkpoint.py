@@ -193,8 +193,10 @@ def set_opt_state(optimizer: ScheduledOptimizer, flat: dict) -> None:
     for name, p in zip(optimizer.names, params):
         if kind == "adam":
             opt.state[p] = {
-                # torch keeps the step on the host (float32), as Adam makes it
-                "step": torch.tensor(float(flat["0/0"]), dtype=torch.float32),
+                # torch keeps the step (float32) on the host, as Adam makes
+                # it, or beside the parameter for a capturable Adam
+                "step": torch.tensor(float(flat["0/0"]), dtype=torch.float32,
+                                     device=p.device if optimizer.capturable else None),
                 "exp_avg": like(flat[f"0/1/{name}"], p),
                 "exp_avg_sq": like(flat[f"0/2/{name}"], p),
             }

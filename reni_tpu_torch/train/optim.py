@@ -11,6 +11,10 @@ with optax's semantics.
   each step. The exponential schedule decays per epoch, staircase:
   ``gamma = exp(log(lr_end / lr_start) / epochs)``; its values are float32,
   as optax's are.
+- ``ScheduledOptimizer.make_capturable`` turns an Adam capturable (its
+  step counts on the card, its LR a float32 device tensor that each step
+  overwrites with the schedule's value), so that a CUDA graph can hold the
+  update: FIT_INVERSE's graphed step (``train/tasks.py::GraphedStep``).
 - The trainable/frozen partition is ``requires_grad`` on the leaves that
   ``RENIModel.trainable_mask`` selects; only those reach the optimizer.
 """
@@ -107,16 +111,53 @@ class ScheduledOptimizer:
         self.schedule = schedule
         self.count = 0
         self.names = names
+        self.lr: torch.Tensor | None = None  # the device LR of a capturable Adam
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def write_lr(self) -> None:
+        """Set the LR of the next update, ``schedule(count)``: into the
+        device tensor of a capturable optimizer (a fill, no synchronise:
+        the float32 value bit for bit), else into each param group."""
         lr = self.schedule(self.count)
+        if self.lr is not None:
+            self.lr.fill_(lr)
+            return
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.optimizer.step()
+
+    def step(self, update: Callable[[], object] | None = None) -> None:
+        """One update at ``schedule(count)``: the optimizer's step, or
+        ``update``, a CUDA graph's replay that holds it."""
+        self.write_lr()
+        (update or self.optimizer.step)()
         self.count += 1
+
+    @property
+    def capturable(self) -> bool:
+        return self.lr is not None
+
+    def make_capturable(self, device: torch.device) -> None:
+        """Make an Adam capturable on ``device``: its step counts there and
+        its LR a float32 tensor there, which ``write_lr`` overwrites before
+        each update. Its arithmetic is then Adam's capturable form, in
+        eager steps and graph replays alike. Raises TypeError for any other
+        optimizer."""
+        if self.lr is not None:
+            return
+        opt = self.optimizer
+        if type(opt) is not torch.optim.Adam:
+            raise TypeError(f"{type(opt).__name__} has no capturable form here")
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        opt.defaults["capturable"] = True
+        for group in opt.param_groups:
+            group["capturable"], group["lr"] = True, self.lr
+            for p in group["params"]:
+                st = opt.state.get(p)
+                if st and "step" in st:  # a restored state counts on the host
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+        self.write_lr()
 
 
 def build_optimizer(cfg: OptimConfig, params, names: list[str] | None = None

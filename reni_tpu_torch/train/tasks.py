@@ -22,7 +22,9 @@ in one call) where ``RENIModel.fused_step_reason`` allows it, else through
 FIT_INVERSE's step (``make_fit_inverse_step``) decodes, unnormalises,
 renders (``reni_tpu_torch/render``) and takes the render loss; its scene and
 ground-truth renders come from ``render/inverse.py::fit_inverse``, which
-passes ``fit_task`` the step builder.
+passes ``fit_task`` the step builder. On one card it replays one captured
+CUDA graph of the whole update (``GraphedStep``), so that the card, not the
+host's enqueue, paces it.
 
 ``fit_task`` runs each stage in segments between callbacks (checkpoints,
 images, the deadline) and resumes a task mid-way from a checkpoint's epoch,
@@ -76,7 +78,8 @@ from reni_tpu_torch.train.optim import (
     merge_params,
     partition_params,
 )
-from reni_tpu_torch.utils.profiling import span
+from reni_tpu_torch.utils.graphs import add_launches, keeping, launch_counts, take_launches
+from reni_tpu_torch.utils.profiling import GraphTimer, graph_marks, span
 
 Params = dict[str, Any]
 
@@ -396,6 +399,141 @@ def make_fit_latent_step(
     return step
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured update of a ``GraphedStep``: the graph's timer (which
+    replays it), its static inputs (the batch's tensors), its output (the
+    metrics stacked, under ``names``), the state's tensors it reads
+    (``anchors``), the caches' operands it holds (``kept``) and what its
+    capture added to the kernels' launch counters (``launched``,
+    ``utils/graphs.py::take_launches``), which each replay adds."""
+
+    timer: GraphTimer
+    inputs: tuple
+    out: torch.Tensor
+    names: tuple
+    anchors: tuple
+    kept: list
+    launched: tuple = ()
+
+    def holds(self, anchors: tuple) -> bool:
+        return len(anchors) == len(self.anchors) and all(
+            a is b for a, b in zip(anchors, self.anchors))
+
+
+_SEEN, _EAGER = "seen", "eager"  # a key's eager first call ran / its capture raised
+
+
+class GraphedStep:
+    """A train step that replays one captured CUDA graph of the whole update
+    (ROADMAP B-6): FIT_INVERSE's on one card. ``eager(state, batch)`` is the
+    step as it runs without a graph; ``body(state, batch)`` its forward on
+    one card, (loss, metrics). Per key (the batch tensors' shapes, dtypes and
+    device; the direction grid is the step's own), calls go:
+
+    1. the first runs ``eager``, a real update, after making the Adam
+       capturable (``ScheduledOptimizer.make_capturable``; its eager steps
+       and the replays then do the same arithmetic). It fills what the
+       capture must find: Adam's moments, cuBLAS's workspace, the decoder's
+       stacked and packed weights, the render's transport matrix;
+    2. the second captures the update (``body``, the backward and Adam's
+       step, with zero_grad(set_to_none) inside) and replays it once: the
+       capture runs nothing, so that replay is the call's one update;
+    3. each later one copies its batch into the graph's inputs, writes the
+       update's LR into the LR tensor, replays, adds the launches the
+       capture's calls counted (and took back) to the kernels' counters,
+       and returns copies of the metrics, which the next replay does not
+       overwrite.
+
+    A graph holds what it reads: the caches' operands (``utils/graphs.py``),
+    and the state's tensors, which each call checks by identity: a state
+    with other tensors (another state, a restored optimizer) starts its key
+    again at 1. Off the card, under a mesh (``parallel.mesh.active_view``),
+    with an optimizer other than Adam, or where the capture raises, the step
+    runs ``eager`` and says why once. Spans: ``task.graph_capture`` around a
+    capture, ``task.graph_replay`` (device events) around a replay, and in
+    a profiler session, under it, the spans the capture opened
+    (``utils/profiling.py::GraphTimer``)."""
+
+    def __init__(self, eager: Callable, body: Callable):
+        self.eager, self.body = eager, body
+        self.graphs: dict = {}
+
+    def why_eager(self, state: TrainState, batch) -> str | None:
+        if not all(t.is_cuda for t in batch):
+            return "not on a CUDA device"
+        if active_view() is not None:
+            return "a mesh is active"
+        opt = state.optimizer.optimizer
+        if type(opt) is not torch.optim.Adam:
+            return f"{type(opt).__name__} has no capturable form here"
+        return None
+
+    @staticmethod
+    def anchors(state: TrainState) -> tuple:
+        opt = state.optimizer
+        trained = tree_leaves(state.trainable)
+        moments = [t for p in trained for t in opt.optimizer.state.get(p, {}).values()
+                   if isinstance(t, torch.Tensor)]
+        return (opt, opt.lr, *trained, *tree_leaves(state.frozen), *moments)
+
+    def __call__(self, state: TrainState, batch):
+        why = self.why_eager(state, batch)
+        if why is not None:
+            _note_trunk_path(f"the FIT_INVERSE step runs eagerly: {why}")
+            return self.eager(state, batch)
+        key = tuple((t.shape, t.dtype, t.device) for t in batch)
+        entry = self.graphs.get(key)
+        if isinstance(entry, _Graph) and not entry.holds(self.anchors(state)):
+            entry = None
+        if entry is None:
+            state.optimizer.make_capturable(batch[0].device)
+            self.graphs[key] = _SEEN
+            return self.eager(state, batch)
+        if entry is _SEEN:
+            try:
+                entry = self.capture(state, batch)
+            except Exception as e:  # any capture that raises leaves the key eager
+                self.graphs[key] = _EAGER
+                _note_trunk_path(f"the FIT_INVERSE step runs eagerly at {key}: its CUDA "
+                                 f"graph capture raised {type(e).__name__}: {e}")
+                return self.eager(state, batch)
+            self.graphs[key] = entry
+        if entry is _EAGER:
+            return self.eager(state, batch)
+        return state, self.replay(entry, state, batch)
+
+    def capture(self, state: TrainState, batch) -> _Graph:
+        """Capture the update on ``batch`` (its copy the graph's inputs)."""
+        inputs = tuple(t.clone() for t in batch)
+        opt = state.optimizer.optimizer
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # GraphTimer reads its nodes
+        marks, kept, counted = [], [], launch_counts()
+        try:
+            with span("task.graph_capture"):
+                with keeping(kept), graph_marks(marks), torch.cuda.graph(graph):
+                    opt.zero_grad(set_to_none=True)
+                    loss, metrics = self.body(state, inputs)
+                    with span("task.backward", loss):
+                        loss.backward()
+                    opt.step()
+                    out = torch.stack([v.detach() for v in metrics.values()])
+                graph.instantiate()
+        finally:  # the capture's calls launched nothing, raised or not
+            launched = take_launches(counted)
+        return _Graph(GraphTimer(graph, marks), inputs, out, tuple(metrics), self.anchors(state),
+                      kept, launched)
+
+    @staticmethod
+    def replay(g: _Graph, state: TrainState, batch) -> dict:
+        for dst, src in zip(g.inputs, batch):
+            dst.copy_(src)
+        with span("task.graph_replay", g.out):
+            state.optimizer.step(g.timer.replay)
+        add_launches(g.launched)
+        return dict(zip(g.names, g.out.clone().unbind()))
+
+
 def make_fit_inverse_step(
     model: RENIModel,
     directions: torch.Tensor,
@@ -405,7 +543,7 @@ def make_fit_inverse_step(
     *,
     alpha: float,
     beta: float,
-) -> Callable:
+) -> "GraphedStep":
     """One FIT_INVERSE update: decode -> unnormalise -> differentiable render
     -> loss against the ground-truth renders (RENI_module.py:107-112,
     386-396); the optimizer moves only the trainable latents.
@@ -415,13 +553,14 @@ def make_fit_inverse_step(
     Batch = (gt_renders (B, H, W, 3), idx (B,), bmask (B,)); returns (state,
     metrics of 0-d tensors). On a mesh gt_renders is this rank's block: its
     rows of the batch and, where H divides the pixel axis, its slice of H,
-    which it renders from the whole decoded light set of its rows."""
+    which it renders from the whole decoded light set of its rows. The step
+    is a ``GraphedStep``: on one card a replay of one captured CUDA graph of
+    the update, else the eager step (its ``eager``)."""
 
     names = ("Z",) if not model.config.is_variational else ("mu",)
 
-    def step(state: TrainState, batch):
+    def forward(state: TrainState, batch, view=None):
         gt_renders, idx, bmask = batch
-        view = active_view()
         rows = slice(None) if view is None else view.rows(idx.shape[0])
         bm = bmask[rows]
         sw = sineweight * bm[:, None, None]
@@ -444,14 +583,37 @@ def make_fit_inverse_step(
         metrics = _counted(view, {"mse_loss": mse, "prior_loss": prior, "cosine_loss": cos},
                            ("mse_loss",), ("prior_loss", "cosine_loss"))
         loss = metrics["mse_loss"] + metrics["prior_loss"] + metrics["cosine_loss"]
-        return state, _update(state, loss, {"loss": loss, **metrics}, view)
+        return loss, {"loss": loss, **metrics}
 
-    return step
+    def step(state: TrainState, batch):
+        view = active_view()
+        loss, metrics = forward(state, batch, view)
+        return state, _update(state, loss, metrics, view)
+
+    return GraphedStep(step, forward)
 
 
 # ---------------------------------------------------------------------------
 # stage runner and task loop
 # ---------------------------------------------------------------------------
+
+
+_UPLOADED: dict = {}  # (device, dtype): the last batches' index and mask and their copies
+
+
+def _batches_on(idx: np.ndarray, bmask: np.ndarray, device: torch.device,
+                dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """``idx`` (long) and ``bmask`` (``dtype``) on ``device``: the copies of
+    the previous call's, where its arrays were equal. An upload from
+    pageable host memory synchronises the stream, and every runner call on
+    the card would start with two."""
+    last = _UPLOADED.get((device, dtype))
+    if last is not None and np.array_equal(last[0], idx) and np.array_equal(last[1], bmask):
+        return last[2]
+    out = (torch.as_tensor(idx, dtype=torch.long, device=device),
+           torch.as_tensor(bmask, dtype=dtype, device=device))
+    _UPLOADED[(device, dtype)] = (idx, bmask, out)
+    return out
 
 
 def run_stage(
@@ -463,15 +625,15 @@ def run_stage(
     images: (S, P, 3) on the training device. Returns (state, metrics) with
     metrics values of shape (n_epochs,): each epoch's mean over its batches
     (RENI_module.py:148-163). Spans (``utils/profiling.py``): the call
-    (``task.call``), the batches' index and mask to the device
-    (``task.upload``), each step (``task.step``) and the metrics' one
-    synchronise (``task.readback``)."""
+    (``task.call``), the batches' index and mask on the device
+    (``task.upload``: uploaded where they changed, ``_batches_on``),
+    each step (``task.step``) and the metrics' one synchronise
+    (``task.readback``: one copy to the host a dtype, as a runner call
+    that ends idle waits on each)."""
     with span("task.call", images):
         with span("task.upload", images):
             idx, bmask = make_batches(images.shape[0], batch_size)
-            dev = images.device
-            idx_b = torch.as_tensor(idx, dtype=torch.long, device=dev)
-            bmask_b = torch.as_tensor(bmask, dtype=images.dtype, device=dev)
+            idx_b, bmask_b = _batches_on(idx, bmask, images.device, images.dtype)
         epochs = []
         for _ in range(n_epochs):
             ms = []
@@ -481,7 +643,12 @@ def run_stage(
                 ms.append(m)
             epochs.append({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]})
         with span("task.readback"):
-            metrics = {k: torch.stack([e[k] for e in epochs]).cpu().numpy() for k in epochs[0]}
+            stacked = {k: torch.stack([e[k] for e in epochs]) for k in epochs[0]}
+            host = {}
+            for dtype in {t.dtype for t in stacked.values()}:
+                keys = [k for k, t in stacked.items() if t.dtype == dtype]
+                host.update(zip(keys, torch.stack([stacked[k] for k in keys]).cpu().numpy()))
+            metrics = {k: host[k] for k in stacked}
     return state, metrics
 
 

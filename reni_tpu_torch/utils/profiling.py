@@ -28,6 +28,16 @@ from its first span to the first ``snapshot()`` taken after it ended.
 the span opens when autograd reaches the stretch's output and closes when
 it reaches its input ``x``.
 
+While a CUDA graph is captured (``torch.cuda.is_current_stream_capturing()``)
+a span records no device events of its own: the capture runs nothing. Inside
+``graph_marks(marks)`` each span with a CUDA tensor ``on`` (a span in a
+profiler session or not) records instead a pair of external timing events
+into the graph, and ``GraphTimer.replay`` points them at fresh events at
+each replay in a session, so that a replay's spans are timed as an eager
+step's are (``snapshot`` lists them, closed, under the replay's span). A
+``snapshot()`` taken while a capture is in progress does not synchronise
+and gives no device times.
+
 ``trace(dir)`` records a ``torch.profiler`` trace of the host and, when a
 card is present, of the device, and writes it as a Chrome trace
 (``dir/reni_tpu_torch.trace.json``; open it in Perfetto or
@@ -40,6 +50,8 @@ keeps every event in memory.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import json
 import os
 import threading
@@ -49,6 +61,16 @@ import torch
 import torch.autograd.profiler as _profiler
 
 _OFF = contextlib.nullcontext()
+_MARKS: list | None = None  # the marks of the CUDA graph being captured (``graph_marks``)
+
+
+def _capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph (False where
+    torch has no CUDA)."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:
+        return False
 
 
 class _Session:
@@ -61,13 +83,35 @@ class _Session:
         self.lock = threading.Lock()
 
 
+class _Mark:
+    """A span opened while a CUDA graph is captured inside ``graph_marks``:
+    a pair of external timing events (``torch.cuda.Event(external=True)``)
+    that the graph records around the span's work at every replay."""
+
+    __slots__ = ("name", "device", "events")
+
+    def __init__(self, name: str, on: torch.Tensor):
+        self.name, self.device = name, on.device
+        self.events = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                            for _ in range(2))
+
+    def __enter__(self):
+        _MARKS.append(self)
+        self.events[0].record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        self.events[1].record(torch.cuda.current_stream(self.device))
+        return False
+
+
 class _Span:
     __slots__ = ("name", "on", "session", "index", "parent", "thread", "start_ns", "end_ns",
-                 "events", "device", "_rf")
+                 "events", "device", "mark", "_rf")
 
     def __init__(self, name: str, on: torch.Tensor | None):
         self.name, self.on = name, on
-        self.end_ns = self.events = self.device = None
+        self.end_ns = self.events = self.device = self.mark = None
 
     def __enter__(self):
         s = self.session = _RECORDER.current()
@@ -85,13 +129,17 @@ class _Span:
         self._rf = torch.profiler.record_function(self.name)
         self._rf.__enter__()
         if self.on is not None and self.on.is_cuda:
-            self.device = self.on.device
-            stream = torch.cuda.current_stream(self.device)
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-            if self.device not in s.origins:
-                s.origins[self.device] = self.events[0]
-            self.events[0].record(stream)
+            if _capturing():
+                if _MARKS is not None:
+                    self.mark = _Mark(self.name, self.on).__enter__()
+            else:
+                self.device = self.on.device
+                stream = torch.cuda.current_stream(self.device)
+                self.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+                if self.device not in s.origins:
+                    s.origins[self.device] = self.events[0]
+                self.events[0].record(stream)
         self.start_ns = time.time_ns()
         self.on = None
         return self
@@ -100,6 +148,8 @@ class _Span:
         self.end_ns = time.time_ns()
         if self.events is not None:
             self.events[1].record(torch.cuda.current_stream(self.device))
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
         self._rf.__exit__(*exc)
         with self.session.lock:
             stack = self.session.stacks[self.thread]
@@ -107,13 +157,13 @@ class _Span:
                 stack.remove(self.index)
         return False
 
-    def record(self, origins: dict) -> dict:
+    def record(self, origins: dict, timed: bool = True) -> dict:
         done = self.end_ns is not None
         out = {"name": self.name, "parent": self.parent, "thread": self.thread,
                "host_start_ns": self.start_ns, "host_end_ns": self.end_ns,
                "host_ms": (self.end_ns - self.start_ns) / 1e6 if done else None,
                "device_ms": None, "device_start_ms": None, "device_end_ms": None}
-        if done and self.events is not None:
+        if timed and done and self.events is not None:
             origin = origins[self.device]
             out["device_start_ms"] = origin.elapsed_time(self.events[0])
             out["device_end_ms"] = origin.elapsed_time(self.events[1])
@@ -138,6 +188,8 @@ class _Recorder:
         if self.taken is not None:
             return self.taken
         s = self.session
+        if _capturing():  # no synchronise inside a capture, so no device times
+            return {"spans": [sp.record(s.origins, timed=False) for sp in list(s.spans)]}
         for dev in s.origins:
             torch.cuda.synchronize(dev)
         out = {"spans": [sp.record(s.origins) for sp in list(s.spans)]}
@@ -155,10 +207,13 @@ _RECORDER = _Recorder()
 def span(name: str, on: torch.Tensor | None = None):
     """``with span('layer.part', t): ...``: a span while a profiler session
     is active (device times on ``t``'s stream when ``t`` is a CUDA tensor),
-    else a shared no-op context."""
-    if not _profiler._is_profiler_enabled or torch.compiler.is_compiling():
-        return _OFF
-    return _Span(name, on)
+    a graph's mark while one is captured inside ``graph_marks``, else a
+    shared no-op context."""
+    if _profiler._is_profiler_enabled:
+        return _OFF if torch.compiler.is_compiling() else _Span(name, on)
+    if _MARKS is not None and on is not None and on.is_cuda and _capturing():
+        return _Mark(name, on)
+    return _OFF
 
 
 class _Bracket(torch.autograd.Function):
@@ -188,11 +243,130 @@ def backward_span(name: str, x: torch.Tensor):
     ``close(y)`` passes ``y`` through one whose backward opens it: the span
     covers the backward of the code from ``x'`` to ``y``. Otherwise ``x``
     itself and a ``close`` that returns its argument."""
-    if not (_profiler._is_profiler_enabled and not torch.compiler.is_compiling()
-            and torch.is_grad_enabled() and x.requires_grad):
+    if not (torch.is_grad_enabled() and x.requires_grad):
         return x, _same
-    mark = _Span(name, x)
+    mark = span(name, x)
+    if mark is _OFF:
+        return x, _same
     return _Bracket.apply(x, mark, False), lambda y: _Bracket.apply(y, mark, True)
+
+
+@contextlib.contextmanager
+def graph_marks(marks: list):
+    """Collect into ``marks`` the spans with a CUDA tensor that open while a
+    CUDA graph is captured in the block: each records a pair of external
+    timing events into the graph (``GraphTimer`` times a replay by them)."""
+    global _MARKS
+    outer, _MARKS = _MARKS, marks
+    try:
+        yield marks
+    finally:
+        _MARKS = outer
+
+
+_EVENT_RECORD_NODE = 7  # cuda.h CU_GRAPH_NODE_TYPE_EVENT_RECORD
+
+
+@functools.cache
+def _driver():
+    """The CUDA driver library (ctypes) with the graph calls' signatures."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    P, PP = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    for fn, args in (("cuGraphGetNodes", [P, PP, ctypes.POINTER(ctypes.c_size_t)]),
+                     ("cuGraphNodeGetType", [P, ctypes.POINTER(ctypes.c_int)]),
+                     ("cuGraphEventRecordNodeGetEvent", [P, PP]),
+                     ("cuGraphExecEventRecordNodeSetEvent", [P, P, P])):
+        getattr(cu, fn).argtypes, getattr(cu, fn).restype = args, ctypes.c_int
+    return cu
+
+
+def _cu_check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUresult {err}")
+
+
+def _event_handle(event: torch.cuda.Event) -> int:
+    return event._as_parameter_.value
+
+
+def _event_nodes(graph, marks: list) -> list | None:
+    """Each mark's two event-record nodes in ``graph`` (a CUDAGraph made
+    with ``keep_graph=True``), or None where it has no marks or the graph
+    lacks a mark's node."""
+    if not marks:
+        return None
+    cu = _driver()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu_check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    by_event = {}
+    for node in nodes:
+        kind, event = ctypes.c_int(), ctypes.c_void_p()
+        _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == _EVENT_RECORD_NODE:
+            _cu_check(cu.cuGraphEventRecordNodeGetEvent(node, ctypes.byref(event)),
+                      "cuGraphEventRecordNodeGetEvent")
+            by_event[event.value] = node
+    try:
+        return [tuple(by_event[_event_handle(e)] for e in m.events) for m in marks]
+    except KeyError:
+        return None
+
+
+class GraphTimer:
+    """Replays a captured CUDA graph; in a profiler session, times the
+    spans it captured (``graph_marks``'s marks): before the replay each
+    mark's event-record nodes are pointed at a fresh pair of timing events
+    (``cuGraphExecEventRecordNodeSetEvent``), and after it each mark is
+    recorded as a closed span of the session with those events, under the
+    span open around the replay, and the nodes are pointed back at the
+    mark's own events, which live as long as the graph (the session's
+    events die with it, and a later replay must not record into them).
+    ``graph`` is a ``torch.cuda.CUDAGraph`` made with ``keep_graph=True``
+    and instantiated. Where the driver does not give the nodes, the marks
+    record no spans."""
+
+    def __init__(self, graph, marks: list):
+        self.graph, self.marks = graph, marks
+        try:
+            self.nodes = _event_nodes(graph, marks)
+        except (OSError, RuntimeError):  # no driver library, or a call refused
+            self.nodes = None
+
+    def replay(self) -> None:
+        if self.nodes is None or not _profiler._is_profiler_enabled:
+            self.graph.replay()
+            return
+        pairs = []
+        for mark in self.marks:
+            stream = torch.cuda.current_stream(mark.device)
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            for event in pair:
+                event.record(stream)  # creates the event, which the replay records again
+            pairs.append(pair)
+        self._point(pairs)
+        try:
+            self.graph.replay()
+        finally:
+            # a launch in flight keeps the events it was given
+            self._point([m.events for m in self.marks])
+        for mark, pair in zip(self.marks, pairs):
+            sp = _Span(mark.name, None)
+            sp.__enter__()
+            sp.__exit__(None, None, None)
+            sp.events, sp.device = pair, mark.device
+            sp.session.origins.setdefault(mark.device, pair[0])
+
+    def _point(self, pairs: list) -> None:
+        """Point each mark's two event-record nodes at ``pairs``' events."""
+        cu, exe = _driver(), ctypes.c_void_p(self.graph.raw_cuda_graph_exec())
+        for pair, nodes in zip(pairs, self.nodes):
+            for event, node in zip(pair, nodes):
+                _cu_check(cu.cuGraphExecEventRecordNodeSetEvent(
+                    exe, node, ctypes.c_void_p(_event_handle(event))),
+                    "cuGraphExecEventRecordNodeSetEvent")
 
 
 def snapshot() -> dict:

@@ -186,6 +186,72 @@ def test_fit_inverse_step_f64_matches_jax(monkeypatch):
     np.testing.assert_allclose(_np(tstate.params["latents"]["mu"]), jmu, rtol=1e-12, atol=1e-15)
 
 
+@pytest.mark.parametrize("foreach", [False, True], ids=["single-tensor", "foreach"])
+def test_fit_inverse_steps_with_the_capturable_adam_match_jax_f64(monkeypatch, foreach):
+    """Five updates of make_fit_inverse_step with Adam's capturable form
+    (``ScheduledOptimizer.make_capturable``: the form of FIT_INVERSE's
+    graphed step on the card, its step count and bias corrections float32
+    tensors, its LR a float32 tensor; ``foreach`` the card's multi-tensor
+    kernels) against the JAX step's optax Adam at float64, beta1 0.5 and an
+    LR that moves every update: each step's metrics and the new mu to
+    1e-6 relative, the bar of the multi-step tests above (the first step's
+    metrics, before any update, to 1e-12)."""
+    from torch.optim import adam
+
+    devices = adam._get_capturable_supported_devices  # torch allows it only on accelerators
+    monkeypatch.setattr(adam, "_get_capturable_supported_devices",
+                        lambda *a, **k: [*devices(*a, **k), "cpu"])
+    cfg, jp, images = _tiny(3, S=2)
+    jt, tt = _configs(_task(optim=dict(lr_start=5e-2, lr_end=1e-2, beta1=0.5, beta2=0.9,
+                                       epochs=5, steps_per_epoch=1)))
+    mesh = tmesh.make_uv_sphere(8, 16)
+    scene = dict(render_resolution=16, kd=0.5, light_chunk=64)
+    idx, bmask = np.array([0, 1]), np.ones(2)
+    mu0 = np.random.default_rng(4).normal(size=(2, 4, 3)) * .3
+    with jax.enable_x64():
+        _float64_jax_scene(monkeypatch)
+        jm = JModel(JConfig(**cfg))
+        jp64 = jax.tree.map(lambda x: jnp.asarray(np.asarray(x, np.float64)), jp)
+        jp64["latents"]["mu"] = jnp.asarray(mu0)
+        jsetup = jinv.InverseRenderSetup(jmesh.make_uv_sphere(8, 16), **scene)
+        gt = jsetup.generate_gt_renders(jnp.asarray(images, jnp.float64), lambda x: x, WIDTH)
+        opt = joptim.build_optimizer(jt.optim)
+        state = jtasks.init_train_state(jm, jp64, opt, jax.random.PRNGKey(0))
+        step = jtasks.make_fit_inverse_step(
+            jm, opt, jsph.get_directions(WIDTH), jsph.get_sineweight(WIDTH),
+            jsetup.render_fn(WIDTH), lambda x: x, alpha=1e-7, beta=1e-3)
+        jout = []
+        for _ in range(5):
+            state, m = step(state, (gt, jnp.asarray(idx), jnp.asarray(bmask)))
+            jout.append(({k: float(v) for k, v in m.items()},
+                         np.asarray(state.trainable["latents"]["mu"])))
+        gt = np.asarray(gt)
+    model = RENIModel(RENIConfig(**cfg))
+    tp = tparams.from_numpy(jax.tree.map(lambda x: np.asarray(x, np.float64), jp64), "cpu")
+    tsetup = tinv.InverseRenderSetup(mesh, device="cpu", **scene)
+    tstate = ttasks.init_train_state(model, tp, tt.optim, torch.Generator().manual_seed(0))
+    tstate.optimizer.make_capturable(torch.device("cpu"))
+    for group in tstate.optimizer.optimizer.param_groups:
+        group["foreach"] = foreach
+    tstep = ttasks.make_fit_inverse_step(
+        model, tsph.get_directions(WIDTH, device="cpu"),
+        tsph.get_sineweight(WIDTH, device="cpu").double(), tsetup.render_fn(WIDTH),
+        lambda x: x, alpha=1e-7, beta=1e-3)
+    batch = (torch.tensor(gt), torch.from_numpy(idx), torch.from_numpy(bmask))
+    for i, (jm_out, jmu) in enumerate(jout):
+        tstate, tm_out = tstep.eager(tstate, batch)
+        for k in jm_out:
+            np.testing.assert_allclose(_np(tm_out[k]), jm_out[k], rtol=1e-12 if i == 0 else 1e-6,
+                                       err_msg=f"step {i} {k}")
+        # to 1e-6 of the largest |mu| (a near-zero entry carries the float32
+        # rounding of the step size, about 2**-24 of the LR)
+        gap = np.abs(_np(tstate.params["latents"]["mu"]) - jmu).max()
+        assert gap <= 1e-6 * np.abs(jmu).max(), (i, gap)
+    st = tstate.optimizer.optimizer.state
+    assert tstate.optimizer.capturable and all(
+        v["step"].dtype == torch.float32 and v["step"].item() == 5.0 for v in st.values())
+
+
 def test_fit_inverse_moves_only_mu():
     """Gradients reach mu alone: the decoder and log_var come back
     unchanged, the caller's tree is not updated, and the loss falls
